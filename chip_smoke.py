@@ -1,0 +1,305 @@
+"""Smoke test of the PyTorch + CUDA port (flmm_tpu_torch) on one Hopper GPU.
+
+    python3 chip_smoke.py
+
+Phases; any failure raises and the script exits non-zero:
+
+1. check the card (CUDA available; name and power limit from nvidia-smi);
+2. build the kernel library from flmm_tpu_torch/csrc with nvcc (sm_90a);
+3. hold each main-path kernel (K1 window block, K2 global attention, K3
+   LN + qkv, K4 proj + LN + MLP) against its plain PyTorch version at the
+   shapes one bs-4 DeepSeek-VL-1.3B forward gives it, and time both;
+4. serve 3 distinct synthetic bs-4 requests through the grounding forward
+   at full width (DeepSeek-LLM-1.3B + SigLIP-L/384 + SAM ViT-L at 1024,
+   bf16, random weights from a seed): output shapes, finite values and the
+   exact kernel launch counts;
+5. compare that forward with the all-plain forward on the same batch;
+6. report times.
+
+The last line of standard output is one JSON object with the device; the
+line before it holds the per-kernel results.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import time
+
+import torch
+
+from flmm_tpu_torch.configs import deepseek_vl
+from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.data.synthetic import synthetic_batch
+from flmm_tpu_torch.models.frozen import grounding
+from flmm_tpu_torch.models.mask_head import unet
+from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
+from flmm_tpu_torch.ops import _cuda
+from flmm_tpu_torch.ops import fused_block, sam_flash, window_block
+
+BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
+# kernel vs plain version, both bf16: max |diff| over max |plain| and the
+# correlation of the flattened outputs
+KERNEL_REL_ERR, KERNEL_CORR = 2e-2, 0.999
+# kernel forward vs all-plain forward (bf16 differences compound through
+# 24 SAM blocks, 24 SigLIP blocks and the decoder)
+FORWARD_CORR = {"sam_embedding": 0.999, "hidden": 0.999,
+                "coarse_logits": 0.99, "sam_logits": 0.99}
+EXPECTED_LAUNCHES = {"window_block": 20, "sam_global_attention_v8": 4,
+                     "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28}
+WRAPPERS = {"window_block": window_block.window_block,
+            "sam_global_attention_v8": sam_flash.sam_global_attention_v8,
+            "fused_ln_qkv": fused_block.fused_ln_qkv,
+            "fused_proj_ln_mlp": fused_block.fused_proj_ln_mlp}
+SOURCES = {
+    "window_block": ("flmm_tpu_torch/ops/window_block.py",
+                     "flmm_tpu/ops/window_block.py:293"),
+    "sam_global_attention_v8": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash.py:292"),
+    "fused_ln_qkv": ("flmm_tpu_torch/csrc/ln_gemm.cu",
+                     "flmm_tpu/ops/fused_block.py:220"),
+    "fused_proj_ln_mlp": ("flmm_tpu_torch/csrc/block_tail.cu",
+                          "flmm_tpu/ops/fused_block.py:154"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 5) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls after one warm-up,
+    from CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want| / max |want|, correlation), after a finite check."""
+    g, w = got.float().flatten(), want.float().flatten()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError("non-finite values")
+    rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    corr = torch.corrcoef(torch.stack([g, w]))[0, 1].item()
+    return rel, corr
+
+
+def phase_card() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this test needs a GPU")
+    # the plain versions are the reference: full f32 products and convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"phase 1 card: {card} ({torch.cuda.get_device_name(0)}, "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda})")
+    return card
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    _cuda.library()
+    log(f"phase 2 build: kernel library ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _randn(g, shape, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale
+            + shift).to(torch.bfloat16)
+
+
+def phase_kernels(g: torch.Generator) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    C, F, hd = 1024, 4096, 64
+    results = {}
+
+    def check(name, label, kernel_fn, plain_fn):
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        rel, corr = agreement(got, want)
+        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        ok = rel <= KERNEL_REL_ERR and corr >= KERNEL_CORR
+        log(f"phase 3 {name} [{label}]: max_rel_err {rel:.3e} (bound "
+            f"{KERNEL_REL_ERR}) corr {corr:.6f} (bound {KERNEL_CORR}) "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        if not ok:
+            raise AssertionError(f"{name} [{label}] disagrees with its "
+                                 "plain version")
+        if name not in results:  # the first shape listed is reported
+            results[name] = {"max_abs_err": (got.float() - want.float())
+                             .abs().max().item(), "ms": ms,
+                             "plain_ms": plain_ms}
+
+    def ln_params():
+        return _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+
+    # K3 / K4: SAM global layers (N = 4096 * bs), SigLIP layers (576 * bs)
+    for label, N in (("SAM global, N=16384", 4096 * BS),
+                     ("SigLIP, N=2304", 576 * BS)):
+        x, a = _randn(g, (N, C)), _randn(g, (N, C))
+        lw, lb = ln_params()
+        wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), .1)
+        wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+        w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+        w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+        check("fused_ln_qkv", label,
+              lambda: fused_block.fused_ln_qkv(x, lw, lb, wqkv, bqkv),
+              lambda: fused_block.fused_ln_qkv_plain(x, lw, lb, wqkv, bqkv))
+        check("fused_proj_ln_mlp", label,
+              lambda: fused_block.fused_proj_ln_mlp(
+                  x, a, wo, bo, lw, lb, w1, b1, w2, b2),
+              lambda: fused_block.fused_proj_ln_mlp_plain(
+                  x, a, wo, bo, lw, lb, w1, b1, w2, b2))
+
+    # K2: 4 images x 16 heads over the 64 x 64 grid
+    side = 64
+    q, k, v = (_randn(g, (16 * BS, side * side, hd)) for _ in range(3))
+    rph, rpw = _randn(g, (2 * side - 1, hd), 0.1), _randn(g, (2 * side - 1, hd), 0.1)
+    check("sam_global_attention_v8", "G=64, S=4096",
+          lambda: sam_flash.sam_global_attention_v8(q, k, v, rph, rpw, side),
+          lambda: sam_flash.sam_global_attention_v8_plain(q, k, v, rph, rpw,
+                                                          side))
+
+    # K1: the 64 x 64 grid padded to 70 x 70 = 25 windows per image
+    ws, nh = 14, 16
+    x = _randn(g, (BS, 64, 64, C))
+    xw, geom = sam_encoder._windowize(x, ws)
+    xw = xw.contiguous()
+    valid = sam_encoder._window_valid_tokens(geom, ws, x.device)
+    lw, lb = ln_params()
+    l2w, l2b = ln_params()
+    w_s, b_s = window_block.scaled_qkv_weights(
+        _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1), nh, hd)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+    w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+    rph, rpw = _randn(g, (2 * ws - 1, hd), 0.1), _randn(g, (2 * ws - 1, hd), 0.1)
+    bias = window_block.window_rel_bias_from_x(
+        xw, valid, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, ws, nh, hd)
+    args = (xw, bias, valid, lw, lb, w_s, b_s, wo, bo, l2w, l2b, w1, b1, w2,
+            b2, ws, nh)
+    check("window_block", f"NW={xw.shape[0]}, T=196, padded grid",
+          lambda: window_block.window_block(*args),
+          lambda: window_block.window_block_plain(*args))
+    return results
+
+
+def _plain_config(cfg):
+    """The same model with every kernel gate off."""
+    enc = dataclasses.replace(cfg.sam.encoder, flash_global=False,
+                              flash_window=False, window_block_fused=False,
+                              fused_mlp=False)
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, fused_mlp=False),
+        sam=dataclasses.replace(cfg.sam, encoder=enc))
+
+
+def run_requests(params, cfg, batches) -> tuple[list, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [grounding.forward(params, cfg, b) for b in batches]
+    torch.cuda.synchronize()
+    return outs, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def phase_serve(g: torch.Generator):
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")  # the forward never uses it
+    # non-zero rel-pos tables so the bias terms of K1 and K2 do work
+    for bp in params["frozen"]["sam_encoder"]["blocks"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            bp[key] = _randn(g, bp[key].shape, 0.05)
+    batches = [from_jax(synthetic_batch(
+        cfg, batch_size=BS, seq_len=SEQ, max_masks=MASKS,
+        text_tokens_per_mask=TEXT, seed=seed), "cuda") for seed in range(4)]
+    warm, requests = batches[0], batches[1:]
+
+    with torch.no_grad():
+        grounding.forward(params, cfg, warm)  # warm-up
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        outs, ms = run_requests(params, cfg, requests)
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    Hc, Wc = unet.output_hw(cfg.unet, (cfg.clip_shape, cfg.clip_shape))
+    for out in outs:
+        shapes = {"sam_logits": (BS, MASKS, 256, 256),
+                  "coarse_logits": (BS, MASKS, Hc, Wc),
+                  "iou_pred": (BS, MASKS), "boxes": (BS, MASKS, 4),
+                  "hidden": (BS, SEQ, cfg.llm.hidden_size)}
+        for key, shape in shapes.items():
+            if tuple(out[key].shape) != shape:
+                raise AssertionError(f"{key} shape {tuple(out[key].shape)}"
+                                     f" != {shape}")
+            if not torch.isfinite(out[key]).all():
+                raise AssertionError(f"{key} has non-finite values")
+    want = {k: n * len(requests) for k, n in EXPECTED_LAUNCHES.items()}
+    log(f"phase 4 serve: {len(requests)} requests at bs {BS}, outputs "
+        f"finite with the expected shapes; launches {launches} (expected "
+        f"{want}); peak memory {peak_gb:.2f} GB")
+    if launches != want:
+        raise AssertionError("kernel launch counts differ from the main path")
+    return cfg, params, requests, outs, ms, launches
+
+
+def phase_compare(cfg, params, requests, outs) -> float:
+    """The kernel forward against the all-plain forward on one batch."""
+    plain = _plain_config(cfg)
+    batch = requests[0]
+    with torch.no_grad():
+        emb = {name: sam_encoder.forward(
+            params["frozen"]["sam_encoder"], c.sam.encoder,
+            batch["sam_pixel_values"]) for name, c in (("kernel", cfg),
+                                                       ("plain", plain))}
+        ref = grounding.forward(params, plain, batch)
+        plain_outs, plain_ms = run_requests(params, plain, requests)
+    pairs = {"sam_embedding": (emb["kernel"], emb["plain"])}
+    pairs.update({k: (outs[0][k], ref[k]) for k in
+                  ("hidden", "coarse_logits", "sam_logits")})
+    for key, (got, want) in pairs.items():
+        rel, corr = agreement(got, want)
+        log(f"phase 5 {key}: kernel vs plain forward max_rel_err {rel:.3e}"
+            f" corr {corr:.6f} (bound {FORWARD_CORR[key]})")
+        if corr < FORWARD_CORR[key]:
+            raise AssertionError(f"{key}: kernel forward disagrees with the "
+                                 "plain forward")
+    return plain_ms
+
+
+def main() -> None:
+    card = phase_card()
+    phase_build()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kernels = phase_kernels(g)
+    cfg, params, requests, outs, ms, launches = phase_serve(g)
+    plain_ms = phase_compare(cfg, params, requests, outs)
+    log(f"phase 6 timing ({card}): kernel path {ms:.1f} ms/forward, "
+        f"{BS * 1e3 / ms:.2f} img/s; plain path {plain_ms:.1f} ms/forward, "
+        f"{BS * 1e3 / plain_ms:.2f} img/s (bs {BS}, mean of "
+        f"{len(requests)} requests after one warm-up)")
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name][0],
+         "replaces": SOURCES[name][1], "launches": launches[name],
+         **kernels[name]} for name in WRAPPERS]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
