@@ -5,19 +5,30 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. check the card (CUDA available; name and power limit from nvidia-smi);
-2. build the kernel library from flmm_tpu_torch/csrc with nvcc (sm_90a);
-3. hold each main-path kernel (K1 window block, K2 global attention, K3
-   LN + qkv, K4 proj + LN + MLP) against its plain PyTorch version at the
-   shapes one bs-4 DeepSeek-VL-1.3B forward gives it, and time both;
-4. serve 3 distinct synthetic bs-4 requests through the grounding forward
-   at full width (DeepSeek-LLM-1.3B + SigLIP-L/384 + SAM ViT-L at 1024,
-   bf16, random weights from a seed): output shapes, finite values and the
-   exact kernel launch counts;
+2. build the kernel library from flmm_tpu_torch/csrc with nvcc (sm_90a),
+   one nvcc per source, all started together;
+3. hold each main-path kernel against its plain PyTorch version at the
+   shapes the two forwards below give it, and time both: K1 window block,
+   K2 global attention, K3 LN + qkv and K4 proj + LN + MLP at the
+   DeepSeek-VL-1.3B shapes, K3 and K4 again at the CLIP-L/336 shape of the
+   anyres tower (quick_gelu), K5 flash capture at the LLaVA-NeXT decoder
+   shape;
+4. serve 3 distinct synthetic bs-4 requests through the DeepSeek-VL-1.3B
+   grounding forward at full width (DeepSeek-LLM-1.3B + SigLIP-L/384 + SAM
+   ViT-L at 1024, bf16, random weights from a seed): output shapes, finite
+   values and the exact kernel launch counts;
 5. compare that forward with the all-plain forward on the same batch;
-6. report times.
+6. serve 3 distinct synthetic bs-2 anyres requests through the LLaVA-NeXT
+   (Vicuna-7B) grounding forward at full width (CLIP-L/336 over a base view
+   and up to 4 tiles, Vicuna-7B over S=3200 with the image block at 128,
+   SAM ViT-L at 1024), one 2x2 and one 3x1 pinpoint grid per batch, so the
+   decoder's key holes differ per sample: shapes, finite values, launches;
+7. compare that forward with the all-plain forward (eager S x S capture);
+8. report times.
 
 The last line of standard output is one JSON object with the device; the
-line before it holds the per-kernel results.
+line before it is the card's name and power limit, and the one before that
+holds the per-kernel results.
 """
 
 from __future__ import annotations
@@ -29,29 +40,46 @@ import time
 
 import torch
 
-from flmm_tpu_torch.configs import deepseek_vl
+from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
 from flmm_tpu_torch.data.synthetic import synthetic_batch
 from flmm_tpu_torch.models.frozen import grounding
+from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
 from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.ops import _cuda
-from flmm_tpu_torch.ops import fused_block, sam_flash, window_block
+from flmm_tpu_torch.ops import flash_attention, fused_block, masks, \
+    sam_flash, window_block
 
 BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
+# LLaVA-NeXT requests: bs 2, the vicuna template's 35 prompt tokens padded
+# to an image block at 128, (h, w) of the two images: 2x2 and 3x1 grids
+ANYRES_BS, ANYRES_IMG_START, ANYRES_PROMPT = 2, 128, 35
+ANYRES_SIZES = ((600, 640), (900, 280))
 # kernel vs plain version, both bf16: max |diff| over max |plain| and the
 # correlation of the flattened outputs
 KERNEL_REL_ERR, KERNEL_CORR = 2e-2, 0.999
 # kernel forward vs all-plain forward (bf16 differences compound through
-# 24 SAM blocks, 24 SigLIP blocks and the decoder)
-FORWARD_CORR = {"sam_embedding": 0.999, "hidden": 0.999,
+# 24 SAM blocks, the 23-24 tower blocks and the decoder)
+FORWARD_CORR = {"sam_embedding": 0.999, "attn": 0.999, "hidden": 0.999,
                 "coarse_logits": 0.99, "sam_logits": 0.99}
-EXPECTED_LAUNCHES = {"window_block": 20, "sam_global_attention_v8": 4,
-                     "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28}
+EXPECTED_LAUNCHES = {
+    "deepseek_vl_1_3b": {
+        "window_block": 20, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28,
+        "flash_attention_with_merged_capture": 0},
+    "llava_next_vicuna_7b": {
+        "window_block": 20, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 27, "fused_proj_ln_mlp": 27,
+        "flash_attention_with_merged_capture": 32},
+}
 WRAPPERS = {"window_block": window_block.window_block,
             "sam_global_attention_v8": sam_flash.sam_global_attention_v8,
             "fused_ln_qkv": fused_block.fused_ln_qkv,
-            "fused_proj_ln_mlp": fused_block.fused_proj_ln_mlp}
+            "fused_proj_ln_mlp": fused_block.fused_proj_ln_mlp,
+            "flash_attention_with_merged_capture":
+                flash_attention.flash_attention_with_merged_capture}
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -61,6 +89,9 @@ SOURCES = {
                      "flmm_tpu/ops/fused_block.py:220"),
     "fused_proj_ln_mlp": ("flmm_tpu_torch/csrc/block_tail.cu",
                           "flmm_tpu/ops/fused_block.py:154"),
+    "flash_attention_with_merged_capture": (
+        "flmm_tpu_torch/csrc/flash_capture.cu",
+        "flmm_tpu/ops/flash_attention.py:246"),
 }
 
 
@@ -120,34 +151,55 @@ def _randn(g, shape, scale=1.0, shift=0.0):
             + shift).to(torch.bfloat16)
 
 
+def anyres_batches(cfg, device=None) -> list:
+    """The warm-up batch and 3 distinct requests of the LLaVA-NeXT phase
+    (numpy, or tensors on ``device``)."""
+    out = []
+    for seed in range(4):
+        b = synthetic_anyres_batch(cfg, ANYRES_SIZES,
+                                   prompt_len=ANYRES_PROMPT,
+                                   max_masks=MASKS, caption_tokens=TEXT,
+                                   seed=seed)
+        out.append(b if device is None else from_jax(b, device))
+    return out
+
+
 def phase_kernels(g: torch.Generator) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main paths' shapes."""
     C, F, hd = 1024, 4096, 64
     results = {}
 
-    def check(name, label, kernel_fn, plain_fn):
+    def check(name, label, kernel_fn, plain_fn, gflop=None):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        rel, corr = agreement(got, want)
+        pairs = (list(zip(got, want)) if isinstance(got, tuple)
+                 else [(got, want)])
+        rels, corrs = zip(*(agreement(a, b) for a, b in pairs))
+        rel, corr = max(rels), min(corrs)
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         ok = rel <= KERNEL_REL_ERR and corr >= KERNEL_CORR
+        rate = f" ({gflop / ms:.1f} TFLOP/s)" if gflop else ""
         log(f"phase 3 {name} [{label}]: max_rel_err {rel:.3e} (bound "
             f"{KERNEL_REL_ERR}) corr {corr:.6f} (bound {KERNEL_CORR}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms{rate} plain {plain_ms:.3f} ms")
         if not ok:
             raise AssertionError(f"{name} [{label}] disagrees with its "
                                  "plain version")
         if name not in results:  # the first shape listed is reported
-            results[name] = {"max_abs_err": (got.float() - want.float())
-                             .abs().max().item(), "ms": ms,
-                             "plain_ms": plain_ms}
+            results[name] = {"max_abs_err": max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in pairs), "ms": ms, "plain_ms": plain_ms}
 
     def ln_params():
         return _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
 
-    # K3 / K4: SAM global layers (N = 4096 * bs), SigLIP layers (576 * bs)
-    for label, N in (("SAM global, N=16384", 4096 * BS),
-                     ("SigLIP, N=2304", 576 * BS)):
+    # K3 / K4: SAM global layers (N = 4096 * bs), SigLIP layers (576 * bs),
+    # CLIP-L/336 layers over base + 4 tile slots (577 * 5 * 2, quick_gelu)
+    for label, N, act, eps in (
+            ("SAM global, N=16384", 4096 * BS, "gelu", 1e-6),
+            ("SigLIP, N=2304", 576 * BS, "gelu", 1e-6),
+            ("CLIP, N=5770, quick_gelu", 577 * 5 * ANYRES_BS, "quick_gelu",
+             1e-5)):
         x, a = _randn(g, (N, C)), _randn(g, (N, C))
         lw, lb = ln_params()
         wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), .1)
@@ -155,13 +207,14 @@ def phase_kernels(g: torch.Generator) -> dict:
         w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
         w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
         check("fused_ln_qkv", label,
-              lambda: fused_block.fused_ln_qkv(x, lw, lb, wqkv, bqkv),
-              lambda: fused_block.fused_ln_qkv_plain(x, lw, lb, wqkv, bqkv))
+              lambda: fused_block.fused_ln_qkv(x, lw, lb, wqkv, bqkv, eps),
+              lambda: fused_block.fused_ln_qkv_plain(x, lw, lb, wqkv, bqkv,
+                                                     eps))
         check("fused_proj_ln_mlp", label,
               lambda: fused_block.fused_proj_ln_mlp(
-                  x, a, wo, bo, lw, lb, w1, b1, w2, b2),
+                  x, a, wo, bo, lw, lb, w1, b1, w2, b2, eps, act),
               lambda: fused_block.fused_proj_ln_mlp_plain(
-                  x, a, wo, bo, lw, lb, w1, b1, w2, b2))
+                  x, a, wo, bo, lw, lb, w1, b1, w2, b2, eps, act))
 
     # K2: 4 images x 16 heads over the 64 x 64 grid
     side = 64
@@ -193,91 +246,166 @@ def phase_kernels(g: torch.Generator) -> dict:
     check("window_block", f"NW={xw.shape[0]}, T=196, padded grid",
           lambda: window_block.window_block(*args),
           lambda: window_block.window_block_plain(*args))
+
+    # K5: one Vicuna-7B decoder layer over the anyres requests' sequence,
+    # its key holes and merge matrix; q, k, v as (B, H, S, hd) views of the
+    # decoder's (B, S, H, hd) projections
+    batch = anyres_batches(llava_next.llava_next_vicuna_7b(
+        img_start=ANYRES_IMG_START))[0]
+    valid = torch.from_numpy(batch["attn_mask"]).cuda()
+    mm = masks.mean_merge_matrix(
+        torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)
+    B, S = valid.shape
+    H, hd, n_img = 32, 128, 2928
+    q, k, v = (_randn(g, (B, S, H, hd)).transpose(1, 2) for _ in range(3))
+    fa_args = (q, k, v, valid, mm, ANYRES_IMG_START, n_img)
+    # the causal products the flash pass needs, 4 * hd FLOP per visible
+    # (query, key) pair and head
+    gflop = 4 * B * H * hd * S * (S + 1) / 2 / 1e9
+    check("flash_attention_with_merged_capture",
+          f"B={B}, H={H}, S={S}, n_img={n_img}, M={MASKS}",
+          lambda: flash_attention.flash_attention_with_merged_capture(
+              *fa_args),
+          lambda: flash_attention.flash_attention_with_merged_capture_plain(
+              *fa_args), gflop=gflop)
     return results
 
 
 def _plain_config(cfg):
     """The same model with every kernel gate off."""
+    if isinstance(cfg, llava_next_model.LlavaNextConfig):
+        return dataclasses.replace(cfg, base=_plain_config(cfg.base))
     enc = dataclasses.replace(cfg.sam.encoder, flash_global=False,
                               flash_window=False, window_block_fused=False,
                               fused_mlp=False)
     return dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, fused_mlp=False),
+        cfg, llm=dataclasses.replace(cfg.llm, use_flash_capture=False),
+        vision=dataclasses.replace(cfg.vision, fused_mlp=False),
         sam=dataclasses.replace(cfg.sam, encoder=enc))
 
 
-def run_requests(params, cfg, batches) -> tuple[list, float]:
+def run_requests(forward, params, cfg, batches) -> tuple[list, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = [grounding.forward(params, cfg, b) for b in batches]
+    outs = [forward(params, cfg, b) for b in batches]
     torch.cuda.synchronize()
     return outs, (time.perf_counter() - t0) * 1e3 / len(batches)
 
 
-def phase_serve(g: torch.Generator):
-    cfg = deepseek_vl.deepseek_vl_1_3b()
-    params = grounding.init_params(cfg, g, "cuda")
-    params["frozen"]["llm"].pop("lm_head")  # the forward never uses it
-    # non-zero rel-pos tables so the bias terms of K1 and K2 do work
+def randomize_rel_pos(params, g) -> None:
+    """Non-zero SAM rel-pos tables, so the bias terms of K1 and K2 work."""
     for bp in params["frozen"]["sam_encoder"]["blocks"]:
         for key in ("rel_pos_h", "rel_pos_w"):
             bp[key] = _randn(g, bp[key].shape, 0.05)
-    batches = [from_jax(synthetic_batch(
-        cfg, batch_size=BS, seq_len=SEQ, max_masks=MASKS,
-        text_tokens_per_mask=TEXT, seed=seed), "cuda") for seed in range(4)]
-    warm, requests = batches[0], batches[1:]
 
+
+def phase_serve(phase, path, forward, params, cfg, batches, shapes) -> dict:
+    """Warm up, then serve the requests with every launch count at 0 just
+    before and read just after; check shapes, finite values and counts."""
+    warm, requests = batches[0], batches[1:]
     with torch.no_grad():
-        grounding.forward(params, cfg, warm)  # warm-up
+        forward(params, cfg, warm)  # warm-up
         for fn in WRAPPERS.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        outs, ms = run_requests(params, cfg, requests)
+        outs, ms = run_requests(forward, params, cfg, requests)
         launches = {name: fn.launches for name, fn in WRAPPERS.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    Hc, Wc = unet.output_hw(cfg.unet, (cfg.clip_shape, cfg.clip_shape))
     for out in outs:
-        shapes = {"sam_logits": (BS, MASKS, 256, 256),
-                  "coarse_logits": (BS, MASKS, Hc, Wc),
-                  "iou_pred": (BS, MASKS), "boxes": (BS, MASKS, 4),
-                  "hidden": (BS, SEQ, cfg.llm.hidden_size)}
         for key, shape in shapes.items():
             if tuple(out[key].shape) != shape:
                 raise AssertionError(f"{key} shape {tuple(out[key].shape)}"
                                      f" != {shape}")
             if not torch.isfinite(out[key]).all():
                 raise AssertionError(f"{key} has non-finite values")
-    want = {k: n * len(requests) for k, n in EXPECTED_LAUNCHES.items()}
-    log(f"phase 4 serve: {len(requests)} requests at bs {BS}, outputs "
-        f"finite with the expected shapes; launches {launches} (expected "
-        f"{want}); peak memory {peak_gb:.2f} GB")
+    want = {k: n * len(requests) for k, n in EXPECTED_LAUNCHES[path].items()}
+    bs = shapes["iou_pred"][0]
+    log(f"phase {phase} serve {path}: {len(requests)} requests at bs {bs}, "
+        f"outputs finite with the expected shapes; launches {launches} "
+        f"(expected {want}); peak memory {peak_gb:.2f} GB")
     if launches != want:
         raise AssertionError("kernel launch counts differ from the main path")
-    return cfg, params, requests, outs, ms, launches
+    return {"requests": requests, "outs": outs, "ms": ms,
+            "launches": launches, "peak_gb": peak_gb, "bs": bs}
 
 
-def phase_compare(cfg, params, requests, outs) -> float:
-    """The kernel forward against the all-plain forward on one batch."""
+def phase_compare(phase, path, forward, params, cfg, served,
+                  pairs_fn) -> None:
+    """The kernel forward against the all-plain forward on one batch, then
+    the plain path's time and peak memory over the same requests."""
     plain = _plain_config(cfg)
-    batch = requests[0]
+    batch = served["requests"][0]
     with torch.no_grad():
-        emb = {name: sam_encoder.forward(
-            params["frozen"]["sam_encoder"], c.sam.encoder,
-            batch["sam_pixel_values"]) for name, c in (("kernel", cfg),
-                                                       ("plain", plain))}
-        ref = grounding.forward(params, plain, batch)
-        plain_outs, plain_ms = run_requests(params, plain, requests)
-    pairs = {"sam_embedding": (emb["kernel"], emb["plain"])}
-    pairs.update({k: (outs[0][k], ref[k]) for k in
-                  ("hidden", "coarse_logits", "sam_logits")})
-    for key, (got, want) in pairs.items():
-        rel, corr = agreement(got, want)
-        log(f"phase 5 {key}: kernel vs plain forward max_rel_err {rel:.3e}"
-            f" corr {corr:.6f} (bound {FORWARD_CORR[key]})")
-        if corr < FORWARD_CORR[key]:
-            raise AssertionError(f"{key}: kernel forward disagrees with the "
-                                 "plain forward")
-    return plain_ms
+        pairs = pairs_fn(cfg, plain, batch)
+        ref = forward(params, plain, batch)
+        pairs.update({k: (served["outs"][0][k], ref[k]) for k in
+                      ("hidden", "coarse_logits", "sam_logits")})
+        for key, (got, want) in pairs.items():
+            rel, corr = agreement(got, want)
+            log(f"phase {phase} {path} {key}: kernel vs plain forward "
+                f"max_rel_err {rel:.3e} corr {corr:.6f} (bound "
+                f"{FORWARD_CORR[key]})")
+            if corr < FORWARD_CORR[key]:
+                raise AssertionError(f"{path} {key}: kernel forward "
+                                     "disagrees with the plain forward")
+        del pairs, ref
+        torch.cuda.reset_peak_memory_stats()
+        _, served["plain_ms"] = run_requests(forward, params, plain,
+                                             served["requests"])
+        served["plain_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+
+def run_deepseek(g: torch.Generator) -> dict:
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")  # the forward never uses it
+    randomize_rel_pos(params, g)
+    batches = [from_jax(synthetic_batch(
+        cfg, batch_size=BS, seq_len=SEQ, max_masks=MASKS,
+        text_tokens_per_mask=TEXT, seed=seed), "cuda") for seed in range(4)]
+    Hc, Wc = unet.output_hw(cfg.unet, (cfg.clip_shape, cfg.clip_shape))
+    shapes = {"sam_logits": (BS, MASKS, 256, 256),
+              "coarse_logits": (BS, MASKS, Hc, Wc),
+              "iou_pred": (BS, MASKS), "boxes": (BS, MASKS, 4),
+              "hidden": (BS, SEQ, cfg.llm.hidden_size)}
+    served = phase_serve(4, "deepseek_vl_1_3b", grounding.forward, params,
+                         cfg, batches, shapes)
+
+    def sam_embedding(cfg, plain, batch):
+        emb = [sam_encoder.forward(params["frozen"]["sam_encoder"],
+                                   c.sam.encoder, batch["sam_pixel_values"])
+               for c in (cfg, plain)]
+        return {"sam_embedding": tuple(emb)}
+
+    phase_compare(5, "deepseek_vl_1_3b", grounding.forward, params, cfg,
+                  served, sam_embedding)
+    return served
+
+
+def run_llava_next(g: torch.Generator) -> dict:
+    cfg = llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START)
+    params = llava_next_model.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    randomize_rel_pos(params, g)
+    batches = anyres_batches(cfg, "cuda")
+    S = batches[0]["input_ids"].shape[1]
+    Hc, Wc = cfg.coarse_frame
+    shapes = {"sam_logits": (ANYRES_BS, MASKS, 256, 256),
+              "coarse_logits": (ANYRES_BS, MASKS, Hc, Wc),
+              "iou_pred": (ANYRES_BS, MASKS), "boxes": (ANYRES_BS, MASKS, 4),
+              "hidden": (ANYRES_BS, S, cfg.base.llm.hidden_size)}
+    served = phase_serve(6, "llava_next_vicuna_7b", llava_next_model.forward,
+                         params, cfg, batches, shapes)
+
+    def merged_maps(cfg, plain, batch):
+        return {"attn": tuple(
+            llava_next_model.capture(params, c, batch)["attn"]
+            for c in (cfg, plain))}
+
+    phase_compare(7, "llava_next_vicuna_7b", llava_next_model.forward,
+                  params, cfg, served, merged_maps)
+    served["seq_len"] = S
+    return served
 
 
 def main() -> None:
@@ -285,15 +413,22 @@ def main() -> None:
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     kernels = phase_kernels(g)
-    cfg, params, requests, outs, ms, launches = phase_serve(g)
-    plain_ms = phase_compare(cfg, params, requests, outs)
-    log(f"phase 6 timing ({card}): kernel path {ms:.1f} ms/forward, "
-        f"{BS * 1e3 / ms:.2f} img/s; plain path {plain_ms:.1f} ms/forward, "
-        f"{BS * 1e3 / plain_ms:.2f} img/s (bs {BS}, mean of "
-        f"{len(requests)} requests after one warm-up)")
+    paths = {"deepseek_vl_1_3b": run_deepseek(g)}
+    torch.cuda.empty_cache()
+    paths["llava_next_vicuna_7b"] = run_llava_next(g)
+    for path, r in paths.items():
+        log(f"phase 8 timing {path} ({card}): kernel path {r['ms']:.1f} "
+            f"ms/forward, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
+            f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
+            f"ms/forward, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
+            f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of "
+            f"{len(r['requests'])} requests after one warm-up)")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
+         "replaces": SOURCES[name][1],
+         "launches": sum(r["launches"][name] for r in paths.values()),
+         "launches_by_path": {p: r["launches"][name]
+                              for p, r in paths.items()},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

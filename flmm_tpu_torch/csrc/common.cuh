@@ -1,11 +1,13 @@
 // Shared helpers of the port's Hopper kernels (built for sm_90a).
 //
-// Products run on the tensor cores through WMMA 16x16x16 bf16 fragments
-// (mma.sync underneath) with f32 accumulation; statistics, softmax and
+// Products run on the tensor cores through WMMA 16x16x16 bf16 fragments or
+// raw mma.sync with f32 accumulation; statistics, softmax and
 // activations are f32.  Every entry point is an extern "C" function that
 // launches on the stream it is given and returns the cudaError_t of the
 // launch, which the Python wrapper turns into an exception.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +45,41 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return v;
+}
+
+// Raw mma.sync.m16n8k16 (the attention kernels), whose fragment layout is
+// known: with g = lane / 4 and c = (lane % 4) * 2, A holds rows g and g + 8
+// at columns c, c + 1 (and + 8), B holds column g at rows c, c + 1 (and
+// + 8), and the f32 accumulator holds rows g and g + 8 at columns c, c + 1.
+// D = A (16x16, row) * B (16x8, col) + D, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two f32 -> one bf16x2 register, the lower column in the low half.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Max / sum over the four lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Asynchronous 16-byte copies global -> shared (sm_80+ cp.async); a group

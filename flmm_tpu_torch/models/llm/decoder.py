@@ -8,7 +8,12 @@ only ``(B, L, H, M, n_img)`` survives.  The layer-weighted hidden sum takes
 its last term after the final norm, as the reference's
 ``hidden_states[-L:]`` does.
 
-Not ported yet: the flash-capture kernel (K5), int8 weights and MoE MLPs.
+When ``flash_capture_ok`` (the JAX gate: mean merge, ``S`` and ``img_start``
+multiples of 128), each layer runs the flash-capture kernel K5
+(ops/flash_attention.py) instead, and no ``(B, 1, S, S)`` bias or ``S x S``
+probabilities exist.
+
+Not ported yet: int8 weights and MoE MLPs.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from flmm_tpu_torch.ops.flash_attention import flash_attention_with_merged_capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +143,12 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
-               cfg: DecoderConfig, img_start: int, n_img: int, merge: str):
+               cfg: DecoderConfig, img_start: int, n_img: int, merge: str,
+               flash_ok: bool = False):
     """One decoder layer with fused attention capture; returns
     ``(h, acc, side)`` where ``side`` is the merged ``(B, H, M, n_img)``
-    capture, or the raw ``(B, H, S, n_img)`` one without a merge matrix."""
+    capture, or the raw ``(B, H, S, n_img)`` one without a merge matrix.
+    ``flash_ok`` routes attention and the (mean) capture through K5."""
     B, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -152,18 +161,29 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
     q = apply_rope(q.reshape(B, S, H, hd), aux["cos"], aux["sin"])
     k = apply_rope(k.reshape(B, S, KV, hd), aux["cos"], aux["sin"])
     v = v.reshape(B, S, KV, hd)
-    if KV != H:
-        k = k.repeat_interleave(H // KV, dim=2)
-        v = v.repeat_interleave(H // KV, dim=2)
-    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    logits = (q.float() @ k.float().transpose(-1, -2)) * scale + aux["bias"]
-    probs = torch.softmax(logits, dim=-1)  # f32
-    out = (probs.to(cfg.dtype) @ v).transpose(1, 2).reshape(B, S, H * hd)
+    if flash_ok:
+        # K5 reads the kv head h // (H // KV) itself: no repeated k / v
+        out4, side = flash_attention_with_merged_capture(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            aux["valid"], merge_matrix, img_start, n_img)
+        out = out4.transpose(1, 2).reshape(B, S, H * hd).to(cfg.dtype)
+    else:
+        if KV != H:
+            k = k.repeat_interleave(H // KV, dim=2)
+            v = v.repeat_interleave(H // KV, dim=2)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        logits = (q.float() @ k.float().transpose(-1, -2)) * scale \
+            + aux["bias"]
+        probs = torch.softmax(logits, dim=-1)  # f32
+        out = (probs.to(cfg.dtype) @ v).transpose(1, 2).reshape(B, S, H * hd)
     h = h + out @ lp["wo"]
 
     x2 = rms_norm(h, lp["ln2"], cfg.rms_eps, cfg.gemma_norm)
     h = h + (_act(x2 @ lp["w_gate"], cfg.act) * (x2 @ lp["w_up"])) @ lp["w_down"]
 
+    acc = acc + w_l * h.float()
+    if flash_ok:
+        return h, acc, side
     img_probs = probs[..., img_start:img_start + n_img]  # (B, H, S, n_img)
     if merge_matrix is None:
         side = img_probs
@@ -178,25 +198,28 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
         side = torch.where(side <= big_neg / 2, 0.0, side)
     else:
         raise ValueError(merge)
-
-    acc = acc + w_l * h.float()
     return h, acc, side
 
 
 def capture_aux(cfg: DecoderConfig, attention_mask: torch.Tensor,
                 position_ids: torch.Tensor | None, seq_len: int,
-                merge_matrix: torch.Tensor | None) -> dict:
-    """RoPE tables and the ``(B, 1, S, S)`` f32 causal + padding bias
-    (finfo min where masked) the layers consume."""
+                merge_matrix: torch.Tensor | None,
+                with_bias: bool = True) -> dict:
+    """RoPE tables, the ``(B, S)`` bool key validity and (``with_bias``) the
+    ``(B, 1, S, S)`` f32 causal + padding bias (finfo min where masked) the
+    layers consume; the flash path needs no bias."""
     device = attention_mask.device
     positions = (torch.arange(seq_len, device=device)[None]
                  if position_ids is None else position_ids)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    causal = torch.ones((seq_len, seq_len), dtype=torch.bool,
-                        device=device).tril()
-    allow = causal[None] & attention_mask.bool()[:, None, :]
-    bias = torch.where(allow, 0.0, torch.finfo(torch.float32).min)[:, None]
-    aux = {"cos": cos, "sin": sin, "bias": bias}
+    valid = attention_mask.bool()
+    aux = {"cos": cos, "sin": sin, "valid": valid}
+    if with_bias:
+        causal = torch.ones((seq_len, seq_len), dtype=torch.bool,
+                            device=device).tril()
+        allow = causal[None] & valid[:, None, :]
+        aux["bias"] = torch.where(allow, 0.0,
+                                  torch.finfo(torch.float32).min)[:, None]
     if merge_matrix is not None:
         aux["merge_matrix"] = merge_matrix
     return aux
@@ -226,12 +249,12 @@ def forward_capture(params: dict, cfg: DecoderConfig,
     """
     B, S, D = inputs_embeds.shape
     L = cfg.num_layers
-    if flash_capture_ok(cfg, merge_matrix, merge, S, img_start, n_img):
-        raise NotImplementedError("the flash-capture kernel is not ported")
+    flash_ok = flash_capture_ok(cfg, merge_matrix, merge, S, img_start, n_img)
     h = inputs_embeds.to(cfg.dtype)
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
-    aux = capture_aux(cfg, attention_mask, position_ids, S, merge_matrix)
+    aux = capture_aux(cfg, attention_mask, position_ids, S, merge_matrix,
+                      with_bias=not flash_ok)
     if layer_weights is None:
         layer_weights = torch.zeros((L,), dtype=torch.float32,
                                     device=h.device)
@@ -241,7 +264,7 @@ def forward_capture(params: dict, cfg: DecoderConfig,
         lp = {k: v[i] for k, v in params["layers"].items()}
         w_l = layer_weights[i] if i < L - 1 else 0.0
         h, acc, side = layer_step(lp, w_l, h, acc, aux, cfg, img_start,
-                                  n_img, merge)
+                                  n_img, merge, flash_ok)
         sides.append(side)
     last_hidden = rms_norm(h, params["final_norm"], cfg.rms_eps,
                            cfg.gemma_norm)

@@ -1,10 +1,10 @@
 """Build and bind the port's CUDA kernels (``flmm_tpu_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, cached under ``build/`` at the root
-of the checkout by a digest of the sources and flags, and loaded with
-``ctypes``.  Nothing here runs at import time; a refused or failed build
-raises.
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface, cached under ``build/`` at the root of the
+checkout by a digest of the sources and flags, and loaded with ``ctypes``.
+Nothing here runs at import time; a refused or failed build raises.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[2] / "build" / "flmm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -38,6 +38,12 @@ _SIGNATURES = {
     # o_t, stream
     "flmm_relpos_attention": (_P, _P, _P, _L, _L, _L, _I, _P, _I, _I, _I, _I,
                               _P, _L, _L, _L, _P),
+    # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S,
+    # head_dim, key_valid, mm, M, img_start, n_img, out, o_b, o_h, o_t, lse,
+    # merged, stream
+    "flmm_flash_capture": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                           _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _L,
+                           _L, _L, _P, _P, _P),
 }
 
 
@@ -58,14 +64,30 @@ def library() -> ctypes.CDLL:
     so = BUILD / f"libflmm_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+        nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD / f"{src.stem}_{tag}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)]
+        errs = [proc.communicate()[1] for proc in procs]
         # ptxas' register / shared-memory / spill report per kernel
-        (BUILD / "ptxas.log").write_text(proc.stderr)
+        (BUILD / "ptxas.log").write_text("".join(
+            f"== {src.name}\n{err}" for src, err in zip(sources, errs)))
+        for src, proc, err in zip(sources, procs, errs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} with code "
+                                   f"{proc.returncode}:\n{err}")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        for obj in objs:
+            obj.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed with code {link.returncode}:\n"
+                f"{link.stderr}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

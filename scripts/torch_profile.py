@@ -1,36 +1,40 @@
-"""Where the time goes in one bs-4 DeepSeek-VL-1.3B forward of the PyTorch
-port on one GPU.
+"""Where the time goes in one forward of the PyTorch port on one GPU.
 
-    python3 scripts/torch_profile.py
+    python3 scripts/torch_profile.py                  # DeepSeek-VL-1.3B, bs 4
+    python3 scripts/torch_profile.py --path llava_next  # LLaVA-NeXT, bs 2
 
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
-from torch.profiler over one forward, and stage times (SigLIP tower, SAM
-encoder, whole forward) from CUDA events.  Last, it times the three stages
-of K1 (window block) separately at the SAM-1024 window shape.
+from torch.profiler over one forward, and stage times (vision tower, LLM
+capture for LLaVA-NeXT, SAM encoder, whole forward) from CUDA events.  For
+DeepSeek-VL it then times the three stages of K1 (window block) separately
+at the SAM-1024 window shape.
 """
 
 from __future__ import annotations
 
+import argparse
 import pathlib
 import sys
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
-from flmm_tpu_torch.configs import deepseek_vl  # noqa: E402
+from flmm_tpu_torch.configs import deepseek_vl, llava_next  # noqa: E402
 from flmm_tpu_torch.convert.from_jax import from_jax  # noqa: E402
 from flmm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from flmm_tpu_torch.models.frozen import grounding  # noqa: E402
+from flmm_tpu_torch.models.frozen import llava_next as llava_next_model  # noqa: E402
 from flmm_tpu_torch.models.sam import image_encoder  # noqa: E402
 from flmm_tpu_torch.models.vision import vit  # noqa: E402
 from flmm_tpu_torch.ops import fused_block, sam_flash, window_block  # noqa: E402
 
 
-def profile_paths(g: torch.Generator) -> None:
+def deepseek_setup(g: torch.Generator):
     cfg = deepseek_vl.deepseek_vl_1_3b()
     params = grounding.init_params(cfg, g, "cuda")
     params["frozen"]["llm"].pop("lm_head")
@@ -39,27 +43,80 @@ def profile_paths(g: torch.Generator) -> None:
         max_masks=chip_smoke.MASKS,
         text_tokens_per_mask=chip_smoke.TEXT, seed=1), "cuda")
     fro = params["frozen"]
+
+    def stages(c):
+        return {
+            "siglip tower": lambda: vit.forward(
+                fro["vision"], c.vision, batch["pixel_values"]),
+            "sam encoder": lambda: image_encoder.forward(
+                fro["sam_encoder"], c.sam.encoder,
+                batch["sam_pixel_values"]),
+            "forward": lambda: grounding.forward(params, c, batch),
+        }
+    return cfg, stages
+
+
+def llava_next_setup(g: torch.Generator):
+    cfg = llava_next.llava_next_vicuna_7b(img_start=chip_smoke.ANYRES_IMG_START)
+    params = llava_next_model.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    chip_smoke.randomize_rel_pos(params, g)
+    batch = chip_smoke.anyres_batches(cfg, "cuda")[1]
+    fro = params["frozen"]
+    tiles = batch["tiles"].reshape(-1, *batch["tiles"].shape[2:])
+
+    def stages(c):
+        b = c.base
+        return {
+            "clip tower (base + 4 tile slots)": lambda: vit.forward(
+                fro["vision"], b.vision, tiles,
+                select_layer=b.vision_select_layer),
+            "llm capture (pack + decoder)": lambda: llava_next_model.capture(
+                params, c, batch),
+            "sam encoder": lambda: image_encoder.forward(
+                fro["sam_encoder"], b.sam.encoder,
+                batch["sam_pixel_values"]),
+            "forward": lambda: llava_next_model.forward(params, c, batch),
+        }
+    return cfg, stages
+
+
+def device_busy_ms(prof) -> tuple[float, float]:
+    """(busy, window) in ms over the traced forward: the union of the
+    device events' intervals, and the span from the first one's start to
+    the last one's end.  CUPTI's "Command Buffer Full" records (host time
+    blocked on a full launch queue) are no device work and are left out."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Command Buffer Full")
+    busy, lo, hi = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    return busy / 1e3, (hi - spans[0][0]) / 1e3
+
+
+def profile_paths(cfg, stages) -> None:
     for name, c in (("kernel", cfg), ("plain", chip_smoke._plain_config(cfg))):
+        forward = stages(c)["forward"]
         with torch.no_grad():
-            grounding.forward(params, c, batch)
+            forward()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                grounding.forward(params, c, batch)
+                forward()
                 torch.cuda.synchronize()
             print(f"== {name} path: device time by kernel, one forward")
             print(prof.key_averages().table(sort_by="cuda_time_total",
                                             row_limit=25,
                                             max_name_column_width=70))
-            stages = {
-                "siglip tower": lambda: vit.forward(
-                    fro["vision"], c.vision, batch["pixel_values"]),
-                "sam encoder": lambda: image_encoder.forward(
-                    fro["sam_encoder"], c.sam.encoder,
-                    batch["sam_pixel_values"]),
-                "forward": lambda: grounding.forward(params, c, batch),
-            }
-            for stage, fn in stages.items():
+            busy, window = device_busy_ms(prof)
+            print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
+                  f"device window ({1 - busy / window:.1%} idle)")
+            for stage, fn in stages(c).items():
                 print(f"{name} {stage}: {chip_smoke.cuda_ms(fn, 3):.3f} ms")
 
 
@@ -98,10 +155,16 @@ def profile_window_block(g: torch.Generator) -> None:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("deepseek", "llava_next"),
+                        default="deepseek")
+    args = parser.parse_args()
     print(chip_smoke.phase_card())
     g = torch.Generator(device="cuda").manual_seed(0)
-    profile_paths(g)
-    profile_window_block(g)
+    setup = deepseek_setup if args.path == "deepseek" else llava_next_setup
+    profile_paths(*setup(g))
+    if args.path == "deepseek":
+        profile_window_block(g)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Guards of the port's boundaries, each in a fresh interpreter:
 
-* importing every flmm_tpu_torch module and chip_smoke pulls in neither JAX
-  nor the JAX package nor PIL, transformers or torchvision (the machine with
-  the card has no JAX and no PIL, and tests/test_grad_parity.py stubs the
-  last two in ``sys.modules``);
+* importing every flmm_tpu_torch module (the anyres data module included)
+  and chip_smoke pulls in neither JAX nor the JAX package nor PIL,
+  transformers or torchvision (the machine with the card has no JAX and no
+  PIL, and tests/test_grad_parity.py stubs the last two in
+  ``sys.modules``);
 * chip_smoke.py refuses to run without a card, and without the rest of the
   repository, and never prints its success line then.
 """
@@ -41,11 +42,12 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert 'flmm_tpu_torch.data.llava_next' in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 25
+    assert int(count) >= 31
     assert bad.strip() == "[]"
 
 

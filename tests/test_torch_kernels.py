@@ -26,6 +26,7 @@ from flmm_tpu.ops import fused_block as jfb
 from flmm_tpu.ops import sam_flash as jsf
 from flmm_tpu.ops import window_block as jwb
 from flmm_tpu_torch.ops import fused_block, sam_flash, window_block
+from flmm_tpu_torch.ops import flash_attention
 
 ATOL = RTOL = 1e-4
 
@@ -158,6 +159,12 @@ def _wrapper_cases(rng):
     xw = _r(rng, 2, side * side, C)
     bias = _r(rng, 2, nh, side * side, 2 * side, scale=0.1)
     valid = rng.random((2, side * side)) > 0.2
+    fq, fkv = _r(rng, 2, 4, 256, 16), _r(rng, 2, 2, 256, 16)
+    fvalid = rng.random((2, 256)) > 0.2
+    fids = np.full((2, 256), -1)
+    fids[:, 200:205] = 0
+    fmm = torch.nn.functional.one_hot(torch.from_numpy(fids) + 1, 3)[
+        ..., 1:].float() / 5
     t = {k_: torch.from_numpy(v_) for k_, v_ in p.items()}
     blk = (t["wo"], t["bo"], t["lw"], t["lb"], t["w1"], t["b1"], t["w2"],
            t["b2"])
@@ -176,18 +183,24 @@ def _wrapper_cases(rng):
             window_block.window_block, window_block.window_block_plain,
             (*_t(xw, bias, valid, p["lw"], p["lb"], wqkv, bqkv), *blk[:2],
              t["lw"], t["lb"], *blk[4:], side, nh)),
+        "flash_attention_with_merged_capture": (
+            flash_attention.flash_attention_with_merged_capture,
+            flash_attention.flash_attention_with_merged_capture_plain,
+            (*_t(fq, fkv, fkv, fvalid), fmm, 128, 100)),
     }
 
 
 @pytest.mark.parametrize("name", ["fused_ln_qkv", "fused_proj_ln_mlp",
-                                  "sam_global_attention_v8", "window_block"])
+                                  "sam_global_attention_v8", "window_block",
+                                  "flash_attention_with_merged_capture"])
 def test_wrapper_takes_plain_version_on_cpu_and_launches_nothing(name):
     wrapper, plain, args = _wrapper_cases(np.random.default_rng(5))[name]
     before = wrapper.launches
     got = wrapper(*args)
     assert wrapper.launches == before
     torch.testing.assert_close(got, plain(*args), rtol=0, atol=0)
-    assert torch.isfinite(got).all()
+    for out in got if isinstance(got, tuple) else (got,):
+        assert torch.isfinite(out).all()
 
 
 def test_scaled_qkv_weights_fold_scale_and_log2e_into_q_only():

@@ -19,16 +19,21 @@ import pytest
 import torch
 
 from flmm_tpu.configs import deepseek_vl as jax_configs
+from flmm_tpu.configs import llava as jax_llava
+from flmm_tpu.configs import llava_next as jax_llava_next
 from flmm_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from flmm_tpu.models.frozen import grounding as jgrounding
+from flmm_tpu.models.frozen import llava_next as jllava_next
 from flmm_tpu.models.llm import decoder as jdecoder
 from flmm_tpu.models.sam import image_encoder as jencoder
 from flmm_tpu.models.vision import vit as jvit
 from flmm_tpu.ops import masks as jmasks
 from flmm_tpu_torch.configs import deepseek_vl as torch_configs
+from flmm_tpu_torch.configs import llava as torch_llava
+from flmm_tpu_torch.configs import llava_next as torch_llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.synthetic import synthetic_batch
-from flmm_tpu_torch.models.frozen import grounding
+from flmm_tpu_torch.models.frozen import grounding, llava_next
 from flmm_tpu_torch.models.llm import decoder
 from flmm_tpu_torch.models.sam import image_encoder as encoder
 from flmm_tpu_torch.models.vision import vit
@@ -54,20 +59,40 @@ def tiny():
 
 @pytest.fixture(scope="module")
 def slice_outputs(tiny):
-    jcfg, tcfg, jparams, tparams = tiny
-    batch = jax_synthetic_batch(jcfg, batch_size=2, seed=0)
-    want = jax.device_get(jax.jit(lambda p, b: jgrounding.forward(
-        p, jcfg, b))(jparams, jax.tree.map(jnp.asarray, batch)))
-    with torch.no_grad():
-        got = grounding.forward(tparams, tcfg, from_jax(
-            synthetic_batch(tcfg, batch_size=2, seed=0)))
-    return got, want
+    """``preset -> (port outputs, JAX outputs)`` of the grounding forward,
+    each computed once: the DeepSeek-VL ``tiny`` and ``tiny_llava`` (CLIP
+    topology: CLS token dropped, pre-norm, quick_gelu, layer -2)."""
+    cache = {}
+
+    def outputs(preset):
+        if preset not in cache:
+            if preset == "tiny":
+                jcfg, tcfg, jparams, tparams = tiny
+            else:
+                jcfg, tcfg = jax_llava.tiny_llava(), torch_llava.tiny_llava()
+                jparams = jax.device_get(jax.jit(
+                    lambda k: jgrounding.init_params(jcfg, k))(
+                        jax.random.key(0)))
+                tparams = from_jax(jparams)
+            batch = jax_synthetic_batch(jcfg, batch_size=2, seed=0)
+            want = jax.device_get(jax.jit(lambda p, b: jgrounding.forward(
+                p, jcfg, b))(jparams, jax.tree.map(jnp.asarray, batch)))
+            with torch.no_grad():
+                got = grounding.forward(tparams, tcfg, from_jax(
+                    synthetic_batch(tcfg, batch_size=2, seed=0)))
+            cache[preset] = got, want
+        return cache[preset]
+    return outputs
 
 
-@pytest.mark.parametrize("key", ["coarse_logits", "sam_logits", "iou_pred",
-                                 "hidden", "boxes"])
-def test_grounding_forward_matches_jax(slice_outputs, key):
-    got, want = slice_outputs
+@pytest.mark.parametrize("preset,key", [
+    pytest.param(preset, key, id=key if preset == "tiny" else
+                 f"{preset}-{key}")
+    for preset in ("tiny", "tiny_llava")
+    for key in ("coarse_logits", "sam_logits", "iou_pred", "hidden", "boxes")
+])
+def test_grounding_forward_matches_jax(slice_outputs, preset, key):
+    got, want = slice_outputs(preset)
     assert tuple(got[key].shape) == want[key].shape
     assert torch.isfinite(got[key]).all()
     _close(got[key], want[key], SLICE_TOL)
@@ -87,22 +112,45 @@ def _tree_signature(tree, path=""):
     return {path: (tuple(tree.shape), str(tree.dtype).replace("torch.", ""))}
 
 
-@pytest.mark.parametrize("preset", ["tiny", "tiny_bf16"])
+@pytest.mark.parametrize("preset", ["tiny", "tiny_bf16", "tiny_llava",
+                                    "tiny_llava_next"])
 def test_init_params_tree_matches_jax(preset):
-    dtype = {"tiny": (jnp.float32, torch.float32),
-             "tiny_bf16": (jnp.bfloat16, torch.bfloat16)}[preset]
-    jcfg = jax_configs.tiny(dtype=dtype[0])
-    tcfg = torch_configs.tiny(dtype=dtype[1])
-    want = jax.eval_shape(lambda k: jgrounding.init_params(jcfg, k),
-                          jax.random.key(0))
-    got = grounding.init_params(tcfg, torch.Generator().manual_seed(0),
-                                "cpu")
+    bf16 = preset == "tiny_bf16"
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                           torch.float32)
+    jinit, tinit = jgrounding.init_params, grounding.init_params
+    if preset == "tiny_llava_next":
+        jinit, tinit = jllava_next.init_params, llava_next.init_params
+    jfac, tfac = {
+        "tiny_llava": (jax_llava.tiny_llava, torch_llava.tiny_llava),
+        "tiny_llava_next": (jax_llava_next.tiny_llava_next,
+                            torch_llava_next.tiny_llava_next),
+    }.get(preset, (jax_configs.tiny, torch_configs.tiny))
+    jcfg, tcfg = jfac(dtype=jdt), tfac(dtype=tdt)
+    want = jax.eval_shape(lambda k: jinit(jcfg, k), jax.random.key(0))
+    got = tinit(tcfg, torch.Generator().manual_seed(0), "cpu")
     assert _tree_signature(got) == _tree_signature(want)
 
 
 def test_port_config_fields_mirror_jax():
-    """Every config dataclass carries the JAX fields one for one."""
-    pairs = [(jax_configs.tiny(), torch_configs.tiny())]
+    """Every config dataclass carries the JAX fields one for one: the
+    DeepSeek-VL, LLaVA-1.5 and LLaVA-NeXT presets, full size and tiny, and
+    the anyres specs."""
+    pairs = [
+        (jax_configs.tiny(), torch_configs.tiny()),
+        (jax_configs.deepseek_vl_1_3b(), torch_configs.deepseek_vl_1_3b()),
+        (jax_llava.tiny_llava(), torch_llava.tiny_llava()),
+        (jax_llava.llava_1_5_7b(), torch_llava.llava_1_5_7b()),
+        (jax_llava_next.tiny_llava_next(), torch_llava_next.tiny_llava_next()),
+        (jax_llava_next.llava_next_vicuna_7b(img_start=128),
+         torch_llava_next.llava_next_vicuna_7b(img_start=128)),
+        (jax_llava_next.llava_next_mistral_7b(),
+         torch_llava_next.llava_next_mistral_7b()),
+        (jax_llava_next.tiny_anyres_spec(),
+         torch_llava_next.tiny_anyres_spec()),
+        (jax_llava_next.llava_next_vicuna_7b().anyres_spec(),
+         torch_llava_next.llava_next_vicuna_7b().anyres_spec()),
+    ]
     while pairs:
         j, t = pairs.pop()
         jf = [f.name for f in dataclasses.fields(j)]
