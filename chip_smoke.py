@@ -8,11 +8,12 @@ Phases; any failure raises and the script exits non-zero:
 2. build the kernel library from flmm_tpu_torch/csrc with nvcc (sm_90a),
    one nvcc per source, all started together;
 3. hold each main-path kernel against its plain PyTorch version at the
-   shapes the two forwards below give it, and time both: K1 window block,
-   K2 global attention, K3 LN + qkv and K4 proj + LN + MLP at the
-   DeepSeek-VL-1.3B shapes, K3 and K4 again at the CLIP-L/336 shape of the
-   anyres tower (quick_gelu), K5 flash capture at the LLaVA-NeXT decoder
-   shape;
+   shapes the paths below give it, and time both: K1 window block, K2
+   global attention, K3 LN + qkv and K4 proj + LN + MLP at the
+   DeepSeek-VL-1.3B serving shapes, K3 and K4 again at the CLIP-L/336 shape
+   of the anyres tower (quick_gelu) and at the SAM-448 training rows, K5
+   flash capture at the LLaVA-NeXT decoder shape, K2 at the SAM-448 grid
+   (side 28) and K6 window attention at the SAM-448 training shape;
 4. serve 3 distinct synthetic bs-4 requests through the DeepSeek-VL-1.3B
    grounding forward at full width (DeepSeek-LLM-1.3B + SigLIP-L/384 + SAM
    ViT-L at 1024, bf16, random weights from a seed): output shapes, finite
@@ -24,7 +25,16 @@ Phases; any failure raises and the script exits non-zero:
    SAM ViT-L at 1024), one 2x2 and one 3x1 pinpoint grid per batch, so the
    decoder's key holes differ per sample: shapes, finite values, launches;
 7. compare that forward with the all-plain forward (eager S x S capture);
-8. report times.
+8. train the DeepSeek-VL-1.3B heads at the SAM-448 schedule at full width
+   through the port's train step (flmm_tpu_torch.train.loop) on the
+   trainer's random synthetic stream at bs 8: one warm-up and 5 timed
+   steps with finite losses and gradient norms and the exact launch counts
+   per step, every trainable subtree changed and the frozen tree bit for
+   bit unchanged, and a checkpoint save / restore round trip;
+9. compare one training step's loss and gradients with the all-plain
+   path's on the same state and batch, and time the plain path's steps;
+10. check that 10 steps on one repeated batch lower its loss;
+11. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -35,11 +45,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import pathlib
 import subprocess
+import tempfile
 import time
 
 import torch
 
+from flmm_tpu_torch import registry
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
@@ -51,6 +65,8 @@ from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops import flash_attention, fused_block, masks, \
     sam_flash, window_block
+from flmm_tpu_torch.train import checkpoint as ckpt
+from flmm_tpu_torch.train import loop as train_loop
 
 BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
 # LLaVA-NeXT requests: bs 2, the vicuna template's 35 prompt tokens padded
@@ -64,22 +80,39 @@ KERNEL_REL_ERR, KERNEL_CORR = 2e-2, 0.999
 # 24 SAM blocks, the 23-24 tower blocks and the decoder)
 FORWARD_CORR = {"sam_embedding": 0.999, "attn": 0.999, "hidden": 0.999,
                 "coarse_logits": 0.99, "sam_logits": 0.99}
-EXPECTED_LAUNCHES = {
+# training: bs 8 at the SAM-448 schedule, scripts/train.py's random stream
+# (synthetic_batch defaults: S = 613, up to 3 masks of up to 4 tokens)
+TRAIN_BS, TRAIN_SAM, TRAIN_STEPS, REPEATED_STEPS = 8, 448, 5, 10
+TRAIN_LR = 1e-4  # the recipe's, also for the repeated batch
+# kernel step vs all-plain step: relative loss difference, and the
+# correlation of each trainable subtree's flattened gradient
+STEP_LOSS_REL, STEP_GRAD_CORR = 0.01, 0.99
+SUBTREES = ("unet", "text_proj", "text_layer_weights", "sam/prompt",
+            "sam/decoder")
+EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
     "deepseek_vl_1_3b": {
         "window_block": 20, "sam_global_attention_v8": 4,
         "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28,
-        "flash_attention_with_merged_capture": 0},
+        "flash_attention_with_merged_capture": 0,
+        "sam_window_attention_v9": 0},
     "llava_next_vicuna_7b": {
         "window_block": 20, "sam_global_attention_v8": 4,
         "fused_ln_qkv": 27, "fused_proj_ln_mlp": 27,
-        "flash_attention_with_merged_capture": 32},
+        "flash_attention_with_merged_capture": 32,
+        "sam_window_attention_v9": 0},
+    "deepseek_vl_1_3b_train_sam448": {
+        "window_block": 0, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 48, "fused_proj_ln_mlp": 48,
+        "flash_attention_with_merged_capture": 0,
+        "sam_window_attention_v9": 20},
 }
 WRAPPERS = {"window_block": window_block.window_block,
             "sam_global_attention_v8": sam_flash.sam_global_attention_v8,
             "fused_ln_qkv": fused_block.fused_ln_qkv,
             "fused_proj_ln_mlp": fused_block.fused_proj_ln_mlp,
             "flash_attention_with_merged_capture":
-                flash_attention.flash_attention_with_merged_capture}
+                flash_attention.flash_attention_with_merged_capture,
+            "sam_window_attention_v9": sam_flash.sam_window_attention_v9}
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -92,6 +125,8 @@ SOURCES = {
     "flash_attention_with_merged_capture": (
         "flmm_tpu_torch/csrc/flash_capture.cu",
         "flmm_tpu/ops/flash_attention.py:246"),
+    "sam_window_attention_v9": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash.py:122"),
 }
 
 
@@ -195,11 +230,14 @@ def phase_kernels(g: torch.Generator) -> dict:
 
     # K3 / K4: SAM global layers (N = 4096 * bs), SigLIP layers (576 * bs),
     # CLIP-L/336 layers over base + 4 tile slots (577 * 5 * 2, quick_gelu)
+    train_grid = TRAIN_SAM // 16
     for label, N, act, eps in (
             ("SAM global, N=16384", 4096 * BS, "gelu", 1e-6),
             ("SigLIP, N=2304", 576 * BS, "gelu", 1e-6),
             ("CLIP, N=5770, quick_gelu", 577 * 5 * ANYRES_BS, "quick_gelu",
-             1e-5)):
+             1e-5),
+            ("SAM-448 training, N=6272", train_grid ** 2 * TRAIN_BS, "gelu",
+             1e-6)):
         x, a = _randn(g, (N, C)), _randn(g, (N, C))
         lw, lb = ln_params()
         wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), .1)
@@ -268,6 +306,33 @@ def phase_kernels(g: torch.Generator) -> dict:
               *fa_args),
           lambda: flash_attention.flash_attention_with_merged_capture_plain(
               *fa_args), gflop=gflop)
+
+    # K2 over the SAM-448 grid: 8 images x 16 heads, side 28 (S = 784)
+    hd = 64
+    q, k, v = (_randn(g, (16 * TRAIN_BS, train_grid ** 2, hd))
+               for _ in range(3))
+    rph, rpw = (_randn(g, (2 * train_grid - 1, hd), 0.1) for _ in range(2))
+    check("sam_global_attention_v8", "SAM-448, G=128, S=784",
+          lambda: sam_flash.sam_global_attention_v8(q, k, v, rph, rpw,
+                                                    train_grid),
+          lambda: sam_flash.sam_global_attention_v8_plain(q, k, v, rph, rpw,
+                                                          train_grid))
+
+    # K6: the 2 x 2 windows of 14 x 14 of 8 SAM-448 images, 16 heads, read
+    # as (NW, nh, T, hd) views of the windowised qkv as the encoder passes
+    # them: G = 512 window-heads, T = 196
+    NW, T, nh = 4 * TRAIN_BS, ws * ws, 16
+    qkvw = _randn(g, (NW, T, 3 * C))
+    heads = [qkvw[..., i * C:(i + 1) * C].reshape(NW, T, nh, hd).transpose(
+        1, 2) for i in range(3)]
+    rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+    # each (query, key) pair of a window-head: 2 products of 2 * hd FLOP
+    gflop = 4 * NW * nh * T * T * hd / 1e9
+    check("sam_window_attention_v9", f"G={NW * nh}, T={T}, (NW, nh, T, hd) "
+          "views", lambda: sam_flash.sam_window_attention_v9(
+              *heads, rph, rpw, ws),
+          lambda: sam_flash.sam_window_attention_v9_plain(
+              *heads, rph, rpw, ws), gflop=gflop)
     return results
 
 
@@ -408,6 +473,169 @@ def run_llava_next(g: torch.Generator) -> dict:
     return served
 
 
+def _flat_grads(grads: dict, path: str) -> torch.Tensor:
+    """One subtree's gradients as one f32 vector; leaves without one (the
+    frozen pe_gaussian, heads the loss never reads) are left out."""
+    return torch.cat([g.float().flatten() for p, g in grads.items()
+                      if (p == path or p.startswith(path + "/"))
+                      and g is not None])
+
+
+def _zeros_like(tree):
+    """A tree of zeros shaped like ``tree`` (a restore template)."""
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like(v) for v in tree]
+    return torch.zeros_like(tree)
+
+
+def _clone_tree(tree: dict, device=None) -> dict:
+    return {p: t.detach().to(device or t.device, copy=True)
+            for p, t in train_loop.tree_leaves(tree)}
+
+
+def _run_steps(step, state, frozen, batches) -> tuple[list, float]:
+    """Steps over ``batches``; (per-step metrics as floats, ms per step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [step(state, frozen, b)[1] for b in batches]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(metrics):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"step {i}: non-finite loss or grad_norm "
+                                 f"{m['loss']} {m['grad_norm']}")
+    return metrics, ms
+
+
+def run_train(g: torch.Generator) -> dict:
+    """Phases 8-10: the DeepSeek-VL-1.3B heads trained at the SAM-448
+    schedule through the port's train step."""
+    path = "deepseek_vl_1_3b_train_sam448"
+    cfg = registry.with_sam_size(deepseek_vl.deepseek_vl_1_3b(), TRAIN_SAM)
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")  # the loss never reads it
+    randomize_rel_pos(params, g)
+    frozen = params["frozen"]
+    batches = [from_jax(synthetic_batch(cfg, batch_size=TRAIN_BS, seed=i),
+                        "cuda") for i in range(1 + TRAIN_STEPS)]
+    opt = train_loop.make_optimizer(train_loop.OptimConfig(
+        lr=TRAIN_LR, total_steps=2 * (1 + TRAIN_STEPS)))
+    state = train_loop.init_state(params["trainable"], opt)
+    result = train_phase(path, cfg, opt, state, frozen, batches)
+    result.update(compare_train_phase(path, cfg, opt, state, frozen,
+                                      batches))
+    repeated_batch_phase(path, cfg, state, frozen, batches[1])
+    return result
+
+
+def train_phase(path, cfg, opt, state, frozen, batches) -> dict:
+    """Phase 8: a warm-up and the timed steps with their launch counts,
+    every trainable subtree changed, the frozen tree untouched, and a
+    checkpoint round trip."""
+    step = train_loop.make_train_step(
+        lambda p, b: grounding.loss_fn(p, cfg, b), opt)
+    # on the host, so the copy does not count in the steps' peak memory
+    frozen_before = _clone_tree(frozen, "cpu")
+    trainable_before = _clone_tree(state["params"])
+    warm, _ = _run_steps(step, state, frozen, batches[:1])
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms = _run_steps(step, state, frozen, batches[1:])
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: n * TRAIN_STEPS for k, n in EXPECTED_LAUNCHES[path].items()}
+    log(f"phase 8 train {path}: {TRAIN_STEPS} steps at bs {TRAIN_BS} after "
+        f"one warm-up, loss {[round(m['loss'], 4) for m in warm + metrics]} "
+        f"grad_norm {[round(m['grad_norm'], 4) for m in warm + metrics]}; "
+        f"launches {launches} (expected {want}); peak memory "
+        f"{peak_gb:.2f} GB")
+    if launches != want:
+        raise AssertionError("kernel launch counts differ from the main path")
+    after = _clone_tree(state["params"])
+    for sub in SUBTREES:
+        if all(torch.equal(t, trainable_before[p]) for p, t in after.items()
+               if p == sub or p.startswith(sub + "/")):
+            raise AssertionError(f"trainable subtree {sub} did not change")
+    for p, t in train_loop.tree_leaves(frozen):
+        if t.requires_grad or not torch.equal(t.cpu(), frozen_before[p]):
+            raise AssertionError(f"frozen leaf {p} changed or needs grad")
+    log(f"phase 8 train {path}: every trainable subtree {SUBTREES} changed, "
+        "the frozen tree is bit for bit unchanged")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(pathlib.Path(tmp) / f"step_{state['step']}", state)
+        template = train_loop.init_state(_zeros_like(state["params"]), opt)
+        restored = ckpt.restore(ckpt.latest(tmp), template)
+    for (p, a), (_, b) in zip(train_loop.tree_leaves(state),
+                              train_loop.tree_leaves(restored)):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        if not same:
+            raise AssertionError(f"checkpoint round trip changed {p}")
+    log(f"phase 8 train {path}: checkpoint save / restore round trip of "
+        f"step {state['step']} holds")
+    return {"ms": ms, "launches": launches, "peak_gb": peak_gb,
+            "bs": TRAIN_BS, "n": TRAIN_STEPS, "unit": "step"}
+
+
+def compare_train_phase(path, cfg, opt, state, frozen, batches) -> dict:
+    """Phase 9: the loss and gradients of one step from the trained state
+    on the kernel path and the all-plain path, then the plain path's step
+    time.  The U-Net's gradient through the SAM loss is ill-conditioned
+    where coarse logits sit near 0 (the mask downscaler's LayerNorm over 4
+    channels of a locally flat dense prompt), so it is compared at the
+    state the timed steps leave, not after the repeated-batch phase."""
+    plain = _plain_config(cfg)
+    batch = batches[1]
+    (loss_k, _), grads_k = train_loop.value_and_grad(
+        lambda p, b: grounding.loss_fn(p, cfg, b), frozen, state["params"],
+        batch)
+    (loss_p, _), grads_p = train_loop.value_and_grad(
+        lambda p, b: grounding.loss_fn(p, plain, b), frozen, state["params"],
+        batch)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(f"phase 9 {path}: kernel vs plain step loss {float(loss_k):.6f} vs "
+        f"{float(loss_p):.6f}, rel diff {rel:.3e} (bound {STEP_LOSS_REL})")
+    if rel > STEP_LOSS_REL:
+        raise AssertionError("the kernel step's loss disagrees with the "
+                             "plain step's")
+    for sub in SUBTREES:
+        _, corr = agreement(_flat_grads(grads_k, sub),
+                            _flat_grads(grads_p, sub))
+        log(f"phase 9 {path}: gradient of {sub}: corr {corr:.6f} (bound "
+            f"{STEP_GRAD_CORR})")
+        if corr < STEP_GRAD_CORR:
+            raise AssertionError(f"the kernel step's gradient of {sub} "
+                                 "disagrees with the plain step's")
+    del grads_k, grads_p
+    plain_step = train_loop.make_train_step(
+        lambda p, b: grounding.loss_fn(p, plain, b), opt)
+    _run_steps(plain_step, state, frozen, batches[:1])
+    torch.cuda.reset_peak_memory_stats()
+    _, plain_ms = _run_steps(plain_step, state, frozen, batches[1:])
+    return {"plain_ms": plain_ms,
+            "plain_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def repeated_batch_phase(path, cfg, state, frozen, batch) -> None:
+    """Phase 10: steps on one repeated batch (the recipe's lr, no warmup)
+    lower its loss."""
+    opt = train_loop.make_optimizer(train_loop.OptimConfig(
+        lr=TRAIN_LR, total_steps=REPEATED_STEPS, warmup_ratio=0.0))
+    step = train_loop.make_train_step(
+        lambda p, b: grounding.loss_fn(p, cfg, b), opt)
+    metrics, _ = _run_steps(step, train_loop.init_state(state["params"], opt),
+                            frozen, [batch] * REPEATED_STEPS)
+    losses = [m["loss"] for m in metrics]
+    log(f"phase 10 train {path}: {REPEATED_STEPS} steps on one batch (lr "
+        f"{TRAIN_LR}, no warmup): loss {[round(x, 4) for x in losses]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the repeated batch's loss did not fall")
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -416,13 +644,18 @@ def main() -> None:
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
     paths["llava_next_vicuna_7b"] = run_llava_next(g)
+    torch.cuda.empty_cache()
+    paths["deepseek_vl_1_3b_train_sam448"] = run_train(g)
     for path, r in paths.items():
-        log(f"phase 8 timing {path} ({card}): kernel path {r['ms']:.1f} "
-            f"ms/forward, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
+        unit = r.get("unit", "forward")
+        what = (f"{r['n']} steps" if unit == "step"
+                else f"{len(r['requests'])} requests")
+        log(f"phase 11 timing {path} ({card}): kernel path {r['ms']:.1f} "
+            f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
-            f"ms/forward, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
-            f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of "
-            f"{len(r['requests'])} requests after one warm-up)")
+            f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
+            f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of {what} "
+            "after one warm-up)")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],

@@ -29,12 +29,23 @@
 // V^T stream through shared memory.  Not yet: load/compute overlap across
 // tiles, wgmma.
 //
-// Layout: element (g, t, d) of q, k and v is at
+// It also serves the split window path's attention, K6
+// (flmm_tpu/ops/sam_flash.py::sam_window_attention_v9, the pallas_call at
+// :122): 16 heads of 14x14 windows, T = 196, over the windowised qkv of a
+// SAM-448 window layer (G = 512 window-heads at bs 8).  64-row query blocks
+// cover T in 4 blocks, the last one 4 rows deep; keys past T are masked.
+// A layer is only 5 GFLOP there, and padding T to 256 in the query blocks
+// and key tiles wastes 41% of the products, so per-block staging and the
+// idle tail bound it rather than the tensor cores.
+//
+// Layout: element (g, t, d) of k and v is at
 //   (g / nh) * s_b + (g % nh) * s_h + t * s_t + d,
-// so K2 passes contiguous (G, S, 64) tensors (nh = 1) and K1 reads q, k, v
-// straight out of its (NW, T, 3C) qkv tensor with heads at column offsets.
-// The output uses the same addressing with its own strides.  All strides
-// and base offsets are multiples of 8 elements (16-byte loads).
+// and of q at the same with its own strides (q_b, q_h, q_t), so K2 passes
+// contiguous (G, S, 64) tensors (nh = 1), K1 reads q, k, v straight out of
+// its (NW, T, 3C) qkv tensor with heads at column offsets, and K6 reads k
+// and v out of the windowised qkv beside a separately scaled q.  The output
+// uses the same addressing with its own strides.  All strides and base
+// offsets are multiples of 8 elements (16-byte loads).
 #include <cstdint>
 
 #include "common.cuh"
@@ -51,7 +62,9 @@ size_t smem_bytes(int side) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
+                        long long q_h, long long q_t,
+                        const bf16* __restrict__ k,
                         const bf16* __restrict__ v, long long s_b,
                         long long s_h, long long s_t, int nh,
                         const bf16* __restrict__ bias, int side, int S,
@@ -65,6 +78,7 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = blockIdx.y, q0 = blockIdx.x * BQ;
+  const long long q_off = (long long)(g / nh) * q_b + (long long)(g % nh) * q_h;
   const long long in_off = (long long)(g / nh) * s_b + (long long)(g % nh) * s_h;
   const long long out_off = (long long)(g / nh) * o_b + (long long)(g % nh) * o_h;
 
@@ -82,8 +96,8 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int d = kk * 16 + qc;
-    const bf16* p0 = q + in_off + t0 * s_t + d;
-    const bf16* p1 = q + in_off + t1 * s_t + d;
+    const bf16* p0 = q + q_off + t0 * q_t + d;
+    const bf16* p1 = q + q_off + t1 * q_t + d;
     qf[kk][0] = t0 < S ? ld32(p0) : 0u;
     qf[kk][1] = t1 < S ? ld32(p1) : 0u;
     qf[kk][2] = t0 < S ? ld32(p0 + 8) : 0u;
@@ -206,15 +220,18 @@ relpos_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
-extern "C" int flmm_relpos_attention(const void* q, const void* k,
-                                     const void* v, long long s_b,
+extern "C" int flmm_relpos_attention(const void* q, long long q_b,
+                                     long long q_h, long long q_t,
+                                     const void* k, const void* v,
+                                     long long s_b,
                                      long long s_h, long long s_t, int nh,
                                      const void* bias, int side, int G, int S,
                                      int head_dim, void* out, long long o_b,
                                      long long o_h, long long o_t,
                                      void* stream) {
   if (head_dim != HD || G <= 0 || S <= 0 || nh <= 0 || side <= 0 ||
-      side * side != S || G > 65535 || s_b % 8 || s_h % 8 || s_t % 8 ||
+      side * side != S || G > 65535 || q_b % 8 || q_h % 8 || q_t % 8 ||
+      s_b % 8 || s_h % 8 || s_t % 8 ||
       o_b % 2 || o_h % 2 || o_t % 2)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(side);
@@ -224,7 +241,8 @@ extern "C" int flmm_relpos_attention(const void* q, const void* k,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, G);
   relpos_attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, s_b, s_h, s_t, nh,
+      (const bf16*)q, q_b, q_h, q_t, (const bf16*)k, (const bf16*)v, s_b,
+      s_h, s_t, nh,
       (const bf16*)bias, side, S, (bf16*)out, o_b, o_h, o_t);
   return (int)cudaGetLastError();
 }

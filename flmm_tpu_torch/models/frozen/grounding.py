@@ -1,8 +1,15 @@
 """Frozen-LMM grounding model for contiguous-image-block families
 (flmm_tpu/models/frozen/grounding.py): vision tower -> MLP aligner ->
 frozen decoder with per-mask attention capture -> U-Net coarse head -> SAM
-encoder + refiner.  This is the serving forward; losses and training are
-not ported yet, nor is the DeepSeek-VL-7B hybrid tower."""
+encoder + refiner -> losses (:func:`loss_fn`).  Not ported yet: the
+DeepSeek-VL-7B hybrid tower.
+
+Autograd: only the trainable tree carries gradients.  The frozen towers,
+decoder and SAM encoder see no tensor that requires grad, so autograd
+records nothing there and the kernels they launch need no backward; the
+layer weights reach the loss through the decoder's hidden sum, U-Net,
+``text_proj`` and the SAM prompt encoder and mask decoder through plain
+ops."""
 
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from flmm_tpu_torch.models.frozen.base import grounding_losses
 from flmm_tpu_torch.models.llm import decoder as llm
 from flmm_tpu_torch.models.mask_head import refiner as sam_refiner
 from flmm_tpu_torch.models.mask_head import unet
@@ -170,3 +178,14 @@ def heads_forward(params: dict, cfg: GroundingConfig,
         "hidden": hidden,
         "boxes": torch.stack([r["boxes"] for r in refined]),
     }
+
+
+def loss_fn(params: dict, cfg: GroundingConfig, batch: dict) -> tuple:
+    """``(loss, metrics)`` of the grounding forward on a batch with the loss
+    targets gt_coarse, coarse_weight, gt_sam and sam_weight."""
+    out = forward(params, cfg, batch)
+    losses = grounding_losses(
+        out["coarse_logits"], batch["gt_coarse"], batch["coarse_weight"],
+        out["sam_logits"], batch["gt_sam"], batch["sam_weight"],
+        batch["mask_valid"])
+    return losses["loss"], losses

@@ -181,7 +181,8 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
     x2 = rms_norm(h, lp["ln2"], cfg.rms_eps, cfg.gemma_norm)
     h = h + (_act(x2 @ lp["w_gate"], cfg.act) * (x2 @ lp["w_up"])) @ lp["w_down"]
 
-    acc = acc + w_l * h.float()
+    # the layer weights' only gradient path (the JAX stop_gradient)
+    acc = acc + w_l * h.detach().float()
     if flash_ok:
         return h, acc, side
     img_probs = probs[..., img_start:img_start + n_img]  # (B, H, S, n_img)
@@ -268,7 +269,7 @@ def forward_capture(params: dict, cfg: DecoderConfig,
         sides.append(side)
     last_hidden = rms_norm(h, params["final_norm"], cfg.rms_eps,
                            cfg.gemma_norm)
-    hidden = acc + layer_weights[L - 1] * last_hidden.float()
+    hidden = acc + layer_weights[L - 1] * last_hidden.detach().float()
     return {"attn": torch.stack(sides, dim=1), "hidden": hidden,
             "last_hidden": last_hidden}
 

@@ -5,14 +5,20 @@ kernel path, with the backend test ``x.is_cuda``:
 
 * runs of window blocks stay window-major ``(NW, T, C)`` and go through K1
   (:func:`flmm_tpu_torch.ops.window_block.window_block`) when the grid has
-  at least 25 windows per image;
-* global blocks go through K3 (LN1 + qkv), K2 (attention) and K4 (out-proj
-  + LN2 + MLP).
+  at least 25 windows per image (SAM at 1024);
+* other window blocks (the reduced-resolution schedule, e.g. SAM-448 with
+  2x2 windows per image) take the split path: K3 (LN1 + qkv), K6 (window
+  attention, :func:`flmm_tpu_torch.ops.sam_flash.sam_window_attention_v9`)
+  and K4 (out-proj + LN2 + MLP);
+* global blocks go through K3, K2 (attention) and K4.
 
-Everything else, and every CPU tensor, takes the plain path.  Not ported
-yet: the split window path's attention kernel (K6), the whole-block global
-kernel (K10), the superseded kernel variants (K12) and the int8 encoder;
-windowed blocks outside K1 use the plain path.
+K3 and K4 need the fused-MLP gate (``fused_mlp``, C % 128, F % 512);
+without it the attention kernel runs between the plain LN + qkv and the
+plain out-proj + MLP.  Everything else, and every CPU tensor, takes the
+plain path.  Pad tokens of a grid that does not divide into windows get
+``k = b_k`` and ``v = b_v`` and stay in the softmax on every path, as in
+the reference.  Not ported yet: the whole-block global kernel (K10), the
+superseded kernel variants (K12) and the int8 encoder.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch
 from flmm_tpu_torch.models.sam.common import channel_norm, conv2d, layer_norm, mlp_block
 from flmm_tpu_torch.ops import window_block as wb
 from flmm_tpu_torch.ops.fused_block import fused_ln_qkv, fused_proj_ln_mlp
-from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8
+from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8, \
+    sam_window_attention_v9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,27 +175,73 @@ def _flash_global_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
     return out.reshape(B, nh, H * W, hd).transpose(1, 2).reshape(B, H, W, C)
 
 
+def _flash_window_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
+    """Windowed attention core through K6: ``(B, H, W, 3C) -> (B, H, W, C)``.
+
+    The grid is padded to whole windows with the ``bqkv`` row, which is what
+    a zero-padded LN output projects to: pad tokens keep ``k = b_k`` and
+    ``v = b_v``, as on the plain path and in the reference (the JAX
+    ``_flash_window_core`` pads qkv with zeros instead).  One relayout makes
+    the qkv window-major; K6 reads q, k and v out of it as ``(NW, nh, T,
+    hd)`` strided views."""
+    B, H, W, C3 = qkv.shape
+    C = C3 // 3
+    ws, nh, hd = cfg.window_size, cfg.num_heads, cfg.head_dim
+    pad_h, pad_w = (ws - H % ws) % ws, (ws - W % ws) % ws
+    Hp, Wp = H + pad_h, W + pad_w
+    if pad_h or pad_w:
+        qkvp = bp["bqkv"].to(qkv.dtype).expand(B, Hp, Wp, C3).clone()
+        qkvp[:, :H, :W] = qkv
+    else:
+        qkvp = qkv
+    T = ws * ws
+    qkvw = qkvp.reshape(B, Hp // ws, ws, Wp // ws, ws, C3).permute(
+        0, 1, 3, 2, 4, 5).reshape(-1, T, C3)
+    nw = qkvw.shape[0]
+
+    def heads(i):
+        return qkvw[..., i * C:(i + 1) * C].reshape(nw, T, nh, hd).transpose(
+            1, 2)
+
+    out = sam_window_attention_v9(heads(0), heads(1), heads(2),
+                                  bp["rel_pos_h"], bp["rel_pos_w"], ws)
+    out = out.transpose(1, 2).reshape(B, Hp // ws, Wp // ws, ws, ws, C)
+    out = out.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
+    return out[:, :H, :W]
+
+
+def _flash_block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig,
+                 windowed: bool):
+    """One block through the attention kernel (K6 windowed, K2 global),
+    with K3 before and K4 after it when the fused-MLP gate holds.  The CUDA
+    gate is the caller's; on CPU tensors every wrapper takes its plain
+    version."""
+    B, H, W, C = x.shape
+    mlp = bp["mlp"]
+    fused = cfg.fused_mlp and C % 128 == 0 and mlp["w1"].shape[1] % 512 == 0
+    if fused:
+        qkv = fused_ln_qkv(x, bp["ln1_w"], bp["ln1_b"], bp["wqkv"],
+                           bp["bqkv"], eps=cfg.ln_eps)
+    else:
+        y = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)
+        qkv = y.reshape(B, H * W, C) @ bp["wqkv"] + bp["bqkv"]
+    core = _flash_window_core if windowed else _flash_global_core
+    attn = core(qkv.reshape(B, H, W, 3 * C), bp, cfg)
+    if fused:
+        return fused_proj_ln_mlp(
+            x, attn, bp["wo"], bp["bo"], bp["ln2_w"], bp["ln2_b"],
+            mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], eps=cfg.ln_eps)
+    x = x + (attn.reshape(B, H * W, C) @ bp["wo"]
+             + bp["bo"]).reshape(B, H, W, C)
+    return x + mlp_block(layer_norm(x, bp["ln2_w"], bp["ln2_b"],
+                                    cfg.ln_eps), mlp)
+
+
 def _block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, windowed: bool):
     B, H, W, C = x.shape
-    if not windowed and cfg.flash_global and H == W and x.is_cuda:
-        mlp = bp["mlp"]
-        fused = (cfg.fused_mlp and C % 128 == 0
-                 and mlp["w1"].shape[1] % 512 == 0)
-        if fused:
-            qkv = fused_ln_qkv(x, bp["ln1_w"], bp["ln1_b"], bp["wqkv"],
-                               bp["bqkv"], eps=cfg.ln_eps)
-        else:
-            y = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)
-            qkv = y.reshape(B, H * W, C) @ bp["wqkv"] + bp["bqkv"]
-        attn = _flash_global_core(qkv.reshape(B, H, W, 3 * C), bp, cfg)
-        if fused:
-            return fused_proj_ln_mlp(
-                x, attn, bp["wo"], bp["bo"], bp["ln2_w"], bp["ln2_b"],
-                mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], eps=cfg.ln_eps)
-        x = x + (attn.reshape(B, H * W, C) @ bp["wo"]
-                 + bp["bo"]).reshape(B, H, W, C)
-        return x + mlp_block(layer_norm(x, bp["ln2_w"], bp["ln2_b"],
-                                        cfg.ln_eps), mlp)
+    flash = cfg.flash_window if windowed else (cfg.flash_global and H == W)
+    if flash and x.is_cuda:
+        return _flash_block(x, bp, cfg, windowed)
     shortcut = x
     x = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)
     if windowed:

@@ -34,10 +34,10 @@ _SIGNATURES = {
     # out, stream
     "flmm_block_tail": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P,
                         _P, _I, _P, _P),
-    # q, k, v, s_b, s_h, s_t, nh, bias, side, G, S, head_dim, out, o_b, o_h,
-    # o_t, stream
-    "flmm_relpos_attention": (_P, _P, _P, _L, _L, _L, _I, _P, _I, _I, _I, _I,
-                              _P, _L, _L, _L, _P),
+    # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, G, S, head_dim,
+    # out, o_b, o_h, o_t, stream
+    "flmm_relpos_attention": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P, _I,
+                              _I, _I, _I, _P, _L, _L, _L, _P),
     # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S,
     # head_dim, key_valid, mm, M, img_start, n_img, out, o_b, o_h, o_t, lse,
     # merged, stream
@@ -128,3 +128,14 @@ def check_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: argument {i} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: argument {i} is not 16-byte aligned")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate through a kernel: the
+    kernels have no backward, so a CUDA launch would cut the gradient that
+    the plain version gives on the CPU.  Checked on every device."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no backward; "
+            "call it under torch.no_grad() or on inputs that need no grad")

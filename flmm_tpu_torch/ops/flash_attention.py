@@ -85,6 +85,8 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
 
     Returns ``(out (B, H, S, hd) in q.dtype, merged (B, H, M, n_img) f32)``.
     """
+    _cuda.check_no_grad("flash_attention_with_merged_capture", q, k, v,
+                        key_valid, merge_matrix)
     _check_contract(q, k, v, key_valid, merge_matrix, img_start, n_img)
     if not q.is_cuda:
         return flash_attention_with_merged_capture_plain(

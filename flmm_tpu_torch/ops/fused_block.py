@@ -46,6 +46,7 @@ def fused_ln_qkv(x, ln_w, ln_b, w, b, eps: float = 1e-6):
 
     Returns ``(..., P)`` in ``x.dtype``.
     """
+    _cuda.check_no_grad("fused_ln_qkv", x, ln_w, ln_b, w, b)
     if not x.is_cuda:
         return fused_ln_qkv_plain(x, ln_w, ln_b, w, b, eps)
     C = x.shape[-1]
@@ -82,6 +83,8 @@ def fused_proj_ln_mlp(shortcut, attn, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
       shortcut, attn: ``(..., C)``; wo: ``(C, C)``; w1: ``(C, F)``;
       w2: ``(F, C)``.
     """
+    _cuda.check_no_grad("fused_proj_ln_mlp", shortcut, attn, wo, bo, ln_w,
+                        ln_b, w1, b1, w2, b2)
     if not shortcut.is_cuda:
         return fused_proj_ln_mlp_plain(shortcut, attn, wo, bo, ln_w, ln_b,
                                        w1, b1, w2, b2, eps, act)

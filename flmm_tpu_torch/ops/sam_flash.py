@@ -1,11 +1,15 @@
-"""K2: global ViTDet attention with decomposed relative-position bias
-(flmm_tpu/ops/sam_flash.py::sam_global_attention_v8).
+"""SAM attention with decomposed relative-position bias: K2
+(flmm_tpu/ops/sam_flash.py::sam_global_attention_v8) over a global layer's
+grid and K6 (::sam_window_attention_v9) over the 14x14 windows of the split
+window path.
 
-The wrapper prepares the thin operands outside the kernel as the JAX
-package does (``_global_augmented_operands``): q scaled by
-``scale * log2(e)`` and the bias rows ``(G, S, 2*side)`` in the log2 domain,
-both rounded to the working dtype.  The kernel (csrc/relpos_attention.cu)
-adds the bias in its score loop and never writes the ``(G, S, S)`` scores.
+Each wrapper prepares the thin operands outside the kernel as the JAX
+package does (``_global_augmented_operands`` and the v9 wrapper at
+:88-103): q scaled by ``scale * log2(e)`` and the bias rows
+``(G, S, 2*side)`` in the log2 domain from the unscaled q, both rounded to
+the working dtype.  The TPU kernels fold the bias into an augmented-K
+product; the Hopper kernel (csrc/relpos_attention.cu) adds it to the f32
+scores in registers and never writes the ``(G, S, S)`` scores.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from flmm_tpu_torch.ops import _cuda
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
+HEAD_DIM = 64  # the kernel's head width
 # f32 scores the plain global attention holds at a time (256 MB)
 MAX_PLAIN_SCORES = 1 << 26
 
@@ -44,10 +49,11 @@ def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
 
 
 def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
-    """Natural-base attention with decomposed rel-pos bias over ``(G, S,
-    hd)``; query rows are chunked so at most ``MAX_PLAIN_SCORES`` f32 scores
-    exist at a time (the unchunked ``(64, 4096, 4096)`` scores of a bs-4
-    SAM-1024 global layer would take 4.3 GB)."""
+    """K2's plain version (and, reshaped, K6's): natural-base attention with
+    decomposed rel-pos bias over ``(G, S, hd)``, softmax in f32; query rows
+    are chunked so at most ``MAX_PLAIN_SCORES`` f32 scores exist at a time
+    (the unchunked ``(64, 4096, 4096)`` scores of a bs-4 SAM-1024 global
+    layer would take 4.3 GB)."""
     G, S, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     coords = rel_pos_coords(side, q.device)
@@ -70,26 +76,63 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
     return torch.cat(outs, dim=1)
 
 
+def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Prepare the operands as the JAX wrappers do and launch
+    csrc/relpos_attention.cu over ``(G, S, 64)`` heads or ``(NW, nh, S,
+    64)`` strided views; the output has q's shape, in memory ``(G, S, 64)``
+    or ``(NW, S, nh, 64)``."""
+    S, hd = q.shape[-2:]
+    if (S != side * side or k.shape != q.shape or v.shape != q.shape
+            or q.dim() not in (3, 4)):
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} side {side}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"{name}: kernel built for head_dim {HEAD_DIM}, "
+                         f"got {hd}")
+    G = math.prod(q.shape[:-2])
+    nh = 1 if q.dim() == 3 else q.shape[1]
+    qs = (q.float() * (LOG2E / math.sqrt(hd))).to(q.dtype).reshape(
+        G, S, hd).contiguous()
+    bias = global_bias_rows(q.reshape(G, S, hd), rel_pos_h, rel_pos_w, side)
+    if q.dim() == 3:
+        k, v = k.contiguous(), v.contiguous()
+        out = torch.empty_like(qs)
+        out_view, out_strides = out, (S * hd, 0, hd)
+    else:
+        out = torch.empty((q.shape[0], S, nh, hd), dtype=q.dtype,
+                          device=q.device)
+        out_view, out_strides = out.transpose(1, 2), (S * nh * hd, hd, nh * hd)
+    _cuda.check_cuda(name, qs, bias, out)
+    # (s_b, s_h, s_t) of k and v, read in place
+    strides = k.stride()[:3] if k.dim() == 4 else (k.stride(0), 0,
+                                                   k.stride(1))
+    for t in (k, v):
+        if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride() !=
+                k.stride() or t.stride(-1) != 1 or any(s % 8 for s in strides)
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{name}: k and v must be bf16 CUDA tensors with one set of "
+                "strides, a contiguous last dim, strides that are multiples "
+                f"of 8 and 16-byte alignment; got {t.dtype}, strides "
+                f"{t.stride()}")
+    relpos_attention(qs, (S * nh * hd, S * hd, hd), k, v, strides, nh, bias,
+                     side, G, S, out, out_strides)
+    return out_view
+
+
 def sam_global_attention_v8(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global ViTDet attention over ``(G, S, hd)`` heads (K2); keys at or
     beyond ``S = side**2`` are masked in-kernel for any grid side."""
+    _cuda.check_no_grad("sam_global_attention_v8", q, k, v, rel_pos_h,
+                        rel_pos_w)
     if not q.is_cuda:
         return sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w,
                                              side)
-    G, S, hd = q.shape
-    if S != side * side or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"sam_global_attention_v8: q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} side {side}")
-    if hd != 64:
-        raise ValueError(f"sam_global_attention_v8: kernel built for "
-                         f"head_dim 64, got {hd}")
-    qs = (q.float() * (LOG2E / math.sqrt(hd))).to(q.dtype)
-    bias = global_bias_rows(q, rel_pos_h, rel_pos_w, side)
-    k, v = k.contiguous(), v.contiguous()
-    out = torch.empty_like(qs)
-    _cuda.check_cuda("sam_global_attention_v8", qs, k, v, bias, out)
-    relpos_attention(qs, k, v, (S * hd, 0, hd), 1, bias, side, G, S, out,
-                     (S * hd, 0, hd))
+    if q.dim() != 3:
+        raise ValueError(f"sam_global_attention_v8: q {tuple(q.shape)} is "
+                         "not (G, S, hd)")
+    out = _launch("sam_global_attention_v8", q, k, v, rel_pos_h, rel_pos_w,
+                  side)
     sam_global_attention_v8.launches += 1
     return out
 
@@ -97,12 +140,42 @@ def sam_global_attention_v8(q, k, v, rel_pos_h, rel_pos_w, side: int):
 sam_global_attention_v8.launches = 0
 
 
-def relpos_attention(q, k, v, strides, nh, bias, side, G, S, out,
+def sam_window_attention_v9_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """K6's plain version over ``(G, T, hd)`` or ``(NW, nh, T, hd)``: the
+    window-heads through :func:`sam_global_attention_v8_plain`."""
+    T, hd = q.shape[-2:]
+    out = sam_global_attention_v8_plain(
+        q.reshape(-1, T, hd), k.reshape(-1, T, hd), v.reshape(-1, T, hd),
+        rel_pos_h, rel_pos_w, side)
+    return out.reshape(q.shape)
+
+
+def sam_window_attention_v9(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention (K6) over window-heads ``(G, T=side**2,
+    64)``, or over ``(NW, nh, T, 64)`` strided views of a windowised
+    ``(NW, T, 3C)`` qkv tensor (then g = w * nh + h, read in place); the
+    output has q's shape."""
+    _cuda.check_no_grad("sam_window_attention_v9", q, k, v, rel_pos_h,
+                        rel_pos_w)
+    if not q.is_cuda:
+        return sam_window_attention_v9_plain(q, k, v, rel_pos_h, rel_pos_w,
+                                             side)
+    out = _launch("sam_window_attention_v9", q, k, v, rel_pos_h, rel_pos_w,
+                  side)
+    sam_window_attention_v9.launches += 1
+    return out
+
+
+sam_window_attention_v9.launches = 0
+
+
+def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
                      out_strides) -> None:
-    """Launch csrc/relpos_attention.cu; element ``(g, t, d)`` of q/k/v is at
-    ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] + d``
-    from each pointer.  Uncounted: the K1 and K2 wrappers count."""
+    """Launch csrc/relpos_attention.cu; element ``(g, t, d)`` of k and v is
+    at ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] +
+    d`` from each pointer, of q likewise with ``q_strides``.  Uncounted: the
+    K1, K2 and K6 wrappers count."""
     _cuda.launch(
-        "flmm_relpos_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *strides, nh, bias.data_ptr(), side, G, S, 64, out.data_ptr(),
-        *out_strides, _cuda.stream(q))
+        "flmm_relpos_attention", q.data_ptr(), *q_strides, k.data_ptr(),
+        v.data_ptr(), *strides, nh, bias.data_ptr(), side, G, S, HEAD_DIM,
+        out.data_ptr(), *out_strides, _cuda.stream(q))

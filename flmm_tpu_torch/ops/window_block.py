@@ -108,6 +108,8 @@ def window_block(x, bias, valid, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,
 
     Returns ``(NW, T, C)``.
     """
+    _cuda.check_no_grad("window_block", x, bias, ln1_w, ln1_b, wqkv_s,
+                        bqkv_s, wo, bo, ln2_w, ln2_b, w1, b1, w2, b2)
     if not x.is_cuda:
         return window_block_plain(x, bias, valid, ln1_w, ln1_b, wqkv_s,
                                   bqkv_s, wo, bo, ln2_w, ln2_b, w1, b1, w2,
@@ -128,8 +130,9 @@ def window_block(x, bias, valid, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,
             None if valid is None else valid.reshape(-1).contiguous(),
             wqkv_s, bqkv_s, qkv)
     attn = torch.empty((NW * T, C), dtype=x.dtype, device=x.device)
-    relpos_attention(qkv, qkv[:, C:], qkv[:, 2 * C:], (T * 3 * C, hd, 3 * C),
-                     nh, bias, side, NW * nh, T, attn, (T * C, hd, C))
+    strides = (T * 3 * C, hd, 3 * C)
+    relpos_attention(qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides, nh,
+                     bias, side, NW * nh, T, attn, (T * C, hd, C))
     out = torch.empty_like(xf)
     block_tail(xf, attn, wo, bo, ln2_w, ln2_b, eps, w1, b1, w2, b2, "gelu",
                out)

@@ -1,14 +1,19 @@
-"""Where the time goes in one forward of the PyTorch port on one GPU.
+"""Where the time goes in one forward or training step of the PyTorch port
+on one GPU.
 
     python3 scripts/torch_profile.py                  # DeepSeek-VL-1.3B, bs 4
     python3 scripts/torch_profile.py --path llava_next  # LLaVA-NeXT, bs 2
+    python3 scripts/torch_profile.py --path train     # DeepSeek-VL training
+                                                      # at SAM-448, bs 8
 
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
-from torch.profiler over one forward, and stage times (vision tower, LLM
-capture for LLaVA-NeXT, SAM encoder, whole forward) from CUDA events.  For
-DeepSeek-VL it then times the three stages of K1 (window block) separately
-at the SAM-1024 window shape.
+from torch.profiler over one forward (or step), the device's busy and idle
+time, and stage times from CUDA events: vision tower, LLM capture for
+LLaVA-NeXT, SAM encoder and whole forward; for training the step's forward
+(the loss), backward and optimizer update.  For DeepSeek-VL serving it then
+times the three stages of K1 (window block) separately at the SAM-1024
+window shape.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+from flmm_tpu_torch import registry  # noqa: E402
 from flmm_tpu_torch.configs import deepseek_vl, llava_next  # noqa: E402
 from flmm_tpu_torch.convert.from_jax import from_jax  # noqa: E402
 from flmm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
@@ -32,6 +38,7 @@ from flmm_tpu_torch.models.frozen import llava_next as llava_next_model  # noqa:
 from flmm_tpu_torch.models.sam import image_encoder  # noqa: E402
 from flmm_tpu_torch.models.vision import vit  # noqa: E402
 from flmm_tpu_torch.ops import fused_block, sam_flash, window_block  # noqa: E402
+from flmm_tpu_torch.train import loop  # noqa: E402
 
 
 def deepseek_setup(g: torch.Generator):
@@ -143,8 +150,9 @@ def profile_window_block(g: torch.Generator) -> None:
         "qkv ln_gemm": lambda: fused_block.ln_gemm(
             xf, lw, lb, 1e-6, valid.reshape(-1), w_s, b_s, qkv),
         "window attention": lambda: sam_flash.relpos_attention(
-            qkv, qkv[:, C:], qkv[:, 2 * C:], (T * 3 * C, hd, 3 * C), nh,
-            bias, ws, NW * nh, T, attn, (T * C, hd, C)),
+            qkv, (T * 3 * C, hd, 3 * C), qkv[:, C:], qkv[:, 2 * C:],
+            (T * 3 * C, hd, 3 * C), nh, bias, ws, NW * nh, T, attn,
+            (T * C, hd, C)),
         "block_tail": lambda: fused_block.block_tail(
             xf, attn, wo, bo, lw, lb, 1e-6, w1, b1, w2, b2, "gelu", out),
         "rel-pos bias rows (plain)": lambda: window_block.window_rel_bias_from_x(
@@ -154,13 +162,79 @@ def profile_window_block(g: torch.Generator) -> None:
         print(f"K1 {part} (NW={NW}): {chip_smoke.cuda_ms(fn):.3f} ms")
 
 
+def profile_train(g: torch.Generator) -> None:
+    """One training step of DeepSeek-VL-1.3B at SAM-448 (chip_smoke phase
+    8's configuration and stream) per path: the profiler's device time by
+    kernel and busy share, then forward / backward / optimizer times from
+    CUDA events, mean of 3 steps after a warm-up, and the frozen towers'
+    forwards alone."""
+    cfg = registry.with_sam_size(deepseek_vl.deepseek_vl_1_3b(),
+                                 chip_smoke.TRAIN_SAM)
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    chip_smoke.randomize_rel_pos(params, g)
+    fro = params["frozen"]
+    batch = from_jax(synthetic_batch(cfg, batch_size=chip_smoke.TRAIN_BS,
+                                     seed=1), "cuda")
+    opt = loop.make_optimizer(loop.OptimConfig(total_steps=100))
+    state = loop.init_state(params["trainable"], opt)
+    for name, c in (("kernel", cfg), ("plain", chip_smoke._plain_config(cfg))):
+        def step() -> list:
+            """One step; CUDA events before and after its three parts."""
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            events[0].record()
+            loss, _ = grounding.loss_fn(
+                {"frozen": fro, "trainable": state["params"]}, c, batch)
+            events[1].record()
+            grads = loop.gradients(loss, state["params"])
+            events[2].record()
+            state["opt_state"] = opt.update(grads, state["opt_state"],
+                                            state["params"])
+            events[3].record()
+            return events
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        print(f"== {name} path: device time by kernel, one training step")
+        print(prof.key_averages().table(sort_by="cuda_time_total",
+                                        row_limit=30,
+                                        max_name_column_width=70))
+        busy, window = device_busy_ms(prof)
+        print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
+              f"device window ({1 - busy / window:.1%} idle)")
+        parts = torch.zeros(3)
+        for _ in range(3):
+            events = step()
+            torch.cuda.synchronize()
+            parts += torch.tensor([events[i].elapsed_time(events[i + 1])
+                                   for i in range(3)])
+        fwd, bwd, upd = (parts / 3).tolist()
+        print(f"{name} step: forward {fwd:.3f} ms, backward {bwd:.3f} ms, "
+              f"optimizer {upd:.3f} ms, step {fwd + bwd + upd:.3f} ms")
+        with torch.no_grad():
+            for stage, fn in {
+                    "siglip tower": lambda: vit.forward(
+                        fro["vision"], c.vision, batch["pixel_values"]),
+                    "sam encoder": lambda: image_encoder.forward(
+                        fro["sam_encoder"], c.sam.encoder,
+                        batch["sam_pixel_values"])}.items():
+                print(f"{name} {stage}: {chip_smoke.cuda_ms(fn, 3):.3f} ms")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("deepseek", "llava_next"),
+    parser.add_argument("--path", choices=("deepseek", "llava_next", "train"),
                         default="deepseek")
     args = parser.parse_args()
     print(chip_smoke.phase_card())
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.path == "train":
+        profile_train(g)
+        return
     setup = deepseek_setup if args.path == "deepseek" else llava_next_setup
     profile_paths(*setup(g))
     if args.path == "deepseek":

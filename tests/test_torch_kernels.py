@@ -157,6 +157,7 @@ def _wrapper_cases(rng):
     rph = _r(rng, 2 * side - 1, hd, scale=0.1)
     wqkv, bqkv = _r(rng, C, 3 * C, scale=0.2), _r(rng, 3 * C, scale=0.1)
     xw = _r(rng, 2, side * side, C)
+    xw3 = _r(rng, 2, side * side, 3 * C)
     bias = _r(rng, 2, nh, side * side, 2 * side, scale=0.1)
     valid = rng.random((2, side * side)) > 0.2
     fq, fkv = _r(rng, 2, 4, 256, 16), _r(rng, 2, 2, 256, 16)
@@ -187,12 +188,22 @@ def _wrapper_cases(rng):
             flash_attention.flash_attention_with_merged_capture,
             flash_attention.flash_attention_with_merged_capture_plain,
             (*_t(fq, fkv, fkv, fvalid), fmm, 128, 100)),
+        # (NW, nh, T, hd) views of a windowised qkv, as the encoder calls it
+        "sam_window_attention_v9": (
+            sam_flash.sam_window_attention_v9,
+            sam_flash.sam_window_attention_v9_plain,
+            (*(t.reshape(2, side * side, nh, C // nh).transpose(1, 2)
+               for t in torch.from_numpy(xw3).split(C, dim=-1)),
+             *_t(rph, rph), side)),
     }
 
 
-@pytest.mark.parametrize("name", ["fused_ln_qkv", "fused_proj_ln_mlp",
-                                  "sam_global_attention_v8", "window_block",
-                                  "flash_attention_with_merged_capture"])
+WRAPPERS = ["fused_ln_qkv", "fused_proj_ln_mlp", "sam_global_attention_v8",
+            "window_block", "flash_attention_with_merged_capture",
+            "sam_window_attention_v9"]
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_takes_plain_version_on_cpu_and_launches_nothing(name):
     wrapper, plain, args = _wrapper_cases(np.random.default_rng(5))[name]
     before = wrapper.launches
@@ -213,3 +224,18 @@ def test_scaled_qkv_weights_fold_scale_and_log2e_into_q_only():
     np.testing.assert_allclose(w_s[:, :C].numpy(), w[:, :C] * f, rtol=1e-6)
     np.testing.assert_array_equal(w_s[:, C:].numpy(), w[:, C:])
     np.testing.assert_allclose(b_s[:C].numpy(), b[:C] * f, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_refuses_inputs_that_require_grad(name):
+    """The kernels have no backward, so no wrapper may be differentiated
+    through -- on the CPU too, where the plain version would differentiate
+    and hide what the CUDA launch would cut."""
+    wrapper, _, args = _wrapper_cases(np.random.default_rng(7))[name]
+    args = list(args)
+    args[0] = args[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        wrapper(*args)
+    with torch.no_grad():
+        wrapper(*args)
+    assert wrapper.launches == 0
