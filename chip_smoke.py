@@ -13,7 +13,15 @@ Phases; any failure raises and the script exits non-zero:
    DeepSeek-VL-1.3B serving shapes, K3 and K4 again at the CLIP-L/336 shape
    of the anyres tower (quick_gelu) and at the SAM-448 training rows, K5
    flash capture at the LLaVA-NeXT decoder shape, K2 at the SAM-448 grid
-   (side 28) and K6 window attention at the SAM-448 training shape;
+   (side 28) and K6 window attention at the SAM-448 training shape; K7
+   tower flash attention at the HPT tower shape (head dim 72, read in place
+   from the qkv rows) and at the CLIP shape (S = 577, head dim 64), K8 LN2 +
+   MLP and K10 the attention half of a global SAM block at the SAM-1024
+   global-layer shape (K10's f32 result also bit for bit equal across two
+   runs), K5 again at the HPT decoder shape (GQA 32/8).  Each kernel's time
+   stands beside its bound (the larger of its operations over the card's
+   peak bf16 rate and its operand bytes over the peak memory rate) and,
+   where one PyTorch call computes the same function, that call's time;
 4. serve 3 distinct synthetic bs-4 requests through the DeepSeek-VL-1.3B
    grounding forward at full width (DeepSeek-LLM-1.3B + SigLIP-L/384 + SAM
    ViT-L at 1024, bf16, random weights from a seed): output shapes, finite
@@ -34,7 +42,14 @@ Phases; any failure raises and the script exits non-zero:
 9. compare one training step's loss and gradients with the all-plain
    path's on the same state and batch, and time the plain path's steps;
 10. check that 10 steps on one repeated batch lower its loss;
-11. report times.
+11. serve 3 distinct synthetic bs-4 requests through the HPT-Air-1.5
+    grounding forward at full width and depth (Llama-3-8B with GQA 32/8
+    over S=1280 with the 1024-token image block at 128, SigLIP-SO400M/14 at
+    448 with the flash switch on, SAM ViT-L at 1024 with the whole-block
+    global switch on): shapes, finite values, launches;
+12. compare that forward, its tower features and its SAM embedding with the
+    all-plain forward;
+13. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -62,9 +77,10 @@ from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
 from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
+from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.ops import _cuda
-from flmm_tpu_torch.ops import flash_attention, fused_block, masks, \
-    sam_flash, window_block
+from flmm_tpu_torch.ops import flash_attention, fused_block, global_block, \
+    masks, sam_flash, window_block
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
 
@@ -73,12 +89,18 @@ BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
 # to an image block at 128, (h, w) of the two images: 2x2 and 3x1 grids
 ANYRES_BS, ANYRES_IMG_START, ANYRES_PROMPT = 2, 128, 35
 ANYRES_SIZES = ((600, 640), (900, 280))
+# HPT-Air-1.5 requests: the image block of 1024 tokens at 128, S = 128 + 1024
+# + 40 rounded up to 128
+HPT_IMG_START, HPT_SEQ = 128, 1280
+# published dense peaks of one H100 SXM: bf16 tensor-core rate, memory rate
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # kernel vs plain version, both bf16: max |diff| over max |plain| and the
 # correlation of the flattened outputs
 KERNEL_REL_ERR, KERNEL_CORR = 2e-2, 0.999
 # kernel forward vs all-plain forward (bf16 differences compound through
 # 24 SAM blocks, the 23-24 tower blocks and the decoder)
-FORWARD_CORR = {"sam_embedding": 0.999, "attn": 0.999, "hidden": 0.999,
+FORWARD_CORR = {"sam_embedding": 0.999, "attn": 0.999,
+                "vision_features": 0.999, "hidden": 0.999,
                 "coarse_logits": 0.99, "sam_logits": 0.99}
 # training: bs 8 at the SAM-448 schedule, scripts/train.py's random stream
 # (synthetic_batch defaults: S = 613, up to 3 masks of up to 4 tokens)
@@ -94,17 +116,29 @@ EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
         "window_block": 20, "sam_global_attention_v8": 4,
         "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28,
         "flash_attention_with_merged_capture": 0,
-        "sam_window_attention_v9": 0},
+        "sam_window_attention_v9": 0, "plain_flash_attention": 0,
+        "fused_ln_mlp": 0, "global_attn_block": 0},
     "llava_next_vicuna_7b": {
         "window_block": 20, "sam_global_attention_v8": 4,
         "fused_ln_qkv": 27, "fused_proj_ln_mlp": 27,
         "flash_attention_with_merged_capture": 32,
-        "sam_window_attention_v9": 0},
+        "sam_window_attention_v9": 0, "plain_flash_attention": 0,
+        "fused_ln_mlp": 0, "global_attn_block": 0},
     "deepseek_vl_1_3b_train_sam448": {
         "window_block": 0, "sam_global_attention_v8": 4,
         "fused_ln_qkv": 48, "fused_proj_ln_mlp": 48,
         "flash_attention_with_merged_capture": 0,
-        "sam_window_attention_v9": 20},
+        "sam_window_attention_v9": 20, "plain_flash_attention": 0,
+        "fused_ln_mlp": 0, "global_attn_block": 0},
+    # the tower's K3 / K4 gate is closed (mlp_dim 4304 % 512 != 0), 26 of its
+    # 27 layers run (features at layer -2), and the 4 global SAM layers go
+    # K10 + K8 instead of K3 + K2 + K4
+    "hpt_air_1_5": {
+        "window_block": 20, "sam_global_attention_v8": 0,
+        "fused_ln_qkv": 0, "fused_proj_ln_mlp": 0,
+        "flash_attention_with_merged_capture": 32,
+        "sam_window_attention_v9": 0, "plain_flash_attention": 26,
+        "fused_ln_mlp": 4, "global_attn_block": 4},
 }
 WRAPPERS = {"window_block": window_block.window_block,
             "sam_global_attention_v8": sam_flash.sam_global_attention_v8,
@@ -112,7 +146,10 @@ WRAPPERS = {"window_block": window_block.window_block,
             "fused_proj_ln_mlp": fused_block.fused_proj_ln_mlp,
             "flash_attention_with_merged_capture":
                 flash_attention.flash_attention_with_merged_capture,
-            "sam_window_attention_v9": sam_flash.sam_window_attention_v9}
+            "sam_window_attention_v9": sam_flash.sam_window_attention_v9,
+            "plain_flash_attention": sam_flash.plain_flash_attention,
+            "fused_ln_mlp": fused_block.fused_ln_mlp,
+            "global_attn_block": global_block.global_attn_block}
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -127,6 +164,12 @@ SOURCES = {
         "flmm_tpu/ops/flash_attention.py:246"),
     "sam_window_attention_v9": ("flmm_tpu_torch/csrc/relpos_attention.cu",
                                 "flmm_tpu/ops/sam_flash.py:122"),
+    "plain_flash_attention": ("flmm_tpu_torch/csrc/plain_flash.cu",
+                              "flmm_tpu/ops/sam_flash.py:185"),
+    "fused_ln_mlp": ("flmm_tpu_torch/csrc/block_tail.cu",
+                     "flmm_tpu/ops/fused_block.py:264"),
+    "global_attn_block": ("flmm_tpu_torch/ops/global_block.py",
+                          "flmm_tpu/ops/global_block.py:243"),
 }
 
 
@@ -199,37 +242,120 @@ def anyres_batches(cfg, device=None) -> list:
     return out
 
 
-def phase_kernels(g: torch.Generator) -> dict:
-    """Each kernel against its plain version at the main paths' shapes."""
+def _tensor_bytes(*items) -> int:
+    return sum(t.numel() * t.element_size() for t in items
+               if isinstance(t, torch.Tensor))
+
+
+def _attention_mask(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
+    """The decomposed rel-pos bias of ``(G, S, hd)`` heads expanded to an
+    additive ``(1, G, S, S)`` mask in natural base, for the library call's
+    timing only."""
+    rows = sam_flash.global_bias_rows(q, rel_pos_h, rel_pos_w, side)
+    G, S, _ = rows.shape
+    mask = torch.empty((1, G, S, S), dtype=q.dtype, device=q.device)
+    for g0 in range(0, G, 8):  # the f32 sum of 8 heads at a time
+        r = rows[g0:g0 + 8].float() * sam_flash.LN2
+        mask[0, g0:g0 + 8] = (r[..., :side, None] + r[..., None, side:]
+                              ).reshape(-1, S, S)
+    return mask
+
+
+def _sdpa(q, k, v, mask=None):
+    """``F.scaled_dot_product_attention`` over ``(G, S, hd)`` heads or ``(B,
+    H, S, hd)`` views: the yardstick of K2, K6 and K7, called nowhere in the
+    port."""
+    if q.dim() == 3:
+        q, k, v = q[None], k[None], v[None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
+
+
+def hpt_config():
+    """HPT-Air-1.5 with the image block at 128 and the two kernel switches a
+    user sets on top of the preset: the tower's flash attention (K7) and the
+    whole-block global SAM layer (K10 + K8)."""
+    cfg = registry.get_config("hpt", "air_1_5", img_start=HPT_IMG_START)
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, flash=True),
+        sam=dataclasses.replace(cfg.sam, encoder=dataclasses.replace(
+            cfg.sam.encoder, global_block_fused=True)))
+
+
+def hpt_batches(cfg, n: int, device=None) -> list:
+    """``n`` distinct bs-4 requests of the HPT-Air-1.5 phase (numpy, or
+    tensors on ``device``)."""
+    out = []
+    for seed in range(n):
+        b = synthetic_batch(cfg, batch_size=BS, seq_len=HPT_SEQ,
+                            max_masks=MASKS, text_tokens_per_mask=TEXT,
+                            seed=seed)
+        out.append(b if device is None else from_jax(b, device))
+    return out
+
+
+def phase_kernels(g: torch.Generator, g_hpt: torch.Generator) -> dict:
+    """Each kernel against its plain version at the main paths' shapes.
+    The checks that came with the HPT path draw from ``g_hpt``, so that the
+    three earlier paths keep the weights and inputs ``g`` has always given
+    them (phase 9's U-Net gradient comparison is sensitive to the state the
+    training steps reach)."""
     C, F, hd = 1024, 4096, 64
     results = {}
 
-    def check(name, label, kernel_fn, plain_fn, gflop=None):
+    def check(name, label, wrapper, plain, args, flop, library_fn=None):
+        """Compare, time and bound one kernel: ``flop`` is the operations of
+        its products at this shape, the bytes are those of its operands and
+        results, each moved once."""
+        def kernel_fn():
+            return wrapper(*args)
+
+        def plain_fn():
+            return plain(*args)
+
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         pairs = (list(zip(got, want)) if isinstance(got, tuple)
                  else [(got, want)])
         rels, corrs = zip(*(agreement(a, b) for a, b in pairs))
         rel, corr = max(rels), min(corrs)
+        moved = _tensor_bytes(*args, *(a for a, _ in pairs))
+        del want
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        library_ms = None
+        if library_fn is not None:
+            lib_rel, _ = agreement(library_fn().reshape(pairs[0][0].shape),
+                                   pairs[0][0])
+            library_ms = cuda_ms(library_fn)
+        by_ops, by_bytes = flop / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        bound_ms = max(by_ops, by_bytes)
         ok = rel <= KERNEL_REL_ERR and corr >= KERNEL_CORR
-        rate = f" ({gflop / ms:.1f} TFLOP/s)" if gflop else ""
+        library = ("none" if library_ms is None else
+                   f"{library_ms:.3f} ms (kernel vs library max_rel_err "
+                   f"{lib_rel:.3e})")
         log(f"phase 3 {name} [{label}]: max_rel_err {rel:.3e} (bound "
             f"{KERNEL_REL_ERR}) corr {corr:.6f} (bound {KERNEL_CORR}) "
-            f"kernel {ms:.3f} ms{rate} plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s) plain "
+            f"{plain_ms:.3f} ms library {library}; {flop / 1e9:.1f} GFLOP, "
+            f"{moved / 1e6:.1f} MB, least {bound_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{name} [{label}] disagrees with its "
                                  "plain version")
         if name not in results:  # the first shape listed is reported
-            results[name] = {"max_abs_err": max(
-                (a.float() - b.float()).abs().max().item()
-                for a, b in pairs), "ms": ms, "plain_ms": plain_ms}
+            results[name] = {
+                "shape": label, "max_abs_err": max(
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in pairs),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                "library_ms": library_ms}
 
-    def ln_params():
-        return _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    def ln_params(gen=g):
+        return _randn(gen, (C,), 0.1, 1.0), _randn(gen, (C,), 0.1)
 
-    # K3 / K4: SAM global layers (N = 4096 * bs), SigLIP layers (576 * bs),
-    # CLIP-L/336 layers over base + 4 tile slots (577 * 5 * 2, quick_gelu)
+    # K3 / K4 / K8: SAM global layers (N = 4096 * bs); K3 / K4 also at the
+    # SigLIP layers (576 * bs), the CLIP-L/336 layers over base + 4 tile
+    # slots (577 * 5 * 2, quick_gelu) and the SAM-448 training rows
     train_grid = TRAIN_SAM // 16
     for label, N, act, eps in (
             ("SAM global, N=16384", 4096 * BS, "gelu", 1e-6),
@@ -244,27 +370,61 @@ def phase_kernels(g: torch.Generator) -> dict:
         wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
         w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
         w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
-        check("fused_ln_qkv", label,
-              lambda: fused_block.fused_ln_qkv(x, lw, lb, wqkv, bqkv, eps),
-              lambda: fused_block.fused_ln_qkv_plain(x, lw, lb, wqkv, bqkv,
-                                                     eps))
-        check("fused_proj_ln_mlp", label,
-              lambda: fused_block.fused_proj_ln_mlp(
-                  x, a, wo, bo, lw, lb, w1, b1, w2, b2, eps, act),
-              lambda: fused_block.fused_proj_ln_mlp_plain(
-                  x, a, wo, bo, lw, lb, w1, b1, w2, b2, eps, act))
+        check("fused_ln_qkv", label, fused_block.fused_ln_qkv,
+              fused_block.fused_ln_qkv_plain, (x, lw, lb, wqkv, bqkv, eps),
+              flop=2 * N * C * 3 * C)
+        check("fused_proj_ln_mlp", label, fused_block.fused_proj_ln_mlp,
+              fused_block.fused_proj_ln_mlp_plain,
+              (x, a, wo, bo, lw, lb, w1, b1, w2, b2, eps, act),
+              flop=2 * N * C * C + 4 * N * C * F)
+        if N == 4096 * BS:
+            check("fused_ln_mlp", label, fused_block.fused_ln_mlp,
+                  fused_block.fused_ln_mlp_plain,
+                  (x, lw, lb, w1, b1, w2, b2, eps, act), flop=4 * N * C * F)
 
-    # K2: 4 images x 16 heads over the 64 x 64 grid
+    # K2: 4 images x 16 heads over the 64 x 64 grid; each (query, key) pair
+    # of a head is 2 products of 2 * hd FLOP
     side = 64
     q, k, v = (_randn(g, (16 * BS, side * side, hd)) for _ in range(3))
     rph, rpw = _randn(g, (2 * side - 1, hd), 0.1), _randn(g, (2 * side - 1, hd), 0.1)
+    mask = _attention_mask(q, rph, rpw, side)  # 2.1 GB, outside the timing
     check("sam_global_attention_v8", "G=64, S=4096",
-          lambda: sam_flash.sam_global_attention_v8(q, k, v, rph, rpw, side),
-          lambda: sam_flash.sam_global_attention_v8_plain(q, k, v, rph, rpw,
-                                                          side))
+          sam_flash.sam_global_attention_v8,
+          sam_flash.sam_global_attention_v8_plain, (q, k, v, rph, rpw, side),
+          flop=4 * 16 * BS * side ** 4 * hd,
+          library_fn=lambda: _sdpa(q, k, v, mask))
+    del mask
+
+    # K10: the attention half of a global block over the same grid, from
+    # the residual stream, with non-zero rel-pos tables; its f32 result is
+    # compared as f32 and must repeat bit for bit
+    nh = 16
+    S = side * side
+    x = _randn(g_hpt, (BS, S, C))
+    lw, lb = ln_params(g_hpt)
+    w_s, b_s = window_block.scaled_qkv_weights(
+        _randn(g_hpt, (C, 3 * C), C ** -0.5), _randn(g_hpt, (3 * C,), 0.1),
+        nh, hd)
+    wo, bo = _randn(g_hpt, (C, C), C ** -0.5), _randn(g_hpt, (C,), 0.1)
+    bias = global_block.global_rel_bias_from_x(
+        x, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, side, nh, hd)
+    args = (x, bias, lw, lb, w_s, b_s, wo, bo, side, nh)
+    check("global_attn_block", f"B={BS}, S={S}, C={C}, f32 result",
+          global_block.global_attn_block,
+          global_block.global_attn_block_plain, args,
+          flop=2 * BS * S * C * 3 * C + 4 * BS * nh * S * S * hd
+          + 2 * BS * S * C * C)
+    first, second = (global_block.global_attn_block(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    if first.dtype != torch.float32 or not torch.equal(first, second):
+        raise AssertionError("global_attn_block: the result is not f32 or "
+                             "differs between two runs on one input")
+    log("phase 3 global_attn_block: f32 result, bit for bit equal across "
+        "two runs")
+    del first, second, bias, args
 
     # K1: the 64 x 64 grid padded to 70 x 70 = 25 windows per image
-    ws, nh = 14, 16
+    ws = 14
     x = _randn(g, (BS, 64, 64, C))
     xw, geom = sam_encoder._windowize(x, ws)
     xw = xw.contiguous()
@@ -279,33 +439,43 @@ def phase_kernels(g: torch.Generator) -> dict:
     rph, rpw = _randn(g, (2 * ws - 1, hd), 0.1), _randn(g, (2 * ws - 1, hd), 0.1)
     bias = window_block.window_rel_bias_from_x(
         xw, valid, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, ws, nh, hd)
-    args = (xw, bias, valid, lw, lb, w_s, b_s, wo, bo, l2w, l2b, w1, b1, w2,
-            b2, ws, nh)
-    check("window_block", f"NW={xw.shape[0]}, T=196, padded grid",
-          lambda: window_block.window_block(*args),
-          lambda: window_block.window_block_plain(*args))
+    NW, T = xw.shape[:2]
+    check("window_block", f"NW={NW}, T=196, padded grid",
+          window_block.window_block, window_block.window_block_plain,
+          (xw, bias, valid, lw, lb, w_s, b_s, wo, bo, l2w, l2b, w1, b1, w2,
+           b2, ws, nh),
+          flop=NW * T * (2 * C * 3 * C + 2 * C * C + 4 * C * F)
+          + 4 * NW * nh * T * T * hd)
 
-    # K5: one Vicuna-7B decoder layer over the anyres requests' sequence,
-    # its key holes and merge matrix; q, k, v as (B, H, S, hd) views of the
-    # decoder's (B, S, H, hd) projections
-    batch = anyres_batches(llava_next.llava_next_vicuna_7b(
-        img_start=ANYRES_IMG_START))[0]
-    valid = torch.from_numpy(batch["attn_mask"]).cuda()
-    mm = masks.mean_merge_matrix(
-        torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)
-    B, S = valid.shape
-    H, hd, n_img = 32, 128, 2928
-    q, k, v = (_randn(g, (B, S, H, hd)).transpose(1, 2) for _ in range(3))
-    fa_args = (q, k, v, valid, mm, ANYRES_IMG_START, n_img)
-    # the causal products the flash pass needs, 4 * hd FLOP per visible
-    # (query, key) pair and head
-    gflop = 4 * B * H * hd * S * (S + 1) / 2 / 1e9
-    check("flash_attention_with_merged_capture",
-          f"B={B}, H={H}, S={S}, n_img={n_img}, M={MASKS}",
-          lambda: flash_attention.flash_attention_with_merged_capture(
-              *fa_args),
-          lambda: flash_attention.flash_attention_with_merged_capture_plain(
-              *fa_args), gflop=gflop)
+    # K5: one decoder layer of each serving path that captures through it,
+    # with the path's key holes and merge matrix; q, k, v as (B, H, S, hd)
+    # views of the decoder's (B, S, H, hd) projections
+    def check_capture(gen, label, batch, H, KV, img_start, n_img):
+        valid = torch.from_numpy(batch["attn_mask"]).cuda()
+        mm = masks.mean_merge_matrix(
+            torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)
+        B, S = valid.shape
+        hd = 128
+        q = _randn(gen, (B, S, H, hd)).transpose(1, 2)
+        k, v = (_randn(gen, (B, S, KV, hd)).transpose(1, 2) for _ in range(2))
+        # what this batch needs: 4 * hd FLOP per visible (query, key) pair
+        # and head, and the merge of its text rows' image-block
+        # probabilities, 2 * M * n_img FLOP per row and head
+        pairs = int(valid.cumsum(1).sum())
+        text_rows = int((mm != 0).any(dim=-1).sum())
+        check("flash_attention_with_merged_capture",
+              f"{label}: B={B}, H={H}, KV={KV}, S={S}, n_img={n_img}, "
+              f"M={MASKS}",
+              flash_attention.flash_attention_with_merged_capture,
+              flash_attention.flash_attention_with_merged_capture_plain,
+              (q, k, v, valid, mm, img_start, n_img),
+              flop=4 * H * hd * pairs + 2 * H * MASKS * n_img * text_rows)
+
+    check_capture(g, "LLaVA-NeXT", anyres_batches(
+        llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START))[0],
+        32, 32, ANYRES_IMG_START, 2928)
+    check_capture(g_hpt, "HPT-Air-1.5", hpt_batches(hpt_config(), 1)[0], 32,
+                  8, HPT_IMG_START, 1024)
 
     # K2 over the SAM-448 grid: 8 images x 16 heads, side 28 (S = 784)
     hd = 64
@@ -313,26 +483,43 @@ def phase_kernels(g: torch.Generator) -> dict:
                for _ in range(3))
     rph, rpw = (_randn(g, (2 * train_grid - 1, hd), 0.1) for _ in range(2))
     check("sam_global_attention_v8", "SAM-448, G=128, S=784",
-          lambda: sam_flash.sam_global_attention_v8(q, k, v, rph, rpw,
-                                                    train_grid),
-          lambda: sam_flash.sam_global_attention_v8_plain(q, k, v, rph, rpw,
-                                                          train_grid))
+          sam_flash.sam_global_attention_v8,
+          sam_flash.sam_global_attention_v8_plain,
+          (q, k, v, rph, rpw, train_grid),
+          flop=4 * 16 * TRAIN_BS * train_grid ** 4 * hd)
 
     # K6: the 2 x 2 windows of 14 x 14 of 8 SAM-448 images, 16 heads, read
     # as (NW, nh, T, hd) views of the windowised qkv as the encoder passes
     # them: G = 512 window-heads, T = 196
-    NW, T, nh = 4 * TRAIN_BS, ws * ws, 16
+    NW, T = 4 * TRAIN_BS, ws * ws
     qkvw = _randn(g, (NW, T, 3 * C))
     heads = [qkvw[..., i * C:(i + 1) * C].reshape(NW, T, nh, hd).transpose(
         1, 2) for i in range(3)]
     rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
-    # each (query, key) pair of a window-head: 2 products of 2 * hd FLOP
-    gflop = 4 * NW * nh * T * T * hd / 1e9
+    mask = _attention_mask(heads[0].reshape(NW * nh, T, hd), rph, rpw,
+                           ws).reshape(NW, nh, T, T)
     check("sam_window_attention_v9", f"G={NW * nh}, T={T}, (NW, nh, T, hd) "
-          "views", lambda: sam_flash.sam_window_attention_v9(
-              *heads, rph, rpw, ws),
-          lambda: sam_flash.sam_window_attention_v9_plain(
-              *heads, rph, rpw, ws), gflop=gflop)
+          "views", sam_flash.sam_window_attention_v9,
+          sam_flash.sam_window_attention_v9_plain, (*heads, rph, rpw, ws),
+          flop=4 * NW * nh * T * T * hd,
+          library_fn=lambda: _sdpa(*heads, mask))
+
+    # K7: the SigLIP-SO400M/448 tower's attention, 4 images x 16 heads of 72
+    # over 1024 tokens, as (B, H, S, hd) views of a layer's qkv rows; then
+    # the CLIP-L/336 shape, contiguous heads of 64 over S = 577
+    H, hd, S = 16, 72, 1024
+    qkv = _randn(g_hpt, (BS, S, 3 * H * hd))
+    heads = [t.reshape(BS, S, H, hd).transpose(1, 2)
+             for t in qkv.split(H * hd, dim=-1)]
+    check("plain_flash_attention", f"G={BS * H}, S={S}, hd={hd}, (B, H, S, "
+          "hd) views", sam_flash.plain_flash_attention,
+          sam_flash.plain_flash_attention_plain, heads,
+          flop=4 * BS * H * S * S * hd, library_fn=lambda: _sdpa(*heads))
+    q, k, v = (_randn(g_hpt, (BS * H, 577, 64)) for _ in range(3))
+    check("plain_flash_attention", f"G={BS * H}, S=577, hd=64",
+          sam_flash.plain_flash_attention,
+          sam_flash.plain_flash_attention_plain, (q, k, v),
+          flop=4 * BS * H * 577 * 577 * 64, library_fn=lambda: _sdpa(q, k, v))
     return results
 
 
@@ -342,10 +529,10 @@ def _plain_config(cfg):
         return dataclasses.replace(cfg, base=_plain_config(cfg.base))
     enc = dataclasses.replace(cfg.sam.encoder, flash_global=False,
                               flash_window=False, window_block_fused=False,
-                              fused_mlp=False)
+                              global_block_fused=False, fused_mlp=False)
     return dataclasses.replace(
         cfg, llm=dataclasses.replace(cfg.llm, use_flash_capture=False),
-        vision=dataclasses.replace(cfg.vision, fused_mlp=False),
+        vision=dataclasses.replace(cfg.vision, fused_mlp=False, flash=False),
         sam=dataclasses.replace(cfg.sam, encoder=enc))
 
 
@@ -470,6 +657,37 @@ def run_llava_next(g: torch.Generator) -> dict:
     phase_compare(7, "llava_next_vicuna_7b", llava_next_model.forward,
                   params, cfg, served, merged_maps)
     served["seq_len"] = S
+    return served
+
+
+def run_hpt(g: torch.Generator) -> dict:
+    """Phases 11-12: the HPT-Air-1.5 serving forward."""
+    cfg = hpt_config()
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    randomize_rel_pos(params, g)
+    batches = hpt_batches(cfg, 4, "cuda")
+    Hc, Wc = unet.output_hw(cfg.unet, (cfg.clip_shape, cfg.clip_shape))
+    shapes = {"sam_logits": (BS, MASKS, 256, 256),
+              "coarse_logits": (BS, MASKS, Hc, Wc),
+              "iou_pred": (BS, MASKS), "boxes": (BS, MASKS, 4),
+              "hidden": (BS, HPT_SEQ, cfg.llm.hidden_size)}
+    served = phase_serve(11, "hpt_air_1_5", grounding.forward, params, cfg,
+                         batches, shapes)
+
+    def tower_and_sam(cfg, plain, batch):
+        fro = params["frozen"]
+        return {
+            "vision_features": tuple(vit.forward(
+                fro["vision"], c.vision, batch["pixel_values"],
+                select_layer=c.vision_select_layer) for c in (cfg, plain)),
+            "sam_embedding": tuple(sam_encoder.forward(
+                fro["sam_encoder"], c.sam.encoder, batch["sam_pixel_values"])
+                for c in (cfg, plain))}
+
+    phase_compare(12, "hpt_air_1_5", grounding.forward, params, cfg, served,
+                  tower_and_sam)
+    served["seq_len"] = HPT_SEQ
     return served
 
 
@@ -640,17 +858,20 @@ def main() -> None:
     card = phase_card()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
-    kernels = phase_kernels(g)
+    g_hpt = torch.Generator(device="cuda").manual_seed(1)
+    kernels = phase_kernels(g, g_hpt)
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
     paths["llava_next_vicuna_7b"] = run_llava_next(g)
     torch.cuda.empty_cache()
     paths["deepseek_vl_1_3b_train_sam448"] = run_train(g)
+    torch.cuda.empty_cache()
+    paths["hpt_air_1_5"] = run_hpt(g_hpt)
     for path, r in paths.items():
         unit = r.get("unit", "forward")
         what = (f"{r['n']} steps" if unit == "step"
                 else f"{len(r['requests'])} requests")
-        log(f"phase 11 timing {path} ({card}): kernel path {r['ms']:.1f} "
+        log(f"phase 13 timing {path} ({card}): kernel path {r['ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "

@@ -30,6 +30,13 @@
 // products; a cluster split of the output columns (DSMEM) and wgmma are the
 // next steps.  Activations: the four of fused_block._ACTS, with CUDA's erff
 // for the exact-erf GELU.
+//
+// The same kernel without step 1 (PROJ = false: X is the input rows) is
+// the LN2 + MLP + residual of flmm_tpu/ops/fused_block.py::fused_ln_mlp
+// (K8, the pallas_call at :264), its own entry point flmm_ln_mlp: per row
+// 4 C F FLOP (16.8 MFLOP), one bf16 row in and one out, so the tensor cores
+// bound it as they bound K4, and the same 16 MB of W1 and W2 per 32 rows
+// come from L2.
 #include "common.cuh"
 
 namespace {
@@ -76,7 +83,7 @@ __device__ __forceinline__ void wait_slices(bool one_newer_in_flight) {
   __syncthreads();
 }
 
-template <int ACT>
+template <int ACT, bool PROJ>
 __global__ void __launch_bounds__(THREADS, 1)
 block_tail_kernel(const bf16* __restrict__ shortcut,
                   const bf16* __restrict__ attn, int N, int F,
@@ -100,48 +107,57 @@ block_tail_kernel(const bf16* __restrict__ shortcut,
   const int rows = min(BM, N - r0);
   const int col0 = warp * WCOLS;
 
-  // 1. acc = attn @ wo: attention rows (zeros past N) and the first wo
-  //    slice in flight together
-  for (int idx = tid; idx < BM * C / 8; idx += THREADS) {
-    const int r = idx / (C / 8), c = (idx % (C / 8)) * 8;
-    if (r < rows)
-      cp_async16(Ls + r * LS_LD + c, attn + (size_t)(r0 + r) * C + c);
-    else
-      *reinterpret_cast<uint4*>(Ls + r * LS_LD + c) = make_uint4(0, 0, 0, 0);
-  }
-  cp_async_commit();
-  issue_slice<WIDE_K, C>(wide[0], WIDE_LD, wo, C, 0, 0, tid);
-
   AccFrag acc[2][NFRAG];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < NFRAG; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  constexpr int WO_SLICES = C / WIDE_K;
-  for (int t = 0; t < WO_SLICES; ++t) {
-    const bool more = t + 1 < WO_SLICES;
-    if (more)
-      issue_slice<WIDE_K, C>(wide[(t + 1) & 1], WIDE_LD, wo, C,
-                             (t + 1) * WIDE_K, 0, tid);
-    wait_slices(more);
-    AFrag a[2];
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], Ls + i * 16 * LS_LD + t * WIDE_K, LS_LD);
-    for (int j = 0; j < NFRAG; ++j) {
-      BFrag b;
-      wmma::load_matrix_sync(b, wide[t & 1] + col0 + j * 16, WIDE_LD);
-      for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+  if constexpr (PROJ) {
+    // 1. acc = attn @ wo: attention rows (zeros past N) and the first wo
+    //    slice in flight together
+    for (int idx = tid; idx < BM * C / 8; idx += THREADS) {
+      const int r = idx / (C / 8), c = (idx % (C / 8)) * 8;
+      if (r < rows)
+        cp_async16(Ls + r * LS_LD + c, attn + (size_t)(r0 + r) * C + c);
+      else
+        *reinterpret_cast<uint4*>(Ls + r * LS_LD + c) = make_uint4(0, 0, 0, 0);
     }
+    cp_async_commit();
+    issue_slice<WIDE_K, C>(wide[0], WIDE_LD, wo, C, 0, 0, tid);
+
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < NFRAG; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    constexpr int WO_SLICES = C / WIDE_K;
+    for (int t = 0; t < WO_SLICES; ++t) {
+      const bool more = t + 1 < WO_SLICES;
+      if (more)
+        issue_slice<WIDE_K, C>(wide[(t + 1) & 1], WIDE_LD, wo, C,
+                               (t + 1) * WIDE_K, 0, tid);
+      wait_slices(more);
+      AFrag a[2];
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], Ls + i * 16 * LS_LD + t * WIDE_K, LS_LD);
+      for (int j = 0; j < NFRAG; ++j) {
+        BFrag b;
+        wmma::load_matrix_sync(b, wide[t & 1] + col0 + j * 16, WIDE_LD);
+        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+      }
+      __syncthreads();
+    }
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < NFRAG; ++j)
+        wmma::store_matrix_sync(Xs + i * 16 * XS_LD + col0 + j * 16, acc[i][j],
+                                XS_LD, wmma::mem_row_major);
     __syncthreads();
-  }
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < NFRAG; ++j)
-      wmma::store_matrix_sync(Xs + i * 16 * XS_LD + col0 + j * 16, acc[i][j],
-                              XS_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * C; idx += THREADS) {
-    const int r = idx / C, c = idx % C;
-    const float s =
-        r < rows ? __bfloat162float(shortcut[(size_t)(r0 + r) * C + c]) : 0.f;
-    Xs[r * XS_LD + c] += s + __bfloat162float(bo[c]);
+    for (int idx = tid; idx < BM * C; idx += THREADS) {
+      const int r = idx / C, c = idx % C;
+      const float s =
+          r < rows ? __bfloat162float(shortcut[(size_t)(r0 + r) * C + c]) : 0.f;
+      Xs[r * XS_LD + c] += s + __bfloat162float(bo[c]);
+    }
+  } else {
+    // 1'. no projection: X is the input rows (zeros past N)
+    for (int idx = tid; idx < BM * C; idx += THREADS) {
+      const int r = idx / C, c = idx % C;
+      Xs[r * XS_LD + c] =
+          r < rows ? __bfloat162float(shortcut[(size_t)(r0 + r) * C + c]) : 0.f;
+    }
   }
   __syncthreads();
 
@@ -238,12 +254,12 @@ block_tail_kernel(const bf16* __restrict__ shortcut,
   }
 }
 
-template <int ACT>
+template <int ACT, bool PROJ>
 int launch(const void* shortcut, const void* attn, int N, int F,
            const void* wo, const void* bo, const void* ln_w, const void* ln_b,
            float eps, const void* w1, const void* b1, const void* w2,
            const void* b2, void* out, cudaStream_t stream) {
-  auto kernel = block_tail_kernel<ACT>;
+  auto kernel = block_tail_kernel<ACT, PROJ>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -255,6 +271,33 @@ int launch(const void* shortcut, const void* attn, int N, int F,
   return (int)cudaGetLastError();
 }
 
+template <bool PROJ>
+int dispatch(const void* shortcut, const void* attn, int N, int channels,
+             int F, const void* wo, const void* bo, const void* ln_w,
+             const void* ln_b, float eps, const void* w1, const void* b1,
+             const void* w2, const void* b2, int act, void* out,
+             void* stream) {
+  if (N <= 0 || channels != C || F <= 0 || F % BF != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (act) {
+    case ACT_GELU:
+      return launch<ACT_GELU, PROJ>(shortcut, attn, N, F, wo, bo, ln_w, ln_b,
+                                    eps, w1, b1, w2, b2, out, s);
+    case ACT_GELU_TANH:
+      return launch<ACT_GELU_TANH, PROJ>(shortcut, attn, N, F, wo, bo, ln_w,
+                                         ln_b, eps, w1, b1, w2, b2, out, s);
+    case ACT_QUICK_GELU:
+      return launch<ACT_QUICK_GELU, PROJ>(shortcut, attn, N, F, wo, bo, ln_w,
+                                          ln_b, eps, w1, b1, w2, b2, out, s);
+    case ACT_RELU:
+      return launch<ACT_RELU, PROJ>(shortcut, attn, N, F, wo, bo, ln_w, ln_b,
+                                    eps, w1, b1, w2, b2, out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int flmm_block_tail(const void* shortcut, const void* attn, int N,
@@ -263,23 +306,15 @@ extern "C" int flmm_block_tail(const void* shortcut, const void* attn, int N,
                                const void* ln_b, float eps, const void* w1,
                                const void* b1, const void* w2, const void* b2,
                                int act, void* out, void* stream) {
-  if (N <= 0 || channels != C || F <= 0 || F % BF != 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (act) {
-    case ACT_GELU:
-      return launch<ACT_GELU>(shortcut, attn, N, F, wo, bo, ln_w, ln_b, eps,
-                              w1, b1, w2, b2, out, s);
-    case ACT_GELU_TANH:
-      return launch<ACT_GELU_TANH>(shortcut, attn, N, F, wo, bo, ln_w, ln_b,
-                                   eps, w1, b1, w2, b2, out, s);
-    case ACT_QUICK_GELU:
-      return launch<ACT_QUICK_GELU>(shortcut, attn, N, F, wo, bo, ln_w, ln_b,
-                                    eps, w1, b1, w2, b2, out, s);
-    case ACT_RELU:
-      return launch<ACT_RELU>(shortcut, attn, N, F, wo, bo, ln_w, ln_b, eps,
-                              w1, b1, w2, b2, out, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<true>(shortcut, attn, N, channels, F, wo, bo, ln_w, ln_b,
+                        eps, w1, b1, w2, b2, act, out, stream);
+}
+
+// K8: out = x + W2 act(W1 LN(x) + b1) + b2 over (N, C) rows.
+extern "C" int flmm_ln_mlp(const void* x, int N, int channels, int F,
+                           const void* ln_w, const void* ln_b, float eps,
+                           const void* w1, const void* b1, const void* w2,
+                           const void* b2, int act, void* out, void* stream) {
+  return dispatch<false>(x, nullptr, N, channels, F, nullptr, nullptr, ln_w,
+                         ln_b, eps, w1, b1, w2, b2, act, out, stream);
 }

@@ -22,6 +22,13 @@
 //      buffers, one barrier per slice.  WMMA 16x16x16 bf16 fragments with
 //      f32 accumulation; the epilogue adds the bias and rounds once.
 //
+// The same tiles without the LayerNorm prologue and with an f32 epilogue,
+// out = resid + A @ B + bias (entry point flmm_gemm_residual_f32), are the
+// last phase of flmm_tpu/ops/global_block.py::global_attn_block (K10): the
+// output projection of all heads added to the residual in f32 and written
+// unrounded.  One block owns an output tile and walks K in a fixed order,
+// so the sum over the heads has one order and no atomics.
+//
 // Not yet: wgmma, TMA, deeper pipelines -- the next steps toward the
 // tensor-core bound.
 #include "common.cuh"
@@ -56,13 +63,18 @@ ln_stats_kernel(const bf16* __restrict__ A, int M, int K, float eps,
   if (lane == 0) stats[row] = make_float2(mu, rs);
 }
 
+// LN: normalise A's rows on their way into shared memory.  RESID: the
+// epilogue adds the bf16 rows of resid and writes f32 to out_f32; else it
+// rounds to bf16 into out.
+template <bool LN, bool RESID>
 __global__ void __launch_bounds__(THREADS)
 ln_gemm_kernel(const bf16* __restrict__ A, int M, int K,
                const float2* __restrict__ stats,
                const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b,
                const unsigned char* __restrict__ row_valid,
                const bf16* __restrict__ B, int N,
-               const bf16* __restrict__ bias, bf16* __restrict__ out) {
+               const bf16* __restrict__ bias, bf16* __restrict__ out,
+               const bf16* __restrict__ resid, float* __restrict__ out_f32) {
   __shared__ __align__(128) bf16 As[2][BM * AS_LD];
   __shared__ __align__(128) bf16 Bs[2][BK * BS_LD];
   __shared__ __align__(128) float scratch[THREADS / 32][16 * 16];
@@ -82,7 +94,7 @@ ln_gemm_kernel(const bf16* __restrict__ A, int M, int K,
     a_col[i] = (idx % (BK / 8)) * 8;
     const int gr = m0 + a_row[i];
     a_live[i] = gr < M && (row_valid == nullptr || row_valid[gr]);
-    const float2 st = a_live[i] ? stats[gr] : make_float2(0.f, 0.f);
+    const float2 st = LN && a_live[i] ? stats[gr] : make_float2(0.f, 0.f);
     a_mu[i] = st.x;
     a_rs[i] = st.y;
   }
@@ -114,7 +126,9 @@ ln_gemm_kernel(const bf16* __restrict__ A, int M, int K,
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
       uint4 v = zero;
-      if (a_live[i]) {
+      if (!LN) {
+        v = ra[i];  // zero where not live
+      } else if (a_live[i]) {
         float x[8], w[8], b[8];
         unpack8(ra[i], x);
         unpack8(*reinterpret_cast<const uint4*>(ln_w + k0 + a_col[i]), w);
@@ -172,7 +186,17 @@ ln_gemm_kernel(const bf16* __restrict__ A, int M, int K,
         float v[8], bv[8];
         unpack8(*reinterpret_cast<const uint4*>(bias + gc), bv);
         for (int t = 0; t < 8; ++t) v[t] = sc[er * 16 + ec + t] + bv[t];
-        *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = pack8(v);
+        if constexpr (RESID) {
+          float rv[8];
+          unpack8(*reinterpret_cast<const uint4*>(resid + (size_t)gr * N + gc),
+                  rv);
+          for (int t = 0; t < 8; ++t) v[t] += rv[t];
+          float4* o = reinterpret_cast<float4*>(out_f32 + (size_t)gr * N + gc);
+          o[0] = make_float4(v[0], v[1], v[2], v[3]);
+          o[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = pack8(v);
+        }
       }
       __syncwarp();
     }
@@ -192,10 +216,25 @@ extern "C" int flmm_ln_gemm(const void* A, int M, int K, const void* ln_w,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ln_gemm_kernel<<<grid, THREADS, 0, s>>>(
+  ln_gemm_kernel<true, false><<<grid, THREADS, 0, s>>>(
       (const bf16*)A, M, K, (const float2*)stats, (const bf16*)ln_w,
       (const bf16*)ln_b, (const unsigned char*)row_valid, (const bf16*)B, N,
-      (const bf16*)bias, (bf16*)out);
+      (const bf16*)bias, (bf16*)out, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// out (M, N) f32 = resid (M, N) + A (M, K) @ B (K, N) + bias (N).
+extern "C" int flmm_gemm_residual_f32(const void* A, int M, int K,
+                                      const void* B, int N, const void* bias,
+                                      const void* resid, void* out,
+                                      void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0 || N % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  ln_gemm_kernel<false, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)A, M, K, nullptr, nullptr, nullptr, nullptr,
+      (const bf16*)B, N, (const bf16*)bias, nullptr, (const bf16*)resid,
+      (float*)out);
   return (int)cudaGetLastError();
 }
 

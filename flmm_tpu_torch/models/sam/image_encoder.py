@@ -10,15 +10,19 @@ kernel path, with the backend test ``x.is_cuda``:
   2x2 windows per image) take the split path: K3 (LN1 + qkv), K6 (window
   attention, :func:`flmm_tpu_torch.ops.sam_flash.sam_window_attention_v9`)
   and K4 (out-proj + LN2 + MLP);
-* global blocks go through K3, K2 (attention) and K4.
+* global blocks go through K3, K2 (attention) and K4; with
+  ``global_block_fused`` beside the whole-block window path they go through
+  K10 (:func:`flmm_tpu_torch.ops.global_block.global_attn_block`: LN1 + qkv
+  + attention + out-proj + residual, f32 result, rounded here once) and K8
+  (:func:`flmm_tpu_torch.ops.fused_block.fused_ln_mlp`: LN2 + MLP).
 
 K3 and K4 need the fused-MLP gate (``fused_mlp``, C % 128, F % 512);
 without it the attention kernel runs between the plain LN + qkv and the
 plain out-proj + MLP.  Everything else, and every CPU tensor, takes the
 plain path.  Pad tokens of a grid that does not divide into windows get
 ``k = b_k`` and ``v = b_v`` and stay in the softmax on every path, as in
-the reference.  Not ported yet: the whole-block global kernel (K10), the
-superseded kernel variants (K12) and the int8 encoder.
+the reference.  Not ported yet: the superseded kernel variants (K12) and
+the int8 encoder.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ import math
 import torch
 
 from flmm_tpu_torch.models.sam.common import channel_norm, conv2d, layer_norm, mlp_block
+from flmm_tpu_torch.ops import global_block as gb
 from flmm_tpu_torch.ops import window_block as wb
-from flmm_tpu_torch.ops.fused_block import fused_ln_qkv, fused_proj_ln_mlp
+from flmm_tpu_torch.ops.fused_block import fused_ln_mlp, fused_ln_qkv, \
+    fused_proj_ln_mlp
 from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8, \
     sam_window_attention_v9
 
@@ -61,9 +67,6 @@ class SamEncoderConfig:
             raise NotImplementedError(
                 "only the production kernels (global v8, window v9) exist "
                 "in the port; the replay variants are not ported")
-        if self.global_block_fused:
-            raise NotImplementedError(
-                "the whole-block global kernel is not ported")
 
     @property
     def grid(self) -> int:
@@ -237,6 +240,19 @@ def _flash_block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig,
                                     cfg.ln_eps), mlp)
 
 
+def _ln_mlp_residual(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
+    """``x + MLP(LN2(x))`` over ``(B, H, W, C)``: K8 on a CUDA tensor when
+    the shapes tile, else plain."""
+    B, H, W, C = x.shape
+    mlp = bp["mlp"]
+    if (cfg.fused_mlp and x.is_cuda and (B * H * W) % 256 == 0
+            and C % 128 == 0 and mlp["w1"].shape[1] % 512 == 0):
+        return fused_ln_mlp(x, bp["ln2_w"], bp["ln2_b"], mlp["w1"], mlp["b1"],
+                            mlp["w2"], mlp["b2"], eps=cfg.ln_eps)
+    y = layer_norm(x, bp["ln2_w"], bp["ln2_b"], cfg.ln_eps)
+    return x + mlp_block(y, mlp)
+
+
 def _block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, windowed: bool):
     B, H, W, C = x.shape
     flash = cfg.flash_window if windowed else (cfg.flash_global and H == W)
@@ -304,6 +320,23 @@ def _window_block_fused(xw, bp, cfg: SamEncoderConfig, valid):
         mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], ws, nh, eps=cfg.ln_eps)
 
 
+def _global_block_fused(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
+    """One whole global block: K10 for the attention half, whose f32 result
+    is rounded to ``cfg.dtype`` here, once; then LN2 + MLP (K8).  The thin
+    rel-pos bias rows are computed outside, from the residual stream."""
+    B, H, W, C = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    w_s, b_s = wb.scaled_qkv_weights(bp["wqkv"], bp["bqkv"], nh, hd)
+    xs = x.reshape(B, H * W, C)
+    bias = gb.global_rel_bias_from_x(
+        xs, bp["ln1_w"], bp["ln1_b"], w_s[:, :C], b_s[:C],
+        bp["rel_pos_h"], bp["rel_pos_w"], H, nh, hd, eps=cfg.ln_eps)
+    o = gb.global_attn_block(
+        xs, bias, bp["ln1_w"], bp["ln1_b"], w_s, b_s, bp["wo"], bp["bo"], H,
+        nh, eps=cfg.ln_eps)
+    return _ln_mlp_residual(o.to(cfg.dtype).reshape(B, H, W, C), bp, cfg)
+
+
 def forward(params: dict, cfg: SamEncoderConfig,
             pixels: torch.Tensor) -> torch.Tensor:
     """Encode normalised, corner-padded ``(B, img, img, 3)`` images into
@@ -328,7 +361,12 @@ def forward(params: dict, cfg: SamEncoderConfig,
             if xw is not None:
                 x = _dewindowize(xw, geom, ws)
                 xw = None
-            x = _block(x, bp, cfg, windowed=windowed)
+            if (cfg.global_block_fused and use_wb and not windowed
+                    and x.shape[1] == x.shape[2]
+                    and (x.shape[1] * x.shape[2]) % 256 == 0):
+                x = _global_block_fused(x, bp, cfg)
+            else:
+                x = _block(x, bp, cfg, windowed=windowed)
     if xw is not None:
         x = _dewindowize(xw, geom, ws)
     x = conv2d(x, params["neck0_kernel"])

@@ -3,9 +3,11 @@
 NHWC images, stacked per-layer weights ``(L, ...)`` walked by a Python
 loop.  On a CUDA tensor, when the shapes tile (the JAX gate at vit.py:197-201
 with the backend test ``x.is_cuda``), each layer runs K3 for LN1 + qkv and
-K4 for out-proj + LN2 + MLP; attention itself is plain, as in the JAX
-package.  Not ported yet: the bias-free flash attention kernel (K7,
-``flash=True``) and the bicubic pos-embed resample for enlarged inputs.
+K4 for out-proj + LN2 + MLP.  Attention is plain unless ``flash`` is set:
+then, on a CUDA tensor, every layer's attention is K7
+(:func:`flmm_tpu_torch.ops.sam_flash.plain_flash_attention`), which reads q,
+k and v in place from the layer's qkv rows.  An input above the native grid
+resamples the position embedding bicubically.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 
 from flmm_tpu_torch.models.sam.common import conv2d, layer_norm
 from flmm_tpu_torch.ops.fused_block import activation, fused_ln_qkv, fused_proj_ln_mlp
+from flmm_tpu_torch.ops.resize import resize_bicubic
+from flmm_tpu_torch.ops.sam_flash import plain_flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +40,6 @@ class ViTConfig:
     flash: bool = False
     fused_mlp: bool = True
     dtype: torch.dtype = torch.float32
-
-    def __post_init__(self):
-        if self.flash:
-            raise NotImplementedError(
-                "the bias-free tower attention kernel is not ported")
 
     @property
     def grid(self) -> int:
@@ -94,6 +93,20 @@ def init_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
     return params
 
 
+def resample_pos_embed(pos: torch.Tensor, old_grid: int, new_grid: int,
+                       has_cls: bool) -> torch.Tensor:
+    """Bicubic position-embedding interpolation to another grid; the class
+    token's row, if any, is kept aside."""
+    if old_grid == new_grid:
+        return pos
+    cls, grid_pos = (pos[:1], pos[1:]) if has_cls else (None, pos)
+    d = grid_pos.shape[-1]
+    g = grid_pos.reshape(old_grid, old_grid, d).permute(2, 0, 1)
+    g = resize_bicubic(g, (new_grid, new_grid))
+    g = g.permute(1, 2, 0).reshape(new_grid * new_grid, d)
+    return g if cls is None else torch.cat([cls, g], dim=0)
+
+
 def forward(params: dict, cfg: ViTConfig, pixels: torch.Tensor,
             select_layer: int = -1) -> torch.Tensor:
     """Hidden states at ``select_layer`` (HF indexing: -1 is the final layer
@@ -102,21 +115,27 @@ def forward(params: dict, cfg: ViTConfig, pixels: torch.Tensor,
     d = cfg.hidden_size
     x = conv2d(pixels.to(cfg.dtype), params["patch_kernel"],
                stride=cfg.patch_size)
-    if x.shape[1] != cfg.grid or x.shape[2] != cfg.grid:
-        raise NotImplementedError("pos-embed resampling is not ported")
+    grid_hw = x.shape[1], x.shape[2]
     x = x.reshape(B, -1, d)
     if cfg.patch_bias:
         x = x + params["patch_bias"]
     if cfg.use_class_token:
         cls = params["cls_token"].to(x.dtype).expand(B, 1, d)
         x = torch.cat([cls, x], dim=1)
-    x = x + params["pos_embed"].to(x.dtype)
+    pos = params["pos_embed"]
+    if grid_hw != (cfg.grid, cfg.grid):
+        if grid_hw[0] != grid_hw[1]:
+            raise ValueError(f"non-square resample unsupported: {grid_hw}")
+        pos = resample_pos_embed(pos, cfg.grid, grid_hw[0],
+                                 cfg.use_class_token)
+    x = x + pos.to(x.dtype)
     if cfg.use_pre_norm:
         x = layer_norm(x, params["pre_ln_w"], params["pre_ln_b"], cfg.ln_eps)
 
     H, hd = cfg.num_heads, cfg.head_dim
     S = x.shape[1]
     scale = 1.0 / math.sqrt(hd)
+    use_flash = cfg.flash and x.is_cuda
     use_fused_mlp = (
         cfg.fused_mlp and x.is_cuda
         and cfg.act in ("gelu", "gelu_tanh", "quick_gelu")
@@ -136,9 +155,13 @@ def forward(params: dict, cfg: ViTConfig, pixels: torch.Tensor,
             qkv = y @ lp["wqkv"] + lp["bqkv"]
         q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2)
                    for t in qkv.split(d, dim=-1))
-        logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-        probs = torch.softmax(logits, dim=-1).to(h.dtype)
-        o = (probs @ v).transpose(1, 2).reshape(B, S, d)
+        if use_flash:  # (B, H, S, hd) views in, (B, S, H, hd) memory out
+            o = plain_flash_attention(q, k, v).transpose(1, 2).reshape(
+                B, S, d)
+        else:
+            logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+            probs = torch.softmax(logits, dim=-1).to(h.dtype)
+            o = (probs @ v).transpose(1, 2).reshape(B, S, d)
         if use_fused_mlp:
             h = fused_proj_ln_mlp(
                 h, o, lp["wo"], lp["bo"], lp["ln2_w"], lp["ln2_b"],

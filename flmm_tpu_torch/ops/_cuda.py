@@ -38,6 +38,14 @@ _SIGNATURES = {
     # out, o_b, o_h, o_t, stream
     "flmm_relpos_attention": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P, _I,
                               _I, _I, _I, _P, _L, _L, _L, _P),
+    # x, N, C, F, ln_w, ln_b, eps, w1, b1, w2, b2, act, out, stream
+    "flmm_ln_mlp": (_P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _I, _P, _P),
+    # A, M, K, B, N, bias, resid, out (f32), stream
+    "flmm_gemm_residual_f32": (_P, _I, _I, _P, _I, _P, _P, _P, _P),
+    # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, nh, G, S,
+    # head_dim, scale, out, o_b, o_h, o_t, stream
+    "flmm_plain_flash": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I,
+                         _I, _I, _I, _F, _P, _L, _L, _L, _P),
     # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S,
     # head_dim, key_valid, mm, M, img_start, n_img, out, o_b, o_h, o_t, lse,
     # merged, stream

@@ -1,5 +1,5 @@
-"""Fused transformer-block pieces: K3 ``fused_ln_qkv`` and K4
-``fused_proj_ln_mlp`` (flmm_tpu/ops/fused_block.py).
+"""Fused transformer-block pieces: K3 ``fused_ln_qkv``, K4
+``fused_proj_ln_mlp`` and K8 ``fused_ln_mlp`` (flmm_tpu/ops/fused_block.py).
 
 Each wrapper launches its hand-written Hopper kernel (csrc/ln_gemm.cu,
 csrc/block_tail.cu) for CUDA tensors and takes the plain PyTorch version,
@@ -103,6 +103,47 @@ def fused_proj_ln_mlp(shortcut, attn, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
 fused_proj_ln_mlp.launches = 0
 
 
+def fused_ln_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6,
+                       act: str = "gelu"):
+    """``x + W2 act(W1 LN(x) + b1) + b2`` over ``(..., C)`` tokens."""
+    h = activation(layer_norm(x, ln_w, ln_b, eps) @ w1 + b1, act)
+    return x + (h @ w2 + b2)
+
+
+def fused_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6,
+                 act: str = "gelu"):
+    """The LN2 + MLP + residual half of a pre-norm block in one kernel (K8):
+    the normed rows and the ``(N, F)`` hidden never reach device memory.
+
+    Args:
+      x: ``(..., C)``; w1: ``(C, F)``; w2: ``(F, C)``.
+    """
+    _cuda.check_no_grad("fused_ln_mlp", x, ln_w, ln_b, w1, b1, w2, b2)
+    if not x.is_cuda:
+        return fused_ln_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, act)
+    C = x.shape[-1]
+    Fh = w1.shape[1]
+    if (w1.shape != (C, Fh) or w2.shape != (Fh, C) or b1.shape != (Fh,)
+            or b2.shape != (C,) or ln_w.shape != (C,) or ln_b.shape != (C,)):
+        raise ValueError(f"fused_ln_mlp: weight shapes do not match C={C}, "
+                         f"F={Fh}")
+    if C != 1024 or Fh % 128:
+        raise ValueError(f"fused_ln_mlp: kernel built for C=1024 and F a "
+                         f"multiple of 128, got C={C}, F={Fh}")
+    xf = x.reshape(-1, C).contiguous()
+    out = torch.empty_like(xf)
+    _cuda.check_cuda("fused_ln_mlp", xf, ln_w, ln_b, w1, b1, w2, b2, out)
+    _cuda.launch(
+        "flmm_ln_mlp", xf.data_ptr(), xf.shape[0], C, Fh, ln_w.data_ptr(),
+        ln_b.data_ptr(), eps, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), ACTS.index(act), out.data_ptr(), _cuda.stream(xf))
+    fused_ln_mlp.launches += 1
+    return out.reshape(x.shape)
+
+
+fused_ln_mlp.launches = 0
+
+
 def ln_gemm(x2d, ln_w, ln_b, eps, row_valid, w, b, out) -> None:
     """Launch csrc/ln_gemm.cu: ``out = (LN(x2d) zeroed where not
     row_valid) @ w + b``, with an ``(M, 2)`` f32 scratch for the row
@@ -145,3 +186,21 @@ def block_tail(xf, af, wo, bo, ln_w, ln_b, eps, w1, b1, w2, b2, act,
         wo.data_ptr(), bo.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), eps,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         ACTS.index(act), out.data_ptr(), _cuda.stream(xf))
+
+
+def gemm_residual_f32(a, w, b, resid, out) -> None:
+    """Launch the f32-epilogue entry of csrc/ln_gemm.cu: ``out (M, N) f32 =
+    resid + a @ w + b`` with bf16 operands, one block per output tile and a
+    fixed summation order.  Uncounted: the K10 wrapper counts."""
+    M, K = a.shape
+    N = w.shape[1]
+    if (w.shape != (K, N) or b.shape != (N,) or resid.shape != (M, N)
+            or out.shape != (M, N) or K % 32 or N % 8):
+        raise ValueError(f"gemm_residual_f32: a {tuple(a.shape)} w "
+                         f"{tuple(w.shape)} resid {tuple(resid.shape)}; needs "
+                         "K % 32 == 0 and N % 8 == 0")
+    _cuda.check_cuda("gemm_residual_f32", a, w, b, resid)
+    _cuda.check_cuda("gemm_residual_f32", out, dtype=torch.float32)
+    _cuda.launch(
+        "flmm_gemm_residual_f32", a.data_ptr(), M, K, w.data_ptr(), N,
+        b.data_ptr(), resid.data_ptr(), out.data_ptr(), _cuda.stream(a))

@@ -1,6 +1,7 @@
 """Resize primitives with PyTorch's ``align_corners=False`` sampling
-conventions (flmm_tpu/ops/resize.py): bilinear resize and the affine
-grid-sample that replaces the reference's crop -> resize -> pad chains."""
+conventions (flmm_tpu/ops/resize.py): bilinear and bicubic resize and the
+affine grid-sample that replaces the reference's crop -> resize -> pad
+chains."""
 
 from __future__ import annotations
 
@@ -40,6 +41,17 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     y = _linear_1d(x.float(), out_hw[0], x.dim() - 2, sy)
     y = _linear_1d(y, out_hw[1], x.dim() - 1, sx)
     return y.to(dtype)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize over the last two dims (Keys kernel at a = -0.75,
+    half-pixel centres, border clamp: flmm_tpu/ops/resize.py::resize_bicubic
+    carries torch's own ``F.interpolate(mode='bicubic',
+    align_corners=False)`` over), computed in f32 and cast back."""
+    y = torch.nn.functional.interpolate(
+        x.float().reshape(1, -1, *x.shape[-2:]), size=tuple(out_hw),
+        mode="bicubic", align_corners=False)
+    return y.reshape(*x.shape[:-2], *out_hw).to(x.dtype)
 
 
 def affine_grid_sample(img: torch.Tensor, scale: torch.Tensor,

@@ -1,7 +1,8 @@
 """SAM attention with decomposed relative-position bias: K2
 (flmm_tpu/ops/sam_flash.py::sam_global_attention_v8) over a global layer's
 grid and K6 (::sam_window_attention_v9) over the 14x14 windows of the split
-window path.
+window path; and K7 (::plain_flash_attention), the bias-free attention of
+the vision towers (csrc/plain_flash.cu).
 
 Each wrapper prepares the thin operands outside the kernel as the JAX
 package does (``_global_augmented_operands`` and the v9 wrapper at
@@ -22,7 +23,8 @@ from flmm_tpu_torch.ops import _cuda
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-HEAD_DIM = 64  # the kernel's head width
+HEAD_DIM = 64  # the rel-pos kernel's head width
+PLAIN_HEAD_DIMS = (64, 72)  # the bias-free kernel's (72: SigLIP-SO400M)
 # f32 scores the plain global attention holds at a time (256 MB)
 MAX_PLAIN_SCORES = 1 << 26
 
@@ -179,3 +181,67 @@ def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
         "flmm_relpos_attention", q.data_ptr(), *q_strides, k.data_ptr(),
         v.data_ptr(), *strides, nh, bias.data_ptr(), side, G, S, HEAD_DIM,
         out.data_ptr(), *out_strides, _cuda.stream(q))
+
+
+def plain_flash_attention_plain(q, k, v):
+    """K7's plain version: ``softmax(q k^T / sqrt(hd)) v`` over ``(..., S,
+    hd)``; q is scaled in f32 and rounded to its dtype before the product,
+    as the JAX wrapper does, scores and softmax are f32."""
+    qs = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+    logits = qs.float() @ k.float().transpose(-1, -2)
+    return torch.softmax(logits, dim=-1).to(q.dtype) @ v
+
+
+def _head_strides(name, t):
+    """``(s_b, s_h, s_t)`` of a ``(G, S, hd)`` or ``(B, H, S, hd)`` bf16 CUDA
+    tensor the kernel reads in place with 16-byte loads."""
+    if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride(-1) != 1
+            or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
+        raise ValueError(
+            f"{name}: q, k and v must be bf16 CUDA tensors with a contiguous "
+            "last dim, strides that are multiples of 8 and 16-byte "
+            f"alignment; got {t.dtype}, strides {t.stride()}")
+    if t.dim() == 3:
+        return (t.stride(0), 0, t.stride(1))
+    return t.stride()[:3]
+
+
+def plain_flash_attention(q, k, v):
+    """Bias-free, non-causal attention for ViT towers (K7) over ``(G, S,
+    hd)`` heads, or over ``(B, H, S, hd)`` strided views of a ``(B, S, 3 * H
+    * hd)`` qkv tensor, read in place; any S, hd 64 or 72.  The ``(G, S, S)``
+    scores never reach device memory.  The output has q's shape, in memory
+    ``(G, S, hd)`` or ``(B, S, H, hd)``."""
+    name = "plain_flash_attention"
+    _cuda.check_no_grad(name, q, k, v)
+    if not q.is_cuda:
+        return plain_flash_attention_plain(q, k, v)
+    if q.dim() not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)}")
+    S, hd = q.shape[-2:]
+    if hd not in PLAIN_HEAD_DIMS:
+        raise ValueError(f"{name}: kernel built for head_dim in "
+                         f"{PLAIN_HEAD_DIMS}, got {hd}")
+    G = math.prod(q.shape[:-2])
+    if q.dim() == 3:
+        nh = 1
+        out = torch.empty((G, S, hd), dtype=q.dtype, device=q.device)
+        out_view, out_strides = out, (S * hd, 0, hd)
+    else:
+        nh = q.shape[1]
+        out = torch.empty((q.shape[0], S, nh, hd), dtype=q.dtype,
+                          device=q.device)
+        out_view, out_strides = out.transpose(1, 2), (S * nh * hd, hd, nh * hd)
+    _cuda.launch(
+        "flmm_plain_flash",
+        q.data_ptr(), *_head_strides(name, q),
+        k.data_ptr(), *_head_strides(name, k),
+        v.data_ptr(), *_head_strides(name, v),
+        nh, G, S, hd, 1.0 / math.sqrt(hd), out.data_ptr(), *out_strides,
+        _cuda.stream(q))
+    plain_flash_attention.launches += 1
+    return out_view
+
+
+plain_flash_attention.launches = 0

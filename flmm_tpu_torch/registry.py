@@ -10,7 +10,7 @@ import importlib
 from flmm_tpu_torch.models.mask_head.unet import output_hw
 
 # family -> (model module, {preset: "module:factory"}), as in the JAX
-# registry; its mgm and hpt families are not ported
+# registry; its mgm family is not ported
 FAMILIES = {
     "deepseek_vl": ("flmm_tpu_torch.models.frozen.deepseek_vl", {
         "1_3b": "flmm_tpu_torch.configs.deepseek_vl:deepseek_vl_1_3b",
@@ -25,6 +25,11 @@ FAMILIES = {
         "mistral_7b":
             "flmm_tpu_torch.configs.llava_next:llava_next_mistral_7b",
         "tiny": "flmm_tpu_torch.configs.llava_next:tiny_llava_next",
+    }),
+    "hpt": ("flmm_tpu_torch.models.frozen.grounding", {
+        "air": "flmm_tpu_torch.configs.hpt:hpt_air",
+        "air_1_5": "flmm_tpu_torch.configs.hpt:hpt_air_1_5",
+        "tiny": "flmm_tpu_torch.configs.hpt:tiny_hpt",
     }),
 }
 

@@ -5,15 +5,17 @@ on one GPU.
     python3 scripts/torch_profile.py --path llava_next  # LLaVA-NeXT, bs 2
     python3 scripts/torch_profile.py --path train     # DeepSeek-VL training
                                                       # at SAM-448, bs 8
+    python3 scripts/torch_profile.py --path hpt       # HPT-Air-1.5, bs 4
 
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
 from torch.profiler over one forward (or step), the device's busy and idle
 time, and stage times from CUDA events: vision tower, LLM capture for
-LLaVA-NeXT, SAM encoder and whole forward; for training the step's forward
-(the loss), backward and optimizer update.  For DeepSeek-VL serving it then
-times the three stages of K1 (window block) separately at the SAM-1024
-window shape.
+LLaVA-NeXT and HPT, SAM encoder and whole forward; for training the step's
+forward (the loss), backward and optimizer update.  For DeepSeek-VL serving
+it then times the three stages of K1 (window block) separately at the
+SAM-1024 window shape, for HPT the three stages of K10 (the attention half
+of a global block) at the SAM-1024 global-layer shape.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ from flmm_tpu_torch.convert.from_jax import from_jax  # noqa: E402
 from flmm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from flmm_tpu_torch.models.frozen import grounding  # noqa: E402
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model  # noqa: E402
+from flmm_tpu_torch.models.llm import decoder  # noqa: E402
 from flmm_tpu_torch.models.sam import image_encoder  # noqa: E402
 from flmm_tpu_torch.models.vision import vit  # noqa: E402
-from flmm_tpu_torch.ops import fused_block, sam_flash, window_block  # noqa: E402
+from flmm_tpu_torch.ops import fused_block, global_block, masks, sam_flash, \
+    window_block  # noqa: E402
 from flmm_tpu_torch.train import loop  # noqa: E402
 
 
@@ -84,6 +88,36 @@ def llava_next_setup(g: torch.Generator):
                 fro["sam_encoder"], b.sam.encoder,
                 batch["sam_pixel_values"]),
             "forward": lambda: llava_next_model.forward(params, c, batch),
+        }
+    return cfg, stages
+
+
+def hpt_setup(g: torch.Generator):
+    cfg = chip_smoke.hpt_config()
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    chip_smoke.randomize_rel_pos(params, g)
+    batch = chip_smoke.hpt_batches(cfg, 2, "cuda")[1]
+    fro = params["frozen"]
+    embeds = chip_smoke._randn(
+        g, (chip_smoke.BS, chip_smoke.HPT_SEQ, cfg.llm.hidden_size))
+    mm = masks.mean_merge_matrix(batch["mask_ids"], chip_smoke.MASKS)
+    lw = torch.softmax(params["trainable"]["text_layer_weights"], dim=0)
+
+    def stages(c):
+        return {
+            "siglip-so400m tower (26 layers)": lambda: vit.forward(
+                fro["vision"], c.vision, batch["pixel_values"],
+                select_layer=c.vision_select_layer),
+            "llm capture (decoder on random embeddings)":
+                lambda: decoder.forward_capture(
+                    fro["llm"], c.llm, embeds, batch["attn_mask"],
+                    img_start=c.img_start, n_img=c.num_img_tokens,
+                    merge_matrix=mm, merge=c.merge, layer_weights=lw),
+            "sam encoder": lambda: image_encoder.forward(
+                fro["sam_encoder"], c.sam.encoder,
+                batch["sam_pixel_values"]),
+            "forward": lambda: grounding.forward(params, c, batch),
         }
     return cfg, stages
 
@@ -162,6 +196,38 @@ def profile_window_block(g: torch.Generator) -> None:
         print(f"K1 {part} (NW={NW}): {chip_smoke.cuda_ms(fn):.3f} ms")
 
 
+def profile_global_block(g: torch.Generator) -> None:
+    C, hd, side, nh, B = 1024, 64, 64, 16, chip_smoke.BS
+    S = side * side
+
+    def r(*shape):
+        return chip_smoke._randn(g, shape, 0.03)
+
+    x = chip_smoke._randn(g, (B, S, C))
+    lw, lb, w_s, b_s, wo, bo = r(C), r(C), r(C, 3 * C), r(3 * C), r(C, C), r(C)
+    rph, rpw = r(2 * side - 1, hd), r(2 * side - 1, hd)
+    xf = x.reshape(B * S, C)
+    qkv = torch.empty((B * S, 3 * C), dtype=x.dtype, device=x.device)
+    attn = torch.empty_like(xf)
+    out = torch.empty((B * S, C), dtype=torch.float32, device=x.device)
+    bias = r(B, nh, S, 2 * side)
+    strides = (S * 3 * C, hd, 3 * C)
+    parts = {
+        "qkv ln_gemm": lambda: fused_block.ln_gemm(
+            xf, lw, lb, 1e-6, None, w_s, b_s, qkv),
+        "global attention": lambda: sam_flash.relpos_attention(
+            qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides, nh, bias,
+            side, B * nh, S, attn, (S * C, hd, C)),
+        "out-proj + residual, f32": lambda: fused_block.gemm_residual_f32(
+            attn, wo, bo, xf, out),
+        "rel-pos bias rows (plain)":
+            lambda: global_block.global_rel_bias_from_x(
+                x, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, side, nh, hd),
+    }
+    for part, fn in parts.items():
+        print(f"K10 {part} (B={B}, S={S}): {chip_smoke.cuda_ms(fn):.3f} ms")
+
+
 def profile_train(g: torch.Generator) -> None:
     """One training step of DeepSeek-VL-1.3B at SAM-448 (chip_smoke phase
     8's configuration and stream) per path: the profiler's device time by
@@ -227,18 +293,21 @@ def profile_train(g: torch.Generator) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("deepseek", "llava_next", "train"),
-                        default="deepseek")
+    parser.add_argument("--path", choices=("deepseek", "llava_next", "train",
+                                           "hpt"), default="deepseek")
     args = parser.parse_args()
     print(chip_smoke.phase_card())
     g = torch.Generator(device="cuda").manual_seed(0)
     if args.path == "train":
         profile_train(g)
         return
-    setup = deepseek_setup if args.path == "deepseek" else llava_next_setup
+    setup = {"deepseek": deepseek_setup, "llava_next": llava_next_setup,
+             "hpt": hpt_setup}[args.path]
     profile_paths(*setup(g))
     if args.path == "deepseek":
         profile_window_block(g)
+    elif args.path == "hpt":
+        profile_global_block(g)
 
 
 if __name__ == "__main__":

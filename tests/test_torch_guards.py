@@ -43,11 +43,13 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert 'flmm_tpu_torch.data.llava_next' in names\n"
+        "assert 'flmm_tpu_torch.ops.global_block' in names\n"
+        "assert 'flmm_tpu_torch.configs.hpt' in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 31
+    assert int(count) >= 33
     assert bad.strip() == "[]"
 
 
@@ -58,6 +60,8 @@ def test_port_sources_never_import_jax():
     files = sorted((REPO / "flmm_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    for new in ("ops/global_block.py", "configs/hpt.py"):
+        assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
 

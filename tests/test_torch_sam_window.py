@@ -145,7 +145,8 @@ def test_registry_families():
     assert registry.get_model("deepseek_vl").loss_fn is grounding.loss_fn
     cfg = registry.get_config("deepseek_vl", "1_3b", img_start=128)
     assert cfg.llm.use_flash_capture and cfg.sam.encoder.img_size == 1024
-    for family, preset in (("mgm", "tiny"), ("hpt", "air"),
+    assert registry.get_config("hpt", "air").image_input_size == 392
+    for family, preset in (("mgm", "tiny"), ("hpt", "pro"),
                            ("deepseek_vl", "7b")):
         with pytest.raises(NotImplementedError, match="not ported"):
             registry.get_config(family, preset)

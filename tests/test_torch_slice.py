@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from flmm_tpu.configs import deepseek_vl as jax_configs
+from flmm_tpu.configs import hpt as jax_hpt
 from flmm_tpu.configs import llava as jax_llava
 from flmm_tpu.configs import llava_next as jax_llava_next
 from flmm_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
@@ -29,6 +30,7 @@ from flmm_tpu.models.sam import image_encoder as jencoder
 from flmm_tpu.models.vision import vit as jvit
 from flmm_tpu.ops import masks as jmasks
 from flmm_tpu_torch.configs import deepseek_vl as torch_configs
+from flmm_tpu_torch.configs import hpt as torch_hpt
 from flmm_tpu_torch.configs import llava as torch_llava
 from flmm_tpu_torch.configs import llava_next as torch_llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
@@ -134,8 +136,8 @@ def test_init_params_tree_matches_jax(preset):
 
 def test_port_config_fields_mirror_jax():
     """Every config dataclass carries the JAX fields one for one: the
-    DeepSeek-VL, LLaVA-1.5 and LLaVA-NeXT presets, full size and tiny, and
-    the anyres specs."""
+    DeepSeek-VL, LLaVA-1.5, LLaVA-NeXT and HPT presets, full size and tiny,
+    and the anyres specs."""
     pairs = [
         (jax_configs.tiny(), torch_configs.tiny()),
         (jax_configs.deepseek_vl_1_3b(), torch_configs.deepseek_vl_1_3b()),
@@ -150,6 +152,11 @@ def test_port_config_fields_mirror_jax():
          torch_llava_next.tiny_anyres_spec()),
         (jax_llava_next.llava_next_vicuna_7b().anyres_spec(),
          torch_llava_next.llava_next_vicuna_7b().anyres_spec()),
+        (jax_hpt.tiny_hpt(), torch_hpt.tiny_hpt()),
+        (jax_hpt.hpt_air(), torch_hpt.hpt_air()),
+        (jax_hpt.hpt_air_1_5(), torch_hpt.hpt_air_1_5()),
+        (jax_hpt.hpt_air_1_5(img_start=128),
+         torch_hpt.hpt_air_1_5(img_start=128)),
     ]
     while pairs:
         j, t = pairs.pop()
