@@ -18,7 +18,13 @@ Phases; any failure raises and the script exits non-zero:
    from the qkv rows) and at the CLIP shape (S = 577, head dim 64), K8 LN2 +
    MLP and K10 the attention half of a global SAM block at the SAM-1024
    global-layer shape (K10's f32 result also bit for bit equal across two
-   runs), K5 again at the HPT decoder shape (GQA 32/8).  Each kernel's time
+   runs), K5 again at the HPT decoder shape (GQA 32/8); K9 raw capture at
+   the DeepSeek-VL-1.3B aligned decoder shape and at the HPT shape, the K11
+   relayout pair at the bs-8 and bs-4 SAM-1024 grid (bit for bit equal to
+   the plain pair, also in f32) and K12 v10, the spatial window attention,
+   at the bs-8 grid padded to 70 x 70; then K1, K2, K3, K4, K5, K6, K8 and
+   K10 once more at the shapes phase 13's bench gives them (bs 8 at the
+   SAM-1024 grid, the SigLIP rows, the aligned decoder).  Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
    where one PyTorch call computes the same function, that call's time;
@@ -49,7 +55,13 @@ Phases; any failure raises and the script exits non-zero:
     global switch on): shapes, finite values, launches;
 12. compare that forward, its tower features and its SAM embedding with the
     all-plain forward;
-13. report times.
+13. run the kernel bench (flmm_tpu_torch.kernel_bench, all 11 ops) in
+    process at bs 8 and full width: SAM ViT-L at 1024, SigLIP-L/384 and
+    DeepSeek-LLM-1.3B at full depth, the window-only and global-only
+    encoders at depth 12 and 6: every time finite and positive, the
+    flash / whole-block agreement rows, the relayout round trip exact, and
+    the exact launch counts of every op;
+14. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -68,7 +80,7 @@ import time
 
 import torch
 
-from flmm_tpu_torch import registry
+from flmm_tpu_torch import kernel_bench, registry
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
@@ -79,8 +91,8 @@ from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.ops import _cuda
-from flmm_tpu_torch.ops import flash_attention, fused_block, global_block, \
-    masks, sam_flash, window_block
+from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
+    global_block, masks, sam_flash, sam_flash_experiments, window_block
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
 
@@ -111,6 +123,10 @@ TRAIN_LR = 1e-4  # the recipe's, also for the repeated batch
 STEP_LOSS_REL, STEP_GRAD_CORR = 0.01, 0.99
 SUBTREES = ("unet", "text_proj", "text_layer_weights", "sam/prompt",
             "sam/decoder")
+# the kernel bench: the JAX script's batch and depth, 3 timed calls per
+# measurement after its 2 warm-up calls
+BENCH_BS, BENCH_DEPTH, BENCH_ITERS = 8, 12, 3
+BENCH_CORR = 0.999  # flash path vs whole-block path of one encoder
 EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
     "deepseek_vl_1_3b": {
         "window_block": 20, "sam_global_attention_v8": 4,
@@ -140,6 +156,34 @@ EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
         "sam_window_attention_v9": 0, "plain_flash_attention": 26,
         "fused_ln_mlp": 4, "global_attn_block": 4},
 }
+# per timed or warm-up call of each bench op (kernels not named: 0).  The SAM
+# encoder at 1024 runs 20 window layers through K1 and 4 global layers
+# through K3 + K2 + K4; wb is 12 window layers through K3 + K6 + K4, then
+# through K1; gb is min(depth, 6) global layers through K3 + K2 + K4, then
+# through K10 + K8; the SigLIP tower is 24 layers of K3 + K4; the decoder's
+# third variant runs K5 in its 24 layers.
+BENCH_GB_DEPTH = min(BENCH_DEPTH, 6)
+_SAM_1024 = {"window_block": 20, "fused_ln_qkv": 4,
+             "sam_global_attention_v8": 4, "fused_proj_ln_mlp": 4}
+BENCH_LAUNCHES = {
+    "window": {"sam_window_attention_v9": 1},
+    "global": {"sam_global_attention_v8": 1},
+    "encoder": _SAM_1024,
+    "wb": {"fused_ln_qkv": BENCH_DEPTH, "sam_window_attention_v9": BENCH_DEPTH,
+           "fused_proj_ln_mlp": BENCH_DEPTH, "window_block": BENCH_DEPTH},
+    "gb": {"fused_ln_qkv": BENCH_GB_DEPTH,
+           "sam_global_attention_v8": BENCH_GB_DEPTH,
+           "fused_proj_ln_mlp": BENCH_GB_DEPTH,
+           "global_attn_block": BENCH_GB_DEPTH,
+           "fused_ln_mlp": BENCH_GB_DEPTH},
+    "boundary": {"windowize": 1, "dewindowize": 1},
+    "tower": {"fused_ln_qkv": 24, "fused_proj_ln_mlp": 24},
+    "decoder": {"flash_attention_with_merged_capture": 24},
+    "window_path": {"sam_window_attention_v9": 1,
+                    "sam_window_attention_v10": 1},
+    "heads": _SAM_1024,
+    "rtt": {},
+}
 WRAPPERS = {"window_block": window_block.window_block,
             "sam_global_attention_v8": sam_flash.sam_global_attention_v8,
             "fused_ln_qkv": fused_block.fused_ln_qkv,
@@ -149,7 +193,18 @@ WRAPPERS = {"window_block": window_block.window_block,
             "sam_window_attention_v9": sam_flash.sam_window_attention_v9,
             "plain_flash_attention": sam_flash.plain_flash_attention,
             "fused_ln_mlp": fused_block.fused_ln_mlp,
-            "global_attn_block": global_block.global_attn_block}
+            "global_attn_block": global_block.global_attn_block,
+            "flash_attention_with_capture":
+                flash_attention.flash_attention_with_capture,
+            "dewindowize": boundary.dewindowize,
+            "windowize": boundary.windowize,
+            "sam_window_attention_v10":
+                sam_flash_experiments.sam_window_attention_v10}
+# the kernels that came with the kernel bench: no model path launches them
+BENCH_ONLY = ("flash_attention_with_capture", "dewindowize", "windowize",
+              "sam_window_attention_v10")
+for _counts in EXPECTED_LAUNCHES.values():
+    _counts.update(dict.fromkeys(BENCH_ONLY, 0))
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -170,6 +225,15 @@ SOURCES = {
                      "flmm_tpu/ops/fused_block.py:264"),
     "global_attn_block": ("flmm_tpu_torch/ops/global_block.py",
                           "flmm_tpu/ops/global_block.py:243"),
+    "flash_attention_with_capture": ("flmm_tpu_torch/csrc/flash_capture.cu",
+                                     "flmm_tpu/ops/flash_attention.py:324"),
+    "dewindowize": ("flmm_tpu_torch/csrc/boundary.cu",
+                    "flmm_tpu/ops/boundary.py:59"),
+    "windowize": ("flmm_tpu_torch/csrc/boundary.cu",
+                  "flmm_tpu/ops/boundary.py:85"),
+    "sam_window_attention_v10": (
+        "flmm_tpu_torch/csrc/spatial_window_attention.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:1222"),
 }
 
 
@@ -294,19 +358,25 @@ def hpt_batches(cfg, n: int, device=None) -> list:
     return out
 
 
-def phase_kernels(g: torch.Generator, g_hpt: torch.Generator) -> dict:
+def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
+                  g_bench: torch.Generator) -> dict:
     """Each kernel against its plain version at the main paths' shapes.
-    The checks that came with the HPT path draw from ``g_hpt``, so that the
-    three earlier paths keep the weights and inputs ``g`` has always given
+    The checks that came with the HPT path draw from ``g_hpt`` and those
+    that came with the kernel bench from ``g_bench``, so that the earlier
+    paths keep the weights and inputs ``g`` and ``g_hpt`` have always given
     them (phase 9's U-Net gradient comparison is sensitive to the state the
     training steps reach)."""
     C, F, hd = 1024, 4096, 64
     results = {}
 
-    def check(name, label, wrapper, plain, args, flop, library_fn=None):
+    def check(name, label, wrapper, plain, args, flop, library_fn=None,
+              library_view=None, moved=None, exact=False):
         """Compare, time and bound one kernel: ``flop`` is the operations of
         its products at this shape, the bytes are those of its operands and
-        results, each moved once."""
+        results, each moved once (``moved`` where the function reads less
+        than its whole input).  ``exact`` asks for bit-equal results;
+        ``library_view`` brings the library call's result into the kernel's
+        layout for the comparison, outside the timing."""
         def kernel_fn():
             return wrapper(*args)
 
@@ -315,40 +385,49 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator) -> dict:
 
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        pairs = (list(zip(got, want)) if isinstance(got, tuple)
+        pairs = ([(a, b) for a, b in zip(got, want)
+                  if isinstance(a, torch.Tensor)] if isinstance(got, tuple)
                  else [(got, want)])
         rels, corrs = zip(*(agreement(a, b) for a, b in pairs))
         rel, corr = max(rels), min(corrs)
-        moved = _tensor_bytes(*args, *(a for a, _ in pairs))
+        same = all(torch.equal(a, b) for a, b in pairs) if exact else None
+        if moved is None:
+            moved = _tensor_bytes(*args, *(a for a, _ in pairs))
         del want
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         library_ms = None
         if library_fn is not None:
-            lib_rel, _ = agreement(library_fn().reshape(pairs[0][0].shape),
-                                   pairs[0][0])
+            lib_out = library_fn()
+            lib_rel, _ = agreement(
+                library_view(lib_out) if library_view is not None
+                else lib_out.reshape(pairs[0][0].shape), pairs[0][0])
+            del lib_out
             library_ms = cuda_ms(library_fn)
         by_ops, by_bytes = flop / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
         bound_ms = max(by_ops, by_bytes)
-        ok = rel <= KERNEL_REL_ERR and corr >= KERNEL_CORR
+        ok = rel <= KERNEL_REL_ERR and corr >= KERNEL_CORR and same is not False
         library = ("none" if library_ms is None else
                    f"{library_ms:.3f} ms (kernel vs library max_rel_err "
                    f"{lib_rel:.3e})")
         log(f"phase 3 {name} [{label}]: max_rel_err {rel:.3e} (bound "
             f"{KERNEL_REL_ERR}) corr {corr:.6f} (bound {KERNEL_CORR}) "
+            + (f"bit for bit equal: {same} " if exact else "") +
             f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s) plain "
             f"{plain_ms:.3f} ms library {library}; {flop / 1e9:.1f} GFLOP, "
             f"{moved / 1e6:.1f} MB, least {bound_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{name} [{label}] disagrees with its "
                                  "plain version")
-        if name not in results:  # the first shape listed is reported
-            results[name] = {
-                "shape": label, "max_abs_err": max(
-                    (a.float() - b.float()).abs().max().item()
-                    for a, b in pairs),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-                "library_ms": library_ms}
+        entry = {
+            "shape": label, "max_abs_err": max(
+                (a.float() - b.float()).abs().max().item() for a, b in pairs),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": library_ms}
+        if name not in results:  # the first shape listed leads the entry
+            results[name] = {**entry, "other_shapes": []}
+        else:
+            results[name]["other_shapes"].append(entry)
 
     def ln_params(gen=g):
         return _randn(gen, (C,), 0.1, 1.0), _randn(gen, (C,), 0.1)
@@ -482,11 +561,13 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator) -> dict:
     q, k, v = (_randn(g, (16 * TRAIN_BS, train_grid ** 2, hd))
                for _ in range(3))
     rph, rpw = (_randn(g, (2 * train_grid - 1, hd), 0.1) for _ in range(2))
+    mask = _attention_mask(q, rph, rpw, train_grid)  # outside the timing
     check("sam_global_attention_v8", "SAM-448, G=128, S=784",
           sam_flash.sam_global_attention_v8,
           sam_flash.sam_global_attention_v8_plain,
           (q, k, v, rph, rpw, train_grid),
-          flop=4 * 16 * TRAIN_BS * train_grid ** 4 * hd)
+          flop=4 * 16 * TRAIN_BS * train_grid ** 4 * hd,
+          library_fn=lambda: _sdpa(q, k, v, mask))
 
     # K6: the 2 x 2 windows of 14 x 14 of 8 SAM-448 images, 16 heads, read
     # as (NW, nh, T, hd) views of the windowised qkv as the encoder passes
@@ -520,7 +601,214 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator) -> dict:
           sam_flash.plain_flash_attention,
           sam_flash.plain_flash_attention_plain, (q, k, v),
           flop=4 * BS * H * 577 * 577 * 64, library_fn=lambda: _sdpa(q, k, v))
+    del q, k, v, qkv, heads, mask
+    kernel_bench_checks(check, g_bench)
+    bench_shape_checks(check, g_bench)
     return results
+
+
+def kernel_bench_checks(check, g: torch.Generator) -> None:
+    """Phase 3 for the kernels that came with the kernel bench: K9, K11a,
+    K11b and K12 v10."""
+    # K9: raw capture at the DeepSeek-VL-1.3B aligned decoder layout (S = 768,
+    # the 576-token image block at 128) and at the HPT layout (GQA 32/8, S =
+    # 1280, 1024 image tokens); k and v carry the kv heads, as views of the
+    # decoder's (B, S, KV, hd) projections.  What the batch needs: 4 * hd FLOP
+    # per visible (query, key) pair and head; the probabilities are a
+    # by-product of those scores
+    hd = 128
+    for label, H, KV, S, n_img, lengths in (
+            ("DeepSeek-VL-1.3B aligned", 16, 16, 768, 576,
+             [768, 700, 640, 768]),
+            ("HPT-Air-1.5", 32, 8, HPT_SEQ, 1024, [1280, 1200, 900, 1280])):
+        q = _randn(g, (BS, S, H, hd)).transpose(1, 2)
+        k, v = (_randn(g, (BS, S, KV, hd)).transpose(1, 2) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        pairs = sum(min(i + 1, n) for n in lengths for i in range(S))
+        check("flash_attention_with_capture",
+              f"{label}: B={BS}, H={H}, KV={KV}, S={S}, img_start=128, "
+              f"n_img={n_img}, lengths={lengths}",
+              flash_attention.flash_attention_with_capture,
+              flash_attention.flash_attention_with_capture_plain,
+              (q, k, v, lens, 128, n_img), flop=4 * H * hd * pairs)
+    del q, k, v
+
+    # K11: the relayout pair at the SAM-1024 grid (64 x 64 tokens of 1024
+    # channels in 5 x 5 windows of 14), bs 8 as the bench runs it, bs 4 as a
+    # serving forward would, and once in f32.  A copy does no operation; the
+    # pad slots are written, not read, and dewindowize reads valid tokens only
+    ws, C = 14, 1024
+    for bs, dtype in ((BENCH_BS, torch.bfloat16), (BS, torch.bfloat16),
+                      (BS, torch.float32)):
+        x = _randn(g, (bs, 64, 64, C)).to(dtype)
+        xw, geom = boundary.windowize_plain(x, ws)
+        label = f"B={bs}, 64 x 64 x {C}, ws={ws}, {str(dtype)[6:]}"
+        check("dewindowize", label, boundary.dewindowize,
+              lambda *a: boundary.dewindowize_plain(*a).contiguous(),
+              (xw, geom, ws), flop=0, exact=True, moved=2 * _tensor_bytes(x))
+        check("windowize", label, boundary.windowize, boundary.windowize_plain,
+              (x, ws), flop=0, exact=True)
+    del x, xw
+
+    # K12 v10: the bs-8 grid padded to 70 x 70, head-major qkv that is zero
+    # beyond 64, non-zero tables.  What the data needs: 4 * hd FLOP per
+    # (query, key) pair of valid tokens, window by window and head by head
+    side, grid_hw, nh, hd = 14, 64, 16, 64
+    Hp = -(-grid_hw // side) * side
+    nw, T = Hp // side, side * side
+    qkv = torch.nn.functional.pad(
+        _randn(g, (BENCH_BS, grid_hw, grid_hw, nh * 3 * hd), 0.3),
+        (0, 0, 0, Hp - grid_hw, 0, Hp - grid_hw))
+    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    inside = torch.arange(Hp, device="cuda") < grid_hw
+    valid = inside[:, None] & inside[None, :]  # (Hp, Wp)
+    per_window = valid.reshape(nw, side, nw, side).sum(dim=(1, 3))
+    pairs = int((per_window ** 2).sum()) * BENCH_BS * nh
+    # the library call: SDPA over the windowised heads with the expanded bias
+    # and the key mask as one additive mask, all built outside the timing
+    heads = qkv.reshape(BENCH_BS, nw, side, nw, side, nh, 3, hd).permute(
+        6, 0, 1, 3, 5, 2, 4, 7).reshape(3, BENCH_BS * nw * nw, nh, T, hd)
+    heads = [t.contiguous() for t in heads]
+    mask = _attention_mask(heads[0].reshape(-1, T, hd), rph, rpw, side)
+    key_ok = valid.reshape(nw, side, nw, side).permute(0, 2, 1, 3).reshape(
+        1, nw * nw, 1, 1, T).expand(BENCH_BS, nw * nw, nh, 1, T)
+    mask = mask.reshape(-1, nh, T, T).masked_fill(
+        ~key_ok.reshape(-1, nh, 1, T), float("-inf"))
+
+    def spatial(out):  # (NW, nh, T, hd) -> (B, Hp, Wp, C), 0 beyond the grid
+        out = out.reshape(BENCH_BS, nw, nw, nh, side, side, hd).permute(
+            0, 1, 4, 2, 5, 3, 6).reshape(BENCH_BS, Hp, Hp, nh * hd)
+        return torch.where(valid[None, :, :, None], out, 0.0)
+
+    # the bytes the function needs: the valid tokens' qkv read and their
+    # output written, and the tables (the pad holds nothing to read, and its
+    # zero output is this port's own choice)
+    moved = (BENCH_BS * grid_hw * grid_hw * nh * 4 * hd * qkv.element_size()
+             + _tensor_bytes(rph, rpw))
+    check("sam_window_attention_v10",
+          f"B={BENCH_BS}, {Hp} x {Hp} x {nh * 3 * hd}, side={side}, "
+          f"grid_hw={grid_hw}",
+          sam_flash_experiments.sam_window_attention_v10,
+          sam_flash_experiments.sam_window_attention_v10_plain,
+          (qkv, rph, rpw, side, grid_hw), flop=4 * hd * pairs,
+          library_fn=lambda: _sdpa(*heads, mask), library_view=spatial,
+          moved=moved)
+    # how much of the wrapper's time is its plain preparation: the bias rows
+    # alone, timed the same way
+    rows_ms = cuda_ms(lambda: sam_flash_experiments.window_bias_rows(
+        qkv, rph, rpw, side))
+    log(f"phase 3 sam_window_attention_v10: the wrapper's plain bias rows "
+        f"alone {rows_ms:.3f} ms of the kernel time above")
+
+
+def bench_shape_checks(check, g: torch.Generator) -> None:
+    """Phase 3 at the shapes the kernel bench (phase 13) gives the kernels of
+    the earlier paths, which the checks above hold at bs 4 or at SAM-448
+    only: bs 8 at the SAM-1024 grid, the SigLIP-L/384 tower and the
+    DeepSeek-LLM-1.3B decoder's aligned layout."""
+    C, F, hd, nh, ws, side, B = 1024, 4096, 64, 16, 14, 64, BENCH_BS
+    S = side * side
+
+    def ln_params():
+        return _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+
+    lw, lb = ln_params()
+    l2w, l2b = ln_params()
+    wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+    w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+    w_s, b_s = window_block.scaled_qkv_weights(wqkv, bqkv, nh, hd)
+
+    # K3 / K4: the unpadded token rows of wb, gb, encoder and heads (the
+    # flash window path pads after K3 and crops before K4), and the tower's
+    # rows; K8: the rows of gb
+    for label, N in ((f"bench SAM rows, N={S * B}", S * B),
+                     (f"bench SigLIP, N={576 * B}", 576 * B)):
+        x, a = _randn(g, (N, C)), _randn(g, (N, C))
+        check("fused_ln_qkv", label, fused_block.fused_ln_qkv,
+              fused_block.fused_ln_qkv_plain, (x, lw, lb, wqkv, bqkv, 1e-6),
+              flop=2 * N * C * 3 * C)
+        check("fused_proj_ln_mlp", label, fused_block.fused_proj_ln_mlp,
+              fused_block.fused_proj_ln_mlp_plain,
+              (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-6, "gelu"),
+              flop=2 * N * C * C + 4 * N * C * F)
+        if N == S * B:
+            check("fused_ln_mlp", label, fused_block.fused_ln_mlp,
+                  fused_block.fused_ln_mlp_plain,
+                  (x, lw, lb, w1, b1, w2, b2, 1e-6, "gelu"),
+                  flop=4 * N * C * F)
+    del x, a
+
+    # K2: global, gb, encoder and heads: 8 images x 16 heads, contiguous
+    q, k, v = (_randn(g, (nh * B, S, hd)) for _ in range(3))
+    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    check("sam_global_attention_v8", f"bench, G={nh * B}, S={S}",
+          sam_flash.sam_global_attention_v8,
+          sam_flash.sam_global_attention_v8_plain, (q, k, v, rph, rpw, side),
+          flop=4 * nh * B * S * S * hd)
+    del q, k, v
+
+    # K10: gb's attention half from the bs-8 residual stream
+    x = _randn(g, (B, S, C))
+    bias = global_block.global_rel_bias_from_x(
+        x, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, side, nh, hd)
+    check("global_attn_block", f"bench, B={B}, S={S}, C={C}, f32 result",
+          global_block.global_attn_block,
+          global_block.global_attn_block_plain,
+          (x, bias, lw, lb, w_s, b_s, wo, bo, side, nh),
+          flop=2 * B * S * C * 3 * C + 4 * B * nh * S * S * hd
+          + 2 * B * S * C * C)
+    del bias
+
+    # K1: wb, encoder and heads: 8 images of 25 windows
+    xw, geom = sam_encoder._windowize(x.reshape(B, side, side, C), ws)
+    xw = xw.contiguous()
+    valid = sam_encoder._window_valid_tokens(geom, ws, x.device)
+    rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+    bias = window_block.window_rel_bias_from_x(
+        xw, valid, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, ws, nh, hd)
+    NW, T = xw.shape[:2]
+    check("window_block", f"bench, NW={NW}, T={T}, padded grid",
+          window_block.window_block, window_block.window_block_plain,
+          (xw, bias, valid, lw, lb, w_s, b_s, wo, bo, l2w, l2b, w1, b1, w2,
+           b2, ws, nh),
+          flop=NW * T * (2 * C * 3 * C + 2 * C * C + 4 * C * F)
+          + 4 * NW * nh * T * T * hd)
+    del x, xw, bias
+
+    # K6: the window op's contiguous (G, T, hd) heads, and the (NW, nh, T,
+    # hd) views of the windowised qkv that wb and window_path pass
+    q, k, v = (_randn(g, (NW * nh, T, hd)) for _ in range(3))
+    check("sam_window_attention_v9", f"bench, G={NW * nh}, T={T}",
+          sam_flash.sam_window_attention_v9,
+          sam_flash.sam_window_attention_v9_plain, (q, k, v, rph, rpw, ws),
+          flop=4 * NW * nh * T * T * hd)
+    del q, k, v
+    qkvw = _randn(g, (NW, T, 3 * C))
+    heads = [qkvw[..., i * C:(i + 1) * C].reshape(NW, T, nh, hd).transpose(
+        1, 2) for i in range(3)]
+    check("sam_window_attention_v9", f"bench, G={NW * nh}, T={T}, (NW, nh, "
+          "T, hd) views", sam_flash.sam_window_attention_v9,
+          sam_flash.sam_window_attention_v9_plain, (*heads, rph, rpw, ws),
+          flop=4 * NW * nh * T * T * hd)
+    del qkvw, heads
+
+    # K5: the decoder op's aligned layout: every key valid, every row in the
+    # merge (row s belongs to mask s % M), as bench_decoder builds them
+    H, hd, S, img_start, n_img = 16, 128, 768, 128, 576
+    q, k, v = (_randn(g, (B, S, H, hd)).transpose(1, 2) for _ in range(3))
+    valid = torch.ones((B, S), dtype=torch.bool, device="cuda")
+    mm = (torch.nn.functional.one_hot(
+        torch.arange(S, device="cuda") % MASKS, MASKS).float()
+        / (S / MASKS)).expand(B, S, MASKS)
+    check("flash_attention_with_merged_capture",
+          f"bench decoder: B={B}, H={H}, KV={H}, S={S}, n_img={n_img}, "
+          f"M={MASKS}", flash_attention.flash_attention_with_merged_capture,
+          flash_attention.flash_attention_with_merged_capture_plain,
+          (q, k, v, valid, mm, img_start, n_img),
+          flop=4 * H * hd * B * S * (S + 1) // 2
+          + 2 * H * MASKS * n_img * B * S)
 
 
 def _plain_config(cfg):
@@ -854,12 +1142,64 @@ def repeated_batch_phase(path, cfg, state, frozen, batch) -> None:
         raise AssertionError("the repeated batch's loss did not fall")
 
 
+def run_kernel_bench(g: torch.Generator) -> dict:
+    """Phase 13: every op of the kernel bench at bs 8 and full width, with
+    every launch count at 0 just before and read just after."""
+    n = kernel_bench.WARMUP + BENCH_ITERS  # calls per measurement
+    counts = {}
+
+    def emit(op, rows):
+        for row in rows:
+            log(f"phase 13 kernel_bench {json.dumps(row)}")
+        counts[op] = {name: fn.launches for name, fn in WRAPPERS.items()}
+
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows = kernel_bench.run(
+        kernel_bench.OPS, BENCH_BS, torch.device("cuda"), g,
+        depth=BENCH_DEPTH, iters=BENCH_ITERS, emit=emit)
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    seconds = time.perf_counter() - t0
+
+    before = dict.fromkeys(WRAPPERS, 0)
+    for op in kernel_bench.OPS:  # the order the ops ran in
+        got = {k: counts[op][k] - before[k] for k in WRAPPERS}
+        want = {k: BENCH_LAUNCHES[op].get(k, 0) * n for k in WRAPPERS}
+        if got != want:
+            raise AssertionError(f"kernel_bench {op}: launches {got} differ "
+                                 f"from the op's {want}")
+        before = counts[op]
+    if counts[kernel_bench.OPS[-1]] != launches:
+        raise AssertionError("kernel_bench: launches outside the ops")
+    for row in rows:
+        if "ms" in row and not (math.isfinite(row["ms"]) and row["ms"] > 0
+                                and row["ms_min"] > 0):
+            raise AssertionError(f"kernel_bench: bad time in {row}")
+    by = {(r["op"], r.get("variant")): r for r in rows}
+    for op in ("wb", "gb"):
+        if not by[op, "agreement"]["corr"] >= BENCH_CORR:
+            raise AssertionError(f"kernel_bench {op}: the two paths disagree")
+    if by["boundary", "kernel dewin+win pair"]["max_abs_diff"] != 0.0:
+        raise AssertionError("kernel_bench boundary: the relayout round trip "
+                             "changed values")
+    log(f"phase 13 kernel_bench: {len(kernel_bench.OPS)} ops, {len(rows)} "
+        f"rows at bs {BENCH_BS} in {seconds:.1f} s ({BENCH_ITERS} timed calls "
+        f"after {kernel_bench.WARMUP} warm-ups each); every op's launch "
+        f"counts exact, in all {launches}; wb corr "
+        f"{by['wb', 'agreement']['corr']}, gb corr "
+        f"{by['gb', 'agreement']['corr']} (bound {BENCH_CORR}), boundary "
+        "round trip exact")
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     g_hpt = torch.Generator(device="cuda").manual_seed(1)
-    kernels = phase_kernels(g, g_hpt)
+    g_bench = torch.Generator(device="cuda").manual_seed(2)
+    kernels = phase_kernels(g, g_hpt, g_bench)
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
     paths["llava_next_vicuna_7b"] = run_llava_next(g)
@@ -867,11 +1207,13 @@ def main() -> None:
     paths["deepseek_vl_1_3b_train_sam448"] = run_train(g)
     torch.cuda.empty_cache()
     paths["hpt_air_1_5"] = run_hpt(g_hpt)
+    torch.cuda.empty_cache()
+    bench = run_kernel_bench(g_bench)
     for path, r in paths.items():
         unit = r.get("unit", "forward")
         what = (f"{r['n']} steps" if unit == "step"
                 else f"{len(r['requests'])} requests")
-        log(f"phase 13 timing {path} ({card}): kernel path {r['ms']:.1f} "
+        log(f"phase 14 timing {path} ({card}): kernel path {r['ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
@@ -880,9 +1222,11 @@ def main() -> None:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": sum(r["launches"][name] for r in paths.values()),
-         "launches_by_path": {p: r["launches"][name]
-                              for p, r in paths.items()},
+         "launches": sum(r["launches"][name]
+                         for r in (*paths.values(), bench)),
+         "launches_by_path": {
+             **{p: r["launches"][name] for p, r in paths.items()},
+             "kernel_bench": bench["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -38,6 +38,20 @@
 //
 // Not yet: load/compute overlap (cp.async or TMA), wgmma, ldmatrix.
 //
+// The same source holds the raw capture, which replaces
+// flmm_tpu/ops/flash_attention.py::flash_attention_with_capture (K9, the
+// pallas_call at :324): besides out it returns the normalised probabilities
+// of EVERY query row over the image keys, probs (B, H, S, n_img) f32.  The
+// TPU kernel keeps a (128, n_img_pad) f32 strip per query block in VMEM and
+// rescales it with the running max at every key block; no SM holds that
+// strip.  Here flash_fwd runs as above (the wrapper turns the per-row valid
+// length into key_valid), then raw_capture, one block per (b, h, 64 query
+// rows, 64 image keys), recomputes the scores of its tile and writes
+// exp2(s - lse) under the causal and key mask: no rescaling, no atomics,
+// each element written once.  A tile wholly above the diagonal is written
+// as zeros without a product.  The f32 side output bounds the work (113 MB
+// against 50 MB of q, k, v and out at the DeepSeek-VL-1.3B aligned shape).
+//
 // Layout: element (b, h, t, d) of q is at b * q_b + h * q_h + t * q_t + d
 // (likewise k, v with their own strides and head h / (H / KV), so GQA needs
 // no repeated copies, and out with its strides); key_valid is (B, S)
@@ -353,6 +367,91 @@ capture_kernel(const bf16* __restrict__ q, Strides qs,
       }
 }
 
+// K9's second pass: probs[b, h, i, n] = p(i, img_start + n) for one tile of
+// 64 query rows x 64 image keys, from the log-sum-exp flash_fwd saved.
+__global__ void __launch_bounds__(THREADS)
+raw_capture_kernel(const bf16* __restrict__ q, Strides qs,
+                   const bf16* __restrict__ k, Strides ks, int H, int rep,
+                   int S, const unsigned char* __restrict__ key_valid,
+                   float scale_log2, const float* __restrict__ lse,
+                   int img_start, int n_img, int n_kt,
+                   float* __restrict__ probs) {
+  __shared__ __align__(16) bf16 Ks[BKV * LD];
+  __shared__ unsigned char kok[BKV];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kt = blockIdx.x % n_kt, q0 = (blockIdx.x / n_kt) * BQ;
+  const int key0 = img_start + kt * BKV;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / rep;
+  const int qr = lane / 4, qc = (lane % 4) * 2;
+  const int t0 = q0 + warp * 16 + qr, t1 = t0 + 8;
+  float* out0 = probs + ((long long)bh * S + t0) * n_img + kt * BKV;
+  float* out1 = out0 + 8LL * n_img;
+  const int cols = min(BKV, n_img - kt * BKV);  // columns of this tile
+
+  float s[BKV / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < BKV / 8; ++nt)
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+
+  // a tile whose first key lies after the block's last row is all zeros
+  if (key0 <= q0 + BQ - 1) {
+    const bf16* qp = q + b * qs.b + h * qs.h;
+    const bf16* kp = k + b * ks.b + hk * ks.h;
+    for (int idx = tid; idx < BKV * HD / 8; idx += THREADS) {
+      const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+      *reinterpret_cast<uint4*>(Ks + r * LD + c) =
+          *reinterpret_cast<const uint4*>(
+              kp + (long long)(key0 + r) * ks.t + c);
+    }
+    if (tid < BKV) kok[tid] = key_valid[(long long)b * S + key0 + tid];
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const bf16* p0 = qp + t0 * qs.t + kk * 16 + qc;
+      const bf16* p1 = qp + t1 * qs.t + kk * 16 + qc;
+      const uint32_t qf[4] = {ld32(p0), ld32(p1), ld32(p0 + 8), ld32(p1 + 8)};
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt) {
+        const bf16* kb = Ks + (nt * 8 + qr) * LD + kk * 16 + qc;
+        const uint32_t bfr[2] = {ld32(kb), ld32(kb + 8)};
+        mma_16816(s[nt], qf, bfr);
+      }
+    }
+    // a row without a visible key has lse = -inf and every key masked
+    const float lse0 = lse[(long long)bh * S + t0];
+    const float lse1 = lse[(long long)bh * S + t1];
+#pragma unroll
+    for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kl = nt * 8 + qc + e, key = key0 + kl;
+        const bool ok = kok[kl] != 0;
+        s[nt][e] = ok && key <= t0 ? exp2f(s[nt][e] * scale_log2 - lse0) : 0.f;
+        s[nt][2 + e] =
+            ok && key <= t1 ? exp2f(s[nt][2 + e] * scale_log2 - lse1) : 0.f;
+      }
+  }
+
+  const bool pairs = n_img % 2 == 0;  // then every float2 store is aligned
+#pragma unroll
+  for (int nt = 0; nt < BKV / 8; ++nt) {
+    const int c = nt * 8 + qc;
+    if (pairs && c + 1 < cols) {
+      *reinterpret_cast<float2*>(out0 + c) = make_float2(s[nt][0], s[nt][1]);
+      *reinterpret_cast<float2*>(out1 + c) = make_float2(s[nt][2], s[nt][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (c + e < cols) {
+          out0[c + e] = s[nt][e];
+          out1[c + e] = s[nt][2 + e];
+        }
+    }
+  }
+}
+
 template <int NT>
 void launch_capture(dim3 grid, cudaStream_t st, const bf16* q, Strides qs,
                     const bf16* k, Strides ks, int H, int rep, int S,
@@ -364,6 +463,35 @@ void launch_capture(dim3 grid, cudaStream_t st, const bf16* q, Strides qs,
                                                M, img_start, n_img, merged);
 }
 
+// The contract both entry points share, then pass 1 (out and lse); returns
+// the cudaError_t of the launch, cudaErrorInvalidValue for a refused shape.
+struct Operands {
+  const bf16 *q, *k, *v;
+  Strides qs, ks, vs, os;
+  int B, H, KV, S, img_start, n_img;
+  const unsigned char* valid;
+  bf16* out;
+  float* lse;
+  float scale_log2;
+  cudaStream_t st;
+};
+
+int flash_forward(const Operands& a, int head_dim) {
+  const long long strides[] = {a.qs.b, a.qs.h, a.qs.t, a.ks.b, a.ks.h, a.ks.t,
+                               a.vs.b, a.vs.h, a.vs.t, a.os.b, a.os.h, a.os.t};
+  for (long long s : strides)
+    if (s % 8) return (int)cudaErrorInvalidValue;
+  const int n_img_pad = (a.n_img + BN - 1) / BN * BN;
+  if (head_dim != HD || a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV ||
+      a.S <= 0 || a.S % BN || a.img_start < 0 || a.img_start % BN ||
+      a.n_img <= 0 || a.img_start + n_img_pad > a.S || a.B * a.H > 65535)
+    return (int)cudaErrorInvalidValue;
+  flash_fwd_kernel<<<dim3(a.S / BQ, a.B * a.H), THREADS, 0, a.st>>>(
+      a.q, a.qs, a.k, a.ks, a.v, a.vs, a.H, a.H / a.KV, a.S, a.valid,
+      a.scale_log2, a.out, a.os, a.lse);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flmm_flash_capture(
@@ -373,36 +501,46 @@ extern "C" int flmm_flash_capture(
     const void* key_valid, const void* mm, int M, int img_start, int n_img,
     void* out, long long o_b, long long o_h, long long o_t, void* lse,
     void* merged, void* stream) {
-  const long long strides[] = {q_b, q_h, q_t, k_b, k_h, k_t,
-                               v_b, v_h, v_t, o_b, o_h, o_t};
-  for (long long s : strides)
-    if (s % 8) return (int)cudaErrorInvalidValue;
-  const int n_img_pad = (n_img + BN - 1) / BN * BN;
-  if (head_dim != HD || B <= 0 || H <= 0 || KV <= 0 || H % KV || S <= 0 ||
-      S % BN || img_start < 0 || img_start % BN || n_img <= 0 ||
-      img_start + n_img_pad > S || M <= 0 || M > MAX_M || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
-  const Strides qs{q_b, q_h, q_t}, ks{k_b, k_h, k_t}, vs{v_b, v_h, v_t},
-      os{o_b, o_h, o_t};
-  const int rep = H / KV;
-  const unsigned char* valid = (const unsigned char*)key_valid;
+  if (M <= 0 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  const Operands a{(const bf16*)q, (const bf16*)k, (const bf16*)v,
+                   {q_b, q_h, q_t}, {k_b, k_h, k_t}, {v_b, v_h, v_t},
+                   {o_b, o_h, o_t}, B, H, KV, S, img_start, n_img,
+                   (const unsigned char*)key_valid, (bf16*)out, (float*)lse,
+                   1.4426950408889634f / sqrtf((float)HD),
+                   (cudaStream_t)stream};
+  const int e = flash_forward(a, head_dim);
+  if (e != (int)cudaSuccess) return e;
 
-  flash_fwd_kernel<<<dim3(S / BQ, B * H), THREADS, 0, st>>>(
-      (const bf16*)q, qs, (const bf16*)k, ks, (const bf16*)v, vs, H, rep, S,
-      valid, scale_log2, (bf16*)out, os, (float*)lse);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const dim3 grid(n_img_pad / BN, B * H);
+  const dim3 grid((n_img + BN - 1) / BN, B * H);
   void (*launch)(dim3, cudaStream_t, const bf16*, Strides, const bf16*,
                  Strides, int, int, int, const unsigned char*, float,
                  const float*, const float*, int, int, int, float*) =
       M <= 8 ? launch_capture<1> : M <= 16 ? launch_capture<2>
       : M <= 24 ? launch_capture<3> : launch_capture<4>;
-  launch(grid, st, (const bf16*)q, qs, (const bf16*)k, ks, H, rep, S, valid,
-         scale_log2, (const float*)lse, (const float*)mm, M, img_start, n_img,
+  launch(grid, a.st, a.q, a.qs, a.k, a.ks, H, H / KV, S, a.valid,
+         a.scale_log2, a.lse, (const float*)mm, M, img_start, n_img,
          (float*)merged);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flmm_flash_capture_raw(
+    const void* q, long long q_b, long long q_h, long long q_t, const void* k,
+    long long k_b, long long k_h, long long k_t, const void* v, long long v_b,
+    long long v_h, long long v_t, int B, int H, int KV, int S, int head_dim,
+    const void* key_valid, int img_start, int n_img, void* out, long long o_b,
+    long long o_h, long long o_t, void* lse, void* probs, void* stream) {
+  const Operands a{(const bf16*)q, (const bf16*)k, (const bf16*)v,
+                   {q_b, q_h, q_t}, {k_b, k_h, k_t}, {v_b, v_h, v_t},
+                   {o_b, o_h, o_t}, B, H, KV, S, img_start, n_img,
+                   (const unsigned char*)key_valid, (bf16*)out, (float*)lse,
+                   1.4426950408889634f / sqrtf((float)HD),
+                   (cudaStream_t)stream};
+  const int e = flash_forward(a, head_dim);
+  if (e != (int)cudaSuccess) return e;
+
+  const int n_kt = (n_img + BKV - 1) / BKV;  // key tiles that hold a column
+  raw_capture_kernel<<<dim3(n_kt * (S / BQ), B * H), THREADS, 0, a.st>>>(
+      a.q, a.qs, a.k, a.ks, H, H / KV, S, a.valid, a.scale_log2, a.lse,
+      img_start, n_img, n_kt, (float*)probs);
   return (int)cudaGetLastError();
 }

@@ -21,8 +21,11 @@ without it the attention kernel runs between the plain LN + qkv and the
 plain out-proj + MLP.  Everything else, and every CPU tensor, takes the
 plain path.  Pad tokens of a grid that does not divide into windows get
 ``k = b_k`` and ``v = b_v`` and stay in the softmax on every path, as in
-the reference.  Not ported yet: the superseded kernel variants (K12) and
-the int8 encoder.
+the reference.  The window relayout is the plain pair of ops/boundary.py, as
+in the JAX encoder (the K11 kernels' caller is the kernel bench).  Not
+ported yet: the superseded kernel variants (K12) other than the spatial
+window attention v10, which no encoder setting reaches, and the int8
+encoder.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ import torch
 from flmm_tpu_torch.models.sam.common import channel_norm, conv2d, layer_norm, mlp_block
 from flmm_tpu_torch.ops import global_block as gb
 from flmm_tpu_torch.ops import window_block as wb
+from flmm_tpu_torch.ops.boundary import dewindowize_plain as _dewindowize
+from flmm_tpu_torch.ops.boundary import windowize_plain as _windowize
 from flmm_tpu_torch.ops.fused_block import fused_ln_mlp, fused_ln_qkv, \
     fused_proj_ln_mlp
 from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8, \
@@ -270,27 +275,6 @@ def _block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, windowed: bool):
     x = shortcut + x
     y = layer_norm(x, bp["ln2_w"], bp["ln2_b"], cfg.ln_eps)
     return x + mlp_block(y, bp["mlp"])
-
-
-def _windowize(x: torch.Tensor, ws: int):
-    """(B, H, W, C) -> window-major (B*nwy*nwx, ws*ws, C) + geometry; the
-    grid is zero-padded up to whole windows."""
-    B, H, W, C = x.shape
-    pad_h = (ws - H % ws) % ws
-    pad_w = (ws - W % ws) % ws
-    xp = torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-    Hp, Wp = H + pad_h, W + pad_w
-    xw = xp.reshape(B, Hp // ws, ws, Wp // ws, ws, C)
-    xw = xw.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, C)
-    return xw, (B, H, W, Hp, Wp)
-
-
-def _dewindowize(xw: torch.Tensor, geom: tuple, ws: int) -> torch.Tensor:
-    B, H, W, Hp, Wp = geom
-    C = xw.shape[-1]
-    x = xw.reshape(B, Hp // ws, Wp // ws, ws, ws, C)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
-    return x[:, :H, :W]
 
 
 def _window_valid_tokens(geom: tuple, ws: int, device):

@@ -52,6 +52,19 @@ _SIGNATURES = {
     "flmm_flash_capture": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
                            _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _L,
                            _L, _L, _P, _P, _P),
+    # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S,
+    # head_dim, key_valid, img_start, n_img, out, o_b, o_h, o_t, lse, probs,
+    # stream
+    "flmm_flash_capture_raw": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                               _I, _I, _I, _I, _I, _P, _I, _I, _P, _L, _L,
+                               _L, _P, _P, _P),
+    # x, out, B, H, W, Hp, Wp, ws, 16-byte vectors per token, stream
+    "flmm_windowize": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "flmm_dewindowize": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # qkv, bias (f32), B, Hp, Wp, nh, head_dim, side, grid_hw, scale2, out,
+    # stream
+    "flmm_spatial_window_attention": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                      _P, _P),
 }
 
 

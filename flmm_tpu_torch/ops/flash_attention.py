@@ -1,5 +1,6 @@
 """K5: causal flash attention with the mean-merged text->image capture
-(flmm_tpu/ops/flash_attention.py::flash_attention_with_merged_capture).
+(flmm_tpu/ops/flash_attention.py::flash_attention_with_merged_capture), and
+K9: the same attention with the raw capture (::flash_attention_with_capture).
 
 The replacement for ``output_attentions=True``: besides the attention
 output it returns, per mask, the merged probabilities of the query rows over
@@ -46,12 +47,11 @@ def _check_contract(q, k, v, key_valid, merge_matrix, img_start, n_img):
             f"{tuple(merge_matrix.shape)}")
 
 
-def flash_attention_with_merged_capture_plain(q, k, v, key_valid,
-                                              merge_matrix, img_start: int,
-                                              n_img: int):
-    """The same function over f32 scores in device memory: p is the softmax
-    over the keys ``j <= i`` with ``key_valid``, a row without such a key
-    gives p = 0 (the kernels' guard), the output is ``p.to(q.dtype) @ v``."""
+def _causal_attention_plain(q, k, v, key_valid):
+    """``(out, p)`` over f32 scores in device memory: p ``(B, H, S, S)`` is
+    the softmax over the keys ``j <= i`` with ``key_valid``, a row without
+    such a key gives p = 0 (the kernels' guard), the output is
+    ``p.to(q.dtype) @ v``."""
     B, H, S, hd = q.shape
     rep = H // k.shape[1]
     if rep > 1:
@@ -65,11 +65,31 @@ def flash_attention_with_merged_capture_plain(q, k, v, key_valid,
     row_max = torch.where(torch.isfinite(row_max), row_max, 0.0)
     p = torch.exp(logits.sub_(row_max))  # exp(-inf) = 0 where masked
     p = p.div_(p.sum(dim=-1, keepdim=True).clamp_min(1e-30))
-    out = p.to(q.dtype) @ v
+    return p.to(q.dtype) @ v, p
+
+
+def flash_attention_with_merged_capture_plain(q, k, v, key_valid,
+                                              merge_matrix, img_start: int,
+                                              n_img: int):
+    """K5's plain version: the merged capture from the full f32
+    probabilities."""
+    out, p = _causal_attention_plain(q, k, v, key_valid)
     merged = torch.einsum("bhsn,bsm->bhmn",
                           p[..., img_start:img_start + n_img],
                           merge_matrix.float())
     return out, merged
+
+
+def _check_strided(fn: str, q, k, v) -> None:
+    """q, k, v as the kernels read them in place."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride(-1) != 1
+                or any(s % 8 for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{fn}: {name} must be a bf16 CUDA tensor with a contiguous "
+                "last dim, strides that are multiples of 8 and 16-byte "
+                f"alignment; got {t.dtype}, strides {t.stride()}")
 
 
 def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
@@ -97,15 +117,7 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
         raise ValueError(f"flash_attention_with_merged_capture: kernel built "
                          f"for head_dim 128 and at most {MAX_MASKS} masks, "
                          f"got {hd} and {M}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride(-1) != 1
-                or any(s % 8 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(
-                f"flash_attention_with_merged_capture: {name} must be a bf16 "
-                "CUDA tensor with a contiguous last dim, strides that are "
-                f"multiples of 8 and 16-byte alignment; got {t.dtype}, "
-                f"strides {t.stride()}")
+    _check_strided("flash_attention_with_merged_capture", q, k, v)
     valid = key_valid.contiguous()
     mm = merge_matrix.float().contiguous()
     _cuda.check_cuda("flash_attention_with_merged_capture", valid,
@@ -129,3 +141,69 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
 
 
 flash_attention_with_merged_capture.launches = 0
+
+
+def _length_mask(lengths, S: int) -> torch.Tensor:
+    """``(B, S)`` bool key validity of left-aligned sequences."""
+    return torch.arange(S, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def flash_attention_with_capture_plain(q, k, v, lengths, img_start: int,
+                                       n_img: int):
+    """K9's plain version: eager f32 softmax under the causal and length
+    mask, the image-key columns of its probabilities as the side output."""
+    out, p = _causal_attention_plain(q, k, v,
+                                     _length_mask(lengths, q.shape[2]))
+    return out, p[..., img_start:img_start + n_img]
+
+
+def flash_attention_with_capture(q, k, v, lengths, img_start: int,
+                                 n_img: int):
+    """Causal attention + image-block probability side output (K9).
+
+    Args:
+      q: ``(B, H, S, 128)``; k, v: ``(B, KV, S, 128)``, ``KV`` dividing H
+        (``KV == H``: already head-repeated, the JAX contract).
+      lengths: ``(B,)`` integer valid sequence lengths (left-aligned).
+      img_start: multiple of 128; ``n_img``: image-block width.
+
+    Returns ``(out (B, H, S, hd) in q.dtype, img_probs (B, H, S, n_img)
+    f32)``.
+    """
+    name = "flash_attention_with_capture"
+    _cuda.check_no_grad(name, q, k, v)
+    B, H, S, hd = q.shape
+    n_img_pad = math.ceil(n_img / BLOCK) * BLOCK
+    if S % BLOCK or img_start % BLOCK or img_start + n_img_pad > S:
+        raise ValueError(
+            f"{name}: needs S % {BLOCK} == 0, img_start % {BLOCK} == 0 and "
+            f"img_start + n_img_pad <= S, got S={S}, img_start={img_start}, "
+            f"n_img={n_img}")
+    KV = k.shape[1]
+    if (k.shape != (B, KV, S, hd) or v.shape != k.shape or H % KV
+            or lengths.shape != (B,)):
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} lengths {tuple(lengths.shape)}")
+    if not q.is_cuda:
+        return flash_attention_with_capture_plain(q, k, v, lengths, img_start,
+                                                  n_img)
+    if hd != 128:
+        raise ValueError(f"{name}: kernel built for head_dim 128, got {hd}")
+    _check_strided(name, q, k, v)
+    valid = _length_mask(lengths, S).contiguous()
+    _cuda.check_cuda(name, valid, dtype=torch.bool)
+    # out is (B, S, H, hd) in memory, as K5's
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    probs = torch.empty((B, H, S, n_img), dtype=torch.float32,
+                        device=q.device)
+    _cuda.launch(
+        "flmm_flash_capture_raw", q.data_ptr(), *q.stride()[:3], k.data_ptr(),
+        *k.stride()[:3], v.data_ptr(), *v.stride()[:3], B, H, KV, S, hd,
+        valid.data_ptr(), img_start, n_img, out.data_ptr(), S * H * hd, hd,
+        H * hd, lse.data_ptr(), probs.data_ptr(), _cuda.stream(q))
+    flash_attention_with_capture.launches += 1
+    return out.transpose(1, 2), probs
+
+
+flash_attention_with_capture.launches = 0

@@ -50,12 +50,15 @@ def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
         G, S, 2 * side).to(q.dtype)
 
 
-def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
+                                  key_valid=None):
     """K2's plain version (and, reshaped, K6's): natural-base attention with
     decomposed rel-pos bias over ``(G, S, hd)``, softmax in f32; query rows
     are chunked so at most ``MAX_PLAIN_SCORES`` f32 scores exist at a time
     (the unchunked ``(64, 4096, 4096)`` scores of a bs-4 SAM-1024 global
-    layer would take 4.3 GB)."""
+    layer would take 4.3 GB).  ``key_valid`` ``(G, S)`` bool, if given,
+    masks keys out of the softmax (the spatial window attention's ragged
+    edge); every head needs one valid key."""
     G, S, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     coords = rel_pos_coords(side, q.device)
@@ -73,6 +76,8 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
         bias_w = torch.einsum("gtd,tkd->gtk", qc, rw[t % side])
         logits = (logits.reshape(G, n, side, side) + bias_h[..., :, None]
                   + bias_w[..., None, :]).reshape(G, n, S)
+        if key_valid is not None:
+            logits = logits.masked_fill(~key_valid[:, None, :], float("-inf"))
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         outs.append(probs @ v)
     return torch.cat(outs, dim=1)

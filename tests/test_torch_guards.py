@@ -6,7 +6,10 @@
   PIL, and tests/test_grad_parity.py stubs the last two in
   ``sys.modules``);
 * chip_smoke.py refuses to run without a card, and without the rest of the
-  repository, and never prints its success line then.
+  repository, and never prints its success line then;
+* the wrappers of the relayout pair (K11), the raw capture (K9) and the
+  spatial window attention (K12 v10) take their plain versions on CPU
+  tensors and launch nothing, and refuse inputs that require grad.
 """
 
 import os
@@ -17,6 +20,10 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+from flmm_tpu_torch.ops import boundary, flash_attention
+from flmm_tpu_torch.ops import sam_flash_experiments as sfx
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flmm_tpu", "PIL", "transformers",
@@ -45,11 +52,14 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "assert 'flmm_tpu_torch.data.llava_next' in names\n"
         "assert 'flmm_tpu_torch.ops.global_block' in names\n"
         "assert 'flmm_tpu_torch.configs.hpt' in names\n"
+        "for new in ('ops.boundary', 'ops.sam_flash_experiments',\n"
+        "            'kernel_bench'):\n"
+        "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 33
+    assert int(count) >= 36
     assert bad.strip() == "[]"
 
 
@@ -60,7 +70,8 @@ def test_port_sources_never_import_jax():
     files = sorted((REPO / "flmm_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    for new in ("ops/global_block.py", "configs/hpt.py"):
+    for new in ("ops/global_block.py", "configs/hpt.py", "ops/boundary.py",
+                "ops/sam_flash_experiments.py", "kernel_bench.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -100,3 +111,58 @@ def test_kernels_build_at_first_use_and_raise_without_nvcc(call):
     assert proc.returncode == 0, proc.stderr
     if "HAS_NVCC" not in proc.stdout:
         assert proc.stdout.strip() == "RAISED True"
+
+
+def _wrapper_calls():
+    """(wrapper, plain version, CPU arguments, indices of the float
+    arguments) of the three modules that hold K9, K11 and K12 v10."""
+    x = torch.randn((1, 5, 5, 8))
+    xw, geom = boundary.windowize_plain(x, 3)
+    q = torch.randn((1, 2, 128, 8))
+    qkv = torch.randn((1, 4, 4, 2 * 3 * 8))
+    rel = torch.randn((3, 8))
+    return {
+        "windowize": (boundary.windowize, boundary.windowize_plain,
+                      (x, 3), (0,)),
+        "dewindowize": (boundary.dewindowize, boundary.dewindowize_plain,
+                        (xw, geom, 3), (0,)),
+        "flash_attention_with_capture": (
+            flash_attention.flash_attention_with_capture,
+            flash_attention.flash_attention_with_capture_plain,
+            (q, q, q, torch.tensor([100]), 0, 64), (0, 1, 2)),
+        "sam_window_attention_v10": (
+            sfx.sam_window_attention_v10, sfx.sam_window_attention_v10_plain,
+            (qkv, rel, rel, 2, 3), (0, 1, 2)),
+    }
+
+
+WRAPPER_NAMES = ("windowize", "dewindowize", "flash_attention_with_capture",
+                 "sam_window_attention_v10")
+
+
+def _flat(out):
+    return [t for t in (out if isinstance(out, tuple) else (out,))
+            if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("name", WRAPPER_NAMES)
+def test_new_wrappers_take_the_plain_version_on_cpu_and_launch_nothing(name):
+    wrapper, plain, args, _ = _wrapper_calls()[name]
+    before = wrapper.launches
+    got, want = _flat(wrapper(*args)), _flat(plain(*args))
+    assert wrapper.launches == before == 0
+    assert len(got) == len(want) >= 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", WRAPPER_NAMES)
+def test_new_wrappers_refuse_inputs_that_require_grad(name):
+    wrapper, _, args, floats = _wrapper_calls()[name]
+    for i in floats:
+        bad = list(args)
+        bad[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="requires grad"):
+            wrapper(*bad)
+        with torch.no_grad():
+            wrapper(*bad)

@@ -1,0 +1,140 @@
+"""The kernel bench entry point (``python -m flmm_tpu_torch.kernel_bench``)
+on the CPU: every op at the tiny presets' size with the plain versions
+(``--device cpu --tiny``), the row keys of the JAX script, the agreement
+rows, the variant resolver and the refusal to run without a card.
+
+The rows' times are host-clock times of plain code here and say so
+(``device: cpu``); the card's rows come from chip_smoke.py and from the
+module run on the card.
+"""
+
+import json
+import math
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from flmm_tpu_torch import kernel_bench as kb
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+TIMING = {"ms", "ms_min", "ms_max", "iters", "device"}
+# op -> [(variant, the keys beside op / variant / the timing keys)], as
+# scripts/kernel_bench.py prints them
+ROWS = {
+    "window": [("v9", {"max_err_vs_v1"})],
+    "global": [("v8", {"max_err_vs_v1"})],
+    "encoder": [("w=v9,g=v8", set())],
+    "wb": [("flash", {"depth", "ms_per_layer"}),
+           ("whole_block", {"depth", "ms_per_layer"}),
+           ("agreement", {"corr", "max_abs_diff", "scale"})],
+    "gb": [("dense", {"depth", "bs", "ms_per_layer"}),
+           ("whole_block", {"depth", "bs", "ms_per_layer"}),
+           ("agreement", {"corr", "max_abs_diff", "scale"})],
+    "boundary": [("plain dewin+win pair", {"bs"}),
+                 ("kernel dewin+win pair", {"bs", "max_abs_diff"})],
+    "tower": [("total", set()), ("plain", set()), ("pad128", set())],
+    "decoder": [("eager S=96", set()), ("eager S=256 aligned", set()),
+                ("flash S=256 aligned", set())],
+    "window_path": [("v9_path", set()), ("v10_path", set())],
+    "heads": [("unet+sam", set())],
+    "rtt": [(None, set())],
+}
+
+
+def _run(op, bs=2, **kw):
+    g = torch.Generator().manual_seed(0)
+    return kb.run([op], bs, torch.device("cpu"), g, iters=1, depth=3,
+                  geo=kb.tiny(), **kw)
+
+
+@pytest.mark.parametrize("op", kb.OPS)
+def test_op_rows_at_the_tiny_size(op):
+    rows = _run(op)
+    assert len(rows) == len(ROWS[op])
+    for row, (variant, extra) in zip(rows, ROWS[op]):
+        assert row.get("variant") == variant
+        timed = variant != "agreement"
+        want = {"op"} | extra | (TIMING if timed else set())
+        assert set(row) - {"variant"} == want, row
+        if timed:
+            assert row["device"] == "cpu" and row["iters"] == 1
+            assert 0 < row["ms_min"] <= row["ms"] <= row["ms_max"]
+            assert math.isfinite(row["ms"])
+    json.dumps(rows)  # every value is a plain number or string
+    if op in ("wb", "gb"):
+        assert rows[-1]["corr"] >= 0.999 and rows[-1]["scale"] > 0
+        assert rows[0]["depth"] == 3
+    if op == "boundary":
+        assert rows[-1]["max_abs_diff"] == 0.0
+    if op in ("window", "global"):
+        assert rows[0]["max_err_vs_v1"] == 0.0
+
+
+def test_ops_are_the_jax_scripts():
+    src = (REPO / "scripts" / "kernel_bench.py").read_text()
+    for op in kb.OPS:
+        assert f'"{op}" in what' in src
+
+
+@pytest.mark.parametrize("stem, name", [
+    ("sam_window_attention", "v1"), ("sam_window_attention", "v6"),
+    ("sam_global_attention", "v3"), ("sam_global_attention", "v11")])
+def test_an_unported_variant_raises_by_name(stem, name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kb.kernel_fn(stem, name)
+
+
+def test_unported_variants_raise_before_anything_is_timed(capsys):
+    for flag in ("--window-variants", "--global-variants", "--window-kernel",
+                 "--global-kernel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            kb.main(["--device", "cpu", "--tiny", "--what", "rtt", flag, "v6"])
+    assert '"op"' not in capsys.readouterr().out
+    with pytest.raises(ValueError, match="window_path"):
+        kb.kernel_fn("sam_window_attention", "v10")
+
+
+def test_cli_prints_the_card_line_then_one_json_line_per_row(capsys):
+    rows = kb.main(["--device", "cpu", "--tiny", "--bs", "1", "--iters", "2",
+                    "--what", "rtt,boundary,window_path", "--seed", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("cpu")
+    assert [json.loads(line) for line in lines[1:]] == rows
+    # the JAX script's order, whatever order --what names
+    assert [r["op"] for r in rows] == ["boundary"] * 2 + ["window_path"] * 2 \
+        + ["rtt_floor"]
+    assert all(r["iters"] == 2 for r in rows)
+
+
+def test_defaults_are_the_jax_scripts_but_for_the_unported_variants():
+    """--what, --bs and --depth as scripts/kernel_bench.py:488-490; the
+    variant flags default to the production kernels until K12 is ported."""
+    src = (REPO / "scripts" / "kernel_bench.py").read_text()
+    for line in ('"--what", default="window,global"',
+                 '"--bs", type=int, default=8',
+                 '"--depth", type=int, default=12'):
+        assert line in src
+        assert line in (REPO / "flmm_tpu_torch" / "kernel_bench.py").read_text()
+
+
+def test_full_geometry_is_the_jax_scripts():
+    geo = kb.full()
+    assert (geo.window_side, geo.window_grid, geo.global_side) == (14, 64, 64)
+    assert (geo.sam.embed_dim, geo.sam.num_heads, geo.sam.head_dim,
+            geo.sam.window_size, geo.sam.grid, geo.sam.depth) == (
+                1024, 16, 64, 14, 64, 24)
+    assert (geo.seq_len, geo.aligned, geo.masks, geo.text_tokens) == (
+        672, (768, 128), 8, 12)
+    assert geo.cfg.vision.seq_len == 576 and geo.cfg.llm.head_dim == 128
+
+
+def test_module_refuses_to_run_without_a_card():
+    env = {"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "flmm_tpu_torch.kernel_bench", "--what", "rtt"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"op"' not in proc.stdout
