@@ -24,7 +24,10 @@ Phases; any failure raises and the script exits non-zero:
    the plain pair, also in f32) and K12 v10, the spatial window attention,
    at the bs-8 grid padded to 70 x 70; then K1, K2, K3, K4, K5, K6, K8 and
    K10 once more at the shapes phase 13's bench gives them (bs 8 at the
-   SAM-1024 grid, the SigLIP rows, the aligned decoder).  Each kernel's time
+   SAM-1024 grid, the SigLIP rows, the aligned decoder); and the global
+   variants v11, v3, v6 and v7 of K12 at the bs-4 and bs-8 SAM-1024 grid
+   (v11 also at side 28), each also beside K2 on the same inputs.  Each
+   kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
    where one PyTorch call computes the same function, that call's time;
@@ -47,7 +50,9 @@ Phases; any failure raises and the script exits non-zero:
    bit unchanged, and a checkpoint save / restore round trip;
 9. compare one training step's loss and gradients with the all-plain
    path's on the same state and batch, and time the plain path's steps;
-10. check that 10 steps on one repeated batch lower its loss;
+10. check that 10 steps on one repeated batch lower its loss (phases 8-10
+    run under torch.use_deterministic_algorithms, so that the state the
+    steps reach, and with it phase 9's reading, repeats from run to run);
 11. serve 3 distinct synthetic bs-4 requests through the HPT-Air-1.5
     grounding forward at full width and depth (Llama-3-8B with GQA 32/8
     over S=1280 with the 1024-token image block at 128, SigLIP-SO400M/14 at
@@ -60,8 +65,18 @@ Phases; any failure raises and the script exits non-zero:
     DeepSeek-LLM-1.3B at full depth, the window-only and global-only
     encoders at depth 12 and 6: every time finite and positive, the
     flash / whole-block agreement rows, the relayout round trip exact, and
-    the exact launch counts of every op;
-14. report times.
+    the exact launch counts of every op (`global` times v8, v3, v6, v7 and
+    v11; `encoder` and `heads` run the bench's default, g=v6);
+14. run the twin of bench.py (flmm_tpu_torch.bench.run) in process:
+    DeepSeek-VL-1.3B at bs 4, SAM-1024 and S=672, full width and depth, with
+    the global kernel knob at v11, 3 timed forwards after 2 warm-ups on the
+    kernel path and on the all-plain path: finite logits and the exact
+    launch counts per forward;
+15. compare that forward with the v8 forward and with the all-plain forward
+    on one batch, and put the largest log2-domain score of each global layer
+    on record (v11's precondition);
+16. run the twin once more at its default (v8);
+17. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -73,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import tempfile
@@ -80,6 +96,7 @@ import time
 
 import torch
 
+from flmm_tpu_torch import bench as e2e_bench
 from flmm_tpu_torch import kernel_bench, registry
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
@@ -93,6 +110,7 @@ from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
     global_block, masks, sam_flash, sam_flash_experiments, window_block
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
 
@@ -163,11 +181,14 @@ EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
 # through K10 + K8; the SigLIP tower is 24 layers of K3 + K4; the decoder's
 # third variant runs K5 in its 24 layers.
 BENCH_GB_DEPTH = min(BENCH_DEPTH, 6)
+# the global variants the `global` op times; `encoder` and `heads` run the
+# bench's default, g=v6
+BENCH_GLOBAL_VARIANTS = ("v8", "v3", "v6", "v7", "v11")
 _SAM_1024 = {"window_block": 20, "fused_ln_qkv": 4,
-             "sam_global_attention_v8": 4, "fused_proj_ln_mlp": 4}
+             "sam_global_attention_v6": 4, "fused_proj_ln_mlp": 4}
 BENCH_LAUNCHES = {
     "window": {"sam_window_attention_v9": 1},
-    "global": {"sam_global_attention_v8": 1},
+    "global": {f"sam_global_attention_{v}": 1 for v in BENCH_GLOBAL_VARIANTS},
     "encoder": _SAM_1024,
     "wb": {"fused_ln_qkv": BENCH_DEPTH, "sam_window_attention_v9": BENCH_DEPTH,
            "fused_proj_ln_mlp": BENCH_DEPTH, "window_block": BENCH_DEPTH},
@@ -184,27 +205,18 @@ BENCH_LAUNCHES = {
     "heads": _SAM_1024,
     "rtt": {},
 }
-WRAPPERS = {"window_block": window_block.window_block,
-            "sam_global_attention_v8": sam_flash.sam_global_attention_v8,
-            "fused_ln_qkv": fused_block.fused_ln_qkv,
-            "fused_proj_ln_mlp": fused_block.fused_proj_ln_mlp,
-            "flash_attention_with_merged_capture":
-                flash_attention.flash_attention_with_merged_capture,
-            "sam_window_attention_v9": sam_flash.sam_window_attention_v9,
-            "plain_flash_attention": sam_flash.plain_flash_attention,
-            "fused_ln_mlp": fused_block.fused_ln_mlp,
-            "global_attn_block": global_block.global_attn_block,
-            "flash_attention_with_capture":
-                flash_attention.flash_attention_with_capture,
-            "dewindowize": boundary.dewindowize,
-            "windowize": boundary.windowize,
-            "sam_window_attention_v10":
-                sam_flash_experiments.sam_window_attention_v10}
-# the kernels that came with the kernel bench: no model path launches them
-BENCH_ONLY = ("flash_attention_with_capture", "dewindowize", "windowize",
-              "sam_window_attention_v10")
-for _counts in EXPECTED_LAUNCHES.values():
-    _counts.update(dict.fromkeys(BENCH_ONLY, 0))
+WRAPPERS = e2e_bench.WRAPPERS  # every counted wrapper, by name
+for _counts in EXPECTED_LAUNCHES.values():  # kernels not named: 0
+    for _name in WRAPPERS:
+        _counts.setdefault(_name, 0)
+# the bench.py twin (phases 14-16): DeepSeek-VL-1.3B, bs 4, SAM-1024, S=672,
+# with the global kernel knob at v11 and at its default
+E2E_ITERS = 3
+E2E_LAUNCHES = {
+    "v11": {"window_block": 20, "sam_global_attention_v11": 4,
+            "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28},
+    "v8": EXPECTED_LAUNCHES["deepseek_vl_1_3b"],
+}
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -234,6 +246,14 @@ SOURCES = {
     "sam_window_attention_v10": (
         "flmm_tpu_torch/csrc/spatial_window_attention.cu",
         "flmm_tpu/ops/sam_flash_experiments.py:1222"),
+    "sam_global_attention_v11": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                 "flmm_tpu/ops/sam_flash_experiments.py:1309"),
+    "sam_global_attention_v3": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:1046"),
+    "sam_global_attention_v6": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:942"),
+    "sam_global_attention_v7": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:981"),
 }
 
 
@@ -272,6 +292,9 @@ def phase_card() -> str:
     # the plain versions are the reference: full f32 products and convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # what the deterministic switch of phases 8-10 asks of cuBLAS, read when
+    # its first handle is made; 8 x 4 MiB is also PyTorch's default on Hopper
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -359,13 +382,14 @@ def hpt_batches(cfg, n: int, device=None) -> list:
 
 
 def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
-                  g_bench: torch.Generator) -> dict:
+                  g_bench: torch.Generator, g_e2e: torch.Generator) -> dict:
     """Each kernel against its plain version at the main paths' shapes.
-    The checks that came with the HPT path draw from ``g_hpt`` and those
-    that came with the kernel bench from ``g_bench``, so that the earlier
-    paths keep the weights and inputs ``g`` and ``g_hpt`` have always given
-    them (phase 9's U-Net gradient comparison is sensitive to the state the
-    training steps reach)."""
+    The checks that came with the HPT path draw from ``g_hpt``, those that
+    came with the kernel bench from ``g_bench`` and those of the global
+    variants from ``g_e2e``, so that the earlier paths keep the weights and
+    inputs ``g`` and ``g_hpt`` have always given them (phase 9's U-Net
+    gradient comparison is sensitive to the state the training steps
+    reach)."""
     C, F, hd = 1024, 4096, 64
     results = {}
 
@@ -604,6 +628,7 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     del q, k, v, qkv, heads, mask
     kernel_bench_checks(check, g_bench)
     bench_shape_checks(check, g_bench)
+    global_variant_checks(check, g_e2e)
     return results
 
 
@@ -811,17 +836,46 @@ def bench_shape_checks(check, g: torch.Generator) -> None:
           + 2 * H * MASKS * n_img * B * S)
 
 
-def _plain_config(cfg):
-    """The same model with every kernel gate off."""
-    if isinstance(cfg, llava_next_model.LlavaNextConfig):
-        return dataclasses.replace(cfg, base=_plain_config(cfg.base))
-    enc = dataclasses.replace(cfg.sam.encoder, flash_global=False,
-                              flash_window=False, window_block_fused=False,
-                              global_block_fused=False, fused_mlp=False)
-    return dataclasses.replace(
-        cfg, llm=dataclasses.replace(cfg.llm, use_flash_capture=False),
-        vision=dataclasses.replace(cfg.vision, fused_mlp=False, flash=False),
-        sam=dataclasses.replace(cfg.sam, encoder=enc))
+def global_variant_checks(check, g: torch.Generator) -> None:
+    """Phase 3 for the global variants v11, v3, v6 and v7 (K12) at the
+    shapes their paths give them: 4 images x 16 heads over the 64 x 64 grid
+    (the bench.py twin at bs 4) and 8 images (the kernel bench); v11 also at
+    side 28, whose 784 keys end inside a 64-key tile.  Each variant's result
+    is also held beside K2's (v8) on the same inputs."""
+    hd, nh, side = 64, 16, 64
+    variants = {
+        name: (getattr(sam_flash_experiments, f"sam_global_attention_{name}"),
+               getattr(sam_flash_experiments,
+                       f"sam_global_attention_{name}_plain"))
+        for name in ("v11", "v3", "v6", "v7")}
+
+    def check_all(label, q, k, v, rph, rpw, side, names, mask=None):
+        ref = sam_flash.sam_global_attention_v8(q, k, v, rph, rpw, side)
+        G, S, _ = q.shape
+        for name in names:
+            wrapper, plain = variants[name]
+            check(f"sam_global_attention_{name}", label, wrapper, plain,
+                  (q, k, v, rph, rpw, side), flop=4 * G * S * S * hd,
+                  library_fn=None if mask is None
+                  else lambda: _sdpa(q, k, v, mask))
+            diff = (wrapper(q, k, v, rph, rpw, side).float()
+                    - ref.float()).abs().max().item()
+            log(f"phase 3 sam_global_attention_{name} [{label}]: max |diff| "
+                f"against sam_global_attention_v8 {diff:.3e}")
+
+    for B in (BS, BENCH_BS):
+        q, k, v = (_randn(g, (nh * B, side * side, hd)) for _ in range(3))
+        rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+        # the library call at the bs-4 shape only (its mask takes 2.1 GB)
+        mask = _attention_mask(q, rph, rpw, side) if B == BS else None
+        check_all(f"G={nh * B}, S={side * side}", q, k, v, rph, rpw, side,
+                  variants, mask)
+        del mask
+    side = TRAIN_SAM // 16
+    q, k, v = (_randn(g, (nh * TRAIN_BS, side * side, hd)) for _ in range(3))
+    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    check_all(f"G={nh * TRAIN_BS}, S={side * side}", q, k, v, rph, rpw, side,
+              ("v11",), _attention_mask(q, rph, rpw, side))
 
 
 def run_requests(forward, params, cfg, batches) -> tuple[list, float]:
@@ -873,7 +927,7 @@ def phase_compare(phase, path, forward, params, cfg, served,
                   pairs_fn) -> None:
     """The kernel forward against the all-plain forward on one batch, then
     the plain path's time and peak memory over the same requests."""
-    plain = _plain_config(cfg)
+    plain = registry.plain_config(cfg)
     batch = served["requests"][0]
     with torch.no_grad():
         pairs = pairs_fn(cfg, plain, batch)
@@ -1018,7 +1072,11 @@ def _run_steps(step, state, frozen, batches) -> tuple[list, float]:
 
 def run_train(g: torch.Generator) -> dict:
     """Phases 8-10: the DeepSeek-VL-1.3B heads trained at the SAM-448
-    schedule through the port's train step."""
+    schedule through the port's train step, under PyTorch's deterministic
+    algorithms.  The heads' gradient is ill-conditioned (phase 9), and the
+    atomic sums of the default backward kernels moved the state the steps
+    reach, and with it phase 9's correlations, from one run of the same
+    code to the next; with the switch on, two runs give the same bits."""
     path = "deepseek_vl_1_3b_train_sam448"
     cfg = registry.with_sam_size(deepseek_vl.deepseek_vl_1_3b(), TRAIN_SAM)
     params = grounding.init_params(cfg, g, "cuda")
@@ -1030,10 +1088,14 @@ def run_train(g: torch.Generator) -> dict:
     opt = train_loop.make_optimizer(train_loop.OptimConfig(
         lr=TRAIN_LR, total_steps=2 * (1 + TRAIN_STEPS)))
     state = train_loop.init_state(params["trainable"], opt)
-    result = train_phase(path, cfg, opt, state, frozen, batches)
-    result.update(compare_train_phase(path, cfg, opt, state, frozen,
-                                      batches))
-    repeated_batch_phase(path, cfg, state, frozen, batches[1])
+    torch.use_deterministic_algorithms(True)
+    try:
+        result = train_phase(path, cfg, opt, state, frozen, batches)
+        result.update(compare_train_phase(path, cfg, opt, state, frozen,
+                                          batches))
+        repeated_batch_phase(path, cfg, state, frozen, batches[1])
+    finally:
+        torch.use_deterministic_algorithms(False)
     return result
 
 
@@ -1094,7 +1156,7 @@ def compare_train_phase(path, cfg, opt, state, frozen, batches) -> dict:
     where coarse logits sit near 0 (the mask downscaler's LayerNorm over 4
     channels of a locally flat dense prompt), so it is compared at the
     state the timed steps leave, not after the repeated-batch phase."""
-    plain = _plain_config(cfg)
+    plain = registry.plain_config(cfg)
     batch = batches[1]
     (loss_k, _), grads_k = train_loop.value_and_grad(
         lambda p, b: grounding.loss_fn(p, cfg, b), frozen, state["params"],
@@ -1158,7 +1220,8 @@ def run_kernel_bench(g: torch.Generator) -> dict:
     t0 = time.perf_counter()
     rows = kernel_bench.run(
         kernel_bench.OPS, BENCH_BS, torch.device("cuda"), g,
-        depth=BENCH_DEPTH, iters=BENCH_ITERS, emit=emit)
+        depth=BENCH_DEPTH, iters=BENCH_ITERS,
+        global_variants=BENCH_GLOBAL_VARIANTS, emit=emit)
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     seconds = time.perf_counter() - t0
 
@@ -1193,13 +1256,114 @@ def run_kernel_bench(g: torch.Generator) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+def log2_score_max(q, k, rel_pos_h, rel_pos_w, side: int) -> float:
+    """The largest log2-domain score of ``(G, S, hd)`` heads as the global
+    kernels see it (v11 needs it below 128), over chunks of query rows."""
+    G, S, hd = q.shape
+    qs = (q.float() * (sam_flash.LOG2E / math.sqrt(hd))).to(q.dtype)
+    bias = sam_flash.global_bias_rows(q, rel_pos_h, rel_pos_w, side)
+    kt = k.transpose(1, 2)
+    rows = max(1, sam_flash.MAX_PLAIN_SCORES // (G * S))
+    best = -math.inf
+    for r0 in range(0, S, rows):
+        b = bias[:, r0:r0 + rows].float()
+        s = matmul_f32(qs[:, r0:r0 + rows], kt).reshape(G, -1, side, side)
+        s = s + b[..., :side, None] + b[..., None, side:]
+        best = max(best, s.max().item())
+    return best
+
+
+def run_e2e_bench() -> dict:
+    """Phases 14-16: the bench.py twin in process, DeepSeek-VL-1.3B at bs 4,
+    SAM-1024 and S=672 at full width and depth, with the global kernel knob
+    at v11 and at its default."""
+    device = torch.device("cuda")
+    knobs = e2e_bench.Knobs(global_kernel="v11")
+    rows = {"v11": e2e_bench.run(BS, E2E_ITERS, knobs, device)}
+    torch.cuda.empty_cache()
+    check_e2e_row(14, rows["v11"], "v11")
+
+    # phase 15: one batch through the v11, the v8 and the all-plain forward
+    # of the same parameters (the seed gives run()'s again)
+    model, cfg, params, batch = e2e_bench.build(BS, knobs, device)
+    enc = cfg.sam.encoder
+    cfg_v8 = dataclasses.replace(cfg, sam=dataclasses.replace(
+        cfg.sam, encoder=dataclasses.replace(enc, global_kernel="v8")))
+    scores = []
+    real = sam_encoder.GLOBAL_KERNELS["v11"]
+
+    def probed(q, k, v, rel_pos_h, rel_pos_w, side):
+        scores.append(log2_score_max(q, k, rel_pos_h, rel_pos_w, side))
+        return real(q, k, v, rel_pos_h, rel_pos_w, side)
+
+    sam_encoder.GLOBAL_KERNELS["v11"] = probed
+    try:
+        with torch.no_grad():
+            out = model.forward(params, cfg, batch)
+    finally:
+        sam_encoder.GLOBAL_KERNELS["v11"] = real
+    log(f"phase 15 bench v11: largest log2-domain score of each global "
+        f"layer {[round(x, 2) for x in scores]} (v11 needs every score "
+        "below 128)")
+    if len(scores) != 4 or not max(scores) < 128:
+        raise AssertionError("v11's precondition does not hold on this path")
+    with torch.no_grad():
+        out_v8 = model.forward(params, cfg_v8, batch)
+        for key in ("hidden", "coarse_logits", "sam_logits"):
+            rel, corr = agreement(out[key], out_v8[key])
+            log(f"phase 15 bench {key}: v11 vs v8 forward max_rel_err "
+                f"{rel:.3e} corr {corr:.6f} (bound {FORWARD_CORR[key]})")
+            if corr < FORWARD_CORR[key]:
+                raise AssertionError(f"bench {key}: the v11 forward "
+                                     "disagrees with the v8 forward")
+    del out_v8
+
+    def sam_embedding(cfg, plain, batch):
+        return {"sam_embedding": tuple(sam_encoder.forward(
+            params["frozen"]["sam_encoder"], c.sam.encoder,
+            batch["sam_pixel_values"]) for c in (cfg, plain))}
+
+    phase_compare(15, "bench v11", model.forward, params, cfg,
+                  {"requests": [batch], "outs": [out]}, sam_embedding)
+    del model, params, batch, out
+    torch.cuda.empty_cache()
+
+    rows["v8"] = e2e_bench.run(BS, E2E_ITERS, e2e_bench.Knobs(), device)
+    torch.cuda.empty_cache()
+    check_e2e_row(16, rows["v8"], "v8")
+    return {"launches": {
+        name: sum(r["launches"][name] * r["iters"] for r in rows.values())
+        for name in WRAPPERS}, "rows": rows}
+
+
+def check_e2e_row(phase: int, row: dict, global_kernel: str) -> None:
+    """One row of the bench.py twin: its keys, its settings and the exact
+    launch counts per forward (run() itself refuses non-finite logits)."""
+    log(f"phase {phase} bench_torch {json.dumps(row)}")
+    want = {name: E2E_LAUNCHES[global_kernel].get(name, 0)
+            for name in WRAPPERS}
+    if row["launches"] != want:
+        raise AssertionError(f"bench {global_kernel}: launches per forward "
+                             f"differ from {want}")
+    if (row["global_kernel"], row["bs"], row["sam_size"], row["iters"],
+            row["family"], row["preset"]) != (
+                global_kernel, BS, 1024, E2E_ITERS, "deepseek_vl", "1_3b"):
+        raise AssertionError(f"bench {global_kernel}: wrong settings in "
+                             "the row")
+    for r in (row, row["plain"]):
+        if not (math.isfinite(r["value"]) and r["value"] > 0
+                and 0 < r["ms_min"] <= r["ms_mean"] <= r["ms_max"]):
+            raise AssertionError(f"bench {global_kernel}: bad time in {r}")
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
     g_hpt = torch.Generator(device="cuda").manual_seed(1)
     g_bench = torch.Generator(device="cuda").manual_seed(2)
-    kernels = phase_kernels(g, g_hpt, g_bench)
+    g_e2e = torch.Generator(device="cuda").manual_seed(3)
+    kernels = phase_kernels(g, g_hpt, g_bench, g_e2e)
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
     paths["llava_next_vicuna_7b"] = run_llava_next(g)
@@ -1209,11 +1373,13 @@ def main() -> None:
     paths["hpt_air_1_5"] = run_hpt(g_hpt)
     torch.cuda.empty_cache()
     bench = run_kernel_bench(g_bench)
+    torch.cuda.empty_cache()
+    e2e = run_e2e_bench()
     for path, r in paths.items():
         unit = r.get("unit", "forward")
         what = (f"{r['n']} steps" if unit == "step"
                 else f"{len(r['requests'])} requests")
-        log(f"phase 14 timing {path} ({card}): kernel path {r['ms']:.1f} "
+        log(f"phase 17 timing {path} ({card}): kernel path {r['ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
@@ -1223,10 +1389,11 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name]
-                         for r in (*paths.values(), bench)),
+                         for r in (*paths.values(), bench, e2e)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
-             "kernel_bench": bench["launches"][name]},
+             "kernel_bench": bench["launches"][name],
+             "bench_torch": e2e["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

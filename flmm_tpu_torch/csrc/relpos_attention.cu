@@ -38,6 +38,31 @@
 // and key tiles wastes 41% of the products, so per-block staging and the
 // idle tail bound it rather than the tensor cores.
 //
+// It also serves four of the superseded global variants of
+// flmm_tpu/ops/sam_flash_experiments.py (K12), which differ from K2 as
+// functions only in what happens to the f32 scores, chosen by the SOFTMAX
+// template flag:
+//   SOFTMAX_LOG2         K1, K2, K6, K10 and global v7 (::sam_global_attention_v7,
+//                        the pallas_call at :981): log2-domain operands,
+//                        p = exp2(s - max);
+//   SOFTMAX_NATURAL      global v3 (:1046) and v6 (:942), one function: q
+//                        scaled by `scale` alone and the bias rows in
+//                        natural base, both rounded to bf16 outside;
+//                        p = exp(s - max), taken as exp2((s - max) * log2 e)
+//                        in f32;
+//   SOFTMAX_LOG2_NO_MAX  global v11 (:1309): log2-domain operands and
+//                        p = exp2(s) of the raw scores.  No running max is
+//                        kept and nothing is rescaled: the accumulators are
+//                        plain sums and a masked key adds exp2(-1e30) = 0.
+//                        A score of 128 or more overflows to a non-finite
+//                        row, as on the TPU: the caller's precondition.
+// The TPU variants hold a (block_q, S) f32 score strip in VMEM and chunk the
+// query tile to overlap MXU and VPU work; no SM holds such a strip, so they
+// stream key tiles exactly as K2 does.  They are template flags here and
+// not a source of their own because everything but the dozen lines between
+// the two products is K2's; the SOFTMAX_LOG2 instantiation compiles to the
+// code it was before the flag (ptxas.log shows its registers and spills).
+//
 // Layout: element (g, t, d) of k and v is at
 //   (g / nh) * s_b + (g % nh) * s_h + t * s_t + d,
 // and of q at the same with its own strides (q_b, q_h, q_t), so K2 passes
@@ -54,6 +79,9 @@ namespace {
 
 constexpr int HD = 64, BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
 constexpr int K_LD = HD + 8;    // Ks[key][d]
+// the order is flmm_tpu_torch.ops.sam_flash.SOFTMAX_*
+enum Softmax { SOFTMAX_LOG2 = 0, SOFTMAX_NATURAL = 1, SOFTMAX_LOG2_NO_MAX = 2 };
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int VT_LD = BKV + 8;  // Vt[d][key]
 
 size_t smem_bytes(int side) {
@@ -61,6 +89,7 @@ size_t smem_bytes(int side) {
          (size_t)BQ * 2 * side * 4;
 }
 
+template <int SOFTMAX>
 __global__ void __launch_bounds__(THREADS)
 relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
                         long long q_h, long long q_t,
@@ -108,7 +137,8 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt)
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  [[maybe_unused]] float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+  float l0 = 0.f, l1 = 0.f;
   const float* brow0 = Bsm + (warp * 16 + qr) * two_side;
   const float* brow1 = brow0 + 8 * two_side;
   const uint4 zero = make_uint4(0, 0, 0, 0);
@@ -143,47 +173,73 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
         mma_16816(s[nt], qf[kk], b);
       }
 
-    // bias, key mask, online softmax in base 2
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+    if constexpr (SOFTMAX == SOFTMAX_LOG2_NO_MAX) {
+      // bias, key mask (-1e30, as the TPU kernel's), p = exp2 of the raw
+      // scores: plain sums, no max and no rescale
 #pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt)
+      for (int nt = 0; nt < BKV / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = kv0 + nt * 8 + qc + e;
-        if (key < S) {
-          const int bh = key / side, bw = side + key % side;
-          s[nt][e] += brow0[bh] + brow0[bw];
-          s[nt][2 + e] += brow1[bh] + brow1[bw];
-        } else {
-          s[nt][e] = -CUDART_INF_F;
-          s[nt][2 + e] = -CUDART_INF_F;
+        for (int e = 0; e < 2; ++e) {
+          const int key = kv0 + nt * 8 + qc + e;
+          if (key < S) {
+            const int bh = key / side, bw = side + key % side;
+            s[nt][e] += brow0[bh] + brow0[bw];
+            s[nt][2 + e] += brow1[bh] + brow1[bw];
+          } else {
+            s[nt][e] = -1e30f;
+            s[nt][2 + e] = -1e30f;
+          }
+          s[nt][e] = exp2f(s[nt][e]);
+          s[nt][2 + e] = exp2f(s[nt][2 + e]);
+          l0 += s[nt][e];  // this thread's columns; summed over the quad
+          l1 += s[nt][2 + e];  // at the end
         }
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
+    } else {
+      // bias, key mask, online softmax in base 2
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kv0 + nt * 8 + qc + e;
+          if (key < S) {
+            const int bh = key / side, bw = side + key % side;
+            s[nt][e] += brow0[bh] + brow0[bw];
+            s[nt][2 + e] += brow1[bh] + brow1[bw];
+          } else {
+            s[nt][e] = -CUDART_INF_F;
+            s[nt][2 + e] = -CUDART_INF_F;
+          }
+          mx0 = fmaxf(mx0, s[nt][e]);
+          mx1 = fmaxf(mx1, s[nt][2 + e]);
+        }
+      // natural-base scores: exp(x) = exp2(x * log2 e), in f32
+      constexpr float TO_LOG2 = SOFTMAX == SOFTMAX_NATURAL ? LOG2E : 1.f;
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float alpha0 = exp2f((m0 - mn0) * TO_LOG2);
+      const float alpha1 = exp2f((m1 - mn1) * TO_LOG2);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nt][e] = exp2f((s[nt][e] - mn0) * TO_LOG2);
+          s[nt][2 + e] = exp2f((s[nt][2 + e] - mn1) * TO_LOG2);
+          ps0 += s[nt][e];
+          ps1 += s[nt][2 + e];
+        }
+      l0 = l0 * alpha0 + ps0;  // this thread's columns; summed over the quad
+      l1 = l1 * alpha1 + ps1;  // at the end
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        o[dt][0] *= alpha0;
+        o[dt][1] *= alpha0;
+        o[dt][2] *= alpha1;
+        o[dt][3] *= alpha1;
       }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - mn0);
-        s[nt][2 + e] = exp2f(s[nt][2 + e] - mn1);
-        ps0 += s[nt][e];
-        ps1 += s[nt][2 + e];
-      }
-    l0 = l0 * alpha0 + ps0;  // this thread's columns; summed over the quad
-    l1 = l1 * alpha1 + ps1;  // at the end
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      o[dt][0] *= alpha0;
-      o[dt][1] *= alpha0;
-      o[dt][2] *= alpha1;
-      o[dt][3] *= alpha1;
     }
 
     // O += P (16 x 64 keys) @ V (64 keys x HD); the score accumulators of
@@ -218,6 +274,24 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
   }
 }
 
+template <int SOFTMAX>
+int launch(const bf16* q, long long q_b, long long q_h, long long q_t,
+           const bf16* k, const bf16* v, long long s_b, long long s_h,
+           long long s_t, int nh, const bf16* bias, int side, int G, int S,
+           bf16* out, long long o_b, long long o_h, long long o_t,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(side);
+  const cudaError_t e = cudaFuncSetAttribute(
+      relpos_attention_kernel<SOFTMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + BQ - 1) / BQ, G);
+  relpos_attention_kernel<SOFTMAX><<<grid, THREADS, smem, stream>>>(
+      q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, S, out, o_b, o_h,
+      o_t);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flmm_relpos_attention(const void* q, long long q_b,
@@ -226,23 +300,24 @@ extern "C" int flmm_relpos_attention(const void* q, long long q_b,
                                      long long s_b,
                                      long long s_h, long long s_t, int nh,
                                      const void* bias, int side, int G, int S,
-                                     int head_dim, void* out, long long o_b,
+                                     int head_dim, int softmax, void* out,
+                                     long long o_b,
                                      long long o_h, long long o_t,
                                      void* stream) {
   if (head_dim != HD || G <= 0 || S <= 0 || nh <= 0 || side <= 0 ||
+      softmax < SOFTMAX_LOG2 || softmax > SOFTMAX_LOG2_NO_MAX ||
       side * side != S || G > 65535 || q_b % 8 || q_h % 8 || q_t % 8 ||
       s_b % 8 || s_h % 8 || s_t % 8 ||
       o_b % 2 || o_h % 2 || o_t % 2)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(side);
-  const cudaError_t e = cudaFuncSetAttribute(
-      relpos_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + BQ - 1) / BQ, G);
-  relpos_attention_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, q_b, q_h, q_t, (const bf16*)k, (const bf16*)v, s_b,
-      s_h, s_t, nh,
-      (const bf16*)bias, side, S, (bf16*)out, o_b, o_h, o_t);
-  return (int)cudaGetLastError();
+#define FLMM_LAUNCH(MODE)                                                   \
+  launch<MODE>((const bf16*)q, q_b, q_h, q_t, (const bf16*)k,               \
+               (const bf16*)v, s_b, s_h, s_t, nh, (const bf16*)bias, side,  \
+               G, S, (bf16*)out, o_b, o_h, o_t, (cudaStream_t)stream)
+  switch (softmax) {
+    case SOFTMAX_NATURAL: return FLMM_LAUNCH(SOFTMAX_NATURAL);
+    case SOFTMAX_LOG2_NO_MAX: return FLMM_LAUNCH(SOFTMAX_LOG2_NO_MAX);
+    default: return FLMM_LAUNCH(SOFTMAX_LOG2);
+  }
+#undef FLMM_LAUNCH
 }

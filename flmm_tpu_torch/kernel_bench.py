@@ -22,11 +22,12 @@ takes the presets' tiny configurations: both are for the CPU tests, and a
 ``cpu`` row is no device time.  A kernel that fails to build or launch ends
 the run: no row reports an error and goes on.
 
-Until the other K12 variants are ported the defaults of
-``--window-variants``, ``--global-variants``, ``--window-kernel`` and
-``--global-kernel`` are the production ``v9`` / ``v8`` (the JAX script's
-are ``v1,v6,v7`` / ``v3,v6`` / ``v6`` / ``v6``); asking for a variant that
-is not ported raises ``NotImplementedError`` before anything is timed.
+``--global-variants`` (``v3,v6``) and ``--global-kernel`` (``v6``) default
+as in the JAX script; any of ``v8, v3, v6, v7, v11`` resolves.  Temporary:
+until the window variants of K12 are ported, ``--window-variants`` and
+``--window-kernel`` default to the production ``v9`` (the JAX script's are
+``v1,v6,v7`` and ``v6``).  Asking for a variant that is not ported raises
+``NotImplementedError`` before anything is timed.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from flmm_tpu_torch.models.sam import image_encoder
 from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.ops import boundary, sam_flash
 from flmm_tpu_torch.ops import sam_flash_experiments as sfx
+from flmm_tpu_torch.ops._matmul import matmul_f32
 
 WARMUP = 2  # untimed calls before each measurement
 OPS = ("window", "global", "encoder", "wb", "gb", "boundary", "tower",
@@ -57,11 +59,11 @@ OPS = ("window", "global", "encoder", "wb", "gb", "boundary", "tower",
 # that have no Hopper kernel yet are listed so that they fail by name
 KERNELS = {
     "sam_window_attention": {"v9": sam_flash.sam_window_attention_v9},
-    "sam_global_attention": {"v8": sam_flash.sam_global_attention_v8},
+    "sam_global_attention": image_encoder.GLOBAL_KERNELS,
 }
 UNPORTED = {
     "sam_window_attention": ("v1", "v2", "v3", "v4", "v5", "v6", "v7", "v8"),
-    "sam_global_attention": ("v1", "v2", "v3", "v4", "v6", "v7", "v11"),
+    "sam_global_attention": ("v1", "v2", "v4"),
 }
 
 
@@ -108,9 +110,9 @@ def kernel_fn(stem: str, name: str):
         "spatial window attention v10 is timed by --what window_path)")
 
 
-def device_of(name: str) -> torch.device:
+def device_of(name: str, who: str = "kernel_bench") -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("kernel_bench: no CUDA device; this benchmark needs "
+        raise SystemExit(f"{who}: no CUDA device; this benchmark needs "
                          "a GPU (--device cpu runs the plain versions)")
     return torch.device(name)
 
@@ -197,7 +199,7 @@ def bench_window(bs, device, g, iters=10, variants=("v9",), geo=None):
                                k, v, rh, rw, side, iters)
 
 
-def bench_global(bs, device, g, iters=5, variants=("v8",), geo=None):
+def bench_global(bs, device, g, iters=5, variants=("v3", "v6"), geo=None):
     """Global attention variants over the image-heads of ``bs`` images."""
     geo = geo or full()
     side, hd, nh = geo.global_side, geo.sam.head_dim, geo.sam.num_heads
@@ -218,7 +220,7 @@ def _encoder_run(cfg, bs, device, g, iters, pixel_scale=1.0):
 
 
 def bench_encoder(bs, device, g, iters=5, window_kernel="v9",
-                  global_kernel="v8", geo=None):
+                  global_kernel="v6", geo=None):
     """The whole SAM encoder with the given kernel variants."""
     geo = geo or full()
     kernel_fn("sam_window_attention", window_kernel)
@@ -313,7 +315,7 @@ def bench_tower(bs, device, g, iters=5, geo=None):
                for _ in range(3))
 
     def attn(q, k, v):
-        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        s = matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
         return torch.softmax(s, dim=-1).to(v.dtype) @ v
 
     stats, _ = timeit(attn, q, k, v, iters=iters)
@@ -394,11 +396,19 @@ def bench_window_path(bs, device, g, iters=10, geo=None):
     return rows
 
 
-def bench_heads(bs, device, g, iters=5, geo=None):
+def bench_heads(bs, device, g, iters=5, window_kernel="v9",
+                global_kernel="v6", geo=None):
     """U-Net + SAM refiner heads at bench geometry (``heads_forward``:
-    coarse maps -> U-Net -> SAM encoder -> prompt encoder + mask decoder)."""
+    coarse maps -> U-Net -> SAM encoder -> prompt encoder + mask decoder),
+    the encoder with the given kernel variants."""
     geo = geo or full()
+    kernel_fn("sam_window_attention", window_kernel)
+    kernel_fn("sam_global_attention", global_kernel)
     cfg, M = geo.cfg, geo.masks
+    cfg = dataclasses.replace(cfg, sam=dataclasses.replace(
+        cfg.sam, encoder=dataclasses.replace(
+            cfg.sam.encoder, window_kernel=window_kernel,
+            global_kernel=global_kernel)))
     params = grounding.init_params(cfg, g, device)
     for unused in ("llm", "vision", "projector"):
         params["frozen"].pop(unused)
@@ -425,8 +435,8 @@ def bench_rtt(device, iters=10):
 
 
 def run(what, bs, device, g, *, depth=12, iters=None,
-        window_variants=("v9",), global_variants=("v8",), window_kernel="v9",
-        global_kernel="v8", geo=None, emit=None) -> list:
+        window_variants=("v9",), global_variants=("v3", "v6"),
+        window_kernel="v9", global_kernel="v6", geo=None, emit=None) -> list:
     """Run the ops named in ``what`` in the JAX script's order; ``emit`` is
     called with each op's rows as they are ready."""
     unknown = sorted(set(what) - set(OPS))
@@ -455,7 +465,9 @@ def run(what, bs, device, g, *, depth=12, iters=None,
         "decoder": lambda: bench_decoder(bs, device, g, geo=geo, **it),
         "window_path": lambda: bench_window_path(bs, device, g, geo=geo,
                                                  **it),
-        "heads": lambda: bench_heads(bs, device, g, geo=geo, **it),
+        "heads": lambda: bench_heads(
+            bs, device, g, window_kernel=window_kernel,
+            global_kernel=global_kernel, geo=geo, **it),
         "rtt": lambda: bench_rtt(device, **it),
     }
     rows = []
@@ -481,9 +493,9 @@ def main(argv=None) -> list:
     ap.add_argument("--bs", type=int, default=8)
     ap.add_argument("--depth", type=int, default=12)
     ap.add_argument("--window-variants", default="v9")
-    ap.add_argument("--global-variants", default="v8")
+    ap.add_argument("--global-variants", default="v3,v6")
     ap.add_argument("--window-kernel", default="v9")
-    ap.add_argument("--global-kernel", default="v8")
+    ap.add_argument("--global-kernel", default="v6")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=None,

@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.flash_attention import flash_attention_with_merged_capture
 
 
@@ -172,7 +173,7 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
             k = k.repeat_interleave(H // KV, dim=2)
             v = v.repeat_interleave(H // KV, dim=2)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        logits = (q.float() @ k.float().transpose(-1, -2)) * scale \
+        logits = matmul_f32(q, k.transpose(-1, -2)) * scale \
             + aux["bias"]
         probs = torch.softmax(logits, dim=-1)  # f32
         out = (probs.to(cfg.dtype) @ v).transpose(1, 2).reshape(B, S, H * hd)

@@ -22,9 +22,13 @@ plain out-proj + MLP.  Everything else, and every CPU tensor, takes the
 plain path.  Pad tokens of a grid that does not divide into windows get
 ``k = b_k`` and ``v = b_v`` and stay in the softmax on every path, as in
 the reference.  The window relayout is the plain pair of ops/boundary.py, as
-in the JAX encoder (the K11 kernels' caller is the kernel bench).  Not
-ported yet: the superseded kernel variants (K12) other than the spatial
-window attention v10, which no encoder setting reaches, and the int8
+in the JAX encoder (the K11 kernels' caller is the kernel bench).
+``global_kernel`` picks the global attention kernel of the split path: K2
+(``v8``) or one of the ported bake-off variants ``v3``, ``v6``, ``v7``,
+``v11`` (ops/sam_flash_experiments.py), which run only on a grid of a
+multiple of 128 tokens, as in the JAX encoder (``v8`` masks any grid).  Not
+ported yet: the other superseded kernel variants (K12; the spatial window
+attention v10 is ported, but no encoder setting reaches it) and the int8
 encoder.
 """
 
@@ -37,13 +41,26 @@ import torch
 
 from flmm_tpu_torch.models.sam.common import channel_norm, conv2d, layer_norm, mlp_block
 from flmm_tpu_torch.ops import global_block as gb
+from flmm_tpu_torch.ops import sam_flash_experiments as sfx
 from flmm_tpu_torch.ops import window_block as wb
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.boundary import dewindowize_plain as _dewindowize
 from flmm_tpu_torch.ops.boundary import windowize_plain as _windowize
 from flmm_tpu_torch.ops.fused_block import fused_ln_mlp, fused_ln_qkv, \
     fused_proj_ln_mlp
 from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8, \
     sam_window_attention_v9
+
+
+# global_kernel -> wrapper; the JAX package's other names have no Hopper
+# kernel yet and are refused by name
+GLOBAL_KERNELS = {
+    "v8": sam_global_attention_v8,
+    "v3": sfx.sam_global_attention_v3,
+    "v6": sfx.sam_global_attention_v6,
+    "v7": sfx.sam_global_attention_v7,
+    "v11": sfx.sam_global_attention_v11,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +85,16 @@ class SamEncoderConfig:
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.global_kernel != "v8" or self.window_kernel != "v9":
+        if self.global_kernel not in GLOBAL_KERNELS:
             raise NotImplementedError(
-                "only the production kernels (global v8, window v9) exist "
-                "in the port; the replay variants are not ported")
+                f"global_kernel {self.global_kernel!r} has no Hopper kernel "
+                f"in the port (ported: {', '.join(GLOBAL_KERNELS)}); the "
+                "others are queued in ROADMAP.md")
+        if self.window_kernel != "v9":
+            raise NotImplementedError(
+                f"window_kernel {self.window_kernel!r} has no Hopper kernel "
+                "in the port (ported: v9); the others are queued in "
+                "ROADMAP.md")
 
     @property
     def grid(self) -> int:
@@ -138,15 +161,15 @@ def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
     scale = 1.0 / math.sqrt(hd)
     rh = bp["rel_pos_h"].float()[rel_pos_coords(H, x.device)]  # (H, H, hd)
     rw = bp["rel_pos_w"].float()[rel_pos_coords(W, x.device)]
-    kf = k.float().permute(0, 2, 3, 1)  # (B, nh, hd, HW)
+    kt = k.permute(0, 2, 3, 1)  # (B, nh, hd, HW)
     vh = v.transpose(1, 2)  # (B, nh, HW, hd)
 
     def attend(q_rows, rh_rows):
         """q_rows: (B, h', W, nh, hd); rh_rows: (h', H, hd)."""
         hq = q_rows.shape[1]
         rqf = q_rows.float()
-        qf = rqf.reshape(B, hq * W, nh, hd).transpose(1, 2)
-        logits = (qf @ kf) * scale  # (B, nh, hq*W, HW)
+        qh = q_rows.reshape(B, hq * W, nh, hd).transpose(1, 2)
+        logits = matmul_f32(qh, kt) * scale  # (B, nh, hq*W, HW)
         bias_h = torch.einsum("byxhd,ykd->bhyxk", rqf, rh_rows)
         bias_w = torch.einsum("byxhd,xkd->bhyxk", rqf, rw)
         logits = logits.reshape(B, nh, hq, W, H, W)
@@ -168,7 +191,8 @@ def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
 
 
 def _flash_global_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
-    """Global attention core through K2: ``(B, H, W, 3C) -> (B, H, W, C)``."""
+    """Global attention core through K2 or the variant ``cfg.global_kernel``
+    names: ``(B, H, W, 3C) -> (B, H, W, C)``."""
     B, H, W, C3 = qkv.shape
     C = C3 // 3
     nh, hd = cfg.num_heads, cfg.head_dim
@@ -178,8 +202,9 @@ def _flash_global_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
             B * nh, H * W, hd).contiguous()
 
     q, k, v = qkv.reshape(B, H * W, C3).split(C, dim=-1)
-    out = sam_global_attention_v8(heads(q), heads(k), heads(v),
-                                  bp["rel_pos_h"], bp["rel_pos_w"], H)
+    kernel = GLOBAL_KERNELS[cfg.global_kernel]
+    out = kernel(heads(q), heads(k), heads(v), bp["rel_pos_h"],
+                 bp["rel_pos_w"], H)
     return out.reshape(B, nh, H * W, hd).transpose(1, 2).reshape(B, H, W, C)
 
 
@@ -258,10 +283,19 @@ def _ln_mlp_residual(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
     return x + mlp_block(y, mlp)
 
 
+def flash_gate(cfg: SamEncoderConfig, H: int, W: int, windowed: bool) -> bool:
+    """The config's side of the split kernel path's gate (the other side is
+    ``x.is_cuda``): a global layer takes its attention kernel on a square
+    grid of a multiple of 128 tokens; ``v8`` masks its keys and takes any."""
+    if windowed:
+        return cfg.flash_window
+    return (cfg.flash_global and H == W
+            and ((H * W) % 128 == 0 or cfg.global_kernel == "v8"))
+
+
 def _block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, windowed: bool):
     B, H, W, C = x.shape
-    flash = cfg.flash_window if windowed else (cfg.flash_global and H == W)
-    if flash and x.is_cuda:
+    if flash_gate(cfg, H, W, windowed) and x.is_cuda:
         return _flash_block(x, bp, cfg, windowed)
     shortcut = x
     x = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)

@@ -10,6 +10,7 @@ import math
 import torch
 
 from flmm_tpu_torch.models.sam.common import layer_norm, linear, mlp_block
+from flmm_tpu_torch.ops._matmul import matmul_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +90,7 @@ def attention(p: dict, q, k, v, num_heads: int,
     qh = q.reshape(B, Nq, num_heads, hd).transpose(1, 2)
     kh = k.reshape(B, k.shape[1], num_heads, hd).transpose(1, 2)
     vh = v.reshape(B, v.shape[1], num_heads, hd).transpose(1, 2)
-    logits = (qh.float() @ kh.float().transpose(-1, -2)) / math.sqrt(hd)
+    logits = matmul_f32(qh, kh.transpose(-1, -2)) / math.sqrt(hd)
     if key_mask is not None:
         logits = logits + torch.where(
             key_mask[:, None, None, :], 0.0, torch.finfo(torch.float32).min)

@@ -18,6 +18,7 @@ import math
 import torch
 
 from flmm_tpu_torch.models.sam.common import conv2d, layer_norm
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.fused_block import activation, fused_ln_qkv, fused_proj_ln_mlp
 from flmm_tpu_torch.ops.resize import resize_bicubic
 from flmm_tpu_torch.ops.sam_flash import plain_flash_attention
@@ -159,7 +160,7 @@ def forward(params: dict, cfg: ViTConfig, pixels: torch.Tensor,
             o = plain_flash_attention(q, k, v).transpose(1, 2).reshape(
                 B, S, d)
         else:
-            logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+            logits = matmul_f32(q, k.transpose(-1, -2)) * scale
             probs = torch.softmax(logits, dim=-1).to(h.dtype)
             o = (probs @ v).transpose(1, 2).reshape(B, S, d)
         if use_fused_mlp:

@@ -23,6 +23,7 @@ import math
 import torch
 
 from flmm_tpu_torch.ops import _cuda
+from flmm_tpu_torch.ops._matmul import matmul_f32
 
 BLOCK = 128
 MAX_MASKS = 32  # csrc/flash_capture.cu MAX_M
@@ -57,7 +58,7 @@ def _causal_attention_plain(q, k, v, key_valid):
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+    logits = matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(hd)
     causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     allow = causal[None, None] & key_valid.bool()[:, None, None, :]
     logits = logits.masked_fill_(~allow, float("-inf"))

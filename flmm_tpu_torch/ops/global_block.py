@@ -30,6 +30,7 @@ import torch
 
 from flmm_tpu_torch.models.sam.common import layer_norm
 from flmm_tpu_torch.ops import _cuda, sam_flash
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.fused_block import gemm_residual_f32, ln_gemm
 from flmm_tpu_torch.ops.window_block import window_rel_bias_from_x
 
@@ -55,19 +56,19 @@ def global_attn_block_plain(x, bias, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,
     qkv = layer_norm(x, ln1_w, ln1_b, eps) @ wqkv_s + bqkv_s
     q, k, v = (t.reshape(B, S, nh, hd).transpose(1, 2)
                for t in qkv.split(C, dim=-1))
-    kt = k.float().transpose(-1, -2)
+    kt = k.transpose(-1, -2)
     rows = max(1, min(S, sam_flash.MAX_PLAIN_SCORES // (B * nh * S)))
     outs = []
     for r0 in range(0, S, rows):
         b = bias[:, :, r0:r0 + rows].float()
         n = b.shape[2]
-        s = q[:, :, r0:r0 + rows].float() @ kt  # (B, nh, n, S)
+        s = matmul_f32(q[:, :, r0:r0 + rows], kt)  # (B, nh, n, S)
         s = (s.reshape(B, nh, n, side, side) + b[..., :side, None]
              + b[..., None, side:]).reshape(B, nh, n, S)
         p = torch.softmax(s * sam_flash.LN2, dim=-1).to(x.dtype)
         outs.append((p @ v).transpose(1, 2).reshape(B, n, C))
     attn = torch.cat(outs, dim=1)
-    return x.float() + attn.float() @ wo.float() + bo.float()
+    return x.float() + matmul_f32(attn, wo) + bo.float()
 
 
 def global_attn_block(x, bias, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,

@@ -20,6 +20,7 @@ import math
 import torch
 
 from flmm_tpu_torch.ops import _cuda
+from flmm_tpu_torch.ops._matmul import matmul_f32
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -27,6 +28,10 @@ HEAD_DIM = 64  # the rel-pos kernel's head width
 PLAIN_HEAD_DIMS = (64, 72)  # the bias-free kernel's (72: SigLIP-SO400M)
 # f32 scores the plain global attention holds at a time (256 MB)
 MAX_PLAIN_SCORES = 1 << 26
+# what csrc/relpos_attention.cu does with the f32 scores: base-2 softmax with
+# the running max (K1, K2, K6, K10, global v7), natural-base softmax (global
+# v3 / v6), or exp2 of the raw log2-domain scores with no max (global v11)
+SOFTMAX_LOG2, SOFTMAX_NATURAL, SOFTMAX_LOG2_NO_MAX = 0, 1, 2
 
 
 def rel_pos_coords(side: int, device) -> torch.Tensor:
@@ -35,17 +40,20 @@ def rel_pos_coords(side: int, device) -> torch.Tensor:
     return r[:, None] - r[None, :] + side - 1
 
 
-def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
+def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int,
+                     log2_domain: bool = True) -> torch.Tensor:
     """Decomposed rel-pos bias rows ``[bias_h | bias_w]``, ``(G, S, 2*side)``
-    in the log2 domain and ``q.dtype``, from the unscaled q (reference
-    add_decomposed_rel_pos)."""
+    in ``q.dtype``, from the unscaled q (reference add_decomposed_rel_pos);
+    in the log2 domain, or with ``log2_domain=False`` in natural base."""
     G, S, hd = q.shape
     coords = rel_pos_coords(side, q.device)
     rh = rel_pos_h[coords].to(q.dtype)
     rw = rel_pos_w[coords].to(q.dtype)
     qg = q.reshape(G, side, side, hd).float()
-    bias_h = torch.einsum("gyxd,ykd->gyxk", qg, rh.float()) * LOG2E
-    bias_w = torch.einsum("gyxd,xkd->gyxk", qg, rw.float()) * LOG2E
+    bias_h = torch.einsum("gyxd,ykd->gyxk", qg, rh.float())
+    bias_w = torch.einsum("gyxd,xkd->gyxk", qg, rw.float())
+    if log2_domain:
+        bias_h, bias_w = bias_h * LOG2E, bias_w * LOG2E
     return torch.cat([bias_h, bias_w], dim=-1).reshape(
         G, S, 2 * side).to(q.dtype)
 
@@ -64,14 +72,14 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
     coords = rel_pos_coords(side, q.device)
     rh = rel_pos_h[coords].float()
     rw = rel_pos_w[coords].float()
-    kf = k.float()
+    kt = k.transpose(1, 2)
     rows = max(1, min(S, MAX_PLAIN_SCORES // (G * S)))
     outs = []
     for r0 in range(0, S, rows):
         qc = q[:, r0:r0 + rows].float()
         n = qc.shape[1]
         t = torch.arange(r0, r0 + n, device=q.device)
-        logits = (qc @ kf.transpose(1, 2)) * scale
+        logits = matmul_f32(q[:, r0:r0 + rows], kt) * scale
         bias_h = torch.einsum("gtd,tkd->gtk", qc, rh[t // side])
         bias_w = torch.einsum("gtd,tkd->gtk", qc, rw[t % side])
         logits = (logits.reshape(G, n, side, side) + bias_h[..., :, None]
@@ -83,8 +91,10 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
     return torch.cat(outs, dim=1)
 
 
-def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int):
-    """Prepare the operands as the JAX wrappers do and launch
+def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
+            softmax: int = SOFTMAX_LOG2):
+    """Prepare the operands as the JAX wrappers do (in natural base for
+    ``SOFTMAX_NATURAL``, else in the log2 domain) and launch
     csrc/relpos_attention.cu over ``(G, S, 64)`` heads or ``(NW, nh, S,
     64)`` strided views; the output has q's shape, in memory ``(G, S, 64)``
     or ``(NW, S, nh, 64)``."""
@@ -98,9 +108,12 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int):
                          f"got {hd}")
     G = math.prod(q.shape[:-2])
     nh = 1 if q.dim() == 3 else q.shape[1]
-    qs = (q.float() * (LOG2E / math.sqrt(hd))).to(q.dtype).reshape(
+    log2_domain = softmax != SOFTMAX_NATURAL
+    mult = LOG2E if log2_domain else 1.0
+    qs = (q.float() * (mult / math.sqrt(hd))).to(q.dtype).reshape(
         G, S, hd).contiguous()
-    bias = global_bias_rows(q.reshape(G, S, hd), rel_pos_h, rel_pos_w, side)
+    bias = global_bias_rows(q.reshape(G, S, hd), rel_pos_h, rel_pos_w, side,
+                            log2_domain)
     if q.dim() == 3:
         k, v = k.contiguous(), v.contiguous()
         out = torch.empty_like(qs)
@@ -123,7 +136,7 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int):
                 f"of 8 and 16-byte alignment; got {t.dtype}, strides "
                 f"{t.stride()}")
     relpos_attention(qs, (S * nh * hd, S * hd, hd), k, v, strides, nh, bias,
-                     side, G, S, out, out_strides)
+                     side, G, S, out, out_strides, softmax)
     return out_view
 
 
@@ -177,15 +190,15 @@ sam_window_attention_v9.launches = 0
 
 
 def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
-                     out_strides) -> None:
+                     out_strides, softmax: int = SOFTMAX_LOG2) -> None:
     """Launch csrc/relpos_attention.cu; element ``(g, t, d)`` of k and v is
     at ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] +
-    d`` from each pointer, of q likewise with ``q_strides``.  Uncounted: the
-    K1, K2 and K6 wrappers count."""
+    d`` from each pointer, of q likewise with ``q_strides``; ``softmax`` is
+    one of the ``SOFTMAX_*`` codes.  Uncounted: the wrappers count."""
     _cuda.launch(
         "flmm_relpos_attention", q.data_ptr(), *q_strides, k.data_ptr(),
         v.data_ptr(), *strides, nh, bias.data_ptr(), side, G, S, HEAD_DIM,
-        out.data_ptr(), *out_strides, _cuda.stream(q))
+        softmax, out.data_ptr(), *out_strides, _cuda.stream(q))
 
 
 def plain_flash_attention_plain(q, k, v):
@@ -193,7 +206,7 @@ def plain_flash_attention_plain(q, k, v):
     hd)``; q is scaled in f32 and rounded to its dtype before the product,
     as the JAX wrapper does, scores and softmax are f32."""
     qs = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
-    logits = qs.float() @ k.float().transpose(-1, -2)
+    logits = matmul_f32(qs, k.transpose(-1, -2))
     return torch.softmax(logits, dim=-1).to(q.dtype) @ v
 
 

@@ -1,7 +1,10 @@
 """K12: the bake-off variants of the SAM attention kernels
 (flmm_tpu/ops/sam_flash_experiments.py).  Ported so far: the spatial
 head-major window attention ``sam_window_attention_v10`` (the pallas_call at
-:1222) with ``qkv_head_major_perm``; the other variants are queued in
+:1222) with ``qkv_head_major_perm``, and four global variants with K2's
+contract ``(q, k, v, rel_pos_h, rel_pos_w, side) -> out`` over ``(G, S =
+side**2, 64)`` heads: ``sam_global_attention_v3`` (:1046), ``_v6`` (:942),
+``_v7`` (:981) and ``_v11`` (:1309); the other variants are queued in
 ROADMAP.md.
 
 v10 takes the qkv tensor as the projection leaves it, spatial ``(B, Hp, Wp,
@@ -14,6 +17,16 @@ outside.  Keys at or beyond ``grid_hw`` are masked out of the softmax
 output beyond ``grid_hw`` unspecified; here it is 0, on both the kernel and
 the plain path.  As in the JAX wrapper, only the thin bias rows are made
 outside, by two einsums over the unscaled q.
+
+The global variants differ from K2 (``sam_flash.sam_global_attention_v8``)
+as functions only in the domain of the operands their wrappers round to the
+working dtype and in the softmax: v3 and v6 (one function; ``block_q`` and
+``chunks`` only order the TPU's work) scale q by ``scale`` alone, keep the
+bias rows in natural base and take ``exp(s - max)``; v7 has K2's log2-domain
+operands and ``exp2(s - max)``; v11 has them too and takes ``exp2(s)`` with
+no max, so it needs every log2-domain score below 128 (about 88 nats) and
+gives a non-finite row otherwise, as on the TPU.  All four launch
+csrc/relpos_attention.cu with the matching ``SOFTMAX_*`` flag.
 """
 
 from __future__ import annotations
@@ -22,7 +35,8 @@ import math
 
 import torch
 
-from flmm_tpu_torch.ops import _cuda
+from flmm_tpu_torch.ops import _cuda, sam_flash
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.sam_flash import HEAD_DIM, LOG2E, rel_pos_coords, \
     sam_global_attention_v8_plain
 
@@ -132,3 +146,132 @@ def sam_window_attention_v10(qkv, rel_pos_h, rel_pos_w, side: int,
 
 
 sam_window_attention_v10.launches = 0
+
+
+def _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
+                          softmax: int):
+    """The function of a global variant with the roundings of its JAX
+    wrapper and kernel: q scaled in f32 and rounded to its dtype, the bias
+    rows rounded to it (natural base or log2 domain), f32 scores, ``p`` as
+    ``softmax`` says, rounded to v's dtype before the value product, the f32
+    sum of the unrounded ``p`` clamped at 1e-30 as denominator.  Query rows
+    are chunked under ``sam_flash.MAX_PLAIN_SCORES``."""
+    G, S, hd = q.shape
+    log2_domain = softmax != sam_flash.SOFTMAX_NATURAL
+    mult = LOG2E if log2_domain else 1.0
+    qs = (q.float() * (mult / math.sqrt(hd))).to(q.dtype)
+    bias = sam_flash.global_bias_rows(q, rel_pos_h, rel_pos_w, side,
+                                      log2_domain)
+    kt = k.transpose(1, 2)
+    rows = max(1, min(S, sam_flash.MAX_PLAIN_SCORES // (G * S)))
+    outs = []
+    for r0 in range(0, S, rows):
+        b = bias[:, r0:r0 + rows].float()
+        n = b.shape[1]
+        s = matmul_f32(qs[:, r0:r0 + rows], kt)
+        s = (s.reshape(G, n, side, side) + b[..., :side, None]
+             + b[..., None, side:]).reshape(G, n, S)
+        if softmax != sam_flash.SOFTMAX_LOG2_NO_MAX:
+            s = s - s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s) if log2_domain else torch.exp(s)
+        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        outs.append((matmul_f32(p.to(v.dtype), v) / denom).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _global_variant(name, softmax, aligned, q, k, v, rel_pos_h, rel_pos_w,
+                    side: int, wrapper):
+    """Shared body of the four wrappers: no grad, the plain version on CPU
+    tensors, the JAX contract on the shape (``aligned``: ``S % 8 == 0``, which
+    the TPU tiling of v3, v6 and v7 asserts; v11 pads and masks), then the
+    kernel."""
+    _cuda.check_no_grad(name, q, k, v, rel_pos_h, rel_pos_w)
+    if (q.dim() != 3 or q.shape[1] != side * side or k.shape != q.shape
+            or v.shape != q.shape or (aligned and q.shape[1] % 8)):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+            f"{tuple(v.shape)} side {side}: needs (G, S, hd) heads with S = "
+            "side**2" + (" and S % 8 == 0" if aligned else ""))
+    if not q.is_cuda:
+        return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
+                                     softmax)
+    out = sam_flash._launch(name, q, k, v, rel_pos_h, rel_pos_w, side,
+                            softmax)
+    wrapper.launches += 1
+    return out
+
+
+def sam_global_attention_v3_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v3's plain version: natural-base operands, ``exp(s - max)``."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
+                                 sam_flash.SOFTMAX_NATURAL)
+
+
+def sam_global_attention_v3(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v3: q scaled by ``scale`` and the bias rows
+    in natural base, both rounded to the working dtype; full-row softmax."""
+    return _global_variant("sam_global_attention_v3",
+                           sam_flash.SOFTMAX_NATURAL, True, q, k, v,
+                           rel_pos_h, rel_pos_w, side,
+                           sam_global_attention_v3)
+
+
+sam_global_attention_v3.launches = 0
+
+
+def sam_global_attention_v6_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v6's plain version: v3's function."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
+                                 sam_flash.SOFTMAX_NATURAL)
+
+
+def sam_global_attention_v6(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v6: v3's function (the TPU kernel chunks the
+    query tile, which only orders its work); one Hopper kernel serves both
+    names."""
+    return _global_variant("sam_global_attention_v6",
+                           sam_flash.SOFTMAX_NATURAL, True, q, k, v,
+                           rel_pos_h, rel_pos_w, side,
+                           sam_global_attention_v6)
+
+
+sam_global_attention_v6.launches = 0
+
+
+def sam_global_attention_v7_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v7's plain version: log2-domain operands, ``exp2(s - max)``."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
+                                 sam_flash.SOFTMAX_LOG2)
+
+
+def sam_global_attention_v7(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v7: v3 with the operands pre-multiplied by
+    log2(e) and a base-2 softmax; K2's function where ``S % 8 == 0``, through
+    K2's kernel instantiation."""
+    return _global_variant("sam_global_attention_v7", sam_flash.SOFTMAX_LOG2,
+                           True, q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_global_attention_v7)
+
+
+sam_global_attention_v7.launches = 0
+
+
+def sam_global_attention_v11_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v11's plain version: log2-domain operands, ``exp2(s)`` with no
+    max; a row holding a score of 128 or more comes out non-finite."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
+                                 sam_flash.SOFTMAX_LOG2_NO_MAX)
+
+
+def sam_global_attention_v11(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v11: K2 without the max subtraction, for any
+    grid side (keys at or beyond S are masked in-kernel).  Precondition:
+    every log2-domain score below 128, i.e. every attention logit below
+    about 88 nats; beyond it the row is not finite."""
+    return _global_variant("sam_global_attention_v11",
+                           sam_flash.SOFTMAX_LOG2_NO_MAX, False, q, k, v,
+                           rel_pos_h, rel_pos_w, side,
+                           sam_global_attention_v11)
+
+
+sam_global_attention_v11.launches = 0

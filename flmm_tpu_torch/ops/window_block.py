@@ -26,6 +26,7 @@ import torch
 
 from flmm_tpu_torch.models.sam.common import layer_norm
 from flmm_tpu_torch.ops import _cuda
+from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.fused_block import activation, block_tail, ln_gemm
 from flmm_tpu_torch.ops.sam_flash import LN2, LOG2E, rel_pos_coords, relpos_attention
 
@@ -83,7 +84,7 @@ def window_block_plain(x, bias, valid, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,
     qkv = y1 @ wqkv_s + bqkv_s
     q, k, v = (t.reshape(NW, T, nh, hd).transpose(1, 2)
                for t in qkv.split(C, dim=-1))
-    s = q.float() @ k.float().transpose(-1, -2)  # (NW, nh, T, T)
+    s = matmul_f32(q, k.transpose(-1, -2))  # (NW, nh, T, T)
     b = bias.float()
     s = (s.reshape(NW, nh, T, side, side) + b[..., :side, None]
          + b[..., None, side:]).reshape(NW, nh, T, T)

@@ -1,6 +1,6 @@
 """Model-family registry (flmm_tpu/registry.py) for the families the port
-has: config presets, model modules, the reduced-resolution SAM schedule and
-the coarse-mask frame."""
+has: config presets, model modules, the reduced-resolution SAM schedule, the
+coarse-mask frame and the all-plain twin of a config."""
 
 from __future__ import annotations
 
@@ -88,3 +88,17 @@ def get_coarse_hw(cfg) -> tuple:
     if hasattr(cfg, "coarse_frame"):  # LlavaNextConfig
         return tuple(cfg.coarse_frame)
     return output_hw(cfg.unet, (cfg.clip_shape, cfg.clip_shape))
+
+
+def plain_config(cfg):
+    """The same model with every kernel gate off: the port's own unfused
+    path, which every kernel path is compared with and timed against."""
+    if hasattr(cfg, "base"):  # LlavaNextConfig
+        return dataclasses.replace(cfg, base=plain_config(cfg.base))
+    enc = dataclasses.replace(cfg.sam.encoder, flash_global=False,
+                              flash_window=False, window_block_fused=False,
+                              global_block_fused=False, fused_mlp=False)
+    return dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, use_flash_capture=False),
+        vision=dataclasses.replace(cfg.vision, fused_mlp=False, flash=False),
+        sam=dataclasses.replace(cfg.sam, encoder=enc))

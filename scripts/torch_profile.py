@@ -141,7 +141,7 @@ def device_busy_ms(prof) -> tuple[float, float]:
 
 
 def profile_paths(cfg, stages) -> None:
-    for name, c in (("kernel", cfg), ("plain", chip_smoke._plain_config(cfg))):
+    for name, c in (("kernel", cfg), ("plain", registry.plain_config(cfg))):
         forward = stages(c)["forward"]
         with torch.no_grad():
             forward()
@@ -244,7 +244,7 @@ def profile_train(g: torch.Generator) -> None:
                                      seed=1), "cuda")
     opt = loop.make_optimizer(loop.OptimConfig(total_steps=100))
     state = loop.init_state(params["trainable"], opt)
-    for name, c in (("kernel", cfg), ("plain", chip_smoke._plain_config(cfg))):
+    for name, c in (("kernel", cfg), ("plain", registry.plain_config(cfg))):
         def step() -> list:
             """One step; CUDA events before and after its three parts."""
             events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]

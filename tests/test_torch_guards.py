@@ -7,9 +7,13 @@
   ``sys.modules``);
 * chip_smoke.py refuses to run without a card, and without the rest of the
   repository, and never prints its success line then;
-* the wrappers of the relayout pair (K11), the raw capture (K9) and the
-  spatial window attention (K12 v10) take their plain versions on CPU
-  tensors and launch nothing, and refuse inputs that require grad.
+* the wrappers of the relayout pair (K11), the raw capture (K9), the
+  spatial window attention (K12 v10) and the global variants v3, v6, v7 and
+  v11 (K12) take their plain versions on CPU tensors and launch nothing, and
+  refuse inputs that require grad;
+* no wrapper or entry point of the bench.py twin catches a failure to give
+  way to another path: the only handler is the bench's batch-size sweep, for
+  an out-of-memory error.
 """
 
 import os
@@ -48,18 +52,19 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "    flmm_tpu_torch.__path__, 'flmm_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert 'flmm_tpu_torch.data.llava_next' in names\n"
         "assert 'flmm_tpu_torch.ops.global_block' in names\n"
         "assert 'flmm_tpu_torch.configs.hpt' in names\n"
         "for new in ('ops.boundary', 'ops.sam_flash_experiments',\n"
-        "            'kernel_bench'):\n"
+        "            'kernel_bench', 'bench', 'ops._matmul'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 36
+    assert int(count) >= 38
     assert bad.strip() == "[]"
 
 
@@ -68,10 +73,11 @@ def test_port_sources_never_import_jax():
         r"^\s*(import|from)\s+(jax|jaxlib|flmm_tpu|PIL|transformers|"
         r"torchvision)\b", re.M)
     files = sorted((REPO / "flmm_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 20
     for new in ("ops/global_block.py", "configs/hpt.py", "ops/boundary.py",
-                "ops/sam_flash_experiments.py", "kernel_bench.py"):
+                "ops/sam_flash_experiments.py", "kernel_bench.py", "bench.py",
+                "ops/_matmul.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -121,7 +127,16 @@ def _wrapper_calls():
     q = torch.randn((1, 2, 128, 8))
     qkv = torch.randn((1, 4, 4, 2 * 3 * 8))
     rel = torch.randn((3, 8))
+    heads = torch.randn((2, 16, 8))
+    rel_g = torch.randn((7, 8))
+    variants = {
+        f"sam_global_attention_{v}": (
+            getattr(sfx, f"sam_global_attention_{v}"),
+            getattr(sfx, f"sam_global_attention_{v}_plain"),
+            (heads, heads, heads, rel_g, rel_g, 4), (0, 1, 2))
+        for v in ("v3", "v6", "v7", "v11")}
     return {
+        **variants,
         "windowize": (boundary.windowize, boundary.windowize_plain,
                       (x, 3), (0,)),
         "dewindowize": (boundary.dewindowize, boundary.dewindowize_plain,
@@ -137,7 +152,9 @@ def _wrapper_calls():
 
 
 WRAPPER_NAMES = ("windowize", "dewindowize", "flash_attention_with_capture",
-                 "sam_window_attention_v10")
+                 "sam_window_attention_v10", "sam_global_attention_v3",
+                 "sam_global_attention_v6", "sam_global_attention_v7",
+                 "sam_global_attention_v11")
 
 
 def _flat(out):
@@ -166,3 +183,21 @@ def test_new_wrappers_refuse_inputs_that_require_grad(name):
             wrapper(*bad)
         with torch.no_grad():
             wrapper(*bad)
+
+
+def test_no_handler_gives_way_to_another_path():
+    """The new wrappers, the product helper and the bench twin hold no
+    ``try``; the bench's sweep catches an out-of-memory error and nothing
+    else, and the root script only calls its ``main``."""
+    pkg = REPO / "flmm_tpu_torch"
+    for name in ("ops/sam_flash_experiments.py", "ops/_matmul.py",
+                 "ops/sam_flash.py", "models/sam/image_encoder.py"):
+        assert not re.search(r"^\s*(try|except)\b", (pkg / name).read_text(),
+                             re.M), name
+    handlers = re.findall(r"^\s*except\b.*$", (pkg / "bench.py").read_text(),
+                          re.M)
+    assert [h.strip() for h in handlers] == [
+        "except torch.cuda.OutOfMemoryError as e:  # retry smaller"]
+    root = (REPO / "bench_torch.py").read_text()
+    assert "from flmm_tpu_torch.bench import main" in root
+    assert "try" not in root and "except" not in root

@@ -25,8 +25,8 @@ TIMING = {"ms", "ms_min", "ms_max", "iters", "device"}
 # scripts/kernel_bench.py prints them
 ROWS = {
     "window": [("v9", {"max_err_vs_v1"})],
-    "global": [("v8", {"max_err_vs_v1"})],
-    "encoder": [("w=v9,g=v8", set())],
+    "global": [("v3", {"max_err_vs_v1"}), ("v6", {"max_err_vs_v1"})],
+    "encoder": [("w=v9,g=v6", set())],
     "wb": [("flash", {"depth", "ms_per_layer"}),
            ("whole_block", {"depth", "ms_per_layer"}),
            ("agreement", {"corr", "max_abs_diff", "scale"})],
@@ -70,7 +70,7 @@ def test_op_rows_at_the_tiny_size(op):
     if op == "boundary":
         assert rows[-1]["max_abs_diff"] == 0.0
     if op in ("window", "global"):
-        assert rows[0]["max_err_vs_v1"] == 0.0
+        assert all(r["max_err_vs_v1"] == 0.0 for r in rows)  # v3 is v6
 
 
 def test_ops_are_the_jax_scripts():
@@ -81,17 +81,28 @@ def test_ops_are_the_jax_scripts():
 
 @pytest.mark.parametrize("stem, name", [
     ("sam_window_attention", "v1"), ("sam_window_attention", "v6"),
-    ("sam_global_attention", "v3"), ("sam_global_attention", "v11")])
+    ("sam_global_attention", "v1"), ("sam_global_attention", "v2"),
+    ("sam_global_attention", "v4")])
 def test_an_unported_variant_raises_by_name(stem, name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         kb.kernel_fn(stem, name)
+
+
+@pytest.mark.parametrize("name", ["v8", "v3", "v6", "v7", "v11"])
+def test_the_ported_global_variants_resolve_and_run(name):
+    fn = kb.kernel_fn("sam_global_attention", name)
+    assert fn.__name__ == f"sam_global_attention_{name}"
+    rows = _run("global", global_variants=("v8", name))
+    assert [r["variant"] for r in rows] == ["v8", name]
+    assert rows[1]["max_err_vs_v1"] < 1e-5  # f32 at the tiny size
+    assert _run("encoder", global_kernel=name)[0]["variant"] == f"w=v9,g={name}"
 
 
 def test_unported_variants_raise_before_anything_is_timed(capsys):
     for flag in ("--window-variants", "--global-variants", "--window-kernel",
                  "--global-kernel"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            kb.main(["--device", "cpu", "--tiny", "--what", "rtt", flag, "v6"])
+            kb.main(["--device", "cpu", "--tiny", "--what", "rtt", flag, "v2"])
     assert '"op"' not in capsys.readouterr().out
     with pytest.raises(ValueError, match="window_path"):
         kb.kernel_fn("sam_window_attention", "v10")
@@ -110,12 +121,15 @@ def test_cli_prints_the_card_line_then_one_json_line_per_row(capsys):
 
 
 def test_defaults_are_the_jax_scripts_but_for_the_unported_variants():
-    """--what, --bs and --depth as scripts/kernel_bench.py:488-490; the
-    variant flags default to the production kernels until K12 is ported."""
+    """--what, --bs, --depth, --global-variants and --global-kernel as
+    scripts/kernel_bench.py:488-494; the window flags default to the
+    production kernel until K12's window variants are ported."""
     src = (REPO / "scripts" / "kernel_bench.py").read_text()
     for line in ('"--what", default="window,global"',
                  '"--bs", type=int, default=8',
-                 '"--depth", type=int, default=12'):
+                 '"--depth", type=int, default=12',
+                 '"--global-variants", default="v3,v6"',
+                 '"--global-kernel", default="v6"'):
         assert line in src
         assert line in (REPO / "flmm_tpu_torch" / "kernel_bench.py").read_text()
 
