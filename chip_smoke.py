@@ -26,8 +26,13 @@ Phases; any failure raises and the script exits non-zero:
    K10 once more at the shapes phase 13's bench gives them (bs 8 at the
    SAM-1024 grid, the SigLIP rows, the aligned decoder); and the global
    variants v11, v3, v6 and v7 of K12 at the bs-4 and bs-8 SAM-1024 grid
-   (v11 also at side 28), each also beside K2 on the same inputs.  Each
-   kernel's time
+   (v11 also at side 28), each also beside K2 on the same inputs; the
+   window variants v1, v6, v7 and v8 of K12 at the kernel bench's bs-8 shape
+   (3200 window-heads, contiguous and as views of the windowised qkv) and
+   at the SAM-768 bs-4 shape, each also beside K6; and K6, K3, K4 and K2 at
+   the shapes the SAM-768 and SAM-640 points of the size sweep give them
+   (padded grids of 16 and 9 windows an image, global sides 48 and 40).
+   Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
    where one PyTorch call computes the same function, that call's time;
@@ -65,8 +70,10 @@ Phases; any failure raises and the script exits non-zero:
     DeepSeek-LLM-1.3B at full depth, the window-only and global-only
     encoders at depth 12 and 6: every time finite and positive, the
     flash / whole-block agreement rows, the relayout round trip exact, and
-    the exact launch counts of every op (`global` times v8, v3, v6, v7 and
-    v11; `encoder` and `heads` run the bench's default, g=v6);
+    the exact launch counts of every op (`window` times v1, v6, v7, v8 and
+    v9, `global` v8, v3, v6, v7 and v11; `encoder` and `heads` run the
+    bench's defaults, w=v6 and g=v6, of which the window kernel is launched
+    0 times: at SAM-1024 every window layer is K1);
 14. run the twin of bench.py (flmm_tpu_torch.bench.run) in process:
     DeepSeek-VL-1.3B at bs 4, SAM-1024 and S=672, full width and depth, with
     the global kernel knob at v11, 3 timed forwards after 2 warm-ups on the
@@ -76,7 +83,18 @@ Phases; any failure raises and the script exits non-zero:
     on one batch, and put the largest log2-domain score of each global layer
     on record (v11's precondition);
 16. run the twin once more at its default (v8);
-17. report times.
+17. run the SAM size sweep (flmm_tpu_torch.schedule_bench.run) in process
+    at SAM-768 and SAM-640, bs 4, 3 timed forwards a point, at full width
+    and depth: both grids are padded to whole windows and have fewer than 25
+    windows an image, so the 20 window layers go K3 -> K6 -> K4: the exact
+    launch counts per forward;
+18. compare the kernel forward with the all-plain forward at both sizes on
+    weights with non-zero qkv biases (the pad tokens' keys and values);
+19. run the SAM ViT-L encoder alone at 768, bs 4, through each window
+    kernel name (v9, v1, v6, v7, v8): 20 launches of the named wrapper and
+    none of the others, and the embedding beside the v9 encoder's and the
+    all-plain encoder's;
+20. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -97,7 +115,7 @@ import time
 import torch
 
 from flmm_tpu_torch import bench as e2e_bench
-from flmm_tpu_torch import kernel_bench, registry
+from flmm_tpu_torch import kernel_bench, registry, schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
@@ -186,8 +204,12 @@ BENCH_GB_DEPTH = min(BENCH_DEPTH, 6)
 BENCH_GLOBAL_VARIANTS = ("v8", "v3", "v6", "v7", "v11")
 _SAM_1024 = {"window_block": 20, "fused_ln_qkv": 4,
              "sam_global_attention_v6": 4, "fused_proj_ln_mlp": 4}
+# the window variants the `window` op times: the bench's default and v8, v9
+BENCH_WINDOW_VARIANTS = ("v1", "v6", "v7", "v8", "v9")
+WINDOW_WRAPPER = {"v1": "sam_window_attention", **{
+    v: f"sam_window_attention_{v}" for v in ("v6", "v7", "v8", "v9")}}
 BENCH_LAUNCHES = {
-    "window": {"sam_window_attention_v9": 1},
+    "window": {WINDOW_WRAPPER[v]: 1 for v in BENCH_WINDOW_VARIANTS},
     "global": {f"sam_global_attention_{v}": 1 for v in BENCH_GLOBAL_VARIANTS},
     "encoder": _SAM_1024,
     "wb": {"fused_ln_qkv": BENCH_DEPTH, "sam_window_attention_v9": BENCH_DEPTH,
@@ -217,6 +239,14 @@ E2E_LAUNCHES = {
             "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28},
     "v8": EXPECTED_LAUNCHES["deepseek_vl_1_3b"],
 }
+# the size sweep (phases 17-18): the two padded grids at bs 4; per forward the
+# SigLIP tower's 24 layers and SAM's 24 go K3 / K4, SAM's 20 window layers K6
+# and its 4 global layers K2 (at 640 the 1600-token grid is no multiple of
+# 128: only v8 takes it)
+SWEEP_SIZES, SWEEP_ITERS = (768, 640), 3
+SWEEP_LAUNCHES = EXPECTED_LAUNCHES["deepseek_vl_1_3b_train_sam448"]
+# the window-variant encoder (phase 19): SAM ViT-L at 768, bs 4
+VARIANT_SAM = 768
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -254,6 +284,14 @@ SOURCES = {
                                 "flmm_tpu/ops/sam_flash_experiments.py:942"),
     "sam_global_attention_v7": ("flmm_tpu_torch/csrc/relpos_attention.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:981"),
+    "sam_window_attention": ("flmm_tpu_torch/csrc/window_attention.cu",
+                             "flmm_tpu/ops/sam_flash_experiments.py:695"),
+    "sam_window_attention_v6": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:185"),
+    "sam_window_attention_v7": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:270"),
+    "sam_window_attention_v8": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:346"),
 }
 
 
@@ -382,11 +420,13 @@ def hpt_batches(cfg, n: int, device=None) -> list:
 
 
 def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
-                  g_bench: torch.Generator, g_e2e: torch.Generator) -> dict:
+                  g_bench: torch.Generator, g_e2e: torch.Generator,
+                  g_sweep: torch.Generator) -> dict:
     """Each kernel against its plain version at the main paths' shapes.
     The checks that came with the HPT path draw from ``g_hpt``, those that
-    came with the kernel bench from ``g_bench`` and those of the global
-    variants from ``g_e2e``, so that the earlier paths keep the weights and
+    came with the kernel bench from ``g_bench``, those of the global
+    variants from ``g_e2e`` and those of the window variants and the size
+    sweep from ``g_sweep``, so that the earlier paths keep the weights and
     inputs ``g`` and ``g_hpt`` have always given them (phase 9's U-Net
     gradient comparison is sensitive to the state the training steps
     reach)."""
@@ -629,6 +669,8 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     kernel_bench_checks(check, g_bench)
     bench_shape_checks(check, g_bench)
     global_variant_checks(check, g_e2e)
+    window_variant_checks(check, g_sweep)
+    sweep_shape_checks(check, g_sweep)
     return results
 
 
@@ -768,11 +810,13 @@ def bench_shape_checks(check, g: torch.Generator) -> None:
     # K2: global, gb, encoder and heads: 8 images x 16 heads, contiguous
     q, k, v = (_randn(g, (nh * B, S, hd)) for _ in range(3))
     rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    mask = _attention_mask(q, rph, rpw, side)  # 4.3 GB, outside the timing
     check("sam_global_attention_v8", f"bench, G={nh * B}, S={S}",
           sam_flash.sam_global_attention_v8,
           sam_flash.sam_global_attention_v8_plain, (q, k, v, rph, rpw, side),
-          flop=4 * nh * B * S * S * hd)
-    del q, k, v
+          flop=4 * nh * B * S * S * hd,
+          library_fn=lambda: _sdpa(q, k, v, mask))
+    del q, k, v, mask
 
     # K10: gb's attention half from the bs-8 residual stream
     x = _randn(g, (B, S, C))
@@ -805,11 +849,13 @@ def bench_shape_checks(check, g: torch.Generator) -> None:
     # K6: the window op's contiguous (G, T, hd) heads, and the (NW, nh, T,
     # hd) views of the windowised qkv that wb and window_path pass
     q, k, v = (_randn(g, (NW * nh, T, hd)) for _ in range(3))
+    mask = _attention_mask(q, rph, rpw, ws)  # 246 MB, outside the timing
     check("sam_window_attention_v9", f"bench, G={NW * nh}, T={T}",
           sam_flash.sam_window_attention_v9,
           sam_flash.sam_window_attention_v9_plain, (q, k, v, rph, rpw, ws),
-          flop=4 * NW * nh * T * T * hd)
-    del q, k, v
+          flop=4 * NW * nh * T * T * hd,
+          library_fn=lambda: _sdpa(q, k, v, mask))
+    del q, k, v, mask
     qkvw = _randn(g, (NW, T, 3 * C))
     heads = [qkvw[..., i * C:(i + 1) * C].reshape(NW, T, nh, hd).transpose(
         1, 2) for i in range(3)]
@@ -866,8 +912,8 @@ def global_variant_checks(check, g: torch.Generator) -> None:
     for B in (BS, BENCH_BS):
         q, k, v = (_randn(g, (nh * B, side * side, hd)) for _ in range(3))
         rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
-        # the library call at the bs-4 shape only (its mask takes 2.1 GB)
-        mask = _attention_mask(q, rph, rpw, side) if B == BS else None
+        # the library call's mask, 2.1 GB at bs 4 and 4.3 GB at bs 8
+        mask = _attention_mask(q, rph, rpw, side)
         check_all(f"G={nh * B}, S={side * side}", q, k, v, rph, rpw, side,
                   variants, mask)
         del mask
@@ -876,6 +922,126 @@ def global_variant_checks(check, g: torch.Generator) -> None:
     rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
     check_all(f"G={nh * TRAIN_BS}, S={side * side}", q, k, v, rph, rpw, side,
               ("v11",), _attention_mask(q, rph, rpw, side))
+
+
+def _window_views(g: torch.Generator, NW: int, nh: int = 16, T: int = 196,
+                  hd: int = 64) -> list:
+    """q, k, v as the encoder's ``_flash_window_core`` passes them: ``(NW,
+    nh, T, hd)`` strided views of one windowised ``(NW, T, 3C)`` qkv."""
+    C = nh * hd
+    qkvw = _randn(g, (NW, T, 3 * C))
+    return [qkvw[..., i * C:(i + 1) * C].reshape(NW, T, nh, hd).transpose(
+        1, 2) for i in range(3)]
+
+
+def window_variant_checks(check, g: torch.Generator) -> None:
+    """Phase 3 for the window variants v1, v6, v7 and v8 (K12) at the shapes
+    their paths give them: the kernel bench's 3200 contiguous window-heads
+    (8 images x 25 windows x 16 heads), the same as views of a windowised
+    qkv, and the views of the SAM-768 bs-4 encoder (64 windows).  Each
+    variant's result is also held beside K6's (v9) on the same inputs, and
+    its wrapper's plain preparation (bias rows, q scaling) is timed alone.
+    The bytes counted are q, k, v, the output and the two tables, as for
+    K6."""
+    ws, hd, nh = 14, 64, 16
+    T = ws * ws
+    sfx = sam_flash_experiments
+    variants = {"v1": (sfx.sam_window_attention,
+                       sfx.sam_window_attention_plain)}
+    variants.update({
+        name: (getattr(sfx, f"sam_window_attention_{name}"),
+               getattr(sfx, f"sam_window_attention_{name}_plain"))
+        for name in ("v6", "v7", "v8")})
+    rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+    inputs = (
+        (f"bench, G={200 * nh}, T={T}",
+         [_randn(g, (200 * nh, T, hd)) for _ in range(3)]),
+        (f"bench, G={200 * nh}, T={T}, (NW, nh, T, hd) views",
+         _window_views(g, 200)),
+        (f"SAM-768 bs 4, G={64 * nh}, T={T}, (NW, nh, T, hd) views",
+         _window_views(g, 64)))
+    for label, (q, k, v) in inputs:
+        G = q.numel() // (T * hd)
+        mask = _attention_mask(q.reshape(G, T, hd), rph, rpw, ws)
+        if q.dim() == 4:
+            mask = mask.reshape(-1, nh, T, T)
+        ref = sam_flash.sam_window_attention_v9(q, k, v, rph, rpw, ws)
+        outs = {}
+        for name, (wrapper, plain) in variants.items():
+            check(WINDOW_WRAPPER[name], label, wrapper, plain,
+                  (q, k, v, rph, rpw, ws), flop=4 * G * T * T * hd,
+                  library_fn=lambda: _sdpa(q, k, v, mask))
+            outs[name] = wrapper(q, k, v, rph, rpw, ws)
+            diff = (outs[name].float() - ref.float()).abs().max().item()
+            log(f"phase 3 {WINDOW_WRAPPER[name]} [{label}]: max |diff| "
+                f"against sam_window_attention_v9 {diff:.3e}")
+        # scale = 2**-3 at head_dim 64, so scaling q commutes with rounding
+        # it: the two kernel instantiations are one function of bf16 inputs
+        log(f"phase 3 window variants [{label}]: v1 equals v6 bit for bit: "
+            f"{torch.equal(outs['v1'], outs['v6'])}, v7 equals v8: "
+            f"{torch.equal(outs['v7'], outs['v8'])}, v1 equals v7: "
+            f"{torch.equal(outs['v1'], outs['v7'])}")
+        if not (torch.equal(outs["v1"], outs["v6"])
+                and torch.equal(outs["v7"], outs["v8"])):
+            raise AssertionError("two names of one kernel instantiation "
+                                 "disagree")
+        del mask, ref, outs
+        qf = q.reshape(G, T, hd)
+        rows_ms = cuda_ms(lambda: sam_flash.global_bias_rows(
+            qf, rph, rpw, ws, log2_domain=False, dtype=torch.bfloat16))
+        scale_ms = cuda_ms(lambda: (q.float() * 0.125).to(q.dtype))
+        log(f"phase 3 window variants [{label}]: of the wrappers' time above, "
+            f"the plain bias rows alone {rows_ms:.3f} ms (all four) and the "
+            f"plain q scaling alone {scale_ms:.3f} ms (v7, v8)")
+
+
+def sweep_shape_checks(check, g: torch.Generator) -> None:
+    """Phase 3 at the shapes the size sweep's SAM-768 and SAM-640 points
+    (phase 17, bs 4) give the kernels of the earlier paths: K6 over 64 and
+    36 padded windows, K3 and K4 over 9216 and 6400 token rows, K2 over
+    sides 48 and 40 (1600 keys end inside a 64-key tile and are no multiple
+    of 128)."""
+    C, F, hd, nh, ws = 1024, 4096, 64, 16, 14
+    T = ws * ws
+    lw, lb = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+    w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+    for size in SWEEP_SIZES:
+        side = size // 16
+        NW, N = BS * (-(-side // ws)) ** 2, BS * side * side
+        x, a = _randn(g, (N, C)), _randn(g, (N, C))
+        label = f"SAM-{size} bs {BS}, N={N}"
+        check("fused_ln_qkv", label, fused_block.fused_ln_qkv,
+              fused_block.fused_ln_qkv_plain, (x, lw, lb, wqkv, bqkv, 1e-6),
+              flop=2 * N * C * 3 * C)
+        check("fused_proj_ln_mlp", label, fused_block.fused_proj_ln_mlp,
+              fused_block.fused_proj_ln_mlp_plain,
+              (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-6, "gelu"),
+              flop=2 * N * C * C + 4 * N * C * F)
+        del x, a
+
+        heads = _window_views(g, NW)
+        rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+        mask = _attention_mask(heads[0].reshape(NW * nh, T, hd), rph, rpw,
+                               ws).reshape(NW, nh, T, T)
+        check("sam_window_attention_v9", f"SAM-{size} bs {BS}, G={NW * nh}, "
+              f"T={T}, (NW, nh, T, hd) views",
+              sam_flash.sam_window_attention_v9,
+              sam_flash.sam_window_attention_v9_plain, (*heads, rph, rpw, ws),
+              flop=4 * NW * nh * T * T * hd,
+              library_fn=lambda: _sdpa(*heads, mask))
+
+        q, k, v = (_randn(g, (nh * BS, side * side, hd)) for _ in range(3))
+        rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+        mask = _attention_mask(q, rph, rpw, side)  # outside the timing
+        check("sam_global_attention_v8", f"SAM-{size} bs {BS}, G={nh * BS}, "
+              f"S={side * side}", sam_flash.sam_global_attention_v8,
+              sam_flash.sam_global_attention_v8_plain,
+              (q, k, v, rph, rpw, side), flop=4 * nh * BS * side ** 4 * hd,
+              library_fn=lambda: _sdpa(q, k, v, mask))
+        del heads, q, k, v, mask
 
 
 def run_requests(forward, params, cfg, batches) -> tuple[list, float]:
@@ -1221,6 +1387,7 @@ def run_kernel_bench(g: torch.Generator) -> dict:
     rows = kernel_bench.run(
         kernel_bench.OPS, BENCH_BS, torch.device("cuda"), g,
         depth=BENCH_DEPTH, iters=BENCH_ITERS,
+        window_variants=BENCH_WINDOW_VARIANTS,
         global_variants=BENCH_GLOBAL_VARIANTS, emit=emit)
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     seconds = time.perf_counter() - t0
@@ -1336,6 +1503,115 @@ def run_e2e_bench() -> dict:
         for name in WRAPPERS}, "rows": rows}
 
 
+def randomize_sam_bqkv(blocks: list, g: torch.Generator) -> None:
+    """Non-zero qkv biases in the SAM blocks (the init leaves them 0): the
+    pad tokens of a padded grid then carry ``k = b_k`` and ``v = b_v`` that
+    differ from a zero pad."""
+    for bp in blocks:
+        bp["bqkv"] = _randn(g, bp["bqkv"].shape, 0.1)
+
+
+def run_sweep(g: torch.Generator) -> dict:
+    """Phases 17-18: the size sweep in process at the two padded grids, then
+    the kernel forward against the all-plain forward at each size."""
+    device = torch.device("cuda")
+    rows = schedule_bench.run(SWEEP_SIZES, (BS,), SWEEP_ITERS,
+                              e2e_bench.Knobs(), device)
+    want = {name: SWEEP_LAUNCHES.get(name, 0) for name in WRAPPERS}
+    for row, size in zip(rows, SWEEP_SIZES):
+        log(f"phase 17 schedule_bench {json.dumps(row)}")
+        if row.get("launches") != want:
+            raise AssertionError(f"schedule_bench SAM-{size}: launches per "
+                                 f"forward differ from {want}")
+        if (row["sam_size"], row["bs"], row["iters"], row["family"],
+                row["preset"], row["global_kernel"]) != (
+                    size, BS, SWEEP_ITERS, "deepseek_vl", "1_3b", "v8"):
+            raise AssertionError(f"schedule_bench SAM-{size}: wrong settings "
+                                 "in the row")
+        for r in (row, row["plain"]):
+            if not (math.isfinite(r["value"]) and r["value"] > 0
+                    and 0 < r["ms_min"] <= r["ms_mean"] <= r["ms_max"]):
+                raise AssertionError(f"schedule_bench SAM-{size}: bad time "
+                                     f"in {r}")
+    log(f"phase 17 schedule_bench {json.dumps(rows[-1])}")
+    best = rows[-1]["schedule_best_img_per_s"]
+    if best != {str(size): row["img_per_s"]
+                for row, size in zip(rows, SWEEP_SIZES)}:
+        raise AssertionError("schedule_bench: the summary is not the best "
+                             "row per size")
+
+    for size in SWEEP_SIZES:
+        model, cfg, params, batch = e2e_bench.build(
+            BS, e2e_bench.Knobs(sam_size=size), device)
+        randomize_sam_bqkv(params["frozen"]["sam_encoder"]["blocks"], g)
+        with torch.no_grad():
+            out = model.forward(params, cfg, batch)
+
+        def sam_embedding(cfg, plain, batch, params=params):
+            return {"sam_embedding": tuple(sam_encoder.forward(
+                params["frozen"]["sam_encoder"], c.sam.encoder,
+                batch["sam_pixel_values"]) for c in (cfg, plain))}
+
+        phase_compare(18, f"schedule_bench SAM-{size}", model.forward,
+                      params, cfg, {"requests": [batch], "outs": [out]},
+                      sam_embedding)
+        del model, params, batch, out
+        torch.cuda.empty_cache()
+    return {"launches": {
+        name: sum(r["launches"][name] * r["iters"] for r in rows[:-1])
+        for name in WRAPPERS}, "rows": rows}
+
+
+def run_window_variants(g: torch.Generator) -> dict:
+    """Phase 19: the SAM ViT-L encoder alone at full width and depth, SAM-768
+    at bs 4 (a 48 x 48 grid padded to 56: 16 windows an image), with
+    non-zero qkv biases and rel-pos tables, through each window kernel
+    name."""
+    full = registry.with_sam_size(deepseek_vl.deepseek_vl_1_3b(), VARIANT_SAM)
+    base, plain = full.sam.encoder, registry.plain_config(full).sam.encoder
+    params = sam_encoder.init_params(base, g, "cuda")
+    randomize_sam_bqkv(params["blocks"], g)
+    for bp in params["blocks"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            bp[key] = _randn(g, bp[key].shape, 0.05)
+    pixels = _randn(g, (BS, VARIANT_SAM, VARIANT_SAM, 3))
+    launches = dict.fromkeys(WRAPPERS, 0)
+    with torch.no_grad():
+        ref_plain = sam_encoder.forward(params, plain, pixels)
+        embeddings = {}
+        for name in ("v9", "v1", "v6", "v7", "v8"):
+            cfg = dataclasses.replace(base, window_kernel=name)
+            sam_encoder.forward(params, cfg, pixels)  # warm-up
+            for fn in WRAPPERS.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            embeddings[name] = sam_encoder.forward(params, cfg, pixels)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: fn.launches for k, fn in WRAPPERS.items() if fn.launches}
+            want = {WINDOW_WRAPPER[name]: 20, "sam_global_attention_v8": 4,
+                    "fused_ln_qkv": 24, "fused_proj_ln_mlp": 24}
+            log(f"phase 19 encoder window_kernel={name}: launches {got} "
+                f"(expected {want}), {ms:.1f} ms")
+            if got != want:
+                raise AssertionError(f"window_kernel={name}: launch counts "
+                                     "differ from the encoder's")
+            for k, n in got.items():
+                launches[k] += n
+            for other, ref in (("v9", embeddings["v9"]),
+                               ("all-plain", ref_plain)):
+                rel, corr = agreement(embeddings[name], ref)
+                log(f"phase 19 encoder window_kernel={name}: embedding vs "
+                    f"the {other} encoder max_rel_err {rel:.3e} corr "
+                    f"{corr:.6f} (bound {FORWARD_CORR['sam_embedding']})")
+                if corr < FORWARD_CORR["sam_embedding"]:
+                    raise AssertionError(
+                        f"window_kernel={name}: the embedding disagrees "
+                        f"with the {other} encoder's")
+    return {"launches": launches}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str) -> None:
     """One row of the bench.py twin: its keys, its settings and the exact
     launch counts per forward (run() itself refuses non-finite logits)."""
@@ -1363,7 +1639,8 @@ def main() -> None:
     g_hpt = torch.Generator(device="cuda").manual_seed(1)
     g_bench = torch.Generator(device="cuda").manual_seed(2)
     g_e2e = torch.Generator(device="cuda").manual_seed(3)
-    kernels = phase_kernels(g, g_hpt, g_bench, g_e2e)
+    g_sweep = torch.Generator(device="cuda").manual_seed(4)
+    kernels = phase_kernels(g, g_hpt, g_bench, g_e2e, g_sweep)
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
     paths["llava_next_vicuna_7b"] = run_llava_next(g)
@@ -1375,11 +1652,14 @@ def main() -> None:
     bench = run_kernel_bench(g_bench)
     torch.cuda.empty_cache()
     e2e = run_e2e_bench()
+    sweep = run_sweep(g_sweep)
+    variants = run_window_variants(g_sweep)
+    torch.cuda.empty_cache()
     for path, r in paths.items():
         unit = r.get("unit", "forward")
         what = (f"{r['n']} steps" if unit == "step"
                 else f"{len(r['requests'])} requests")
-        log(f"phase 17 timing {path} ({card}): kernel path {r['ms']:.1f} "
+        log(f"phase 20 timing {path} ({card}): kernel path {r['ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
@@ -1388,12 +1668,14 @@ def main() -> None:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": sum(r["launches"][name]
-                         for r in (*paths.values(), bench, e2e)),
+         "launches": sum(r["launches"][name] for r in (
+             *paths.values(), bench, e2e, sweep, variants)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
-             "bench_torch": e2e["launches"][name]},
+             "bench_torch": e2e["launches"][name],
+             "schedule_bench": sweep["launches"][name],
+             "window_variant_encoder": variants["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -102,6 +102,10 @@ WRAPPERS = {
     "sam_global_attention_v3": sam_flash_experiments.sam_global_attention_v3,
     "sam_global_attention_v6": sam_flash_experiments.sam_global_attention_v6,
     "sam_global_attention_v7": sam_flash_experiments.sam_global_attention_v7,
+    "sam_window_attention": sam_flash_experiments.sam_window_attention,
+    "sam_window_attention_v6": sam_flash_experiments.sam_window_attention_v6,
+    "sam_window_attention_v7": sam_flash_experiments.sam_window_attention_v7,
+    "sam_window_attention_v8": sam_flash_experiments.sam_window_attention_v8,
 }
 
 

@@ -1,0 +1,284 @@
+// Window attention with the decomposed relative-position bias of SAM's
+// ViTDet blocks: one-shot softmax in natural base over the T = side * side
+// keys of one 14 x 14 window, the whole window resident in one block.
+//
+// Replaces four of the superseded window variants of
+// flmm_tpu/ops/sam_flash_experiments.py (K12), one contract
+// (q, k, v, rel_pos_h, rel_pos_w, side) -> out over (G, T, 64) window-heads:
+//   ::sam_window_attention     (v1, the pallas_call at :695)
+//   ::sam_window_attention_v6  (:185)
+//   ::sam_window_attention_v7  (:270)
+//   ::sam_window_attention_v8  (:346)
+// As functions they differ only in where the operands are rounded, chosen by
+// the MODE template flag on the lines between the two products:
+//   SCALE_AFTER  v1 and v6: q unscaled, as it lies in the qkv tensor;
+//                s = f32(q . k) * scale + bias_h + bias_w.  (v6 hands its
+//                TPU kernel the two bias rows as one row and so adds them to
+//                each other first: another order of two f32 additions, far
+//                below what the bf16 output resolves.  The plain versions in
+//                ops/sam_flash_experiments.py keep each order.)
+//   SCALED_Q     v7 and v8: q scaled by `scale` in f32 and rounded to bf16
+//                outside; s = f32(qs . k) + bias_h + bias_w.  (v8 adds the
+//                one-hot selection columns to the keys outside its TPU
+//                kernel, v7 inside: one function.)
+// In both, p = exp(s - max) over the row, taken as exp2((s - max) * log2 e)
+// in f32; p is rounded to bf16 for the value product and the denominator is
+// the f32 sum of the unrounded p, clamped at 1e-30.  The TPU kernels pad T to
+// a multiple of 16 (v7 / v8 also the operands to 128 lanes), mask the pad
+// keys to -1e30, process `group` windows per grid step and expand the thin
+// bias rows with one-hot selection products to keep the MXU busy: all of
+// that is TPU scheduling and does not carry over.  The bias rows
+// [bias_h | bias_w], (G, T, 2 * side) bf16, come from outside as in the JAX
+// wrappers and are added to the f32 scores in registers.
+//
+// What bounds it on an H100: at the kernel bench's shape (G = 3200
+// window-heads, T = 196, hd = 64) the two products are 31.5 GFLOP (0.03 ms at
+// the bf16 peak) over 321 MB of q, k, v and the output plus 35 MB of bias
+// rows (0.11 ms at 3.35 TB/s): bytes bound it, by a factor of three.  So each
+// operand should cross the memory bus once.  csrc/relpos_attention.cu (K6,
+// window v9) tiles 64 query rows x 64 keys, which at T = 196 restages K and
+// V four times per window-head and pads both dimensions to 256 (41% of the
+// products wasted).  Here a block owns one window-head: K (196 x 64) and V^T
+// are staged once, zero-filled to 208 keys (13 mma depths of 16), and stay in
+// shared memory beside the window's bias rows (69 KB a block in all) while
+// the block's 4 warps walk its 13 tiles of 16 query rows.  A warp holds one
+// tile's whole 16 x 208 score strip in registers (raw mma.sync.m16n8k16,
+// whose accumulator layout is known), so max, exp and sum run once over the
+// row with no running max and no rescale, and the strip itself is the A
+// operand of the value product.  q is read in place with its
+// own strides (SCALE_AFTER reads the qkv tensor directly), as are k and v.
+// The bias row index of a key (key / side, side + key % side) comes from a
+// 416-byte table made once per block, not from a division per score.
+// The score strip costs registers: ptxas gives 208 a thread and no spill, so
+// two blocks fit an SM where shared memory would admit three.
+// Not yet: cp.async / TMA staging overlapped with the first tile, ldmatrix,
+// more than one window-head per block (13 tiles over 4 warps leave the fourth
+// round one quarter full), the bias rows and the q scaling in-kernel.
+//
+// Layout: element (g, t, d) of k and v is at
+//   (g / nh) * s_b + (g % nh) * s_h + t * s_t + d,
+// of q likewise with (q_b, q_h, q_t) and of the output with (o_b, o_h, o_t);
+// all strides and base offsets are multiples of 8 elements.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int HD = 64, MAX_T = 208, WARPS = 4, THREADS = WARPS * 32;
+constexpr int NT = MAX_T / 8;     // key tiles of 8 in a score strip
+constexpr int K_LD = HD + 8;      // Ks[key][d]
+constexpr int VT_LD = MAX_T + 8;  // Vt[d][key]
+// the order is flmm_tpu_torch.ops.sam_flash_experiments.WINDOW_MODES
+enum Mode { SCALE_AFTER = 0, SCALED_Q = 1 };
+constexpr float LOG2E = 1.4426950408889634f;
+
+size_t smem_bytes(int side) {
+  return (size_t)MAX_T * K_LD * 2 + (size_t)HD * VT_LD * 2 +
+         (size_t)MAX_T * 2 + (size_t)side * side * 2 * side * 2;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+window_attention_kernel(const bf16* __restrict__ q, long long q_b,
+                        long long q_h, long long q_t,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, long long s_b,
+                        long long s_h, long long s_t, int nh,
+                        const bf16* __restrict__ bias, int side, int T,
+                        float scale, bf16* __restrict__ out, long long o_b,
+                        long long o_h, long long o_t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vt = Ks + MAX_T * K_LD;
+  // per key: the columns of its bias_h and bias_w terms in a bias row
+  unsigned char* Kidx = reinterpret_cast<unsigned char*>(Vt + HD * VT_LD);
+  bf16* Bsm = reinterpret_cast<bf16*>(Kidx + MAX_T * 2);
+  const int two_side = 2 * side;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = blockIdx.x;
+  const long long q_off = (long long)(g / nh) * q_b + (long long)(g % nh) * q_h;
+  const long long in_off = (long long)(g / nh) * s_b + (long long)(g % nh) * s_h;
+  const long long out_off = (long long)(g / nh) * o_b + (long long)(g % nh) * o_h;
+
+  // stage the window once: K row-major, V transposed (V^T rows are the B
+  // operand of P V), both 0 beyond T; the bias rows; the key table
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int idx = tid; idx < MAX_T * HD / 8; idx += THREADS) {
+    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+    uint4 kv = zero, vv = zero;
+    if (r < T) {
+      kv = *reinterpret_cast<const uint4*>(k + in_off + r * s_t + c);
+      vv = *reinterpret_cast<const uint4*>(v + in_off + r * s_t + c);
+    }
+    *reinterpret_cast<uint4*>(Ks + r * K_LD + c) = kv;
+    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) Vt[(c + j) * VT_LD + r] = ve[j];
+  }
+  const bf16* bias_g = bias + (long long)g * T * two_side;
+  for (int idx = tid; idx < T * two_side; idx += THREADS)
+    Bsm[idx] = bias_g[idx];
+  for (int key = tid; key < MAX_T; key += THREADS) {
+    Kidx[2 * key] = key < T ? key / side : 0;
+    Kidx[2 * key + 1] = key < T ? side + key % side : 0;
+  }
+  __syncthreads();
+
+  // This thread's two query rows of a tile (fragment rows lane/4 and
+  // lane/4 + 8) and its column pair (lane%4)*2.
+  const int qr = lane / 4, qc = (lane % 4) * 2;
+  for (int r0 = warp * 16; r0 < T; r0 += WARPS * 16) {
+    const int t0 = r0 + qr, t1 = t0 + 8;
+    uint32_t qf[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int d = kk * 16 + qc;
+      const bf16* p0 = q + q_off + t0 * q_t + d;
+      const bf16* p1 = q + q_off + t1 * q_t + d;
+      qf[kk][0] = t0 < T ? ld32(p0) : 0u;
+      qf[kk][1] = t1 < T ? ld32(p1) : 0u;
+      qf[kk][2] = t0 < T ? ld32(p0 + 8) : 0u;
+      qf[kk][3] = t1 < T ? ld32(p1 + 8) : 0u;
+    }
+
+    // the tile's whole score strip: Q (16 x HD) @ K^T (HD x 208)
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* kp = Ks + (nt * 8 + qr) * K_LD + kk * 16 + qc;
+        const uint32_t b[2] = {ld32(kp), ld32(kp + 8)};
+        mma_16816(s[nt], qf[kk], b);
+      }
+
+    // scale (SCALE_AFTER), bias, pad keys to -1e30 as the TPU kernels, row max
+    const bf16* brow0 = Bsm + min(t0, T - 1) * two_side;
+    const bf16* brow1 = Bsm + min(t1, T - 1) * two_side;
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // keys nt * 8 + qc and + 1: (bias_h column, bias_w column) of each
+      const uchar4 ki =
+          *reinterpret_cast<const uchar4*>(Kidx + 2 * (nt * 8 + qc));
+      const int col[2][2] = {{ki.x, ki.y}, {ki.z, ki.w}};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (nt * 8 + qc + e < T) {
+          const float bh0 = __bfloat162float(brow0[col[e][0]]);
+          const float bw0 = __bfloat162float(brow0[col[e][1]]);
+          const float bh1 = __bfloat162float(brow1[col[e][0]]);
+          const float bw1 = __bfloat162float(brow1[col[e][1]]);
+          if constexpr (MODE == SCALE_AFTER) {
+            s[nt][e] = s[nt][e] * scale + bh0 + bw0;
+            s[nt][2 + e] = s[nt][2 + e] * scale + bh1 + bw1;
+          } else {
+            s[nt][e] = s[nt][e] + bh0 + bw0;
+            s[nt][2 + e] = s[nt][2 + e] + bh1 + bw1;
+          }
+        } else {
+          s[nt][e] = -1e30f;
+          s[nt][2 + e] = -1e30f;
+        }
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+
+    // p = exp(s - max) = exp2((s - max) * log2 e); f32 sum of the unrounded p
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = exp2f((s[nt][e] - mx0) * LOG2E);
+        s[nt][2 + e] = exp2f((s[nt][2 + e] - mx1) * LOG2E);
+        l0 += s[nt][e];
+        l1 += s[nt][2 + e];
+      }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+
+    // O = P (16 x 208 keys) @ V (208 keys x HD); the score accumulators of
+    // two adjacent 8-key tiles are exactly one A fragment
+    float o[HD / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      const uint32_t a[4] = {
+          pack2(s[2 * j][0], s[2 * j][1]), pack2(s[2 * j][2], s[2 * j][3]),
+          pack2(s[2 * j + 1][0], s[2 * j + 1][1]),
+          pack2(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const bf16* vp = Vt + (dt * 8 + qr) * VT_LD + j * 16 + qc;
+        const uint32_t b[2] = {ld32(vp), ld32(vp + 8)};
+        mma_16816(o[dt], a, b);
+      }
+    }
+
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const int d = dt * 8 + qc;
+      if (t0 < T)
+        *reinterpret_cast<uint32_t*>(out + out_off + t0 * o_t + d) =
+            pack2(o[dt][0] * inv0, o[dt][1] * inv0);
+      if (t1 < T)
+        *reinterpret_cast<uint32_t*>(out + out_off + t1 * o_t + d) =
+            pack2(o[dt][2] * inv1, o[dt][3] * inv1);
+    }
+  }
+}
+
+template <int MODE>
+int launch(const bf16* q, long long q_b, long long q_h, long long q_t,
+           const bf16* k, const bf16* v, long long s_b, long long s_h,
+           long long s_t, int nh, const bf16* bias, int side, int G, int T,
+           float scale, bf16* out, long long o_b, long long o_h,
+           long long o_t, cudaStream_t stream) {
+  const size_t smem = smem_bytes(side);
+  const cudaError_t e = cudaFuncSetAttribute(
+      window_attention_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  window_attention_kernel<MODE><<<G, THREADS, smem, stream>>>(
+      q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, T, scale, out,
+      o_b, o_h, o_t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int flmm_window_attention(const void* q, long long q_b,
+                                     long long q_h, long long q_t,
+                                     const void* k, const void* v,
+                                     long long s_b, long long s_h,
+                                     long long s_t, int nh, const void* bias,
+                                     int side, int G, int T, int head_dim,
+                                     int mode, float scale, void* out,
+                                     long long o_b, long long o_h,
+                                     long long o_t, void* stream) {
+  if (head_dim != HD || G <= 0 || T <= 0 || T > MAX_T || nh <= 0 ||
+      side <= 0 || side * side != T || (mode != SCALE_AFTER && mode != SCALED_Q) ||
+      q_b % 8 || q_h % 8 || q_t % 8 || s_b % 8 || s_h % 8 || s_t % 8 ||
+      o_b % 2 || o_h % 2 || o_t % 2)
+    return (int)cudaErrorInvalidValue;
+#define FLMM_LAUNCH(MODE)                                                   \
+  launch<MODE>((const bf16*)q, q_b, q_h, q_t, (const bf16*)k,               \
+               (const bf16*)v, s_b, s_h, s_t, nh, (const bf16*)bias, side,  \
+               G, T, scale, (bf16*)out, o_b, o_h, o_t, (cudaStream_t)stream)
+  return mode == SCALE_AFTER ? FLMM_LAUNCH(SCALE_AFTER)
+                             : FLMM_LAUNCH(SCALED_Q);
+#undef FLMM_LAUNCH
+}

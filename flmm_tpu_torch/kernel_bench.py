@@ -22,12 +22,16 @@ takes the presets' tiny configurations: both are for the CPU tests, and a
 ``cpu`` row is no device time.  A kernel that fails to build or launch ends
 the run: no row reports an error and goes on.
 
-``--global-variants`` (``v3,v6``) and ``--global-kernel`` (``v6``) default
-as in the JAX script; any of ``v8, v3, v6, v7, v11`` resolves.  Temporary:
-until the window variants of K12 are ported, ``--window-variants`` and
-``--window-kernel`` default to the production ``v9`` (the JAX script's are
-``v1,v6,v7`` and ``v6``).  Asking for a variant that is not ported raises
-``NotImplementedError`` before anything is timed.
+``--window-variants`` (``v1,v6,v7``), ``--global-variants`` (``v3,v6``),
+``--window-kernel`` (``v6``) and ``--global-kernel`` (``v6``) default as in
+the JAX script; any of the window variants ``v9, v1, v6, v7, v8`` and the
+global variants ``v8, v3, v6, v7, v11`` resolves.  Asking for a variant that
+is not ported raises ``NotImplementedError`` before anything is timed.  The
+first variant of ``window`` / ``global`` is the reference of the others'
+``max_err_vs_v1``.  At SAM-1024 the preset sets ``window_block_fused``, so
+every window layer of the ``encoder`` and ``heads`` ops is the whole-block
+kernel K1 and the window kernel named by ``w=`` is launched 0 times, as in
+the JAX script: ``w=v6`` there is a label, not a measurement of v6.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.llm import decoder
 from flmm_tpu_torch.models.sam import image_encoder
 from flmm_tpu_torch.models.vision import vit
-from flmm_tpu_torch.ops import boundary, sam_flash
+from flmm_tpu_torch.ops import boundary
 from flmm_tpu_torch.ops import sam_flash_experiments as sfx
 from flmm_tpu_torch.ops._matmul import matmul_f32
 
@@ -58,11 +62,11 @@ OPS = ("window", "global", "encoder", "wb", "gb", "boundary", "tower",
 # variant name -> wrapper, per kernel contract; the names of the JAX package
 # that have no Hopper kernel yet are listed so that they fail by name
 KERNELS = {
-    "sam_window_attention": {"v9": sam_flash.sam_window_attention_v9},
+    "sam_window_attention": image_encoder.WINDOW_KERNELS,
     "sam_global_attention": image_encoder.GLOBAL_KERNELS,
 }
 UNPORTED = {
-    "sam_window_attention": ("v1", "v2", "v3", "v4", "v5", "v6", "v7", "v8"),
+    "sam_window_attention": ("v2", "v3", "v4", "v5"),
     "sam_global_attention": ("v1", "v2", "v4"),
 }
 
@@ -186,7 +190,8 @@ def _attention_variants(op, stem, variants, q, k, v, rh, rw, side, iters):
     return rows
 
 
-def bench_window(bs, device, g, iters=10, variants=("v9",), geo=None):
+def bench_window(bs, device, g, iters=10, variants=("v1", "v6", "v7"),
+                 geo=None):
     """Window attention variants over the window-heads of ``bs`` images."""
     geo = geo or full()
     side, hd, nh = geo.window_side, geo.sam.head_dim, geo.sam.num_heads
@@ -219,7 +224,7 @@ def _encoder_run(cfg, bs, device, g, iters, pixel_scale=1.0):
                   iters=iters)
 
 
-def bench_encoder(bs, device, g, iters=5, window_kernel="v9",
+def bench_encoder(bs, device, g, iters=5, window_kernel="v6",
                   global_kernel="v6", geo=None):
     """The whole SAM encoder with the given kernel variants."""
     geo = geo or full()
@@ -396,7 +401,7 @@ def bench_window_path(bs, device, g, iters=10, geo=None):
     return rows
 
 
-def bench_heads(bs, device, g, iters=5, window_kernel="v9",
+def bench_heads(bs, device, g, iters=5, window_kernel="v6",
                 global_kernel="v6", geo=None):
     """U-Net + SAM refiner heads at bench geometry (``heads_forward``:
     coarse maps -> U-Net -> SAM encoder -> prompt encoder + mask decoder),
@@ -435,8 +440,8 @@ def bench_rtt(device, iters=10):
 
 
 def run(what, bs, device, g, *, depth=12, iters=None,
-        window_variants=("v9",), global_variants=("v3", "v6"),
-        window_kernel="v9", global_kernel="v6", geo=None, emit=None) -> list:
+        window_variants=("v1", "v6", "v7"), global_variants=("v3", "v6"),
+        window_kernel="v6", global_kernel="v6", geo=None, emit=None) -> list:
     """Run the ops named in ``what`` in the JAX script's order; ``emit`` is
     called with each op's rows as they are ready."""
     unknown = sorted(set(what) - set(OPS))
@@ -488,19 +493,28 @@ def print_rows(op: str, rows: list) -> None:
 
 
 def main(argv=None) -> list:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", default="window,global")
-    ap.add_argument("--bs", type=int, default=8)
-    ap.add_argument("--depth", type=int, default=12)
-    ap.add_argument("--window-variants", default="v9")
-    ap.add_argument("--global-variants", default="v3,v6")
-    ap.add_argument("--window-kernel", default="v9")
-    ap.add_argument("--global-kernel", default="v6")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--seed", type=int, default=0)
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    ap.add_argument("--what", default="window,global",
+                    help="comma list of ops: " + ",".join(OPS))
+    ap.add_argument("--bs", type=int, default=8, help="images per call")
+    ap.add_argument("--depth", type=int, default=12,
+                    help="layers of the wb encoder (gb: at most 6)")
+    ap.add_argument("--window-variants", default="v1,v6,v7",
+                    help="window attention variants the window op times")
+    ap.add_argument("--global-variants", default="v3,v6",
+                    help="global attention variants the global op times")
+    ap.add_argument("--window-kernel", default="v6",
+                    help="window kernel of the encoder and heads ops")
+    ap.add_argument("--global-kernel", default="v6",
+                    help="global kernel of the encoder and heads ops")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cpu runs the plain versions on host clocks")
+    ap.add_argument("--seed", type=int, default=0, help="weights and inputs")
     ap.add_argument("--iters", type=int, default=None,
-                    help="timed calls per measurement (default: per op, as "
-                    "the JAX script: 5, 10 or 20)")
+                    help="timed calls per measurement; unset: per op as the "
+                    "JAX script (5, 10 or 20)")
     ap.add_argument("--tiny", action="store_true",
                     help="the presets' tiny configurations, for the CPU "
                     "tests: their rows are not measurements")

@@ -26,10 +26,13 @@ in the JAX encoder (the K11 kernels' caller is the kernel bench).
 ``global_kernel`` picks the global attention kernel of the split path: K2
 (``v8``) or one of the ported bake-off variants ``v3``, ``v6``, ``v7``,
 ``v11`` (ops/sam_flash_experiments.py), which run only on a grid of a
-multiple of 128 tokens, as in the JAX encoder (``v8`` masks any grid).  Not
-ported yet: the other superseded kernel variants (K12; the spatial window
-attention v10 is ported, but no encoder setting reaches it) and the int8
-encoder.
+multiple of 128 tokens, as in the JAX encoder (``v8`` masks any grid).
+``window_kernel`` picks the window attention kernel of the split path: K6
+(``v9``) or one of the ported variants ``v1``, ``v6``, ``v7``, ``v8``; at
+SAM-1024 with ``window_block_fused`` every window layer is K1 and the name
+launches nothing.  Not ported yet: the other superseded kernel variants
+(K12; the spatial window attention v10 is ported, but has another contract
+and no encoder setting reaches it) and the int8 encoder.
 """
 
 from __future__ import annotations
@@ -61,6 +64,15 @@ GLOBAL_KERNELS = {
     "v7": sfx.sam_global_attention_v7,
     "v11": sfx.sam_global_attention_v11,
 }
+# window_kernel -> wrapper, likewise (the JAX package's v1 is the function
+# without a suffix; v10 has another contract)
+WINDOW_KERNELS = {
+    "v9": sam_window_attention_v9,
+    "v1": sfx.sam_window_attention,
+    "v6": sfx.sam_window_attention_v6,
+    "v7": sfx.sam_window_attention_v7,
+    "v8": sfx.sam_window_attention_v8,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,11 +102,12 @@ class SamEncoderConfig:
                 f"global_kernel {self.global_kernel!r} has no Hopper kernel "
                 f"in the port (ported: {', '.join(GLOBAL_KERNELS)}); the "
                 "others are queued in ROADMAP.md")
-        if self.window_kernel != "v9":
+        if self.window_kernel not in WINDOW_KERNELS:
             raise NotImplementedError(
                 f"window_kernel {self.window_kernel!r} has no Hopper kernel "
-                "in the port (ported: v9); the others are queued in "
-                "ROADMAP.md")
+                "with the (q, k, v, rel_pos_h, rel_pos_w, side) contract in "
+                f"the port (ported: {', '.join(WINDOW_KERNELS)}); the others "
+                "are queued in ROADMAP.md")
 
     @property
     def grid(self) -> int:
@@ -209,14 +222,15 @@ def _flash_global_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
 
 
 def _flash_window_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
-    """Windowed attention core through K6: ``(B, H, W, 3C) -> (B, H, W, C)``.
+    """Windowed attention core through K6 or the variant
+    ``cfg.window_kernel`` names: ``(B, H, W, 3C) -> (B, H, W, C)``.
 
     The grid is padded to whole windows with the ``bqkv`` row, which is what
     a zero-padded LN output projects to: pad tokens keep ``k = b_k`` and
     ``v = b_v``, as on the plain path and in the reference (the JAX
     ``_flash_window_core`` pads qkv with zeros instead).  One relayout makes
-    the qkv window-major; K6 reads q, k and v out of it as ``(NW, nh, T,
-    hd)`` strided views."""
+    the qkv window-major; the kernel reads q, k and v out of it as ``(NW,
+    nh, T, hd)`` strided views."""
     B, H, W, C3 = qkv.shape
     C = C3 // 3
     ws, nh, hd = cfg.window_size, cfg.num_heads, cfg.head_dim
@@ -236,8 +250,9 @@ def _flash_window_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
         return qkvw[..., i * C:(i + 1) * C].reshape(nw, T, nh, hd).transpose(
             1, 2)
 
-    out = sam_window_attention_v9(heads(0), heads(1), heads(2),
-                                  bp["rel_pos_h"], bp["rel_pos_w"], ws)
+    kernel = WINDOW_KERNELS[cfg.window_kernel]
+    out = kernel(heads(0), heads(1), heads(2), bp["rel_pos_h"],
+                 bp["rel_pos_w"], ws)
     out = out.transpose(1, 2).reshape(B, Hp // ws, Wp // ws, ws, ws, C)
     out = out.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
     return out[:, :H, :W]

@@ -65,6 +65,10 @@ _SIGNATURES = {
     # stream
     "flmm_spatial_window_attention": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                       _P, _P),
+    # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, G, T, head_dim,
+    # mode, scale, out, o_b, o_h, o_t, stream
+    "flmm_window_attention": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P, _I,
+                              _I, _I, _I, _I, _F, _P, _L, _L, _L, _P),
 }
 
 

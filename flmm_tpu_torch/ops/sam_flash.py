@@ -41,10 +41,11 @@ def rel_pos_coords(side: int, device) -> torch.Tensor:
 
 
 def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int,
-                     log2_domain: bool = True) -> torch.Tensor:
+                     log2_domain: bool = True, dtype=None) -> torch.Tensor:
     """Decomposed rel-pos bias rows ``[bias_h | bias_w]``, ``(G, S, 2*side)``
-    in ``q.dtype``, from the unscaled q (reference add_decomposed_rel_pos);
-    in the log2 domain, or with ``log2_domain=False`` in natural base."""
+    in ``dtype`` (default ``q.dtype``), from the unscaled q (reference
+    add_decomposed_rel_pos); in the log2 domain, or with
+    ``log2_domain=False`` in natural base."""
     G, S, hd = q.shape
     coords = rel_pos_coords(side, q.device)
     rh = rel_pos_h[coords].to(q.dtype)
@@ -55,7 +56,7 @@ def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int,
     if log2_domain:
         bias_h, bias_w = bias_h * LOG2E, bias_w * LOG2E
     return torch.cat([bias_h, bias_w], dim=-1).reshape(
-        G, S, 2 * side).to(q.dtype)
+        G, S, 2 * side).to(dtype or q.dtype)
 
 
 def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,

@@ -1,11 +1,14 @@
 """K12: the bake-off variants of the SAM attention kernels
 (flmm_tpu/ops/sam_flash_experiments.py).  Ported so far: the spatial
 head-major window attention ``sam_window_attention_v10`` (the pallas_call at
-:1222) with ``qkv_head_major_perm``, and four global variants with K2's
+:1222) with ``qkv_head_major_perm``; four global variants with K2's
 contract ``(q, k, v, rel_pos_h, rel_pos_w, side) -> out`` over ``(G, S =
 side**2, 64)`` heads: ``sam_global_attention_v3`` (:1046), ``_v6`` (:942),
-``_v7`` (:981) and ``_v11`` (:1309); the other variants are queued in
-ROADMAP.md.
+``_v7`` (:981) and ``_v11`` (:1309); and four window variants with K6's
+contract over ``(G, T = side**2, 64)`` window-heads or ``(NW, nh, T, 64)``
+strided views of a windowised qkv tensor: ``sam_window_attention`` (v1,
+:695), ``_v6`` (:185), ``_v7`` (:270) and ``_v8`` (:346).  The other
+variants are queued in ROADMAP.md.
 
 v10 takes the qkv tensor as the projection leaves it, spatial ``(B, Hp, Wp,
 nh * 3 * hd)`` with the columns permuted head-major ``[q_h | k_h | v_h]``,
@@ -27,6 +30,19 @@ operands and ``exp2(s - max)``; v11 has them too and takes ``exp2(s)`` with
 no max, so it needs every log2-domain score below 128 (about 88 nats) and
 gives a non-finite row otherwise, as on the TPU.  All four launch
 csrc/relpos_attention.cu with the matching ``SOFTMAX_*`` flag.
+
+The window variants take a one-shot natural-base softmax over a window's T
+keys and differ as functions only in where the operands are rounded: v1 and
+v6 leave q unscaled, multiply the f32 scores by ``scale`` and add bias rows
+rounded to bf16 whatever q's dtype is (v1 adds ``bias_h`` then ``bias_w`` to
+the scores, v6 adds the two to each other first: another order of two f32
+additions); v7 and v8 (one function: v8 adds the selection columns to the
+keys outside its TPU kernel, v7 inside) scale q in f32, round it and the bias
+rows to q's dtype and take the scores out of one f32 sum.  All four launch
+csrc/window_attention.cu, where a block keeps one window-head's K, V and bias
+rows resident: v1 and v6 its ``SCALE_AFTER`` instantiation, which reads q in
+place, v7 and v8 ``SCALED_Q``.  The bias rows and the q scaling are plain
+PyTorch in the wrapper, as in the JAX wrappers.
 """
 
 from __future__ import annotations
@@ -275,3 +291,179 @@ def sam_global_attention_v11(q, k, v, rel_pos_h, rel_pos_w, side: int):
 
 
 sam_global_attention_v11.launches = 0
+
+
+# what csrc/window_attention.cu does between its two products: the f32 scores
+# of the unscaled q times ``scale`` (window v1 / v6), or the scores of a q
+# that was scaled and rounded outside (window v7 / v8)
+WINDOW_SCALE_AFTER, WINDOW_SCALED_Q = 0, 1
+WINDOW_MODES = {"v1": WINDOW_SCALE_AFTER, "v6": WINDOW_SCALE_AFTER,
+                "v7": WINDOW_SCALED_Q, "v8": WINDOW_SCALED_Q}
+MAX_WINDOW_TOKENS = 208  # keys a block of the window kernel keeps resident
+
+
+def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
+                          variant: str):
+    """The function of a window variant with the roundings of its JAX
+    wrapper and kernel, over ``(G, T, hd)`` or ``(NW, nh, T, hd)``.  v1 / v6:
+    f32 scores of the unscaled q times ``scale``, plus bias rows rounded to
+    bf16 whatever q's dtype (v1 ``(s + bias_h) + bias_w``, v6 ``s + (bias_h
+    + bias_w)``).  v7 / v8: q scaled in f32 and rounded to its dtype, the
+    bias rows rounded to it too.  Then ``p = exp(s - max)``, rounded to v's
+    dtype before the value product, over the f32 sum of the unrounded ``p``
+    clamped at 1e-30.  Window-heads are chunked under
+    ``sam_flash.MAX_PLAIN_SCORES``."""
+    T, hd = q.shape[-2:]
+    shape = q.shape
+    q, k, v = (t.reshape(-1, T, hd) for t in (q, k, v))
+    G = q.shape[0]
+    scale = 1.0 / math.sqrt(hd)
+    scaled_q = WINDOW_MODES[variant] == WINDOW_SCALED_Q
+    heads = max(1, sam_flash.MAX_PLAIN_SCORES // (T * T))
+    outs = []
+    for g0 in range(0, G, heads):
+        qc, kc, vc = (t[g0:g0 + heads] for t in (q, k, v))
+        n = qc.shape[0]
+        bias = sam_flash.global_bias_rows(
+            qc, rel_pos_h, rel_pos_w, side, log2_domain=False,
+            dtype=None if scaled_q else torch.bfloat16).float()
+        bh, bw = bias[..., :side, None], bias[..., None, side:]
+        if scaled_q:
+            qs = (qc.float() * scale).to(qc.dtype)
+            s = matmul_f32(qs, kc.transpose(1, 2)).reshape(n, T, side, side)
+            s = s + bh + bw
+        else:
+            s = (matmul_f32(qc, kc.transpose(1, 2)) * scale).reshape(
+                n, T, side, side)
+            s = (s + bh) + bw if variant == "v1" else s + (bh + bw)
+        s = s.reshape(n, T, T)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        outs.append((matmul_f32(p.to(vc.dtype), vc) / denom).to(qc.dtype))
+    return torch.cat(outs).reshape(shape)
+
+
+def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
+                    wrapper):
+    """Shared body of the four wrappers: no grad, the JAX contract on the
+    shape, the plain version on CPU tensors, then the kernel over ``(G, T,
+    64)`` heads or ``(NW, nh, T, 64)`` strided views read in place; the
+    output has q's shape, in memory ``(G, T, 64)`` or ``(NW, T, nh, 64)``."""
+    name = wrapper.__name__
+    _cuda.check_no_grad(name, q, k, v, rel_pos_h, rel_pos_w)
+    if (q.dim() not in (3, 4) or q.shape[-2] != side * side
+            or k.shape != q.shape or v.shape != q.shape):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+            f"{tuple(v.shape)} side {side}: needs (G, T, hd) heads or (NW, "
+            "nh, T, hd) views with T = side**2")
+    if not q.is_cuda:
+        return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
+                                     variant)
+    T, hd = q.shape[-2:]
+    if hd != HEAD_DIM or T > MAX_WINDOW_TOKENS:
+        raise ValueError(f"{name}: kernel built for head_dim {HEAD_DIM} and "
+                         f"at most {MAX_WINDOW_TOKENS} tokens a window, got "
+                         f"head_dim {hd} and {T} tokens")
+    G = math.prod(q.shape[:-2])
+    nh = 1 if q.dim() == 3 else q.shape[1]
+    mode = WINDOW_MODES[variant]
+    scaled_q = mode == WINDOW_SCALED_Q
+    bias = sam_flash.global_bias_rows(
+        q.reshape(G, T, hd), rel_pos_h, rel_pos_w, side, log2_domain=False,
+        dtype=None if scaled_q else torch.bfloat16)
+    if scaled_q:
+        q = (q.float() * (1.0 / math.sqrt(hd))).to(q.dtype)
+    if q.dim() == 3:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty((G, T, hd), dtype=q.dtype, device=q.device)
+        out_view, out_strides = out, (T * hd, 0, hd)
+    else:
+        out = torch.empty((q.shape[0], T, nh, hd), dtype=q.dtype,
+                          device=q.device)
+        out_view, out_strides = out.transpose(1, 2), (T * nh * hd, hd, nh * hd)
+    _cuda.check_cuda(name, bias, out)
+
+    def strides(t):  # (s_b, s_h, s_t), read in place
+        return t.stride()[:3] if t.dim() == 4 else (t.stride(0), 0,
+                                                    t.stride(1))
+
+    for t in (q, k, v):
+        if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride(-1) != 1
+                or any(s % 8 for s in strides(t)) or t.data_ptr() % 16
+                or (t is v and t.stride() != k.stride())):
+            raise ValueError(
+                f"{name}: q, k and v must be bf16 CUDA tensors with a "
+                "contiguous last dim, strides that are multiples of 8 and "
+                "16-byte alignment, k and v with one set of strides; got "
+                f"{t.dtype}, strides {t.stride()}")
+    _cuda.launch(
+        "flmm_window_attention", q.data_ptr(), *strides(q), k.data_ptr(),
+        v.data_ptr(), *strides(k), nh, bias.data_ptr(), side, G, T, hd, mode,
+        1.0 / math.sqrt(hd), out.data_ptr(), *out_strides, _cuda.stream(q))
+    wrapper.launches += 1
+    return out_view
+
+
+def sam_window_attention_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v1's plain version: scale on the f32 scores, bf16 bias rows
+    added one after the other."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v1")
+
+
+def sam_window_attention(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v1: q unscaled, ``scale`` on the f32
+    scores, the two bias rows rounded to bf16."""
+    return _window_variant("v1", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention)
+
+
+sam_window_attention.launches = 0
+
+
+def sam_window_attention_v6_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v6's plain version: v1 with the two bias rows added to each
+    other before they meet the scores."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v6")
+
+
+def sam_window_attention_v6(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v6: v1 with ``[bias_h | bias_w]`` as one
+    bf16 row; v1's Hopper kernel serves it."""
+    return _window_variant("v6", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v6)
+
+
+sam_window_attention_v6.launches = 0
+
+
+def sam_window_attention_v7_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v7's plain version: q scaled and rounded, bias rows in q's
+    dtype, scores out of one f32 sum."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v7")
+
+
+def sam_window_attention_v7(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v7: ``[q * scale | bias_h | bias_w]``
+    rounded to q's dtype, one augmented product on the TPU."""
+    return _window_variant("v7", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v7)
+
+
+sam_window_attention_v7.launches = 0
+
+
+def sam_window_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v8's plain version: v7's function."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v8")
+
+
+def sam_window_attention_v8(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v8: v7's function (the TPU kernel gets its
+    selection columns added to the keys outside); one Hopper kernel serves
+    both names."""
+    return _window_variant("v8", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v8)
+
+
+sam_window_attention_v8.launches = 0

@@ -6,6 +6,9 @@ on one GPU.
     python3 scripts/torch_profile.py --path train     # DeepSeek-VL training
                                                       # at SAM-448, bs 8
     python3 scripts/torch_profile.py --path hpt       # HPT-Air-1.5, bs 4
+    python3 scripts/torch_profile.py --path schedule --sam-size 768
+                                  # one point of the SAM size sweep, bs 4
+                                  # (1024: bench_torch.py's default point)
 
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
@@ -31,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
-from flmm_tpu_torch import registry  # noqa: E402
+from flmm_tpu_torch import bench, registry  # noqa: E402
 from flmm_tpu_torch.configs import deepseek_vl, llava_next  # noqa: E402
 from flmm_tpu_torch.convert.from_jax import from_jax  # noqa: E402
 from flmm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
@@ -114,6 +117,25 @@ def hpt_setup(g: torch.Generator):
                     fro["llm"], c.llm, embeds, batch["attn_mask"],
                     img_start=c.img_start, n_img=c.num_img_tokens,
                     merge_matrix=mm, merge=c.merge, layer_weights=lw),
+            "sam encoder": lambda: image_encoder.forward(
+                fro["sam_encoder"], c.sam.encoder,
+                batch["sam_pixel_values"]),
+            "forward": lambda: grounding.forward(params, c, batch),
+        }
+    return cfg, stages
+
+
+def schedule_setup(sam_size: int):
+    """One point of the size sweep: the model, weights and batch of
+    ``flmm_tpu_torch.bench.build`` at ``sam_size``, bs 4."""
+    _, cfg, params, batch = bench.build(
+        chip_smoke.BS, bench.Knobs(sam_size=sam_size), "cuda")
+    fro = params["frozen"]
+
+    def stages(c):
+        return {
+            "siglip tower": lambda: vit.forward(
+                fro["vision"], c.vision, batch["pixel_values"]),
             "sam encoder": lambda: image_encoder.forward(
                 fro["sam_encoder"], c.sam.encoder,
                 batch["sam_pixel_values"]),
@@ -294,12 +316,18 @@ def profile_train(g: torch.Generator) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=("deepseek", "llava_next", "train",
-                                           "hpt"), default="deepseek")
+                                           "hpt", "schedule"),
+                        default="deepseek")
+    parser.add_argument("--sam-size", type=int, default=768,
+                        help="SAM resolution of --path schedule")
     args = parser.parse_args()
     print(chip_smoke.phase_card())
     g = torch.Generator(device="cuda").manual_seed(0)
     if args.path == "train":
         profile_train(g)
+        return
+    if args.path == "schedule":
+        profile_paths(*schedule_setup(args.sam_size))
         return
     setup = {"deepseek": deepseek_setup, "llava_next": llava_next_setup,
              "hpt": hpt_setup}[args.path]

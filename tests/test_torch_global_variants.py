@@ -274,10 +274,12 @@ def test_global_layers_take_the_variants_only_on_a_multiple_of_128_tokens():
 
 @pytest.mark.parametrize("field, name", [
     ("global_kernel", "v1"), ("global_kernel", "v2"), ("global_kernel", "v4"),
-    ("window_kernel", "v1"), ("window_kernel", "v6"), ("window_kernel", "v8"),
-    ("window_kernel", "v10")])
+    ("window_kernel", "v2"), ("window_kernel", "v3"), ("window_kernel", "v4"),
+    ("window_kernel", "v5"), ("window_kernel", "v10")])
 def test_unported_kernel_names_are_refused_by_name(field, name):
     with pytest.raises(NotImplementedError, match=f"{field} '{name}'"):
         encoder.SamEncoderConfig(**{field: name})
     for ok in ("v8",) + NAMES:
         assert encoder.SamEncoderConfig(global_kernel=ok).global_kernel == ok
+    for ok in ("v1", "v6", "v7", "v8", "v9"):
+        assert encoder.SamEncoderConfig(window_kernel=ok).window_kernel == ok

@@ -8,12 +8,14 @@
 * chip_smoke.py refuses to run without a card, and without the rest of the
   repository, and never prints its success line then;
 * the wrappers of the relayout pair (K11), the raw capture (K9), the
-  spatial window attention (K12 v10) and the global variants v3, v6, v7 and
-  v11 (K12) take their plain versions on CPU tensors and launch nothing, and
-  refuse inputs that require grad;
-* no wrapper or entry point of the bench.py twin catches a failure to give
-  way to another path: the only handler is the bench's batch-size sweep, for
-  an out-of-memory error.
+  spatial window attention (K12 v10), the global variants v3, v6, v7 and
+  v11 and the window variants v1, v6, v7 and v8 (K12) take their plain
+  versions on CPU tensors and launch nothing, and refuse inputs that require
+  grad;
+* no wrapper or entry point of the bench.py and schedule_bench.py twins
+  catches a failure to give way to another path: the only handlers are the
+  bench's batch-size sweep and the size sweep's point, for an out-of-memory
+  error.
 """
 
 import os
@@ -58,13 +60,14 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "assert 'flmm_tpu_torch.ops.global_block' in names\n"
         "assert 'flmm_tpu_torch.configs.hpt' in names\n"
         "for new in ('ops.boundary', 'ops.sam_flash_experiments',\n"
-        "            'kernel_bench', 'bench', 'ops._matmul'):\n"
+        "            'kernel_bench', 'bench', 'ops._matmul',\n"
+        "            'schedule_bench'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 38
+    assert int(count) >= 39
     assert bad.strip() == "[]"
 
 
@@ -77,7 +80,7 @@ def test_port_sources_never_import_jax():
     assert len(files) > 20
     for new in ("ops/global_block.py", "configs/hpt.py", "ops/boundary.py",
                 "ops/sam_flash_experiments.py", "kernel_bench.py", "bench.py",
-                "ops/_matmul.py"):
+                "ops/_matmul.py", "schedule_bench.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -119,6 +122,10 @@ def test_kernels_build_at_first_use_and_raise_without_nvcc(call):
         assert proc.stdout.strip() == "RAISED True"
 
 
+WINDOW_VARIANTS = ("sam_window_attention", "sam_window_attention_v6",
+                   "sam_window_attention_v7", "sam_window_attention_v8")
+
+
 def _wrapper_calls():
     """(wrapper, plain version, CPU arguments, indices of the float
     arguments) of the three modules that hold K9, K11 and K12 v10."""
@@ -135,6 +142,12 @@ def _wrapper_calls():
             getattr(sfx, f"sam_global_attention_{v}_plain"),
             (heads, heads, heads, rel_g, rel_g, 4), (0, 1, 2))
         for v in ("v3", "v6", "v7", "v11")}
+    window = torch.randn((2, 2, 9, 8))  # (NW, nh, T, hd), side 3
+    rel_w = torch.randn((5, 8))
+    variants.update({
+        name: (getattr(sfx, name), getattr(sfx, name + "_plain"),
+               (window, window, window, rel_w, rel_w, 3), (0, 1, 2))
+        for name in WINDOW_VARIANTS})
     return {
         **variants,
         "windowize": (boundary.windowize, boundary.windowize_plain,
@@ -154,7 +167,7 @@ def _wrapper_calls():
 WRAPPER_NAMES = ("windowize", "dewindowize", "flash_attention_with_capture",
                  "sam_window_attention_v10", "sam_global_attention_v3",
                  "sam_global_attention_v6", "sam_global_attention_v7",
-                 "sam_global_attention_v11")
+                 "sam_global_attention_v11") + WINDOW_VARIANTS
 
 
 def _flat(out):
@@ -186,9 +199,9 @@ def test_new_wrappers_refuse_inputs_that_require_grad(name):
 
 
 def test_no_handler_gives_way_to_another_path():
-    """The new wrappers, the product helper and the bench twin hold no
-    ``try``; the bench's sweep catches an out-of-memory error and nothing
-    else, and the root script only calls its ``main``."""
+    """The new wrappers, the product helper and the bench twins hold no
+    ``try``; the bench's sweep and the size sweep catch an out-of-memory
+    error and nothing else, and the root script only calls its ``main``."""
     pkg = REPO / "flmm_tpu_torch"
     for name in ("ops/sam_flash_experiments.py", "ops/_matmul.py",
                  "ops/sam_flash.py", "models/sam/image_encoder.py"):
@@ -198,6 +211,10 @@ def test_no_handler_gives_way_to_another_path():
                           re.M)
     assert [h.strip() for h in handlers] == [
         "except torch.cuda.OutOfMemoryError as e:  # retry smaller"]
+    handlers = re.findall(r"^\s*except\b.*$",
+                          (pkg / "schedule_bench.py").read_text(), re.M)
+    assert [h.strip() for h in handlers] == [
+        "except torch.cuda.OutOfMemoryError:"]
     root = (REPO / "bench_torch.py").read_text()
     assert "from flmm_tpu_torch.bench import main" in root
     assert "try" not in root and "except" not in root

@@ -24,9 +24,10 @@ TIMING = {"ms", "ms_min", "ms_max", "iters", "device"}
 # op -> [(variant, the keys beside op / variant / the timing keys)], as
 # scripts/kernel_bench.py prints them
 ROWS = {
-    "window": [("v9", {"max_err_vs_v1"})],
+    "window": [("v1", {"max_err_vs_v1"}), ("v6", {"max_err_vs_v1"}),
+               ("v7", {"max_err_vs_v1"})],
     "global": [("v3", {"max_err_vs_v1"}), ("v6", {"max_err_vs_v1"})],
-    "encoder": [("w=v9,g=v6", set())],
+    "encoder": [("w=v6,g=v6", set())],
     "wb": [("flash", {"depth", "ms_per_layer"}),
            ("whole_block", {"depth", "ms_per_layer"}),
            ("agreement", {"corr", "max_abs_diff", "scale"})],
@@ -69,8 +70,13 @@ def test_op_rows_at_the_tiny_size(op):
         assert rows[0]["depth"] == 3
     if op == "boundary":
         assert rows[-1]["max_abs_diff"] == 0.0
-    if op in ("window", "global"):
+    if op == "global":
         assert all(r["max_err_vs_v1"] == 0.0 for r in rows)  # v3 is v6
+    if op == "window":
+        # against v1, the first variant: v6 adds the same bf16 bias rows in
+        # another order; v7 keeps f32 bias rows for these f32 inputs
+        errs = [r["max_err_vs_v1"] for r in rows]
+        assert errs[0] == 0.0 and errs[1] <= 2e-6 and 0 < errs[2] < 2e-2
 
 
 def test_ops_are_the_jax_scripts():
@@ -80,7 +86,7 @@ def test_ops_are_the_jax_scripts():
 
 
 @pytest.mark.parametrize("stem, name", [
-    ("sam_window_attention", "v1"), ("sam_window_attention", "v6"),
+    ("sam_window_attention", "v2"), ("sam_window_attention", "v3"),
     ("sam_global_attention", "v1"), ("sam_global_attention", "v2"),
     ("sam_global_attention", "v4")])
 def test_an_unported_variant_raises_by_name(stem, name):
@@ -95,7 +101,20 @@ def test_the_ported_global_variants_resolve_and_run(name):
     rows = _run("global", global_variants=("v8", name))
     assert [r["variant"] for r in rows] == ["v8", name]
     assert rows[1]["max_err_vs_v1"] < 1e-5  # f32 at the tiny size
-    assert _run("encoder", global_kernel=name)[0]["variant"] == f"w=v9,g={name}"
+    assert _run("encoder", global_kernel=name)[0]["variant"] == f"w=v6,g={name}"
+
+
+@pytest.mark.parametrize("name", ["v9", "v1", "v6", "v7", "v8"])
+def test_the_ported_window_variants_resolve_and_run(name):
+    fn = kb.kernel_fn("sam_window_attention", name)
+    assert fn.__name__ == ("sam_window_attention" if name == "v1"
+                           else f"sam_window_attention_{name}")
+    rows = _run("window", window_variants=("v9", name))
+    assert [r["variant"] for r in rows] == ["v9", name]
+    # f32 at the tiny size; v1 and v6 round their bias rows to bf16
+    assert rows[1]["max_err_vs_v1"] < (2e-2 if name in ("v1", "v6") else 1e-5)
+    assert _run("encoder", window_kernel=name)[0]["variant"] == f"w={name},g=v6"
+    assert _run("heads", window_kernel=name)[0]["variant"] == "unet+sam"
 
 
 def test_unported_variants_raise_before_anything_is_timed(capsys):
@@ -121,14 +140,16 @@ def test_cli_prints_the_card_line_then_one_json_line_per_row(capsys):
 
 
 def test_defaults_are_the_jax_scripts_but_for_the_unported_variants():
-    """--what, --bs, --depth, --global-variants and --global-kernel as
-    scripts/kernel_bench.py:488-494; the window flags default to the
-    production kernel until K12's window variants are ported."""
+    """Every flag of scripts/kernel_bench.py:488-494 with its default, the
+    window flags included now that v1, v6 and v7 are ported: no default
+    names an unported variant."""
     src = (REPO / "scripts" / "kernel_bench.py").read_text()
     for line in ('"--what", default="window,global"',
                  '"--bs", type=int, default=8',
                  '"--depth", type=int, default=12',
+                 '"--window-variants", default="v1,v6,v7"',
                  '"--global-variants", default="v3,v6"',
+                 '"--window-kernel", default="v6"',
                  '"--global-kernel", default="v6"'):
         assert line in src
         assert line in (REPO / "flmm_tpu_torch" / "kernel_bench.py").read_text()
