@@ -31,7 +31,10 @@ Phases; any failure raises and the script exits non-zero:
    (3200 window-heads, contiguous and as views of the windowised qkv) and
    at the SAM-768 bs-4 shape, each also beside K6; and K6, K3, K4 and K2 at
    the shapes the SAM-768 and SAM-640 points of the size sweep give them
-   (padded grids of 16 and 9 windows an image, global sides 48 and 40).
+   (padded grids of 16 and 9 windows an image, global sides 48 and 40);
+   the global variants v1, v2 and v4 and the window variant v2 of K12 at the
+   same shapes as the other variants, and K3 and K4 at the CLIP-L rows of
+   the LLaVA-1.5 and HPT-Air towers (bs 4, 577 and 785 tokens an image).
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -70,8 +73,9 @@ Phases; any failure raises and the script exits non-zero:
     DeepSeek-LLM-1.3B at full depth, the window-only and global-only
     encoders at depth 12 and 6: every time finite and positive, the
     flash / whole-block agreement rows, the relayout round trip exact, and
-    the exact launch counts of every op (`window` times v1, v6, v7, v8 and
-    v9, `global` v8, v3, v6, v7 and v11; `encoder` and `heads` run the
+    the exact launch counts of every op (`window` times v1, v6, v7, v8, v9
+    and v2, `global` v8, v3, v6, v7, v11, v1, v2 and v4; `encoder` and
+    `heads` run the
     bench's defaults, w=v6 and g=v6, of which the window kernel is launched
     0 times: at SAM-1024 every window layer is K1);
 14. run the twin of bench.py (flmm_tpu_torch.bench.run) in process:
@@ -91,10 +95,20 @@ Phases; any failure raises and the script exits non-zero:
 18. compare the kernel forward with the all-plain forward at both sizes on
     weights with non-zero qkv biases (the pad tokens' keys and values);
 19. run the SAM ViT-L encoder alone at 768, bs 4, through each window
-    kernel name (v9, v1, v6, v7, v8): 20 launches of the named wrapper and
-    none of the others, and the embedding beside the v9 encoder's and the
-    all-plain encoder's;
-20. report times.
+    kernel name (v9, v1, v6, v7, v8, v2): 20 launches of the named wrapper
+    and none of the others, and the embedding beside the v9 encoder's and
+    the all-plain encoder's;
+20. run the family matrix (flmm_tpu_torch.bench_families.main) over
+    LLaVA-1.5-7B (Vicuna-7B + CLIP-L/14-336, global kernel knob at v1) and
+    HPT-Air (a 7B Llama decoder + CLIP-L/14 at 392 over a resampled
+    pos-embed, knob at v4), each a child process of the bench.py twin at
+    full width and depth, bs 4, SAM-1024: a bf16 row without error, finite
+    logits, the exact launch counts per forward; and the rows of what is
+    not ported (the mgm family, the int8 decoder), which must say so;
+21. build both families in process and compare the forward through each of
+    the global kernels v1, v2 and v4 (counts at 0 just before, read just
+    after) with the all-plain forward of the same weights;
+22. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -115,7 +129,8 @@ import time
 import torch
 
 from flmm_tpu_torch import bench as e2e_bench
-from flmm_tpu_torch import kernel_bench, registry, schedule_bench
+from flmm_tpu_torch import bench_families, kernel_bench, registry, \
+    schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
@@ -201,16 +216,18 @@ EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
 BENCH_GB_DEPTH = min(BENCH_DEPTH, 6)
 # the global variants the `global` op times; `encoder` and `heads` run the
 # bench's default, g=v6
-BENCH_GLOBAL_VARIANTS = ("v8", "v3", "v6", "v7", "v11")
+BENCH_GLOBAL_VARIANTS = ("v8", "v3", "v6", "v7", "v11", "v1", "v2", "v4")
+GLOBAL_WRAPPER = {v: "sam_global_attention" + ("" if v == "v1" else f"_{v}")
+                  for v in BENCH_GLOBAL_VARIANTS}
 _SAM_1024 = {"window_block": 20, "fused_ln_qkv": 4,
              "sam_global_attention_v6": 4, "fused_proj_ln_mlp": 4}
-# the window variants the `window` op times: the bench's default and v8, v9
-BENCH_WINDOW_VARIANTS = ("v1", "v6", "v7", "v8", "v9")
+# the window variants the `window` op times: the bench's default, v8, v9, v2
+BENCH_WINDOW_VARIANTS = ("v1", "v6", "v7", "v8", "v9", "v2")
 WINDOW_WRAPPER = {"v1": "sam_window_attention", **{
-    v: f"sam_window_attention_{v}" for v in ("v6", "v7", "v8", "v9")}}
+    v: f"sam_window_attention_{v}" for v in ("v6", "v7", "v8", "v9", "v2")}}
 BENCH_LAUNCHES = {
     "window": {WINDOW_WRAPPER[v]: 1 for v in BENCH_WINDOW_VARIANTS},
-    "global": {f"sam_global_attention_{v}": 1 for v in BENCH_GLOBAL_VARIANTS},
+    "global": {GLOBAL_WRAPPER[v]: 1 for v in BENCH_GLOBAL_VARIANTS},
     "encoder": _SAM_1024,
     "wb": {"fused_ln_qkv": BENCH_DEPTH, "sam_window_attention_v9": BENCH_DEPTH,
            "fused_proj_ln_mlp": BENCH_DEPTH, "window_block": BENCH_DEPTH},
@@ -247,6 +264,26 @@ SWEEP_SIZES, SWEEP_ITERS = (768, 640), 3
 SWEEP_LAUNCHES = EXPECTED_LAUNCHES["deepseek_vl_1_3b_train_sam448"]
 # the window-variant encoder (phase 19): SAM ViT-L at 768, bs 4
 VARIANT_SAM = 768
+# the family matrix (phases 20-21): (family, the caller's environment, preset,
+# image tokens of the tower with its class token); children time 2 forwards
+FAMILY_POINTS = (
+    ("llava", {"BENCH_GLOBAL_KERNEL": "v1"}, "1_5_7b", 577),
+    ("hpt", {"BENCH_PRESET": "air", "BENCH_GLOBAL_KERNEL": "v4"}, "air", 785))
+FAMILY_ITERS, FAMILY_TIMEOUT = 2, 600
+NEW_GLOBALS = ("v1", "v2", "v4")
+
+
+def family_launches(global_kernel: str) -> dict:
+    """Per forward of LLaVA-1.5-7B and HPT-Air at SAM-1024: 23 CLIP-L layers
+    (features at layer -2) and SAM's 4 global layers go K3 / K4, SAM's 20
+    window layers K1, the 4 global attentions the named wrapper; the tower's
+    attention is plain (``vision.flash`` is off in both presets) and the
+    decoder captures eagerly (fewer than 1024 image tokens, image block not
+    aligned)."""
+    return {"window_block": 20, "fused_ln_qkv": 27, "fused_proj_ln_mlp": 27,
+            GLOBAL_WRAPPER[global_kernel]: 4}
+
+
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
@@ -292,6 +329,14 @@ SOURCES = {
                                 "flmm_tpu/ops/sam_flash_experiments.py:270"),
     "sam_window_attention_v8": ("flmm_tpu_torch/csrc/window_attention.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:346"),
+    "sam_global_attention": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                             "flmm_tpu/ops/sam_flash_experiments.py:1107"),
+    "sam_global_attention_v2": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:781"),
+    "sam_global_attention_v4": ("flmm_tpu_torch/csrc/relpos_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:859"),
+    "sam_window_attention_v2": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:422"),
 }
 
 
@@ -671,6 +716,7 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     global_variant_checks(check, g_e2e)
     window_variant_checks(check, g_sweep)
     sweep_shape_checks(check, g_sweep)
+    family_shape_checks(check, g_sweep)
     return results
 
 
@@ -883,31 +929,43 @@ def bench_shape_checks(check, g: torch.Generator) -> None:
 
 
 def global_variant_checks(check, g: torch.Generator) -> None:
-    """Phase 3 for the global variants v11, v3, v6 and v7 (K12) at the
-    shapes their paths give them: 4 images x 16 heads over the 64 x 64 grid
-    (the bench.py twin at bs 4) and 8 images (the kernel bench); v11 also at
-    side 28, whose 784 keys end inside a 64-key tile.  Each variant's result
-    is also held beside K2's (v8) on the same inputs."""
+    """Phase 3 for the global variants v11, v3, v6, v7, v1, v2 and v4 (K12)
+    at the shapes their paths give them: 4 images x 16 heads over the 64 x
+    64 grid (the bench.py twin and the family matrix at bs 4) and 8 images
+    (the kernel bench); v11 also at side 28, whose 784 keys end inside a
+    64-key tile.  Each variant's result is also held beside K2's (v8) on the
+    same inputs, and v1 and v2 beside v3, whose function they are on bf16
+    inputs at head_dim 64 up to the order of two f32 additions."""
     hd, nh, side = 64, 16, 64
     variants = {
-        name: (getattr(sam_flash_experiments, f"sam_global_attention_{name}"),
-               getattr(sam_flash_experiments,
-                       f"sam_global_attention_{name}_plain"))
-        for name in ("v11", "v3", "v6", "v7")}
+        name: (getattr(sam_flash_experiments, GLOBAL_WRAPPER[name]),
+               getattr(sam_flash_experiments, GLOBAL_WRAPPER[name] + "_plain"))
+        for name in ("v11", "v3", "v6", "v7") + NEW_GLOBALS}
 
     def check_all(label, q, k, v, rph, rpw, side, names, mask=None):
         ref = sam_flash.sam_global_attention_v8(q, k, v, rph, rpw, side)
         G, S, _ = q.shape
+        outs = {}
         for name in names:
             wrapper, plain = variants[name]
-            check(f"sam_global_attention_{name}", label, wrapper, plain,
+            check(GLOBAL_WRAPPER[name], label, wrapper, plain,
                   (q, k, v, rph, rpw, side), flop=4 * G * S * S * hd,
                   library_fn=None if mask is None
                   else lambda: _sdpa(q, k, v, mask))
-            diff = (wrapper(q, k, v, rph, rpw, side).float()
-                    - ref.float()).abs().max().item()
-            log(f"phase 3 sam_global_attention_{name} [{label}]: max |diff| "
+            outs[name] = wrapper(q, k, v, rph, rpw, side)
+            diff = (outs[name].float() - ref.float()).abs().max().item()
+            log(f"phase 3 {GLOBAL_WRAPPER[name]} [{label}]: max |diff| "
                 f"against sam_global_attention_v8 {diff:.3e}")
+        if "v1" in outs:
+            log(f"phase 3 global variants [{label}]: v2 equals v3 bit for "
+                f"bit: {torch.equal(outs['v2'], outs['v3'])}, v1 equals v3: "
+                f"{torch.equal(outs['v1'], outs['v3'])} (max |diff| "
+                f"{(outs['v1'].float() - outs['v3'].float()).abs().max():.3e}"
+                "), v4 against v3 max |diff| "
+                f"{(outs['v4'].float() - outs['v3'].float()).abs().max():.3e}")
+            if not torch.equal(outs["v2"], outs["v3"]):
+                raise AssertionError("two names of one kernel instantiation "
+                                     "disagree")
 
     for B in (BS, BENCH_BS):
         q, k, v = (_randn(g, (nh * B, side * side, hd)) for _ in range(3))
@@ -935,14 +993,16 @@ def _window_views(g: torch.Generator, NW: int, nh: int = 16, T: int = 196,
 
 
 def window_variant_checks(check, g: torch.Generator) -> None:
-    """Phase 3 for the window variants v1, v6, v7 and v8 (K12) at the shapes
-    their paths give them: the kernel bench's 3200 contiguous window-heads
+    """Phase 3 for the window variants v1, v6, v7, v8 and v2 (K12) at the
+    shapes their paths give them: the kernel bench's 3200 contiguous window-heads
     (8 images x 25 windows x 16 heads), the same as views of a windowised
     qkv, and the views of the SAM-768 bs-4 encoder (64 windows).  Each
     variant's result is also held beside K6's (v9) on the same inputs, and
     its wrapper's plain preparation (bias rows, q scaling) is timed alone.
     The bytes counted are q, k, v, the output and the two tables, as for
-    K6."""
+    K6; v2's dense bias is the wrapper's own intermediate, so its kernel
+    alone, which also reads that tensor, has a larger bound, logged beside
+    the time of building it."""
     ws, hd, nh = 14, 64, 16
     T = ws * ws
     sfx = sam_flash_experiments
@@ -951,7 +1011,7 @@ def window_variant_checks(check, g: torch.Generator) -> None:
     variants.update({
         name: (getattr(sfx, f"sam_window_attention_{name}"),
                getattr(sfx, f"sam_window_attention_{name}_plain"))
-        for name in ("v6", "v7", "v8")})
+        for name in ("v6", "v7", "v8", "v2")})
     rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
     inputs = (
         (f"bench, G={200 * nh}, T={T}",
@@ -980,7 +1040,8 @@ def window_variant_checks(check, g: torch.Generator) -> None:
         log(f"phase 3 window variants [{label}]: v1 equals v6 bit for bit: "
             f"{torch.equal(outs['v1'], outs['v6'])}, v7 equals v8: "
             f"{torch.equal(outs['v7'], outs['v8'])}, v1 equals v7: "
-            f"{torch.equal(outs['v1'], outs['v7'])}")
+            f"{torch.equal(outs['v1'], outs['v7'])}; v2 against v7 max |diff| "
+            f"{(outs['v2'].float() - outs['v7'].float()).abs().max():.3e}")
         if not (torch.equal(outs["v1"], outs["v6"])
                 and torch.equal(outs["v7"], outs["v8"])):
             raise AssertionError("two names of one kernel instantiation "
@@ -991,8 +1052,19 @@ def window_variant_checks(check, g: torch.Generator) -> None:
             qf, rph, rpw, ws, log2_domain=False, dtype=torch.bfloat16))
         scale_ms = cuda_ms(lambda: (q.float() * 0.125).to(q.dtype))
         log(f"phase 3 window variants [{label}]: of the wrappers' time above, "
-            f"the plain bias rows alone {rows_ms:.3f} ms (all four) and the "
-            f"plain q scaling alone {scale_ms:.3f} ms (v7, v8)")
+            f"the plain bias rows alone {rows_ms:.3f} ms (v1, v6, v7, v8) and "
+            f"the plain q scaling alone {scale_ms:.3f} ms (v7, v8, v2)")
+        dense_ms = cuda_ms(lambda: sam_flash_experiments.window_dense_bias(
+            qf, rph, rpw, ws))
+        dense = sam_flash_experiments.window_dense_bias(qf, rph, rpw, ws)
+        alone = (_tensor_bytes(q, k, v, q, dense) / PEAK_BYTES * 1e3)
+        log(f"phase 3 sam_window_attention_v2 [{label}]: the plain dense "
+            f"bias alone {dense_ms:.3f} ms of the wrapper's time "
+            f"({_tensor_bytes(dense) / 1e6:.1f} MB, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB so far); the "
+            f"kernel alone, reading it too, has a least time of {alone:.4f} "
+            "ms")
+        del dense
 
 
 def sweep_shape_checks(check, g: torch.Generator) -> None:
@@ -1042,6 +1114,31 @@ def sweep_shape_checks(check, g: torch.Generator) -> None:
               (q, k, v, rph, rpw, side), flop=4 * nh * BS * side ** 4 * hd,
               library_fn=lambda: _sdpa(q, k, v, mask))
         del heads, q, k, v, mask
+
+
+def family_shape_checks(check, g: torch.Generator) -> None:
+    """Phase 3 at the shapes the family matrix (phase 20, bs 4) gives K3 and
+    K4 in the CLIP-L towers of LLaVA-1.5 (577 tokens an image) and HPT-Air
+    (785 at 392 px): quick_gelu, LayerNorm eps 1e-5.  Their SAM-1024 shapes
+    (K1 at NW=100, K3 / K4 at N=16384, the global variants at G=64) are held
+    above."""
+    C, F = 1024, 4096
+    lw, lb = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+    w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+    for family, _, preset, tokens in FAMILY_POINTS:
+        N = BS * tokens
+        x, a = _randn(g, (N, C)), _randn(g, (N, C))
+        label = f"{family} {preset} CLIP-L, N={N}, quick_gelu"
+        check("fused_ln_qkv", label, fused_block.fused_ln_qkv,
+              fused_block.fused_ln_qkv_plain, (x, lw, lb, wqkv, bqkv, 1e-5),
+              flop=2 * N * C * 3 * C)
+        check("fused_proj_ln_mlp", label, fused_block.fused_proj_ln_mlp,
+              fused_block.fused_proj_ln_mlp_plain,
+              (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-5, "quick_gelu"),
+              flop=2 * N * C * C + 4 * N * C * F)
 
 
 def run_requests(forward, params, cfg, batches) -> tuple[list, float]:
@@ -1579,21 +1676,24 @@ def run_window_variants(g: torch.Generator) -> dict:
     with torch.no_grad():
         ref_plain = sam_encoder.forward(params, plain, pixels)
         embeddings = {}
-        for name in ("v9", "v1", "v6", "v7", "v8"):
+        for name in ("v9", "v1", "v6", "v7", "v8", "v2"):
             cfg = dataclasses.replace(base, window_kernel=name)
             sam_encoder.forward(params, cfg, pixels)  # warm-up
             for fn in WRAPPERS.values():
                 fn.launches = 0
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             embeddings[name] = sam_encoder.forward(params, cfg, pixels)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
             got = {k: fn.launches for k, fn in WRAPPERS.items() if fn.launches}
             want = {WINDOW_WRAPPER[name]: 20, "sam_global_attention_v8": 4,
                     "fused_ln_qkv": 24, "fused_proj_ln_mlp": 24}
             log(f"phase 19 encoder window_kernel={name}: launches {got} "
-                f"(expected {want}), {ms:.1f} ms")
+                f"(expected {want}), {ms:.1f} ms, peak memory {peak_gb:.2f} "
+                "GB")
             if got != want:
                 raise AssertionError(f"window_kernel={name}: launch counts "
                                      "differ from the encoder's")
@@ -1609,6 +1709,144 @@ def run_window_variants(g: torch.Generator) -> dict:
                     raise AssertionError(
                         f"window_kernel={name}: the embedding disagrees "
                         f"with the {other} encoder's")
+    return {"launches": launches}
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with ``env`` laid over ``os.environ``, which is restored."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def run_family_matrix() -> dict:
+    """Phase 20: the family matrix over the two families that had not run on
+    a card, one child process of the bench.py twin per point, and the rows
+    of what is not ported.  The counts are the children's own (each child
+    sets them to 0 after its warm-up forwards and reads them after the timed
+    ones); this process launches nothing here."""
+    bench_keys = ("BENCH_FAMILY", "BENCH_PRESET", "BENCH_SAM_SIZE", "BENCH_BS",
+                  "BENCH_SEQ", "BENCH_GLOBAL_BLOCK", "BENCH_GLOBAL_KERNEL",
+                  "BENCH_QUANT_LLM")
+    clean = {k: os.environ.pop(k) for k in bench_keys if k in os.environ}
+    rows, launches = {}, dict.fromkeys(WRAPPERS, 0)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = str(pathlib.Path(tmp) / "rows.json")
+            common = ["--out", out, "--timeout", str(FAMILY_TIMEOUT)]
+            for family, env, preset, _ in FAMILY_POINTS:
+                t0 = time.perf_counter()
+                result = _with_env(
+                    {**env, "BENCH_ITERS": str(FAMILY_ITERS)},
+                    lambda: bench_families.main(
+                        ["--families", family, *common]))
+                row = result["rows"][-1]
+                log(f"phase 20 bench_families {json.dumps(row)} "
+                    f"({time.perf_counter() - t0:.1f} s with the child's "
+                    "start and parameters)")
+                name = env["BENCH_GLOBAL_KERNEL"]
+                want = {k: family_launches(name).get(k, 0) for k in WRAPPERS}
+                if "error" in row or row["mode"] != "bf16":
+                    raise AssertionError(f"bench_families {family}: no bf16 "
+                                         f"row without error: {row}")
+                if row["launches"] != want:
+                    raise AssertionError(f"bench_families {family}: launches "
+                                         f"per forward differ from {want}")
+                if (row["family"], row["preset"], row["bs"], row["sam_size"],
+                        row["iters"], row["global_kernel"]) != (
+                            family, preset, BS, 1024, FAMILY_ITERS, name):
+                    raise AssertionError(f"bench_families {family}: wrong "
+                                         "settings in the row")
+                for r in (row, row["plain"]):
+                    if not (math.isfinite(r["value"]) and r["value"] > 0 and
+                            0 < r["ms_min"] <= r["ms_mean"] <= r["ms_max"]):
+                        raise AssertionError(f"bench_families {family}: bad "
+                                             f"time in {r}")
+                rows[family] = row
+                for k in WRAPPERS:
+                    launches[k] += row["launches"][k] * row["iters"]
+            # what is not ported says so, and nothing runs in its place
+            mgm = bench_families.main(["--families", "mgm", *common])
+            quant = bench_families.run_one(
+                "hpt", "int8_llm", dict(bench_families.PLAN["hpt"][-1][1]),
+                1024, FAMILY_TIMEOUT)
+            for row, word in ((mgm["rows"][-1], "mgm"),
+                              (quant, "BENCH_QUANT_LLM=1")):
+                log(f"phase 20 bench_families {json.dumps(row)}")
+                if not (word in row.get("error", "")
+                        and "not ported" in row["error"]):
+                    raise AssertionError("bench_families: the row of what is "
+                                         f"not ported does not say so: {row}")
+            kept = [(r["family"], r["mode"]) for r in mgm["rows"]]
+            if kept != [("llava", "bf16"), ("hpt", "bf16"), ("mgm", "bf16")]:
+                raise AssertionError(f"bench_families: --out holds {kept}")
+    finally:
+        os.environ.update(clean)
+    return {"launches": launches, "rows": rows}
+
+
+def compare_families() -> dict:
+    """Phase 21: both families built in process (the seed gives the
+    children's parameters again), one batch through the forward with each of
+    the global kernels v1, v2 and v4, the counts at 0 just before and read
+    just after, against the all-plain forward of the same weights."""
+    device = torch.device("cuda")
+    launches = dict.fromkeys(WRAPPERS, 0)
+    for family, env, preset, _ in FAMILY_POINTS:
+        knobs = e2e_bench.Knobs(family=family, preset=env.get("BENCH_PRESET"))
+        model, cfg, params, batch = e2e_bench.build(BS, knobs, device)
+        enc_params = params["frozen"]["sam_encoder"]
+        plain = registry.plain_config(cfg)
+        with torch.no_grad():
+            ref = model.forward(params, plain, batch)
+            ref["sam_embedding"] = sam_encoder.forward(
+                enc_params, plain.sam.encoder, batch["sam_pixel_values"])
+            for name in NEW_GLOBALS:
+                cfg_n = dataclasses.replace(cfg, sam=dataclasses.replace(
+                    cfg.sam, encoder=dataclasses.replace(
+                        cfg.sam.encoder, global_kernel=name)))
+                for fn in WRAPPERS.values():
+                    fn.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model.forward(params, cfg_n, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = {k: fn.launches for k, fn in WRAPPERS.items()}
+                want = {k: family_launches(name).get(k, 0) for k in WRAPPERS}
+                log(f"phase 21 {family} {preset} global_kernel={name}: one "
+                    f"bs-{BS} forward {ms:.1f} ms, peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+                    f"launches { {k: n for k, n in got.items() if n} }")
+                if got != want:
+                    raise AssertionError(f"{family} global_kernel={name}: "
+                                         f"launches differ from {want}")
+                for k, n in got.items():
+                    launches[k] += n
+                out["sam_embedding"] = sam_encoder.forward(
+                    enc_params, cfg_n.sam.encoder, batch["sam_pixel_values"])
+                for key in ("sam_embedding", "hidden", "coarse_logits",
+                            "sam_logits"):
+                    rel, corr = agreement(out[key], ref[key])
+                    log(f"phase 21 {family} {preset} global_kernel={name} "
+                        f"{key}: kernel vs plain forward max_rel_err "
+                        f"{rel:.3e} corr {corr:.6f} (bound "
+                        f"{FORWARD_CORR[key]})")
+                    if corr < FORWARD_CORR[key]:
+                        raise AssertionError(
+                            f"{family} global_kernel={name} {key}: kernel "
+                            "forward disagrees with the plain forward")
+                del out
+        del model, params, batch, ref
+        torch.cuda.empty_cache()
     return {"launches": launches}
 
 
@@ -1655,11 +1893,21 @@ def main() -> None:
     sweep = run_sweep(g_sweep)
     variants = run_window_variants(g_sweep)
     torch.cuda.empty_cache()
+    families = run_family_matrix()
+    compared = compare_families()
+    for family, row in families["rows"].items():
+        log(f"phase 22 timing bench_families {family} {row['preset']} "
+            f"({card}): kernel path {row['ms_mean']} ms/forward, "
+            f"{row['value']} img/s, peak {row['peak_gb']} GB; plain path "
+            f"{row['plain']['ms_mean']} ms/forward, {row['plain']['value']} "
+            f"img/s, peak {row['plain']['peak_gb']} GB (bs {row['bs']}, "
+            f"{row['iters']} forwards after {e2e_bench.WARMUP} warm-ups, "
+            f"global_kernel={row['global_kernel']})")
     for path, r in paths.items():
         unit = r.get("unit", "forward")
         what = (f"{r['n']} steps" if unit == "step"
                 else f"{len(r['requests'])} requests")
-        log(f"phase 20 timing {path} ({card}): kernel path {r['ms']:.1f} "
+        log(f"phase 22 timing {path} ({card}): kernel path {r['ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
@@ -1669,13 +1917,16 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
-             *paths.values(), bench, e2e, sweep, variants)),
+             *paths.values(), bench, e2e, sweep, variants, families,
+             compared)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
              "bench_torch": e2e["launches"][name],
              "schedule_bench": sweep["launches"][name],
-             "window_variant_encoder": variants["launches"][name]},
+             "window_variant_encoder": variants["launches"][name],
+             "bench_families": families["launches"][name],
+             "family_forwards": compared["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

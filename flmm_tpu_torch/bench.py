@@ -23,7 +23,7 @@ Env knobs, with the JAX script's names and defaults:
                       block where it must)
   BENCH_GLOBAL_BLOCK  1: the whole-block global SAM layer (K10 + K8)
   BENCH_GLOBAL_KERNEL the global attention kernel of the split path: v8
-                      (default), v3, v6, v7 or v11
+                      (default), v1, v2, v3, v4, v6, v7 or v11
   BENCH_QUANT_LLM     1 raises: the int8 decoder is not ported (ROADMAP.md)
 ``--device`` (default ``cuda``; without a card the run exits non-zero;
 ``--device cpu`` runs the plain versions on host clocks, for the tests).
@@ -106,6 +106,10 @@ WRAPPERS = {
     "sam_window_attention_v6": sam_flash_experiments.sam_window_attention_v6,
     "sam_window_attention_v7": sam_flash_experiments.sam_window_attention_v7,
     "sam_window_attention_v8": sam_flash_experiments.sam_window_attention_v8,
+    "sam_global_attention": sam_flash_experiments.sam_global_attention,
+    "sam_global_attention_v2": sam_flash_experiments.sam_global_attention_v2,
+    "sam_global_attention_v4": sam_flash_experiments.sam_global_attention_v4,
+    "sam_window_attention_v2": sam_flash_experiments.sam_window_attention_v2,
 }
 
 

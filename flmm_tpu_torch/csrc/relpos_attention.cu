@@ -38,18 +38,33 @@
 // and key tiles wastes 41% of the products, so per-block staging and the
 // idle tail bound it rather than the tensor cores.
 //
-// It also serves four of the superseded global variants of
+// It also serves seven of the superseded global variants of
 // flmm_tpu/ops/sam_flash_experiments.py (K12), which differ from K2 as
 // functions only in what happens to the f32 scores, chosen by the SOFTMAX
 // template flag:
 //   SOFTMAX_LOG2         K1, K2, K6, K10 and global v7 (::sam_global_attention_v7,
 //                        the pallas_call at :981): log2-domain operands,
 //                        p = exp2(s - max);
-//   SOFTMAX_NATURAL      global v3 (:1046) and v6 (:942), one function: q
-//                        scaled by `scale` alone and the bias rows in
-//                        natural base, both rounded to bf16 outside;
-//                        p = exp(s - max), taken as exp2((s - max) * log2 e)
-//                        in f32;
+//   SOFTMAX_NATURAL      global v3 (:1046), v6 (:942) and v2 (:781), one
+//                        function of bf16 inputs: q scaled by `scale` alone
+//                        and the bias rows in natural base, both rounded to
+//                        bf16 outside; p = exp(s - max), taken as
+//                        exp2((s - max) * log2 e) in f32;
+//   SOFTMAX_NATURAL_SCALE_AFTER
+//                        global v1 (::sam_global_attention, :1107): q as it
+//                        is, unscaled; s = (f32(q . k) * scale + bias_h) +
+//                        bias_w with bf16 bias rows in natural base, then
+//                        as SOFTMAX_NATURAL;
+//   SOFTMAX_NATURAL_BF16 global v4 (:859): v3's operands, but every score is
+//                        rounded to bf16, the max is taken over the rounded
+//                        scores, p = bf16(exp(bf16(s - max))) and the
+//                        denominator is the f32 sum of the ROUNDED p (the
+//                        TPU kernel reads it off a ones-column of v).  The
+//                        TPU body sees the whole row; here the max runs
+//                        over key tiles, so a p computed against an earlier
+//                        max is rounded at other values before the f32
+//                        rescale brings it to the final max: a difference
+//                        inside the variant's own 0.4% softmax rounding;
 //   SOFTMAX_LOG2_NO_MAX  global v11 (:1309): log2-domain operands and
 //                        p = exp2(s) of the raw scores.  No running max is
 //                        kept and nothing is rescaled: the accumulators are
@@ -80,7 +95,10 @@ namespace {
 constexpr int HD = 64, BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
 constexpr int K_LD = HD + 8;    // Ks[key][d]
 // the order is flmm_tpu_torch.ops.sam_flash.SOFTMAX_*
-enum Softmax { SOFTMAX_LOG2 = 0, SOFTMAX_NATURAL = 1, SOFTMAX_LOG2_NO_MAX = 2 };
+enum Softmax {
+  SOFTMAX_LOG2 = 0, SOFTMAX_NATURAL = 1, SOFTMAX_LOG2_NO_MAX = 2,
+  SOFTMAX_NATURAL_SCALE_AFTER = 3, SOFTMAX_NATURAL_BF16 = 4
+};
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int VT_LD = BKV + 8;  // Vt[d][key]
 
@@ -97,8 +115,8 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
                         const bf16* __restrict__ v, long long s_b,
                         long long s_h, long long s_t, int nh,
                         const bf16* __restrict__ bias, int side, int S,
-                        bf16* __restrict__ out, long long o_b, long long o_h,
-                        long long o_t) {
+                        [[maybe_unused]] float scale, bf16* __restrict__ out,
+                        long long o_b, long long o_h, long long o_t) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vt = Ks + BKV * K_LD;
@@ -204,8 +222,17 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
           const int key = kv0 + nt * 8 + qc + e;
           if (key < S) {
             const int bh = key / side, bw = side + key % side;
-            s[nt][e] += brow0[bh] + brow0[bw];
-            s[nt][2 + e] += brow1[bh] + brow1[bw];
+            if constexpr (SOFTMAX == SOFTMAX_NATURAL_SCALE_AFTER) {
+              s[nt][e] = (s[nt][e] * scale + brow0[bh]) + brow0[bw];
+              s[nt][2 + e] = (s[nt][2 + e] * scale + brow1[bh]) + brow1[bw];
+            } else {
+              s[nt][e] += brow0[bh] + brow0[bw];
+              s[nt][2 + e] += brow1[bh] + brow1[bw];
+            }
+            if constexpr (SOFTMAX == SOFTMAX_NATURAL_BF16) {
+              s[nt][e] = round_bf16(s[nt][e]);
+              s[nt][2 + e] = round_bf16(s[nt][2 + e]);
+            }
           } else {
             s[nt][e] = -CUDART_INF_F;
             s[nt][2 + e] = -CUDART_INF_F;
@@ -214,7 +241,7 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
           mx1 = fmaxf(mx1, s[nt][2 + e]);
         }
       // natural-base scores: exp(x) = exp2(x * log2 e), in f32
-      constexpr float TO_LOG2 = SOFTMAX == SOFTMAX_NATURAL ? LOG2E : 1.f;
+      constexpr float TO_LOG2 = SOFTMAX == SOFTMAX_LOG2 ? 1.f : LOG2E;
       const float mn0 = fmaxf(m0, quad_max(mx0));
       const float mn1 = fmaxf(m1, quad_max(mx1));
       const float alpha0 = exp2f((m0 - mn0) * TO_LOG2);
@@ -226,8 +253,17 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
       for (int nt = 0; nt < BKV / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[nt][e] = exp2f((s[nt][e] - mn0) * TO_LOG2);
-          s[nt][2 + e] = exp2f((s[nt][2 + e] - mn1) * TO_LOG2);
+          if constexpr (SOFTMAX == SOFTMAX_NATURAL_BF16) {
+            // the difference and the exponential each rounded to bf16, as
+            // a bf16 subtraction and a bf16 exp give them; expf, not exp2f
+            // of a rescaled argument, so that p lands on the bf16 value an
+            // f32 exp rounds to
+            s[nt][e] = round_bf16(expf(round_bf16(s[nt][e] - mn0)));
+            s[nt][2 + e] = round_bf16(expf(round_bf16(s[nt][2 + e] - mn1)));
+          } else {
+            s[nt][e] = exp2f((s[nt][e] - mn0) * TO_LOG2);
+            s[nt][2 + e] = exp2f((s[nt][2 + e] - mn1) * TO_LOG2);
+          }
           ps0 += s[nt][e];
           ps1 += s[nt][2 + e];
         }
@@ -278,8 +314,8 @@ template <int SOFTMAX>
 int launch(const bf16* q, long long q_b, long long q_h, long long q_t,
            const bf16* k, const bf16* v, long long s_b, long long s_h,
            long long s_t, int nh, const bf16* bias, int side, int G, int S,
-           bf16* out, long long o_b, long long o_h, long long o_t,
-           cudaStream_t stream) {
+           float scale, bf16* out, long long o_b, long long o_h,
+           long long o_t, cudaStream_t stream) {
   const size_t smem = smem_bytes(side);
   const cudaError_t e = cudaFuncSetAttribute(
       relpos_attention_kernel<SOFTMAX>,
@@ -287,8 +323,8 @@ int launch(const bf16* q, long long q_b, long long q_h, long long q_t,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, G);
   relpos_attention_kernel<SOFTMAX><<<grid, THREADS, smem, stream>>>(
-      q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, S, out, o_b, o_h,
-      o_t);
+      q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, S, scale, out,
+      o_b, o_h, o_t);
   return (int)cudaGetLastError();
 }
 
@@ -300,12 +336,12 @@ extern "C" int flmm_relpos_attention(const void* q, long long q_b,
                                      long long s_b,
                                      long long s_h, long long s_t, int nh,
                                      const void* bias, int side, int G, int S,
-                                     int head_dim, int softmax, void* out,
-                                     long long o_b,
+                                     int head_dim, int softmax, float scale,
+                                     void* out, long long o_b,
                                      long long o_h, long long o_t,
                                      void* stream) {
   if (head_dim != HD || G <= 0 || S <= 0 || nh <= 0 || side <= 0 ||
-      softmax < SOFTMAX_LOG2 || softmax > SOFTMAX_LOG2_NO_MAX ||
+      softmax < SOFTMAX_LOG2 || softmax > SOFTMAX_NATURAL_BF16 ||
       side * side != S || G > 65535 || q_b % 8 || q_h % 8 || q_t % 8 ||
       s_b % 8 || s_h % 8 || s_t % 8 ||
       o_b % 2 || o_h % 2 || o_t % 2)
@@ -313,10 +349,13 @@ extern "C" int flmm_relpos_attention(const void* q, long long q_b,
 #define FLMM_LAUNCH(MODE)                                                   \
   launch<MODE>((const bf16*)q, q_b, q_h, q_t, (const bf16*)k,               \
                (const bf16*)v, s_b, s_h, s_t, nh, (const bf16*)bias, side,  \
-               G, S, (bf16*)out, o_b, o_h, o_t, (cudaStream_t)stream)
+               G, S, scale, (bf16*)out, o_b, o_h, o_t, (cudaStream_t)stream)
   switch (softmax) {
     case SOFTMAX_NATURAL: return FLMM_LAUNCH(SOFTMAX_NATURAL);
     case SOFTMAX_LOG2_NO_MAX: return FLMM_LAUNCH(SOFTMAX_LOG2_NO_MAX);
+    case SOFTMAX_NATURAL_SCALE_AFTER:
+      return FLMM_LAUNCH(SOFTMAX_NATURAL_SCALE_AFTER);
+    case SOFTMAX_NATURAL_BF16: return FLMM_LAUNCH(SOFTMAX_NATURAL_BF16);
     default: return FLMM_LAUNCH(SOFTMAX_LOG2);
   }
 #undef FLMM_LAUNCH

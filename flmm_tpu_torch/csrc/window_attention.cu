@@ -2,10 +2,11 @@
 // ViTDet blocks: one-shot softmax in natural base over the T = side * side
 // keys of one 14 x 14 window, the whole window resident in one block.
 //
-// Replaces four of the superseded window variants of
+// Replaces five of the superseded window variants of
 // flmm_tpu/ops/sam_flash_experiments.py (K12), one contract
 // (q, k, v, rel_pos_h, rel_pos_w, side) -> out over (G, T, 64) window-heads:
 //   ::sam_window_attention     (v1, the pallas_call at :695)
+//   ::sam_window_attention_v2  (:422)
 //   ::sam_window_attention_v6  (:185)
 //   ::sam_window_attention_v7  (:270)
 //   ::sam_window_attention_v8  (:346)
@@ -21,7 +22,18 @@
 //                outside; s = f32(qs . k) + bias_h + bias_w.  (v8 adds the
 //                one-hot selection columns to the keys outside its TPU
 //                kernel, v7 inside: one function.)
-// In both, p = exp(s - max) over the row, taken as exp2((s - max) * log2 e)
+//   DENSE_BIAS   v2: q scaled and rounded outside as for SCALED_Q, and the
+//                bias not as two thin rows but as the dense tensor the JAX
+//                wrapper makes, (G, tp, tp) bf16 with tp = T rounded up to
+//                16: bias_h + bias_w summed in f32 and rounded once, -1e30
+//                in the pad rows and columns; s = f32(qs . k) + dense.  It
+//                is as large as the scores (277 MB at G = 3200 beside 321
+//                MB of q, k, v and the output), so it is not staged: each
+//                thread reads the two bf16 of its column pair from device
+//                memory as it reaches them, once.  The pad columns below tp
+//                get their -1e30 from the tensor (the zero-filled pad keys
+//                give a score of 0), those from tp to 208 from the kernel.
+// In all three, p = exp(s - max) over the row, taken as exp2((s - max) * log2 e)
 // in f32; p is rounded to bf16 for the value product and the denominator is
 // the f32 sum of the unrounded p, clamped at 1e-30.  The TPU kernels pad T to
 // a multiple of 16 (v7 / v8 also the operands to 128 lanes), mask the pad
@@ -70,12 +82,14 @@ constexpr int NT = MAX_T / 8;     // key tiles of 8 in a score strip
 constexpr int K_LD = HD + 8;      // Ks[key][d]
 constexpr int VT_LD = MAX_T + 8;  // Vt[d][key]
 // the order is flmm_tpu_torch.ops.sam_flash_experiments.WINDOW_MODES
-enum Mode { SCALE_AFTER = 0, SCALED_Q = 1 };
+enum Mode { SCALE_AFTER = 0, SCALED_Q = 1, DENSE_BIAS = 2 };
 constexpr float LOG2E = 1.4426950408889634f;
 
-size_t smem_bytes(int side) {
+// K, V^T, the key table and, but for DENSE_BIAS, the window's bias rows
+size_t smem_bytes(int side, int mode) {
   return (size_t)MAX_T * K_LD * 2 + (size_t)HD * VT_LD * 2 +
-         (size_t)MAX_T * 2 + (size_t)side * side * 2 * side * 2;
+         (size_t)MAX_T * 2 +
+         (mode == DENSE_BIAS ? 0 : (size_t)side * side * 2 * side * 2);
 }
 
 template <int MODE>
@@ -117,9 +131,13 @@ window_attention_kernel(const bf16* __restrict__ q, long long q_b,
 #pragma unroll
     for (int j = 0; j < 8; ++j) Vt[(c + j) * VT_LD + r] = ve[j];
   }
-  const bf16* bias_g = bias + (long long)g * T * two_side;
-  for (int idx = tid; idx < T * two_side; idx += THREADS)
-    Bsm[idx] = bias_g[idx];
+  if constexpr (MODE != DENSE_BIAS) {
+    const bf16* bias_g = bias + (long long)g * T * two_side;
+    for (int idx = tid; idx < T * two_side; idx += THREADS)
+      Bsm[idx] = bias_g[idx];
+  }
+  // DENSE_BIAS: the side of this window-head's (tp, tp) bias
+  [[maybe_unused]] const int tp = (T + 15) / 16 * 16;
   for (int key = tid; key < MAX_T; key += THREADS) {
     Kidx[2 * key] = key < T ? key / side : 0;
     Kidx[2 * key + 1] = key < T ? side + key % side : 0;
@@ -160,9 +178,39 @@ window_attention_kernel(const bf16* __restrict__ q, long long q_b,
     // scale (SCALE_AFTER), bias, pad keys to -1e30 as the TPU kernels, row max
     const bf16* brow0 = Bsm + min(t0, T - 1) * two_side;
     const bf16* brow1 = Bsm + min(t1, T - 1) * two_side;
+    // DENSE_BIAS: this thread's two rows of the dense bias in device memory
+    [[maybe_unused]] const bf16* drow0 =
+        bias + ((long long)g * tp + min(t0, T - 1)) * tp;
+    [[maybe_unused]] const bf16* drow1 =
+        bias + ((long long)g * tp + min(t1, T - 1)) * tp;
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
+      if constexpr (MODE == DENSE_BIAS) {
+        // keys nt * 8 + qc and + 1 are one 32-bit word of a row (tp and qc
+        // are even); a pad key below tp has a zero score and takes the
+        // tensor's -1e30
+        const int key = nt * 8 + qc;
+        if (key < tp) {
+          const float2 b0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow0 + key));
+          const float2 b1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow1 + key));
+          s[nt][0] += b0.x;
+          s[nt][1] += b0.y;
+          s[nt][2] += b1.x;
+          s[nt][3] += b1.y;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = -1e30f;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mx0 = fmaxf(mx0, s[nt][e]);
+          mx1 = fmaxf(mx1, s[nt][2 + e]);
+        }
+        continue;
+      }
       // keys nt * 8 + qc and + 1: (bias_h column, bias_w column) of each
       const uchar4 ki =
           *reinterpret_cast<const uchar4*>(Kidx + 2 * (nt * 8 + qc));
@@ -247,7 +295,7 @@ int launch(const bf16* q, long long q_b, long long q_h, long long q_t,
            long long s_t, int nh, const bf16* bias, int side, int G, int T,
            float scale, bf16* out, long long o_b, long long o_h,
            long long o_t, cudaStream_t stream) {
-  const size_t smem = smem_bytes(side);
+  const size_t smem = smem_bytes(side, MODE);
   const cudaError_t e = cudaFuncSetAttribute(
       window_attention_kernel<MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -270,7 +318,8 @@ extern "C" int flmm_window_attention(const void* q, long long q_b,
                                      long long o_b, long long o_h,
                                      long long o_t, void* stream) {
   if (head_dim != HD || G <= 0 || T <= 0 || T > MAX_T || nh <= 0 ||
-      side <= 0 || side * side != T || (mode != SCALE_AFTER && mode != SCALED_Q) ||
+      side <= 0 || side * side != T || mode < SCALE_AFTER ||
+      mode > DENSE_BIAS ||
       q_b % 8 || q_h % 8 || q_t % 8 || s_b % 8 || s_h % 8 || s_t % 8 ||
       o_b % 2 || o_h % 2 || o_t % 2)
     return (int)cudaErrorInvalidValue;
@@ -278,7 +327,10 @@ extern "C" int flmm_window_attention(const void* q, long long q_b,
   launch<MODE>((const bf16*)q, q_b, q_h, q_t, (const bf16*)k,               \
                (const bf16*)v, s_b, s_h, s_t, nh, (const bf16*)bias, side,  \
                G, T, scale, (bf16*)out, o_b, o_h, o_t, (cudaStream_t)stream)
-  return mode == SCALE_AFTER ? FLMM_LAUNCH(SCALE_AFTER)
-                             : FLMM_LAUNCH(SCALED_Q);
+  switch (mode) {
+    case SCALE_AFTER: return FLMM_LAUNCH(SCALE_AFTER);
+    case SCALED_Q: return FLMM_LAUNCH(SCALED_Q);
+    default: return FLMM_LAUNCH(DENSE_BIAS);
+  }
 #undef FLMM_LAUNCH
 }

@@ -24,9 +24,10 @@ the run: no row reports an error and goes on.
 
 ``--window-variants`` (``v1,v6,v7``), ``--global-variants`` (``v3,v6``),
 ``--window-kernel`` (``v6``) and ``--global-kernel`` (``v6``) default as in
-the JAX script; any of the window variants ``v9, v1, v6, v7, v8`` and the
-global variants ``v8, v3, v6, v7, v11`` resolves.  Asking for a variant that
-is not ported raises ``NotImplementedError`` before anything is timed.  The
+the JAX script; any of the window variants ``v9, v1, v2, v6, v7, v8`` and
+the global variants ``v8, v1, v2, v3, v4, v6, v7, v11`` resolves.  Asking for
+a variant that is not ported (window ``v3, v4, v5``) raises
+``NotImplementedError`` before anything is timed.  The
 first variant of ``window`` / ``global`` is the reference of the others'
 ``max_err_vs_v1``.  At SAM-1024 the preset sets ``window_block_fused``, so
 every window layer of the ``encoder`` and ``heads`` ops is the whole-block
@@ -66,8 +67,8 @@ KERNELS = {
     "sam_global_attention": image_encoder.GLOBAL_KERNELS,
 }
 UNPORTED = {
-    "sam_window_attention": ("v2", "v3", "v4", "v5"),
-    "sam_global_attention": ("v1", "v2", "v4"),
+    "sam_window_attention": ("v3", "v4", "v5"),
+    "sam_global_attention": (),
 }
 
 

@@ -24,15 +24,17 @@ plain path.  Pad tokens of a grid that does not divide into windows get
 the reference.  The window relayout is the plain pair of ops/boundary.py, as
 in the JAX encoder (the K11 kernels' caller is the kernel bench).
 ``global_kernel`` picks the global attention kernel of the split path: K2
-(``v8``) or one of the ported bake-off variants ``v3``, ``v6``, ``v7``,
-``v11`` (ops/sam_flash_experiments.py), which run only on a grid of a
-multiple of 128 tokens, as in the JAX encoder (``v8`` masks any grid).
-``window_kernel`` picks the window attention kernel of the split path: K6
-(``v9``) or one of the ported variants ``v1``, ``v6``, ``v7``, ``v8``; at
-SAM-1024 with ``window_block_fused`` every window layer is K1 and the name
-launches nothing.  Not ported yet: the other superseded kernel variants
-(K12; the spatial window attention v10 is ported, but has another contract
-and no encoder setting reaches it) and the int8 encoder.
+(``v8``) or one of the bake-off variants ``v1``, ``v2``, ``v3``, ``v4``,
+``v6``, ``v7``, ``v11`` (ops/sam_flash_experiments.py), which run only on a
+grid of a multiple of 128 tokens, as in the JAX encoder (``v8`` masks any
+grid); a grid that a variant's own tiling refuses (``v1`` at SAM-768) raises
+in its wrapper.  ``window_kernel`` picks the window attention kernel of the
+split path: K6 (``v9``) or one of the ported variants ``v1``, ``v2``,
+``v6``, ``v7``, ``v8``; at SAM-1024 with ``window_block_fused`` every window
+layer is K1 and the name launches nothing.  Not ported yet: the
+augmented-operand window variants ``v3``, ``v4``, ``v5`` (K12; the spatial
+window attention v10 is ported, but has another contract and no encoder
+setting reaches it) and the int8 encoder.
 """
 
 from __future__ import annotations
@@ -55,20 +57,24 @@ from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8
     sam_window_attention_v9
 
 
-# global_kernel -> wrapper; the JAX package's other names have no Hopper
-# kernel yet and are refused by name
+# global_kernel -> wrapper: every name of the JAX package (its v1 is the
+# function without a suffix)
 GLOBAL_KERNELS = {
     "v8": sam_global_attention_v8,
+    "v1": sfx.sam_global_attention,
+    "v2": sfx.sam_global_attention_v2,
     "v3": sfx.sam_global_attention_v3,
+    "v4": sfx.sam_global_attention_v4,
     "v6": sfx.sam_global_attention_v6,
     "v7": sfx.sam_global_attention_v7,
     "v11": sfx.sam_global_attention_v11,
 }
-# window_kernel -> wrapper, likewise (the JAX package's v1 is the function
-# without a suffix; v10 has another contract)
+# window_kernel -> wrapper, likewise; the JAX package's v3, v4 and v5 have no
+# Hopper kernel yet and are refused by name, v10 has another contract
 WINDOW_KERNELS = {
     "v9": sam_window_attention_v9,
     "v1": sfx.sam_window_attention,
+    "v2": sfx.sam_window_attention_v2,
     "v6": sfx.sam_window_attention_v6,
     "v7": sfx.sam_window_attention_v7,
     "v8": sfx.sam_window_attention_v8,
@@ -99,9 +105,9 @@ class SamEncoderConfig:
     def __post_init__(self):
         if self.global_kernel not in GLOBAL_KERNELS:
             raise NotImplementedError(
-                f"global_kernel {self.global_kernel!r} has no Hopper kernel "
-                f"in the port (ported: {', '.join(GLOBAL_KERNELS)}); the "
-                "others are queued in ROADMAP.md")
+                f"global_kernel {self.global_kernel!r} names no global "
+                "attention kernel (the JAX package's names, all ported: "
+                f"{', '.join(GLOBAL_KERNELS)})")
         if self.window_kernel not in WINDOW_KERNELS:
             raise NotImplementedError(
                 f"window_kernel {self.window_kernel!r} has no Hopper kernel "

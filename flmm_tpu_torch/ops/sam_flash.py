@@ -30,8 +30,13 @@ PLAIN_HEAD_DIMS = (64, 72)  # the bias-free kernel's (72: SigLIP-SO400M)
 MAX_PLAIN_SCORES = 1 << 26
 # what csrc/relpos_attention.cu does with the f32 scores: base-2 softmax with
 # the running max (K1, K2, K6, K10, global v7), natural-base softmax (global
-# v3 / v6), or exp2 of the raw log2-domain scores with no max (global v11)
+# v2 / v3 / v6), exp2 of the raw log2-domain scores with no max (global v11),
+# natural-base softmax of the unscaled q's scores times ``scale`` (global v1),
+# or natural-base softmax with scores, exponent and probabilities rounded to
+# bf16 and the denominator summed from the rounded probabilities (global v4)
 SOFTMAX_LOG2, SOFTMAX_NATURAL, SOFTMAX_LOG2_NO_MAX = 0, 1, 2
+SOFTMAX_NATURAL_SCALE_AFTER, SOFTMAX_NATURAL_BF16 = 3, 4
+LOG2_DOMAIN = (SOFTMAX_LOG2, SOFTMAX_LOG2_NO_MAX)
 
 
 def rel_pos_coords(side: int, device) -> torch.Tensor:
@@ -93,9 +98,11 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
 
 
 def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
-            softmax: int = SOFTMAX_LOG2):
-    """Prepare the operands as the JAX wrappers do (in natural base for
-    ``SOFTMAX_NATURAL``, else in the log2 domain) and launch
+            softmax: int = SOFTMAX_LOG2, bias_dtype=None):
+    """Prepare the operands as the JAX wrappers do (in the log2 domain for
+    the ``LOG2_DOMAIN`` codes, else in natural base; q left unscaled for
+    ``SOFTMAX_NATURAL_SCALE_AFTER``, whose kernel scales the scores; the
+    bias rows rounded to ``bias_dtype``, default q's) and launch
     csrc/relpos_attention.cu over ``(G, S, 64)`` heads or ``(NW, nh, S,
     64)`` strided views; the output has q's shape, in memory ``(G, S, 64)``
     or ``(NW, S, nh, 64)``."""
@@ -109,12 +116,16 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
                          f"got {hd}")
     G = math.prod(q.shape[:-2])
     nh = 1 if q.dim() == 3 else q.shape[1]
-    log2_domain = softmax != SOFTMAX_NATURAL
-    mult = LOG2E if log2_domain else 1.0
-    qs = (q.float() * (mult / math.sqrt(hd))).to(q.dtype).reshape(
-        G, S, hd).contiguous()
+    log2_domain = softmax in LOG2_DOMAIN
+    scale = 1.0 / math.sqrt(hd)
+    if softmax == SOFTMAX_NATURAL_SCALE_AFTER:
+        qs = q.reshape(G, S, hd).contiguous()
+    else:
+        mult = LOG2E if log2_domain else 1.0
+        qs = (q.float() * (mult * scale)).to(q.dtype).reshape(
+            G, S, hd).contiguous()
     bias = global_bias_rows(q.reshape(G, S, hd), rel_pos_h, rel_pos_w, side,
-                            log2_domain)
+                            log2_domain, bias_dtype)
     if q.dim() == 3:
         k, v = k.contiguous(), v.contiguous()
         out = torch.empty_like(qs)
@@ -137,7 +148,7 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
                 f"of 8 and 16-byte alignment; got {t.dtype}, strides "
                 f"{t.stride()}")
     relpos_attention(qs, (S * nh * hd, S * hd, hd), k, v, strides, nh, bias,
-                     side, G, S, out, out_strides, softmax)
+                     side, G, S, out, out_strides, softmax, scale)
     return out_view
 
 
@@ -191,15 +202,17 @@ sam_window_attention_v9.launches = 0
 
 
 def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
-                     out_strides, softmax: int = SOFTMAX_LOG2) -> None:
+                     out_strides, softmax: int = SOFTMAX_LOG2,
+                     scale: float = 1.0) -> None:
     """Launch csrc/relpos_attention.cu; element ``(g, t, d)`` of k and v is
     at ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] +
     d`` from each pointer, of q likewise with ``q_strides``; ``softmax`` is
-    one of the ``SOFTMAX_*`` codes.  Uncounted: the wrappers count."""
+    one of the ``SOFTMAX_*`` codes, and ``scale`` multiplies the scores of
+    ``SOFTMAX_NATURAL_SCALE_AFTER`` alone.  Uncounted: the wrappers count."""
     _cuda.launch(
         "flmm_relpos_attention", q.data_ptr(), *q_strides, k.data_ptr(),
         v.data_ptr(), *strides, nh, bias.data_ptr(), side, G, S, HEAD_DIM,
-        softmax, out.data_ptr(), *out_strides, _cuda.stream(q))
+        softmax, scale, out.data_ptr(), *out_strides, _cuda.stream(q))
 
 
 def plain_flash_attention_plain(q, k, v):

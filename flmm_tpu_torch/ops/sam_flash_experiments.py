@@ -1,14 +1,15 @@
 """K12: the bake-off variants of the SAM attention kernels
 (flmm_tpu/ops/sam_flash_experiments.py).  Ported so far: the spatial
 head-major window attention ``sam_window_attention_v10`` (the pallas_call at
-:1222) with ``qkv_head_major_perm``; four global variants with K2's
+:1222) with ``qkv_head_major_perm``; seven global variants with K2's
 contract ``(q, k, v, rel_pos_h, rel_pos_w, side) -> out`` over ``(G, S =
-side**2, 64)`` heads: ``sam_global_attention_v3`` (:1046), ``_v6`` (:942),
-``_v7`` (:981) and ``_v11`` (:1309); and four window variants with K6's
-contract over ``(G, T = side**2, 64)`` window-heads or ``(NW, nh, T, 64)``
-strided views of a windowised qkv tensor: ``sam_window_attention`` (v1,
-:695), ``_v6`` (:185), ``_v7`` (:270) and ``_v8`` (:346).  The other
-variants are queued in ROADMAP.md.
+side**2, 64)`` heads: ``sam_global_attention`` (v1, :1107), ``_v2`` (:781),
+``_v3`` (:1046), ``_v4`` (:859), ``_v6`` (:942), ``_v7`` (:981) and ``_v11``
+(:1309); and five window variants with K6's contract over ``(G, T =
+side**2, 64)`` window-heads or ``(NW, nh, T, 64)`` strided views of a
+windowised qkv tensor: ``sam_window_attention`` (v1, :695), ``_v2`` (:422),
+``_v6`` (:185), ``_v7`` (:270) and ``_v8`` (:346).  The augmented-operand
+window variants v3, v4 and v5 are queued in ROADMAP.md.
 
 v10 takes the qkv tensor as the projection leaves it, spatial ``(B, Hp, Wp,
 nh * 3 * hd)`` with the columns permuted head-major ``[q_h | k_h | v_h]``,
@@ -28,8 +29,18 @@ working dtype and in the softmax: v3 and v6 (one function; ``block_q`` and
 bias rows in natural base and take ``exp(s - max)``; v7 has K2's log2-domain
 operands and ``exp2(s - max)``; v11 has them too and takes ``exp2(s)`` with
 no max, so it needs every log2-domain score below 128 (about 88 nats) and
-gives a non-finite row otherwise, as on the TPU.  All four launch
-csrc/relpos_attention.cu with the matching ``SOFTMAX_*`` flag.
+gives a non-finite row otherwise, as on the TPU.  v1 leaves q unscaled,
+multiplies the f32 scores by ``scale`` and adds bias rows rounded to bf16
+whatever q's dtype, ``(s + bias_h) + bias_w`` (the TPU kernel streams key
+tiles with a running max: the same function up to summation order).  v2 is
+v3 with the bias rows rounded to bf16 and not to q's dtype: one function on
+the card, another for the f32 inputs of the CPU tests.  v4 has v3's operands
+and rounds every score to bf16, takes the max and ``exp`` in bf16 and divides
+by the f32 sum of the bf16-rounded ``p`` (on the TPU a ones-column of v): by
+its contract the softmax weights carry about 0.4% of rounding.  Each wrapper
+mirrors the shape preconditions of its JAX function (the query and key tiles
+of v1 refuse SAM-768's 2304 tokens, the query tile of v2 takes them).  All
+seven launch csrc/relpos_attention.cu with the matching ``SOFTMAX_*`` flag.
 
 The window variants take a one-shot natural-base softmax over a window's T
 keys and differ as functions only in where the operands are rounded: v1 and
@@ -38,11 +49,16 @@ rounded to bf16 whatever q's dtype is (v1 adds ``bias_h`` then ``bias_w`` to
 the scores, v6 adds the two to each other first: another order of two f32
 additions); v7 and v8 (one function: v8 adds the selection columns to the
 keys outside its TPU kernel, v7 inside) scale q in f32, round it and the bias
-rows to q's dtype and take the scores out of one f32 sum.  All four launch
-csrc/window_attention.cu, where a block keeps one window-head's K, V and bias
-rows resident: v1 and v6 its ``SCALE_AFTER`` instantiation, which reads q in
-place, v7 and v8 ``SCALED_Q``.  The bias rows and the q scaling are plain
-PyTorch in the wrapper, as in the JAX wrappers.
+rows to q's dtype and take the scores out of one f32 sum; v2 scales and
+rounds q likewise and adds a dense bias, ``bias_h + bias_w`` summed in f32
+and rounded to bf16 once, ``(G, tp, tp)`` with ``tp`` = T rounded up to 16 and
+-1e30 in the pad rows and columns (:func:`window_dense_bias`).  All five
+launch csrc/window_attention.cu, where a block keeps one window-head's K and
+V resident: v1 and v6 its ``SCALE_AFTER`` instantiation, which reads q in
+place and keeps the bias rows resident too, v7 and v8 ``SCALED_Q``, v2
+``DENSE_BIAS``, which reads the dense tensor from device memory as it goes.
+The bias and the q scaling are plain PyTorch in the wrapper, as in the JAX
+wrappers; v2's dense tensor (277 MB at 3200 window-heads) lives for one call.
 """
 
 from __future__ import annotations
@@ -164,90 +180,181 @@ def sam_window_attention_v10(qkv, rel_pos_h, rel_pos_w, side: int,
 sam_window_attention_v10.launches = 0
 
 
+def _needs_aligned(S: int, side: int):
+    """v3, v4, v6, v7: the TPU query tiling needs ``S % 8 == 0``."""
+    return None if S % 8 == 0 else "S % 8 == 0"
+
+
+def _needs_v1_tiles(S: int, side: int):
+    """v1: query tiles of ``min(512, S)`` and key tiles of ``min(1024, S)``
+    divide S, and a key tile holds whole grid rows."""
+    bq, bk = min(512, S), min(1024, S)
+    if S % bq == 0 and S % bk == 0 and bk % side == 0:
+        return None
+    return ("S a multiple of min(512, S) and of min(1024, S), the key tile "
+            "a multiple of side")
+
+
+def _needs_v2_tiles(S: int, side: int):
+    """v2: query tiles of ``min(256, S)`` divide S."""
+    return None if S % min(256, S) == 0 else "S a multiple of min(256, S)"
+
+
+# variant -> (SOFTMAX_* code, dtype of the bias rows (None: q's), the JAX
+# function's shape precondition (None: v11 pads and masks))
+GLOBAL_VARIANTS = {
+    "v1": (sam_flash.SOFTMAX_NATURAL_SCALE_AFTER, torch.bfloat16,
+           _needs_v1_tiles),
+    "v2": (sam_flash.SOFTMAX_NATURAL, torch.bfloat16, _needs_v2_tiles),
+    "v3": (sam_flash.SOFTMAX_NATURAL, None, _needs_aligned),
+    "v4": (sam_flash.SOFTMAX_NATURAL_BF16, None, _needs_aligned),
+    "v6": (sam_flash.SOFTMAX_NATURAL, None, _needs_aligned),
+    "v7": (sam_flash.SOFTMAX_LOG2, None, _needs_aligned),
+    "v11": (sam_flash.SOFTMAX_LOG2_NO_MAX, None, None),
+}
+
+
 def _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
-                          softmax: int):
+                          variant: str):
     """The function of a global variant with the roundings of its JAX
-    wrapper and kernel: q scaled in f32 and rounded to its dtype, the bias
-    rows rounded to it (natural base or log2 domain), f32 scores, ``p`` as
-    ``softmax`` says, rounded to v's dtype before the value product, the f32
-    sum of the unrounded ``p`` clamped at 1e-30 as denominator.  Query rows
-    are chunked under ``sam_flash.MAX_PLAIN_SCORES``."""
+    wrapper and kernel: q scaled in f32 and rounded to its dtype (v1: left
+    unscaled, the f32 scores times ``scale``), the bias rows rounded to q's
+    dtype or to bf16 (natural base or log2 domain), f32 scores, ``p`` as the
+    variant's softmax says, rounded to v's dtype before the value product,
+    the f32 sum of the unrounded ``p`` clamped at 1e-30 as denominator.  v4:
+    the scores rounded to bf16, ``p = exp(s - max)`` in bf16 arithmetic, the
+    f32 sum of the rounded ``p`` as denominator.  Query rows are chunked
+    under ``sam_flash.MAX_PLAIN_SCORES``."""
+    softmax, bias_dtype, _ = GLOBAL_VARIANTS[variant]
     G, S, hd = q.shape
-    log2_domain = softmax != sam_flash.SOFTMAX_NATURAL
+    scale = 1.0 / math.sqrt(hd)
+    log2_domain = softmax in sam_flash.LOG2_DOMAIN
+    scale_after = softmax == sam_flash.SOFTMAX_NATURAL_SCALE_AFTER
     mult = LOG2E if log2_domain else 1.0
-    qs = (q.float() * (mult / math.sqrt(hd))).to(q.dtype)
+    qs = q if scale_after else (q.float() * (mult * scale)).to(q.dtype)
     bias = sam_flash.global_bias_rows(q, rel_pos_h, rel_pos_w, side,
-                                      log2_domain)
+                                      log2_domain, bias_dtype)
     kt = k.transpose(1, 2)
     rows = max(1, min(S, sam_flash.MAX_PLAIN_SCORES // (G * S)))
     outs = []
     for r0 in range(0, S, rows):
         b = bias[:, r0:r0 + rows].float()
         n = b.shape[1]
-        s = matmul_f32(qs[:, r0:r0 + rows], kt)
-        s = (s.reshape(G, n, side, side) + b[..., :side, None]
-             + b[..., None, side:]).reshape(G, n, S)
-        if softmax != sam_flash.SOFTMAX_LOG2_NO_MAX:
-            s = s - s.amax(dim=-1, keepdim=True)
-        p = torch.exp2(s) if log2_domain else torch.exp(s)
+        s = matmul_f32(qs[:, r0:r0 + rows], kt).reshape(G, n, side, side)
+        bh, bw = b[..., :side, None], b[..., None, side:]
+        s = ((s * scale + bh) + bw if scale_after
+             else s + bh + bw).reshape(G, n, S)
+        if softmax == sam_flash.SOFTMAX_NATURAL_BF16:
+            s = s.bfloat16()
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True)).float()
+        else:
+            if softmax != sam_flash.SOFTMAX_LOG2_NO_MAX:
+                s = s - s.amax(dim=-1, keepdim=True)
+            p = torch.exp2(s) if log2_domain else torch.exp(s)
         denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         outs.append((matmul_f32(p.to(v.dtype), v) / denom).to(q.dtype))
     return torch.cat(outs, dim=1)
 
 
-def _global_variant(name, softmax, aligned, q, k, v, rel_pos_h, rel_pos_w,
-                    side: int, wrapper):
-    """Shared body of the four wrappers: no grad, the plain version on CPU
-    tensors, the JAX contract on the shape (``aligned``: ``S % 8 == 0``, which
-    the TPU tiling of v3, v6 and v7 asserts; v11 pads and masks), then the
-    kernel."""
+def _global_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
+                    wrapper):
+    """Shared body of the seven wrappers: no grad, the JAX contract on the
+    shape, the plain version on CPU tensors, then the kernel."""
+    name = wrapper.__name__
+    softmax, bias_dtype, needs = GLOBAL_VARIANTS[variant]
     _cuda.check_no_grad(name, q, k, v, rel_pos_h, rel_pos_w)
-    if (q.dim() != 3 or q.shape[1] != side * side or k.shape != q.shape
-            or v.shape != q.shape or (aligned and q.shape[1] % 8)):
+    shaped = (q.dim() == 3 and q.shape[1] == side * side
+              and k.shape == q.shape and v.shape == q.shape)
+    unmet = needs(q.shape[1], side) if shaped and needs else None
+    if not shaped or unmet:
         raise ValueError(
             f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
             f"{tuple(v.shape)} side {side}: needs (G, S, hd) heads with S = "
-            "side**2" + (" and S % 8 == 0" if aligned else ""))
+            "side**2" + (f" and {unmet}" if unmet else ""))
     if not q.is_cuda:
         return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
-                                     softmax)
+                                     variant)
     out = sam_flash._launch(name, q, k, v, rel_pos_h, rel_pos_w, side,
-                            softmax)
+                            softmax, bias_dtype)
     wrapper.launches += 1
     return out
 
 
+def sam_global_attention_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v1's plain version: ``scale`` on the f32 scores of the unscaled
+    q, bf16 bias rows added one after the other, ``exp(s - max)``."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v1")
+
+
+def sam_global_attention(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v1: q unscaled, ``scale`` on the f32 scores,
+    the two bias rows rounded to bf16; S must tile as the TPU kernel's query
+    and key tiles do."""
+    return _global_variant("v1", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_global_attention)
+
+
+sam_global_attention.launches = 0
+
+
+def sam_global_attention_v2_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v2's plain version: v3 with the bias rows rounded to bf16."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v2")
+
+
+def sam_global_attention_v2(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v2: q scaled and rounded, the bias rows
+    rounded to bf16, one-shot natural-base softmax; on bf16 inputs v3's
+    function, through v3's kernel instantiation."""
+    return _global_variant("v2", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_global_attention_v2)
+
+
+sam_global_attention_v2.launches = 0
+
+
 def sam_global_attention_v3_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global v3's plain version: natural-base operands, ``exp(s - max)``."""
-    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
-                                 sam_flash.SOFTMAX_NATURAL)
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v3")
 
 
 def sam_global_attention_v3(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global ViTDet attention, v3: q scaled by ``scale`` and the bias rows
     in natural base, both rounded to the working dtype; full-row softmax."""
-    return _global_variant("sam_global_attention_v3",
-                           sam_flash.SOFTMAX_NATURAL, True, q, k, v,
-                           rel_pos_h, rel_pos_w, side,
+    return _global_variant("v3", q, k, v, rel_pos_h, rel_pos_w, side,
                            sam_global_attention_v3)
 
 
 sam_global_attention_v3.launches = 0
 
 
+def sam_global_attention_v4_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global v4's plain version: v3's operands, the scores rounded to bf16,
+    max and ``exp`` in bf16, the f32 sum of the rounded ``p`` below."""
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v4")
+
+
+def sam_global_attention_v4(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Global ViTDet attention, v4: v3 with bf16 scores, a bf16 ``exp`` and
+    the denominator summed from the rounded probabilities; the softmax
+    weights carry about 0.4% of rounding by contract."""
+    return _global_variant("v4", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_global_attention_v4)
+
+
+sam_global_attention_v4.launches = 0
+
+
 def sam_global_attention_v6_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global v6's plain version: v3's function."""
-    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
-                                 sam_flash.SOFTMAX_NATURAL)
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v6")
 
 
 def sam_global_attention_v6(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global ViTDet attention, v6: v3's function (the TPU kernel chunks the
     query tile, which only orders its work); one Hopper kernel serves both
     names."""
-    return _global_variant("sam_global_attention_v6",
-                           sam_flash.SOFTMAX_NATURAL, True, q, k, v,
-                           rel_pos_h, rel_pos_w, side,
+    return _global_variant("v6", q, k, v, rel_pos_h, rel_pos_w, side,
                            sam_global_attention_v6)
 
 
@@ -256,16 +363,14 @@ sam_global_attention_v6.launches = 0
 
 def sam_global_attention_v7_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global v7's plain version: log2-domain operands, ``exp2(s - max)``."""
-    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
-                                 sam_flash.SOFTMAX_LOG2)
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v7")
 
 
 def sam_global_attention_v7(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global ViTDet attention, v7: v3 with the operands pre-multiplied by
     log2(e) and a base-2 softmax; K2's function where ``S % 8 == 0``, through
     K2's kernel instantiation."""
-    return _global_variant("sam_global_attention_v7", sam_flash.SOFTMAX_LOG2,
-                           True, q, k, v, rel_pos_h, rel_pos_w, side,
+    return _global_variant("v7", q, k, v, rel_pos_h, rel_pos_w, side,
                            sam_global_attention_v7)
 
 
@@ -275,8 +380,7 @@ sam_global_attention_v7.launches = 0
 def sam_global_attention_v11_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global v11's plain version: log2-domain operands, ``exp2(s)`` with no
     max; a row holding a score of 128 or more comes out non-finite."""
-    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
-                                 sam_flash.SOFTMAX_LOG2_NO_MAX)
+    return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v11")
 
 
 def sam_global_attention_v11(q, k, v, rel_pos_h, rel_pos_w, side: int):
@@ -284,9 +388,7 @@ def sam_global_attention_v11(q, k, v, rel_pos_h, rel_pos_w, side: int):
     grid side (keys at or beyond S are masked in-kernel).  Precondition:
     every log2-domain score below 128, i.e. every attention logit below
     about 88 nats; beyond it the row is not finite."""
-    return _global_variant("sam_global_attention_v11",
-                           sam_flash.SOFTMAX_LOG2_NO_MAX, False, q, k, v,
-                           rel_pos_h, rel_pos_w, side,
+    return _global_variant("v11", q, k, v, rel_pos_h, rel_pos_w, side,
                            sam_global_attention_v11)
 
 
@@ -294,12 +396,34 @@ sam_global_attention_v11.launches = 0
 
 
 # what csrc/window_attention.cu does between its two products: the f32 scores
-# of the unscaled q times ``scale`` (window v1 / v6), or the scores of a q
-# that was scaled and rounded outside (window v7 / v8)
-WINDOW_SCALE_AFTER, WINDOW_SCALED_Q = 0, 1
+# of the unscaled q times ``scale`` (window v1 / v6), the scores of a q that
+# was scaled and rounded outside (window v7 / v8), both plus the two thin bias
+# rows; or the scores of such a q plus a dense ``(tp, tp)`` bias (window v2)
+WINDOW_SCALE_AFTER, WINDOW_SCALED_Q, WINDOW_DENSE_BIAS = 0, 1, 2
 WINDOW_MODES = {"v1": WINDOW_SCALE_AFTER, "v6": WINDOW_SCALE_AFTER,
-                "v7": WINDOW_SCALED_Q, "v8": WINDOW_SCALED_Q}
+                "v7": WINDOW_SCALED_Q, "v8": WINDOW_SCALED_Q,
+                "v2": WINDOW_DENSE_BIAS}
 MAX_WINDOW_TOKENS = 208  # keys a block of the window kernel keeps resident
+DENSE_BIAS_PAD = -1e30  # v2's pad rows and columns, as in the JAX wrapper
+
+
+def window_dense_bias(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
+    """Window v2's bias: ``bias_h + bias_w`` of the unscaled q summed in f32
+    and rounded to bf16 once, dense ``(G, tp, tp)`` over ``(G, T, hd)``
+    heads with ``tp`` = T rounded up to 16 and ``DENSE_BIAS_PAD`` in the pad
+    rows and columns.  One pass writes the sum into place (``torch.add``
+    computes in f32 and rounds into its bf16 ``out``), so no f32 ``(G, T,
+    T)`` tensor exists."""
+    G, T, _ = q.shape
+    tp = -(-T // 16) * 16
+    rows = sam_flash.global_bias_rows(q, rel_pos_h, rel_pos_w, side,
+                                      log2_domain=False, dtype=torch.float32)
+    dense = torch.empty((G, tp, tp), dtype=torch.bfloat16, device=q.device)
+    dense[:, T:] = DENSE_BIAS_PAD
+    dense[:, :T, T:] = DENSE_BIAS_PAD
+    torch.add(rows[..., :side, None], rows[..., None, side:],
+              out=dense[:, :T, :T].unflatten(-1, (side, side)))
+    return dense
 
 
 def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
@@ -309,7 +433,9 @@ def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
     f32 scores of the unscaled q times ``scale``, plus bias rows rounded to
     bf16 whatever q's dtype (v1 ``(s + bias_h) + bias_w``, v6 ``s + (bias_h
     + bias_w)``).  v7 / v8: q scaled in f32 and rounded to its dtype, the
-    bias rows rounded to it too.  Then ``p = exp(s - max)``, rounded to v's
+    bias rows rounded to it too.  v2: q scaled and rounded likewise, plus the
+    dense bf16 bias of :func:`window_dense_bias`.  Then ``p = exp(s - max)``,
+    rounded to v's
     dtype before the value product, over the f32 sum of the unrounded ``p``
     clamped at 1e-30.  Window-heads are chunked under
     ``sam_flash.MAX_PLAIN_SCORES``."""
@@ -318,24 +444,30 @@ def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
     q, k, v = (t.reshape(-1, T, hd) for t in (q, k, v))
     G = q.shape[0]
     scale = 1.0 / math.sqrt(hd)
-    scaled_q = WINDOW_MODES[variant] == WINDOW_SCALED_Q
+    mode = WINDOW_MODES[variant]
     heads = max(1, sam_flash.MAX_PLAIN_SCORES // (T * T))
     outs = []
     for g0 in range(0, G, heads):
         qc, kc, vc = (t[g0:g0 + heads] for t in (q, k, v))
         n = qc.shape[0]
-        bias = sam_flash.global_bias_rows(
-            qc, rel_pos_h, rel_pos_w, side, log2_domain=False,
-            dtype=None if scaled_q else torch.bfloat16).float()
-        bh, bw = bias[..., :side, None], bias[..., None, side:]
-        if scaled_q:
-            qs = (qc.float() * scale).to(qc.dtype)
-            s = matmul_f32(qs, kc.transpose(1, 2)).reshape(n, T, side, side)
-            s = s + bh + bw
+        qs = (qc if mode == WINDOW_SCALE_AFTER
+              else (qc.float() * scale).to(qc.dtype))
+        s = matmul_f32(qs, kc.transpose(1, 2))
+        if mode == WINDOW_DENSE_BIAS:
+            dense = window_dense_bias(qc, rel_pos_h, rel_pos_w, side)
+            s = s + dense[:, :T, :T].float()
         else:
-            s = (matmul_f32(qc, kc.transpose(1, 2)) * scale).reshape(
-                n, T, side, side)
-            s = (s + bh) + bw if variant == "v1" else s + (bh + bw)
+            bias = sam_flash.global_bias_rows(
+                qc, rel_pos_h, rel_pos_w, side, log2_domain=False,
+                dtype=(torch.bfloat16 if mode == WINDOW_SCALE_AFTER
+                       else None)).float()
+            bh, bw = bias[..., :side, None], bias[..., None, side:]
+            s = s.reshape(n, T, side, side)
+            if mode == WINDOW_SCALED_Q:
+                s = s + bh + bw
+            else:
+                s = s * scale
+                s = (s + bh) + bw if variant == "v1" else s + (bh + bw)
         s = s.reshape(n, T, T)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -345,7 +477,7 @@ def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
 
 def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
                     wrapper):
-    """Shared body of the four wrappers: no grad, the JAX contract on the
+    """Shared body of the five wrappers: no grad, the JAX contract on the
     shape, the plain version on CPU tensors, then the kernel over ``(G, T,
     64)`` heads or ``(NW, nh, T, 64)`` strided views read in place; the
     output has q's shape, in memory ``(G, T, 64)`` or ``(NW, T, nh, 64)``."""
@@ -368,11 +500,15 @@ def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
     G = math.prod(q.shape[:-2])
     nh = 1 if q.dim() == 3 else q.shape[1]
     mode = WINDOW_MODES[variant]
-    scaled_q = mode == WINDOW_SCALED_Q
-    bias = sam_flash.global_bias_rows(
-        q.reshape(G, T, hd), rel_pos_h, rel_pos_w, side, log2_domain=False,
-        dtype=None if scaled_q else torch.bfloat16)
-    if scaled_q:
+    if mode == WINDOW_DENSE_BIAS:
+        bias = window_dense_bias(q.reshape(G, T, hd), rel_pos_h, rel_pos_w,
+                                 side)
+    else:
+        bias = sam_flash.global_bias_rows(
+            q.reshape(G, T, hd), rel_pos_h, rel_pos_w, side,
+            log2_domain=False,
+            dtype=None if mode == WINDOW_SCALED_Q else torch.bfloat16)
+    if mode != WINDOW_SCALE_AFTER:
         q = (q.float() * (1.0 / math.sqrt(hd))).to(q.dtype)
     if q.dim() == 3:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -419,6 +555,23 @@ def sam_window_attention(q, k, v, rel_pos_h, rel_pos_w, side: int):
 
 
 sam_window_attention.launches = 0
+
+
+def sam_window_attention_v2_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v2's plain version: q scaled and rounded, the dense bias
+    summed in f32 and rounded to bf16 once."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v2")
+
+
+def sam_window_attention_v2(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v2: the decomposed bias expanded outside
+    the kernel to a dense ``(G, tp, tp)`` bf16 tensor, pad rows and columns
+    at -1e30; it lives for this call only."""
+    return _window_variant("v2", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v2)
+
+
+sam_window_attention_v2.launches = 0
 
 
 def sam_window_attention_v6_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):

@@ -9,6 +9,10 @@ on one GPU.
     python3 scripts/torch_profile.py --path schedule --sam-size 768
                                   # one point of the SAM size sweep, bs 4
                                   # (1024: bench_torch.py's default point)
+    python3 scripts/torch_profile.py --path bench --family llava
+                                  # one point of the family matrix, bs 4: the
+                                  # BENCH_* environment of flmm_tpu_torch.bench
+                                  # (BENCH_PRESET=air --family hpt: HPT-Air)
 
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
@@ -24,6 +28,7 @@ of a global block) at the SAM-1024 global-layer shape.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pathlib
 import sys
 
@@ -140,6 +145,37 @@ def schedule_setup(sam_size: int):
                 fro["sam_encoder"], c.sam.encoder,
                 batch["sam_pixel_values"]),
             "forward": lambda: grounding.forward(params, c, batch),
+        }
+    return cfg, stages
+
+
+def bench_setup(knobs: bench.Knobs):
+    """One point of ``flmm_tpu_torch.bench`` for a family with a contiguous
+    image block: the model, weights and batch of ``bench.build`` at bs 4."""
+    model, cfg, params, batch = bench.build(chip_smoke.BS, knobs, "cuda")
+    if hasattr(cfg, "base"):
+        raise SystemExit("--path bench: llava_next has --path llava_next")
+    fro = params["frozen"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    embeds = chip_smoke._randn(
+        g, (*batch["input_ids"].shape, cfg.llm.hidden_size))
+    mm = masks.mean_merge_matrix(batch["mask_ids"], chip_smoke.MASKS)
+    lw = torch.softmax(params["trainable"]["text_layer_weights"], dim=0)
+
+    def stages(c):
+        return {
+            "vision tower": lambda: vit.forward(
+                fro["vision"], c.vision, batch["pixel_values"],
+                select_layer=c.vision_select_layer),
+            "llm capture (decoder on random embeddings)":
+                lambda: decoder.forward_capture(
+                    fro["llm"], c.llm, embeds, batch["attn_mask"],
+                    img_start=c.img_start, n_img=c.num_img_tokens,
+                    merge_matrix=mm, merge=c.merge, layer_weights=lw),
+            "sam encoder": lambda: image_encoder.forward(
+                fro["sam_encoder"], c.sam.encoder,
+                batch["sam_pixel_values"]),
+            "forward": lambda: model.forward(params, c, batch),
         }
     return cfg, stages
 
@@ -316,10 +352,12 @@ def profile_train(g: torch.Generator) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=("deepseek", "llava_next", "train",
-                                           "hpt", "schedule"),
+                                           "hpt", "schedule", "bench"),
                         default="deepseek")
     parser.add_argument("--sam-size", type=int, default=768,
                         help="SAM resolution of --path schedule")
+    parser.add_argument("--family", default=None,
+                        help="family of --path bench (default: BENCH_FAMILY)")
     args = parser.parse_args()
     print(chip_smoke.phase_card())
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -328,6 +366,11 @@ def main() -> None:
         return
     if args.path == "schedule":
         profile_paths(*schedule_setup(args.sam_size))
+        return
+    if args.path == "bench":
+        knobs = bench.Knobs.from_env()
+        profile_paths(*bench_setup(dataclasses.replace(
+            knobs, family=args.family or knobs.family)))
         return
     setup = {"deepseek": deepseek_setup, "llava_next": llava_next_setup,
              "hpt": hpt_setup}[args.path]

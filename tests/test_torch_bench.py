@@ -215,11 +215,11 @@ def test_llava_next_builds_through_the_anyres_batch():
 
 
 def test_every_global_kernel_name_runs_through_build():
-    for name in ("v8", "v3", "v6", "v7", "v11"):
+    for name in ("v8", "v1", "v2", "v3", "v4", "v6", "v7", "v11"):
         cfg, _, _ = bench.resolve_config(bench.Knobs(global_kernel=name))
         assert cfg.sam.encoder.global_kernel == name
-    with pytest.raises(NotImplementedError, match="global_kernel 'v2'"):
-        bench.resolve_config(bench.Knobs(global_kernel="v2"))
+    with pytest.raises(NotImplementedError, match="global_kernel 'v5'"):
+        bench.resolve_config(bench.Knobs(global_kernel="v5"))
 
 
 def test_mgm_and_the_int8_decoder_raise(monkeypatch):

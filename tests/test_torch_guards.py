@@ -8,14 +8,15 @@
 * chip_smoke.py refuses to run without a card, and without the rest of the
   repository, and never prints its success line then;
 * the wrappers of the relayout pair (K11), the raw capture (K9), the
-  spatial window attention (K12 v10), the global variants v3, v6, v7 and
-  v11 and the window variants v1, v6, v7 and v8 (K12) take their plain
-  versions on CPU tensors and launch nothing, and refuse inputs that require
-  grad;
-* no wrapper or entry point of the bench.py and schedule_bench.py twins
-  catches a failure to give way to another path: the only handlers are the
-  bench's batch-size sweep and the size sweep's point, for an out-of-memory
-  error.
+  spatial window attention (K12 v10), the global variants v1, v2, v3, v4,
+  v6, v7 and v11 and the window variants v1, v2, v6, v7 and v8 (K12) take
+  their plain versions on CPU tensors and launch nothing, and refuse inputs
+  that require grad;
+* no wrapper or entry point of the bench.py, schedule_bench.py and
+  bench_families.py twins catches a failure to give way to another path: the
+  only handlers are the bench's batch-size sweep and the size sweep's point,
+  for an out-of-memory error, and the family matrix's, for a child that
+  outlives its time limit.
 """
 
 import os
@@ -61,13 +62,13 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "assert 'flmm_tpu_torch.configs.hpt' in names\n"
         "for new in ('ops.boundary', 'ops.sam_flash_experiments',\n"
         "            'kernel_bench', 'bench', 'ops._matmul',\n"
-        "            'schedule_bench'):\n"
+        "            'schedule_bench', 'bench_families'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 39
+    assert int(count) >= 40
     assert bad.strip() == "[]"
 
 
@@ -80,7 +81,7 @@ def test_port_sources_never_import_jax():
     assert len(files) > 20
     for new in ("ops/global_block.py", "configs/hpt.py", "ops/boundary.py",
                 "ops/sam_flash_experiments.py", "kernel_bench.py", "bench.py",
-                "ops/_matmul.py", "schedule_bench.py"):
+                "ops/_matmul.py", "schedule_bench.py", "bench_families.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -122,8 +123,13 @@ def test_kernels_build_at_first_use_and_raise_without_nvcc(call):
         assert proc.stdout.strip() == "RAISED True"
 
 
-WINDOW_VARIANTS = ("sam_window_attention", "sam_window_attention_v6",
-                   "sam_window_attention_v7", "sam_window_attention_v8")
+WINDOW_VARIANTS = ("sam_window_attention", "sam_window_attention_v2",
+                   "sam_window_attention_v6", "sam_window_attention_v7",
+                   "sam_window_attention_v8")
+GLOBAL_VARIANTS = ("sam_global_attention", "sam_global_attention_v2",
+                   "sam_global_attention_v3", "sam_global_attention_v4",
+                   "sam_global_attention_v6", "sam_global_attention_v7",
+                   "sam_global_attention_v11")
 
 
 def _wrapper_calls():
@@ -137,11 +143,9 @@ def _wrapper_calls():
     heads = torch.randn((2, 16, 8))
     rel_g = torch.randn((7, 8))
     variants = {
-        f"sam_global_attention_{v}": (
-            getattr(sfx, f"sam_global_attention_{v}"),
-            getattr(sfx, f"sam_global_attention_{v}_plain"),
-            (heads, heads, heads, rel_g, rel_g, 4), (0, 1, 2))
-        for v in ("v3", "v6", "v7", "v11")}
+        name: (getattr(sfx, name), getattr(sfx, name + "_plain"),
+               (heads, heads, heads, rel_g, rel_g, 4), (0, 1, 2))
+        for name in GLOBAL_VARIANTS}
     window = torch.randn((2, 2, 9, 8))  # (NW, nh, T, hd), side 3
     rel_w = torch.randn((5, 8))
     variants.update({
@@ -165,9 +169,8 @@ def _wrapper_calls():
 
 
 WRAPPER_NAMES = ("windowize", "dewindowize", "flash_attention_with_capture",
-                 "sam_window_attention_v10", "sam_global_attention_v3",
-                 "sam_global_attention_v6", "sam_global_attention_v7",
-                 "sam_global_attention_v11") + WINDOW_VARIANTS
+                 "sam_window_attention_v10") + GLOBAL_VARIANTS \
+    + WINDOW_VARIANTS
 
 
 def _flat(out):
@@ -215,6 +218,10 @@ def test_no_handler_gives_way_to_another_path():
                           (pkg / "schedule_bench.py").read_text(), re.M)
     assert [h.strip() for h in handlers] == [
         "except torch.cuda.OutOfMemoryError:"]
+    handlers = re.findall(r"^\s*except\b.*$",
+                          (pkg / "bench_families.py").read_text(), re.M)
+    assert [h.strip() for h in handlers] == [
+        "except subprocess.TimeoutExpired:"]
     root = (REPO / "bench_torch.py").read_text()
     assert "from flmm_tpu_torch.bench import main" in root
     assert "try" not in root and "except" not in root

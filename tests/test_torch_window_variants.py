@@ -1,4 +1,4 @@
-"""The port's window attention variants v1, v6, v7 and v8 (K12) against the
+"""The port's window attention variants v1, v2, v6, v7 and v8 (K12) against the
 JAX package's Pallas kernels in interpret mode on the CPU, and the SAM
 encoder's ``window_kernel`` switch.
 
@@ -10,9 +10,9 @@ where chip_smoke.py holds it against these plain versions.
 Tolerances: 2e-4 in f32 (other summation orders; the TPU kernels expand the
 bias by one-hot products or take it out of one augmented product, the plain
 versions add it to the f32 scores; v1 and v6 round their bias rows to bf16
-for f32 inputs too, on both sides); 2e-2 in bf16 (q, the bias rows and the
-probabilities are rounded to 8 bits of mantissa on both sides, at the same
-places); 1e-3 for the window core and the encoder.
+for f32 inputs too, and v2 its dense bias, on both sides); 2e-2 in bf16 (q,
+the bias rows and the probabilities are rounded to 8 bits of mantissa on
+both sides, at the same places); 1e-3 for the window core and the encoder.
 """
 
 import functools
@@ -31,7 +31,8 @@ from flmm_tpu_torch.ops import sam_flash
 from flmm_tpu_torch.ops import sam_flash_experiments as sfx
 
 F32_TOL, BF16_TOL, ENCODER_TOL = 2e-4, 2e-2, 1e-3
-NAMES = ("v1", "v6", "v7", "v8")
+NAMES = ("v1", "v2", "v6", "v7", "v8")
+BF16_BIAS = ("v1", "v2", "v6")  # bias rounded to bf16 whatever q's dtype
 
 
 def _r(rng, *shape, scale=1.0):
@@ -189,15 +190,55 @@ def test_wrong_shapes_and_inputs_that_require_grad_raise(name):
 
 
 def test_v1_and_v6_round_their_bias_rows_to_bf16_for_f32_inputs_too():
-    """flmm_tpu/ops/sam_flash_experiments.py:686-687 and :173."""
+    """flmm_tpu/ops/sam_flash_experiments.py:686-687 and :173; v2 rounds its
+    dense bias (:409)."""
     q, k, v, rph, rpw = map(torch.from_numpy, _inputs(7, 2, 7, 16, scale=1.0))
     exact = sam_flash.sam_window_attention_v9_plain(q, k, v, rph, rpw, 7)
     for name in NAMES:
         dev = (_pair(name)[0](q, k, v, rph, rpw, 7) - exact).abs().max()
-        if name in ("v1", "v6"):  # 8 bits of bias terms of a few units
+        if name in BF16_BIAS:  # 8 bits of bias terms of a few units
             assert 1e-4 < dev < 1e-1, (name, dev)
         else:
             assert dev < 1e-5, (name, dev)
+
+
+def test_v2_dense_bias_is_the_jax_wrappers():
+    """``bias_h + bias_w`` summed in f32 and rounded to bf16 once, ``(G, tp,
+    tp)`` with -1e30 (the nearest bf16) in the pad rows and columns
+    (flmm_tpu/ops/sam_flash_experiments.py:395-409)."""
+    q, _, _, rph, rpw = _inputs(8, 3, 7, 16, scale=1.0)
+    dense = sfx.window_dense_bias(*map(torch.from_numpy, (q, rph, rpw)), 7)
+    assert dense.dtype == torch.bfloat16 and tuple(dense.shape) == (3, 64, 64)
+    coords = np.arange(7)[:, None] - np.arange(7)[None, :] + 6
+    qg = q.reshape(3, 7, 7, 16)
+    bh = np.einsum("gyxd,ykd->gyxk", qg, rph[coords])
+    bw = np.einsum("gyxd,xkd->gyxk", qg, rpw[coords])
+    want = np.asarray(jnp.pad(
+        jnp.asarray((bh[..., :, None] + bw[..., None, :]).reshape(3, 49, 49)),
+        ((0, 0), (0, 15), (0, 15)), constant_values=-1e30).astype(
+            jnp.bfloat16).astype(jnp.float32))
+    got = dense.float().numpy()
+    assert (got[:, 49:] == want[:, 49:]).all()
+    assert (got[:, :, 49:] == want[:, :, 49:]).all()
+    assert np.isfinite(got).all() and got[0, 63, 63] < -9e29
+    # the f32 sums differ in their last bits: at most one bf16 step apart
+    np.testing.assert_allclose(got[:, :49, :49], want[:, :49, :49],
+                               atol=2 ** -8, rtol=2 ** -8)
+
+
+def test_v2_is_v7_up_to_the_rounding_of_the_summed_bias():
+    """One function but for where the bias is rounded: v7 rounds the two
+    rows to q's dtype, v2 their f32 sum to bf16."""
+    f32 = [torch.from_numpy(a) for a in _inputs(9, 4, 14, 64)]
+    dev = (sfx.sam_window_attention_v2(*f32, 14)
+           - sfx.sam_window_attention_v7(*f32, 14)).abs().max()
+    assert 1e-5 < dev < 1e-1  # 8 bits of a summed bias of up to 10 units
+    bf16 = [t.bfloat16() for t in f32]
+    v2, v7 = (fn(*bf16, 14) for fn in (sfx.sam_window_attention_v2,
+                                       sfx.sam_window_attention_v7))
+    assert not torch.equal(v2, v7)
+    # each rounds bias terms of up to 10 units to 8 bits, at other places
+    assert torch.allclose(v2.float(), v7.float(), atol=0.1, rtol=0.1)
 
 
 # --- the encoder's window_kernel switch -------------------------------------
@@ -267,7 +308,7 @@ def test_flash_window_block_on_a_padded_grid_matches_the_plain_block(name):
     assert calls == [1] and wrapper.launches == 0
     want = encoder._block(x, tbp, tcfg, windowed=True)  # plain on the CPU
     # v1 / v6 round their bias rows to bf16: 8 bits of a bias of ~0.5
-    tol = ENCODER_TOL if name in ("v7", "v8") else 1e-2
+    tol = 1e-2 if name in BF16_BIAS else ENCODER_TOL
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=tol)
 
 
@@ -322,7 +363,7 @@ def test_encoder_matches_jax_encoder_through_the_named_kernel(
     # differing in its last f32 bits: now and then a row lands one bf16 step
     # (2**-8 of its value) apart, which no f32 tolerance covers (measured
     # 2.5e-3 on 0.7% of the values); v7 / v8 keep f32 rows
-    tol = ENCODER_TOL if name in ("v7", "v8") else 1e-2
+    tol = 1e-2 if name in BF16_BIAS else ENCODER_TOL
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
                                rtol=tol)
 
