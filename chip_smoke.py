@@ -34,7 +34,9 @@ Phases; any failure raises and the script exits non-zero:
    (padded grids of 16 and 9 windows an image, global sides 48 and 40);
    the global variants v1, v2 and v4 and the window variant v2 of K12 at the
    same shapes as the other variants, and K3 and K4 at the CLIP-L rows of
-   the LLaVA-1.5 and HPT-Air towers (bs 4, 577 and 785 tokens an image).
+   the LLaVA-1.5 and HPT-Air towers (bs 4, 577 and 785 tokens an image);
+   the augmented-operand window variants v3, v4 and v5 of K12 at the shapes
+   of the other window variants.
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -73,11 +75,11 @@ Phases; any failure raises and the script exits non-zero:
     DeepSeek-LLM-1.3B at full depth, the window-only and global-only
     encoders at depth 12 and 6: every time finite and positive, the
     flash / whole-block agreement rows, the relayout round trip exact, and
-    the exact launch counts of every op (`window` times v1, v6, v7, v8, v9
-    and v2, `global` v8, v3, v6, v7, v11, v1, v2 and v4; `encoder` and
-    `heads` run the
-    bench's defaults, w=v6 and g=v6, of which the window kernel is launched
-    0 times: at SAM-1024 every window layer is K1);
+    the exact launch counts of every op (`window` times v1, v6, v7, v8, v9,
+    v2, v3, v4 and v5, `global` v8, v3, v6, v7, v11, v1, v2 and v4;
+    `encoder` and `heads` run the bench's defaults, w=v6 and g=v6, and
+    `encoder` once more with w=v3, of which the window kernel is launched 0
+    times: at SAM-1024 every window layer is K1);
 14. run the twin of bench.py (flmm_tpu_torch.bench.run) in process:
     DeepSeek-VL-1.3B at bs 4, SAM-1024 and S=672, full width and depth, with
     the global kernel knob at v11, 3 timed forwards after 2 warm-ups on the
@@ -95,9 +97,9 @@ Phases; any failure raises and the script exits non-zero:
 18. compare the kernel forward with the all-plain forward at both sizes on
     weights with non-zero qkv biases (the pad tokens' keys and values);
 19. run the SAM ViT-L encoder alone at 768, bs 4, through each window
-    kernel name (v9, v1, v6, v7, v8, v2): 20 launches of the named wrapper
-    and none of the others, and the embedding beside the v9 encoder's and
-    the all-plain encoder's;
+    kernel name (v9, v1, v6, v7, v8, v2, v3, v4, v5): 20 launches of the
+    named wrapper and none of the others, and the embedding beside the v9
+    encoder's and the all-plain encoder's;
 20. run the family matrix (flmm_tpu_torch.bench_families.main) over
     LLaVA-1.5-7B (Vicuna-7B + CLIP-L/14-336, global kernel knob at v1) and
     HPT-Air (a 7B Llama decoder + CLIP-L/14 at 392 over a resampled
@@ -108,7 +110,18 @@ Phases; any failure raises and the script exits non-zero:
 21. build both families in process and compare the forward through each of
     the global kernels v1, v2 and v4 (counts at 0 just before, read just
     after) with the all-plain forward of the same weights;
-22. report times.
+22. run the eval loop (flmm_tpu_torch.evalsuite.runner.run_eval) over 32
+    synthetic samples (flmm_tpu_torch.data.synthetic.synthetic_samples:
+    48-160 px uint8 images, up to 8 masks) at DeepSeek-VL-1.3B, SAM-1024,
+    bs 8, S=704 with the buckets 608 / 640 / 704, through the port's host
+    processors and batch builder: RefCOCO and PNG scores, finite, over
+    every valid mask, launches 20/4/28/28 a forward, the kernel forward's
+    SAM logits beside the all-plain forward's batch by batch, the ground
+    truth as logits scoring above 85 cIoU and mIoU; then one batch of 8 at
+    SAM-768 through window_kernel = v3, v4, v5 and v9 (20 launches of the
+    named wrapper a forward, logits beside v9's); forward ms, host ms,
+    samples/s, peak memory and the device's busy share over the loop;
+23. report times.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -127,14 +140,19 @@ import tempfile
 import time
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from flmm_tpu_torch import bench as e2e_bench
 from flmm_tpu_torch import bench_families, kernel_bench, registry, \
     schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.data.collate import BatchSpec, build_batch
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
-from flmm_tpu_torch.data.synthetic import synthetic_batch
+from flmm_tpu_torch.data.processors import ProcessorConfig
+from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
+from flmm_tpu_torch.evalsuite import metrics, runner
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
 from flmm_tpu_torch.models.mask_head import unet
@@ -222,9 +240,11 @@ GLOBAL_WRAPPER = {v: "sam_global_attention" + ("" if v == "v1" else f"_{v}")
 _SAM_1024 = {"window_block": 20, "fused_ln_qkv": 4,
              "sam_global_attention_v6": 4, "fused_proj_ln_mlp": 4}
 # the window variants the `window` op times: the bench's default, v8, v9, v2
-BENCH_WINDOW_VARIANTS = ("v1", "v6", "v7", "v8", "v9", "v2")
+# and the augmented-operand variants
+NEW_WINDOWS = ("v3", "v4", "v5")
+BENCH_WINDOW_VARIANTS = ("v1", "v6", "v7", "v8", "v9", "v2") + NEW_WINDOWS
 WINDOW_WRAPPER = {"v1": "sam_window_attention", **{
-    v: f"sam_window_attention_{v}" for v in ("v6", "v7", "v8", "v9", "v2")}}
+    v: f"sam_window_attention_{v}" for v in BENCH_WINDOW_VARIANTS[1:]}}
 BENCH_LAUNCHES = {
     "window": {WINDOW_WRAPPER[v]: 1 for v in BENCH_WINDOW_VARIANTS},
     "global": {GLOBAL_WRAPPER[v]: 1 for v in BENCH_GLOBAL_VARIANTS},
@@ -271,6 +291,15 @@ FAMILY_POINTS = (
     ("hpt", {"BENCH_PRESET": "air", "BENCH_GLOBAL_KERNEL": "v4"}, "air", 785))
 FAMILY_ITERS, FAMILY_TIMEOUT = 2, 600
 NEW_GLOBALS = ("v1", "v2", "v4")
+# the eval loop (phase 22): the eval scripts' defaults at DeepSeek-VL-1.3B,
+# SAM-1024, over the synthetic sample stream; prompts are 583 tokens and 6
+# a mask.  At SAM-768 one batch through each of these window kernels, of
+# the first samples whose prompts fit the shortest bucket
+EVAL_N, EVAL_SEED, EVAL_BS, EVAL_SEQ, EVAL_MASKS, EVAL_CAPTION = (
+    32, 5, 8, 704, 8, 6)
+EVAL_BUCKETS = (608, 640, 704)
+EVAL_WINDOWS = NEW_WINDOWS + ("v9",)
+EVAL_GT_MIN = 85.0  # cIoU and mIoU of the ground truth as +-8 logits
 
 
 def family_launches(global_kernel: str) -> dict:
@@ -337,6 +366,12 @@ SOURCES = {
                                 "flmm_tpu/ops/sam_flash_experiments.py:859"),
     "sam_window_attention_v2": ("flmm_tpu_torch/csrc/window_attention.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:422"),
+    "sam_window_attention_v3": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:640"),
+    "sam_window_attention_v4": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:545"),
+    "sam_window_attention_v5": ("flmm_tpu_torch/csrc/window_attention.cu",
+                                "flmm_tpu/ops/sam_flash_experiments.py:545"),
 }
 
 
@@ -993,10 +1028,11 @@ def _window_views(g: torch.Generator, NW: int, nh: int = 16, T: int = 196,
 
 
 def window_variant_checks(check, g: torch.Generator) -> None:
-    """Phase 3 for the window variants v1, v6, v7, v8 and v2 (K12) at the
-    shapes their paths give them: the kernel bench's 3200 contiguous window-heads
-    (8 images x 25 windows x 16 heads), the same as views of a windowised
-    qkv, and the views of the SAM-768 bs-4 encoder (64 windows).  Each
+    """Phase 3 for the window variants v1, v6, v7, v8, v2, v3, v4 and v5
+    (K12) at the shapes their paths give them: the kernel bench's 3200
+    contiguous window-heads (8 images x 25 windows x 16 heads), the same as
+    views of a windowised qkv, and the views of the SAM-768 bs-4 encoder (64
+    windows).  Each
     variant's result is also held beside K6's (v9) on the same inputs, and
     its wrapper's plain preparation (bias rows, q scaling) is timed alone.
     The bytes counted are q, k, v, the output and the two tables, as for
@@ -1011,7 +1047,7 @@ def window_variant_checks(check, g: torch.Generator) -> None:
     variants.update({
         name: (getattr(sfx, f"sam_window_attention_{name}"),
                getattr(sfx, f"sam_window_attention_{name}_plain"))
-        for name in ("v6", "v7", "v8", "v2")})
+        for name in ("v6", "v7", "v8", "v2") + NEW_WINDOWS})
     rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
     inputs = (
         (f"bench, G={200 * nh}, T={T}",
@@ -1046,14 +1082,22 @@ def window_variant_checks(check, g: torch.Generator) -> None:
                 and torch.equal(outs["v7"], outs["v8"])):
             raise AssertionError("two names of one kernel instantiation "
                                  "disagree")
+        # v3 runs v7's instantiation behind its own wrapper: logged, not
+        # asserted; v4 and v5 round the softmax at other places
+        log(f"phase 3 window variants [{label}]: v3 equals v7 bit for bit: "
+            f"{torch.equal(outs['v3'], outs['v7'])}; v4 against v7 max |diff| "
+            f"{(outs['v4'].float() - outs['v7'].float()).abs().max():.3e}, "
+            f"v5 against v7 "
+            f"{(outs['v5'].float() - outs['v7'].float()).abs().max():.3e}")
         del mask, ref, outs
         qf = q.reshape(G, T, hd)
         rows_ms = cuda_ms(lambda: sam_flash.global_bias_rows(
             qf, rph, rpw, ws, log2_domain=False, dtype=torch.bfloat16))
         scale_ms = cuda_ms(lambda: (q.float() * 0.125).to(q.dtype))
         log(f"phase 3 window variants [{label}]: of the wrappers' time above, "
-            f"the plain bias rows alone {rows_ms:.3f} ms (v1, v6, v7, v8) and "
-            f"the plain q scaling alone {scale_ms:.3f} ms (v7, v8, v2)")
+            f"the plain bias rows alone {rows_ms:.3f} ms (v1, v6, v7, v8, v3, "
+            f"v4, v5) and the plain q scaling alone {scale_ms:.3f} ms (v7, "
+            "v8, v2, v3, v4, v5)")
         dense_ms = cuda_ms(lambda: sam_flash_experiments.window_dense_bias(
             qf, rph, rpw, ws))
         dense = sam_flash_experiments.window_dense_bias(qf, rph, rpw, ws)
@@ -1517,7 +1561,24 @@ def run_kernel_bench(g: torch.Generator) -> dict:
         f"{by['wb', 'agreement']['corr']}, gb corr "
         f"{by['gb', 'agreement']['corr']} (bound {BENCH_CORR}), boundary "
         "round trip exact")
-    return {"launches": launches, "rows": rows}
+
+    # the encoder op once more with w=v3, counted on its own
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    enc_rows = kernel_bench.run(("encoder",), BENCH_BS, torch.device("cuda"),
+                                g, depth=BENCH_DEPTH, iters=BENCH_ITERS,
+                                window_kernel="v3")
+    got = {name: fn.launches for name, fn in WRAPPERS.items()}
+    want = {k: BENCH_LAUNCHES["encoder"].get(k, 0) * n for k in WRAPPERS}
+    log(f"phase 13 kernel_bench {json.dumps(enc_rows[0])}: launches "
+        f"{ {k: v for k, v in got.items() if v} }; sam_window_attention_v3 "
+        f"{got['sam_window_attention_v3']} times, as the JAX script: at "
+        "SAM-1024 the preset's whole-block kernel K1 takes every window layer")
+    if got != want or enc_rows[0]["variant"] != "w=v3,g=v6":
+        raise AssertionError(f"kernel_bench encoder w=v3: launches {got} "
+                             f"differ from {want}")
+    return {"launches": {k: launches[k] + got[k] for k in WRAPPERS},
+            "rows": rows + enc_rows}
 
 
 def log2_score_max(q, k, rel_pos_h, rel_pos_w, side: int) -> float:
@@ -1676,7 +1737,7 @@ def run_window_variants(g: torch.Generator) -> dict:
     with torch.no_grad():
         ref_plain = sam_encoder.forward(params, plain, pixels)
         embeddings = {}
-        for name in ("v9", "v1", "v6", "v7", "v8", "v2"):
+        for name in ("v9", "v1", "v6", "v7", "v8", "v2") + NEW_WINDOWS:
             cfg = dataclasses.replace(base, window_kernel=name)
             sam_encoder.forward(params, cfg, pixels)  # warm-up
             for fn in WRAPPERS.values():
@@ -1850,6 +1911,226 @@ def compare_families() -> dict:
     return {"launches": launches}
 
 
+def eval_spec(cfg) -> BatchSpec:
+    """The eval scripts' batch spec for DeepSeek-VL, built as
+    flmm_tpu/registry.py:179-187 builds it: no alignment (the image block
+    starts at 5 and the decoder captures eagerly), the config's img_start,
+    SAM sizes and input size, the deepseek resize rule."""
+    return BatchSpec(
+        seq_len=EVAL_SEQ, max_masks=EVAL_MASKS,
+        coarse_hw=registry.get_coarse_hw(cfg), align_image_block=None,
+        expected_img_start=cfg.img_start, sam_size=cfg.sam.encoder.img_size,
+        prompt_size=cfg.sam.prompt_size,
+        processor=ProcessorConfig(
+            size=cfg.input_size,
+            size_rule=registry.FAMILY_SIZE_RULES["deepseek_vl"]))
+
+
+def device_busy_ms(prof) -> tuple[float, float]:
+    """(busy, window) in ms of a profile: the union of the device events'
+    intervals, and the span from the first one's start to the last one's
+    end.  CUPTI's "Command Buffer Full" records (host time blocked on a
+    full launch queue) are no device work and are left out."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Command Buffer Full")
+    busy, lo, hi = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    return busy / 1e3, (hi - spans[0][0]) / 1e3
+
+
+def eval_loop(params, cfg, samples, acc, score, predict=None) -> dict:
+    """``run_eval`` over ``samples`` with every launch count at 0 just
+    before and read just after; the forward's SAM logits of each batch are
+    kept.  ``predict`` replaces the forward.  Returns the results, the
+    logits, the launches, the buckets used and the times: the loop's wall
+    time, the forwards' device time (CUDA events, after the batch's copy to
+    the card) and their wall time (the copy included), the batch builder's
+    host time."""
+    run = {"logits": [], "forward_ms": [], "forward_s": 0.0, "build_s": 0.0,
+           "seq": []}
+
+    def build(batch_samples, spec):
+        t0 = time.perf_counter()
+        batch = build_batch(batch_samples, spec)
+        run["build_s"] += time.perf_counter() - t0
+        run["seq"].append(spec.seq_len)
+        return batch
+
+    def forward(batch):
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if predict is None:
+            batch = from_jax(batch, "cuda")
+            start.record()
+            out = grounding.forward(params, cfg, batch)["sam_logits"]
+        else:
+            start.record()
+            out = predict(batch)
+        end.record()
+        torch.cuda.synchronize()
+        run["forward_s"] += time.perf_counter() - t0
+        run["forward_ms"].append(start.elapsed_time(end))
+        run["logits"].append(out)
+        return out
+
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        result = runner.run_eval(samples, forward, eval_spec(cfg), EVAL_BS,
+                                 acc, score, seq_len_buckets=EVAL_BUCKETS,
+                                 batch_builder=build).results()
+    torch.cuda.synchronize()
+    run["wall_s"] = time.perf_counter() - t0
+    run["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    run["results"] = result
+    if not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"eval: non-finite results {result}")
+    return run
+
+
+def _check_eval(label, run, n_masks, per_forward) -> None:
+    """Every valid mask scored; launches per forward as ``per_forward``."""
+    batches = len(run["forward_ms"])
+    want = {k: per_forward.get(k, 0) * batches for k in WRAPPERS}
+    log(f"phase 22 eval {label}: {json.dumps(run['results'])}; {batches} "
+        f"batches at buckets {run['seq']}; launches "
+        f"{ {k: n for k, n in run['launches'].items() if n} }")
+    if run["results"]["n"] != n_masks:
+        raise AssertionError(f"eval {label}: {run['results']['n']} masks "
+                             f"scored, {n_masks} valid")
+    if run["launches"] != want:
+        raise AssertionError(f"eval {label}: launches differ from {want}")
+
+
+def _logits_agree(label, got, want) -> None:
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        rel, corr = agreement(a, b)
+        log(f"phase 22 eval {label} batch {i}: sam_logits max_rel_err "
+            f"{rel:.3e} corr {corr:.6f} (bound {FORWARD_CORR['sam_logits']})")
+        if corr < FORWARD_CORR["sam_logits"]:
+            raise AssertionError(f"eval {label}: the logits disagree")
+
+
+def run_eval_phase(g: torch.Generator, card: str) -> dict:
+    """Phase 22: the eval loop at DeepSeek-VL-1.3B over the synthetic
+    sample stream, at SAM-1024 and, through the window kernels, at
+    SAM-768."""
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")  # the forward never uses it
+    randomize_rel_pos(params, g)
+    samples = synthetic_samples(cfg, n=EVAL_N, seed=EVAL_SEED,
+                                max_masks=EVAL_MASKS,
+                                caption_tokens=EVAL_CAPTION)
+    n_masks = sum(min(len(s["spans"]), EVAL_MASKS) for s in samples)
+    launches = dict.fromkeys(WRAPPERS, 0)
+    with torch.no_grad():  # warm-up: the first batch's forward
+        warm = build_batch(samples[:EVAL_BS], eval_spec(cfg))
+        warm.pop("infos")
+        grounding.forward(params, cfg, from_jax(warm, "cuda"))
+    del warm
+
+    torch.cuda.reset_peak_memory_stats()
+    ref = eval_loop(params, cfg, samples, metrics.RefSegAccumulator,
+                    runner.refcoco_score)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_eval("refcoco SAM-1024", ref, n_masks,
+                EXPECTED_LAUNCHES["deepseek_vl_1_3b"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        png = eval_loop(params, cfg, samples, metrics.PNGAccumulator,
+                        runner.png_score)
+    busy_ms, _ = device_busy_ms(prof)
+    del prof
+    _check_eval("png SAM-1024", png, n_masks,
+                EXPECTED_LAUNCHES["deepseek_vl_1_3b"])
+    for run in (ref, png):
+        for k in WRAPPERS:
+            launches[k] += run["launches"][k]
+    plain = eval_loop(params, registry.plain_config(cfg), samples,
+                      metrics.RefSegAccumulator, runner.refcoco_score)
+    _check_eval("refcoco SAM-1024 all-plain forward", plain, n_masks, {})
+    _logits_agree("SAM-1024 kernel vs plain forward", ref["logits"],
+                  plain["logits"])
+    del plain
+
+    def gt_logits(batch):
+        """The ground truth as +-8 logits (tests/test_eval.py's mock)."""
+        gt = torch.from_numpy(batch["gt_sam"]).cuda()
+        return torch.where(gt > 0.5, 8.0, -8.0)
+
+    gt = eval_loop(params, cfg, samples, metrics.RefSegAccumulator,
+                   runner.refcoco_score, predict=gt_logits)
+    _check_eval("refcoco SAM-1024 ground truth as logits", gt, n_masks, {})
+    if not min(gt["results"]["cIoU"], gt["results"]["mIoU"]) > EVAL_GT_MIN:
+        raise AssertionError("eval: the ground truth as logits scores "
+                             f"{gt['results']}, not above {EVAL_GT_MIN}")
+    del params, gt
+    torch.cuda.empty_cache()
+
+    batches = len(ref["forward_ms"])
+    stats = {
+        "forward_ms": sum(ref["forward_ms"]) / batches,
+        "build_ms": ref["build_s"] * 1e3 / batches,
+        "host_ms": (ref["wall_s"] - ref["forward_s"]) * 1e3 / batches,
+        "copy_ms": (ref["forward_s"] * 1e3 - sum(ref["forward_ms"]))
+        / batches,
+        "samples_per_s": EVAL_N / ref["wall_s"],
+        "peak_gb": peak_gb, "busy_share": busy_ms / (png["wall_s"] * 1e3)}
+    log(f"phase 22 eval SAM-1024 ({card}): {EVAL_N} samples in {batches} "
+        f"batches of {EVAL_BS}: forward {stats['forward_ms']:.1f} ms a batch "
+        f"(CUDA events), host {stats['host_ms']:.1f} ms a batch (of it the "
+        f"batch builder's collate and preprocessing {stats['build_ms']:.1f} "
+        f"ms; the rest the masks' resize, their copy to the host and the "
+        f"scoring), "
+        f"the batch's copy to the card and the forward's launch "
+        f"{stats['copy_ms']:.1f} ms, {stats['samples_per_s']:.2f} samples/s, "
+        f"peak "
+        f"{peak_gb:.2f} GB; the device busy {busy_ms:.1f} ms of the PNG "
+        f"loop's {png['wall_s'] * 1e3:.1f} ms under the profiler "
+        f"({stats['busy_share']:.1%})")
+
+    # SAM-768: one batch of the first samples that fit the shortest bucket,
+    # through each window kernel
+    cfg = registry.with_sam_size(cfg, VARIANT_SAM)
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    randomize_rel_pos(params, g)
+    randomize_sam_bqkv(params["frozen"]["sam_encoder"]["blocks"], g)
+    short = [s for s in samples
+             if len(s["input_ids"]) <= EVAL_BUCKETS[0]][:EVAL_BS]
+    n_short = sum(min(len(s["spans"]), EVAL_MASKS) for s in short)
+    runs = {}
+    for name in EVAL_WINDOWS:
+        cfg_n = dataclasses.replace(cfg, sam=dataclasses.replace(
+            cfg.sam, encoder=dataclasses.replace(cfg.sam.encoder,
+                                                 window_kernel=name)))
+        runs[name] = eval_loop(params, cfg_n, short,
+                               metrics.RefSegAccumulator,
+                               runner.refcoco_score)
+        _check_eval(f"refcoco SAM-{VARIANT_SAM} window_kernel={name}",
+                    runs[name], n_short,
+                    {**SWEEP_LAUNCHES, "sam_window_attention_v9": 0,
+                     WINDOW_WRAPPER[name]: 20})
+        for k in WRAPPERS:
+            launches[k] += runs[name]["launches"][k]
+    for name in NEW_WINDOWS:
+        _logits_agree(f"SAM-{VARIANT_SAM} window_kernel={name} vs v9",
+                      runs[name]["logits"], runs["v9"]["logits"])
+    del params, runs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str) -> None:
     """One row of the bench.py twin: its keys, its settings and the exact
     launch counts per forward (run() itself refuses non-finite logits)."""
@@ -1878,6 +2159,7 @@ def main() -> None:
     g_bench = torch.Generator(device="cuda").manual_seed(2)
     g_e2e = torch.Generator(device="cuda").manual_seed(3)
     g_sweep = torch.Generator(device="cuda").manual_seed(4)
+    g_eval = torch.Generator(device="cuda").manual_seed(5)
     kernels = phase_kernels(g, g_hpt, g_bench, g_e2e, g_sweep)
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
@@ -1895,19 +2177,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     families = run_family_matrix()
     compared = compare_families()
+    evals = run_eval_phase(g_eval, card)
     for family, row in families["rows"].items():
-        log(f"phase 22 timing bench_families {family} {row['preset']} "
+        log(f"phase 23 timing bench_families {family} {row['preset']} "
             f"({card}): kernel path {row['ms_mean']} ms/forward, "
             f"{row['value']} img/s, peak {row['peak_gb']} GB; plain path "
             f"{row['plain']['ms_mean']} ms/forward, {row['plain']['value']} "
             f"img/s, peak {row['plain']['peak_gb']} GB (bs {row['bs']}, "
             f"{row['iters']} forwards after {e2e_bench.WARMUP} warm-ups, "
             f"global_kernel={row['global_kernel']})")
+    st = evals["stats"]
+    log(f"phase 23 timing eval deepseek_vl_1_3b SAM-1024 ({card}): "
+        f"{st['forward_ms']:.1f} ms a batch forward, {st['host_ms']:.1f} ms "
+        f"a batch on the host, {st['samples_per_s']:.2f} samples/s, peak "
+        f"{st['peak_gb']:.2f} GB, device busy {st['busy_share']:.1%} of the "
+        f"loop (bs {EVAL_BS}, {EVAL_N} samples)")
     for path, r in paths.items():
         unit = r.get("unit", "forward")
         what = (f"{r['n']} steps" if unit == "step"
                 else f"{len(r['requests'])} requests")
-        log(f"phase 22 timing {path} ({card}): kernel path {r['ms']:.1f} "
+        log(f"phase 23 timing {path} ({card}): kernel path {r['ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['ms']:.2f} img/s, peak "
             f"{r['peak_gb']:.2f} GB; plain path {r['plain_ms']:.1f} "
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
@@ -1918,7 +2207,7 @@ def main() -> None:
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
-             compared)),
+             compared, evals)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -1926,7 +2215,8 @@ def main() -> None:
              "schedule_bench": sweep["launches"][name],
              "window_variant_encoder": variants["launches"][name],
              "bench_families": families["launches"][name],
-             "family_forwards": compared["launches"][name]},
+             "family_forwards": compared["launches"][name],
+             "eval": evals["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -110,6 +110,9 @@ WRAPPERS = {
     "sam_global_attention_v2": sam_flash_experiments.sam_global_attention_v2,
     "sam_global_attention_v4": sam_flash_experiments.sam_global_attention_v4,
     "sam_window_attention_v2": sam_flash_experiments.sam_window_attention_v2,
+    "sam_window_attention_v3": sam_flash_experiments.sam_window_attention_v3,
+    "sam_window_attention_v4": sam_flash_experiments.sam_window_attention_v4,
+    "sam_window_attention_v5": sam_flash_experiments.sam_window_attention_v5,
 }
 
 

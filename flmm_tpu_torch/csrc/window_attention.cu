@@ -2,26 +2,51 @@
 // ViTDet blocks: one-shot softmax in natural base over the T = side * side
 // keys of one 14 x 14 window, the whole window resident in one block.
 //
-// Replaces five of the superseded window variants of
+// Replaces eight of the superseded window variants of
 // flmm_tpu/ops/sam_flash_experiments.py (K12), one contract
 // (q, k, v, rel_pos_h, rel_pos_w, side) -> out over (G, T, 64) window-heads:
 //   ::sam_window_attention     (v1, the pallas_call at :695)
 //   ::sam_window_attention_v2  (:422)
+//   ::sam_window_attention_v3  (:640)
+//   ::sam_window_attention_v4  (:545, _window_kernel_v4)
+//   ::sam_window_attention_v5  (:545, _window_kernel_v5)
 //   ::sam_window_attention_v6  (:185)
 //   ::sam_window_attention_v7  (:270)
 //   ::sam_window_attention_v8  (:346)
-// As functions they differ only in where the operands are rounded, chosen by
-// the MODE template flag on the lines between the two products:
+// As functions they differ only in where the operands and the softmax are
+// rounded, chosen by the MODE template flag on the lines between the two
+// products:
 //   SCALE_AFTER  v1 and v6: q unscaled, as it lies in the qkv tensor;
 //                s = f32(q . k) * scale + bias_h + bias_w.  (v6 hands its
 //                TPU kernel the two bias rows as one row and so adds them to
 //                each other first: another order of two f32 additions, far
 //                below what the bf16 output resolves.  The plain versions in
 //                ops/sam_flash_experiments.py keep each order.)
-//   SCALED_Q     v7 and v8: q scaled by `scale` in f32 and rounded to bf16
-//                outside; s = f32(qs . k) + bias_h + bias_w.  (v8 adds the
-//                one-hot selection columns to the keys outside its TPU
-//                kernel, v7 inside: one function.)
+//   SCALED_Q     v7, v8 and v3: q scaled by `scale` in f32 and rounded to
+//                bf16 outside; s = f32(qs . k) + bias_h + bias_w.  (v8 adds
+//                the one-hot selection columns to the keys outside its TPU
+//                kernel, v7 inside: one function.  v3 takes the bias out of
+//                one augmented product [qs | bias_h | bias_w | 1] .
+//                [k^T ; sel_h ; sel_w ; pad row], i.e. inside the f32
+//                accumulation: another order of f32 additions.  Its pad keys
+//                get -1e30 through the ones column, as here.)
+//   SCALED_Q_BF16  v4: the SCALED_Q scores (the augmented product of v3
+//                with a pad penalty of -1e4), each rounded to bf16; the row
+//                max of the rounded scores, p = bf16(exp(bf16(s - max))) as
+//                a bf16 subtraction and a bf16 exp give them, and the
+//                denominator the f32 sum of the ROUNDED p (the TPU kernel
+//                reads it off a ones column of v).  A block holds the whole
+//                row, so the max is the TPU body's max.  The -1e4 penalty:
+//                the pad keys' rows of v, ones column included, are zero,
+//                so they add nothing to the numerator or the denominator
+//                whatever their score; they could only move the max if every
+//                real score of a row lay below about -1e4.  Masking the keys
+//                beyond T to -1e30, as below, is therefore the same function.
+//   SCALED_Q_ROUNDED_P  v5: v4's operands, but f32 scores and an f32 exp;
+//                p rounded to bf16 before the value product and the
+//                denominator the f32 sum of the ROUNDED p (v4's ones column
+//                again).  That last part alone sets it apart from v7.  The
+//                TPU kernel's software pipelining orders its work only.
 //   DENSE_BIAS   v2: q scaled and rounded outside as for SCALED_Q, and the
 //                bias not as two thin rows but as the dense tensor the JAX
 //                wrapper makes, (G, tp, tp) bf16 with tp = T rounded up to
@@ -33,9 +58,11 @@
 //                memory as it reaches them, once.  The pad columns below tp
 //                get their -1e30 from the tensor (the zero-filled pad keys
 //                give a score of 0), those from tp to 208 from the kernel.
-// In all three, p = exp(s - max) over the row, taken as exp2((s - max) * log2 e)
-// in f32; p is rounded to bf16 for the value product and the denominator is
-// the f32 sum of the unrounded p, clamped at 1e-30.  The TPU kernels pad T to
+// In the first three, p = exp(s - max) over the row, taken as
+// exp2((s - max) * log2 e) in f32; p is rounded to bf16 for the value
+// product and the denominator is the f32 sum of the unrounded p, clamped at
+// 1e-30 (v4 and v5: of the rounded p, with expf, so that p lands on the
+// bf16 value an f32 exp rounds to).  The TPU kernels pad T to
 // a multiple of 16 (v7 / v8 also the operands to 128 lanes), mask the pad
 // keys to -1e30, process `group` windows per grid step and expand the thin
 // bias rows with one-hot selection products to keep the MXU busy: all of
@@ -82,7 +109,10 @@ constexpr int NT = MAX_T / 8;     // key tiles of 8 in a score strip
 constexpr int K_LD = HD + 8;      // Ks[key][d]
 constexpr int VT_LD = MAX_T + 8;  // Vt[d][key]
 // the order is flmm_tpu_torch.ops.sam_flash_experiments.WINDOW_MODES
-enum Mode { SCALE_AFTER = 0, SCALED_Q = 1, DENSE_BIAS = 2 };
+enum Mode {
+  SCALE_AFTER = 0, SCALED_Q = 1, DENSE_BIAS = 2, SCALED_Q_BF16 = 3,
+  SCALED_Q_ROUNDED_P = 4
+};
 constexpr float LOG2E = 1.4426950408889634f;
 
 // K, V^T, the key table and, but for DENSE_BIAS, the window's bias rows
@@ -233,6 +263,10 @@ window_attention_kernel(const bf16* __restrict__ q, long long q_b,
           s[nt][e] = -1e30f;
           s[nt][2 + e] = -1e30f;
         }
+        if constexpr (MODE == SCALED_Q_BF16) {
+          s[nt][e] = round_bf16(s[nt][e]);
+          s[nt][2 + e] = round_bf16(s[nt][2 + e]);
+        }
         mx0 = fmaxf(mx0, s[nt][e]);
         mx1 = fmaxf(mx1, s[nt][2 + e]);
       }
@@ -241,13 +275,22 @@ window_attention_kernel(const bf16* __restrict__ q, long long q_b,
     mx1 = quad_max(mx1);
 
     // p = exp(s - max) = exp2((s - max) * log2 e); f32 sum of the unrounded p
+    // (SCALED_Q_BF16, SCALED_Q_ROUNDED_P: of the p rounded to bf16)
     float l0 = 0.f, l1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f((s[nt][e] - mx0) * LOG2E);
-        s[nt][2 + e] = exp2f((s[nt][2 + e] - mx1) * LOG2E);
+        if constexpr (MODE == SCALED_Q_BF16) {
+          s[nt][e] = round_bf16(expf(round_bf16(s[nt][e] - mx0)));
+          s[nt][2 + e] = round_bf16(expf(round_bf16(s[nt][2 + e] - mx1)));
+        } else if constexpr (MODE == SCALED_Q_ROUNDED_P) {
+          s[nt][e] = round_bf16(expf(s[nt][e] - mx0));
+          s[nt][2 + e] = round_bf16(expf(s[nt][2 + e] - mx1));
+        } else {
+          s[nt][e] = exp2f((s[nt][e] - mx0) * LOG2E);
+          s[nt][2 + e] = exp2f((s[nt][2 + e] - mx1) * LOG2E);
+        }
         l0 += s[nt][e];
         l1 += s[nt][2 + e];
       }
@@ -319,7 +362,7 @@ extern "C" int flmm_window_attention(const void* q, long long q_b,
                                      long long o_t, void* stream) {
   if (head_dim != HD || G <= 0 || T <= 0 || T > MAX_T || nh <= 0 ||
       side <= 0 || side * side != T || mode < SCALE_AFTER ||
-      mode > DENSE_BIAS ||
+      mode > SCALED_Q_ROUNDED_P ||
       q_b % 8 || q_h % 8 || q_t % 8 || s_b % 8 || s_h % 8 || s_t % 8 ||
       o_b % 2 || o_h % 2 || o_t % 2)
     return (int)cudaErrorInvalidValue;
@@ -330,7 +373,9 @@ extern "C" int flmm_window_attention(const void* q, long long q_b,
   switch (mode) {
     case SCALE_AFTER: return FLMM_LAUNCH(SCALE_AFTER);
     case SCALED_Q: return FLMM_LAUNCH(SCALED_Q);
-    default: return FLMM_LAUNCH(DENSE_BIAS);
+    case DENSE_BIAS: return FLMM_LAUNCH(DENSE_BIAS);
+    case SCALED_Q_BF16: return FLMM_LAUNCH(SCALED_Q_BF16);
+    default: return FLMM_LAUNCH(SCALED_Q_ROUNDED_P);
   }
 #undef FLMM_LAUNCH
 }

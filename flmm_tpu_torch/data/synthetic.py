@@ -1,7 +1,8 @@
 """Synthetic grounding batches (flmm_tpu/data/synthetic.py): the model's
 exact batch schema, numpy only, identical to the JAX package's batches for
 the same config and seed -- random content (:func:`synthetic_batch`) or the
-derivable coloured-rectangles task (:func:`synthetic_grounding_batch`)."""
+derivable coloured-rectangles task (:func:`synthetic_grounding_batch`) --
+and raw samples for the batch builders (:func:`synthetic_samples`)."""
 
 from __future__ import annotations
 
@@ -90,6 +91,51 @@ def synthetic_batch(cfg, batch_size: int = 2, seq_len: int | None = None,
         "gt_sam": gt_sam,
         "sam_weight": sw,
     }
+
+
+def synthetic_samples(cfg, n: int = 2, seed: int = 0, image_token_id: int = 5,
+                      max_masks: int = 2, caption_tokens: int = 6) -> list:
+    """PNG-style raw samples shaped for a family config, for any batch
+    builder: a fixed prompt with the image block at ``img_start``, one
+    caption span and one rectangle mask per mask, mask infos and an ``(h,
+    w, 3)`` uint8 image of 48-160 px a side (the array the JAX package
+    wraps in a PIL image; the same seed gives the same samples)."""
+    rng = np.random.default_rng(seed)
+    base = cfg.base if hasattr(cfg, "base") else cfg
+    n_img = base.num_img_tokens
+    img_start = base.img_start
+    prompt = [7] * img_start + [image_token_id] * n_img + [9, 9]
+    out = []
+    for i in range(n):
+        w = int(rng.integers(48, 160))
+        h = int(rng.integers(48, 160))
+        n_m = int(rng.integers(1, max_masks + 1))
+        caption = []
+        mask_ids = [-1] * len(prompt)
+        spans = []
+        masks = []
+        pos = len(prompt)
+        for m in range(n_m):
+            caption += list(rng.integers(10, 200, caption_tokens))
+            mask_ids += [m] * caption_tokens
+            spans.append((pos, pos + caption_tokens))
+            pos += caption_tokens
+            mask = np.zeros((h, w), np.uint8)
+            y0 = int(rng.integers(0, h // 2))
+            x0 = int(rng.integers(0, w // 2))
+            mask[y0:y0 + h // 3 + 1, x0:x0 + w // 3 + 1] = 1
+            masks.append(mask)
+        out.append({
+            "input_ids": np.asarray(prompt + caption, np.int32),
+            "mask_ids": np.asarray(mask_ids, np.int32),
+            "spans": spans,
+            "masks": np.stack(masks),
+            "mask_infos": [{"plural": False, "isthing": True}] * n_m,
+            "image": rng.integers(0, 255, (h, w, 3), np.uint8),
+            "img_start": img_start,
+            "file_name": f"synthetic_{i}.jpg",
+        })
+    return out
 
 
 def synthetic_grounding_batch(cfg, batch_size: int = 4, seed: int = 0,

@@ -24,10 +24,10 @@ the run: no row reports an error and goes on.
 
 ``--window-variants`` (``v1,v6,v7``), ``--global-variants`` (``v3,v6``),
 ``--window-kernel`` (``v6``) and ``--global-kernel`` (``v6``) default as in
-the JAX script; any of the window variants ``v9, v1, v2, v6, v7, v8`` and
-the global variants ``v8, v1, v2, v3, v4, v6, v7, v11`` resolves.  Asking for
-a variant that is not ported (window ``v3, v4, v5``) raises
-``NotImplementedError`` before anything is timed.  The
+the JAX script; every name of the JAX package resolves, the window variants
+``v9, v1, v2, v3, v4, v5, v6, v7, v8`` and the global variants ``v8, v1, v2,
+v3, v4, v6, v7, v11`` (``UNPORTED`` is empty), and a name it does not have
+raises before anything is timed.  The
 first variant of ``window`` / ``global`` is the reference of the others'
 ``max_err_vs_v1``.  At SAM-1024 the preset sets ``window_block_fused``, so
 every window layer of the ``encoder`` and ``heads`` ops is the whole-block
@@ -60,14 +60,14 @@ from flmm_tpu_torch.ops._matmul import matmul_f32
 WARMUP = 2  # untimed calls before each measurement
 OPS = ("window", "global", "encoder", "wb", "gb", "boundary", "tower",
        "decoder", "window_path", "heads", "rtt")
-# variant name -> wrapper, per kernel contract; the names of the JAX package
-# that have no Hopper kernel yet are listed so that they fail by name
+# variant name -> wrapper, per kernel contract; a name of the JAX package
+# with no Hopper kernel would be listed in UNPORTED to fail by name (none is)
 KERNELS = {
     "sam_window_attention": image_encoder.WINDOW_KERNELS,
     "sam_global_attention": image_encoder.GLOBAL_KERNELS,
 }
 UNPORTED = {
-    "sam_window_attention": ("v3", "v4", "v5"),
+    "sam_window_attention": (),
     "sam_global_attention": (),
 }
 

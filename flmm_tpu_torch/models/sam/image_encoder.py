@@ -69,12 +69,16 @@ GLOBAL_KERNELS = {
     "v7": sfx.sam_global_attention_v7,
     "v11": sfx.sam_global_attention_v11,
 }
-# window_kernel -> wrapper, likewise; the JAX package's v3, v4 and v5 have no
-# Hopper kernel yet and are refused by name, v10 has another contract
+# window_kernel -> wrapper, likewise, every name of the JAX package with the
+# (q, k, v, rel_pos_h, rel_pos_w, side) contract; v10 takes the spatial qkv
+# and is refused by name
 WINDOW_KERNELS = {
     "v9": sam_window_attention_v9,
     "v1": sfx.sam_window_attention,
     "v2": sfx.sam_window_attention_v2,
+    "v3": sfx.sam_window_attention_v3,
+    "v4": sfx.sam_window_attention_v4,
+    "v5": sfx.sam_window_attention_v5,
     "v6": sfx.sam_window_attention_v6,
     "v7": sfx.sam_window_attention_v7,
     "v8": sfx.sam_window_attention_v8,
@@ -110,10 +114,10 @@ class SamEncoderConfig:
                 f"{', '.join(GLOBAL_KERNELS)})")
         if self.window_kernel not in WINDOW_KERNELS:
             raise NotImplementedError(
-                f"window_kernel {self.window_kernel!r} has no Hopper kernel "
-                "with the (q, k, v, rel_pos_h, rel_pos_w, side) contract in "
-                f"the port (ported: {', '.join(WINDOW_KERNELS)}); the others "
-                "are queued in ROADMAP.md")
+                f"window_kernel {self.window_kernel!r} names no kernel with "
+                "the (q, k, v, rel_pos_h, rel_pos_w, side) contract (the JAX "
+                f"package's names, all ported: {', '.join(WINDOW_KERNELS)}; "
+                "v10 takes the spatial qkv: sam_window_attention_v10)")
 
     @property
     def grid(self) -> int:

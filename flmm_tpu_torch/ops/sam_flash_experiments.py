@@ -5,11 +5,11 @@ head-major window attention ``sam_window_attention_v10`` (the pallas_call at
 contract ``(q, k, v, rel_pos_h, rel_pos_w, side) -> out`` over ``(G, S =
 side**2, 64)`` heads: ``sam_global_attention`` (v1, :1107), ``_v2`` (:781),
 ``_v3`` (:1046), ``_v4`` (:859), ``_v6`` (:942), ``_v7`` (:981) and ``_v11``
-(:1309); and five window variants with K6's contract over ``(G, T =
+(:1309); and eight window variants with K6's contract over ``(G, T =
 side**2, 64)`` window-heads or ``(NW, nh, T, 64)`` strided views of a
 windowised qkv tensor: ``sam_window_attention`` (v1, :695), ``_v2`` (:422),
-``_v6`` (:185), ``_v7`` (:270) and ``_v8`` (:346).  The augmented-operand
-window variants v3, v4 and v5 are queued in ROADMAP.md.
+``_v3`` (:640), ``_v4`` and ``_v5`` (one pallas_call at :545), ``_v6``
+(:185), ``_v7`` (:270) and ``_v8`` (:346).
 
 v10 takes the qkv tensor as the projection leaves it, spatial ``(B, Hp, Wp,
 nh * 3 * hd)`` with the columns permuted head-major ``[q_h | k_h | v_h]``,
@@ -52,13 +52,22 @@ keys outside its TPU kernel, v7 inside) scale q in f32, round it and the bias
 rows to q's dtype and take the scores out of one f32 sum; v2 scales and
 rounds q likewise and adds a dense bias, ``bias_h + bias_w`` summed in f32
 and rounded to bf16 once, ``(G, tp, tp)`` with ``tp`` = T rounded up to 16 and
--1e30 in the pad rows and columns (:func:`window_dense_bias`).  All five
-launch csrc/window_attention.cu, where a block keeps one window-head's K and
-V resident: v1 and v6 its ``SCALE_AFTER`` instantiation, which reads q in
-place and keeps the bias rows resident too, v7 and v8 ``SCALED_Q``, v2
-``DENSE_BIAS``, which reads the dense tensor from device memory as it goes.
-The bias and the q scaling are plain PyTorch in the wrapper, as in the JAX
-wrappers; v2's dense tensor (277 MB at 3200 window-heads) lives for one call.
+-1e30 in the pad rows and columns (:func:`window_dense_bias`).  v3, v4 and v5
+share one operand builder on the TPU, ``a = [q * scale | bias_h | bias_w |
+1]`` against ``b = [k^T ; sel_h ; sel_w ; pad row]``: v7's operands, the
+bias inside the f32 accumulation, and a penalty on the ``tp - T`` pad keys
+through the ones column (-1e30 for v3, -1e4 rounded to q's dtype for v4 and
+v5).  v3 is v7's function; v4 rounds every score to bf16, takes the max and
+``exp`` in bf16 and divides by the f32 sum of the rounded ``p``; v5 keeps
+f32 scores and ``exp`` but divides by the f32 sum of ``p`` rounded to v's
+dtype.  All eight launch csrc/window_attention.cu, where a block keeps one
+window-head's K and V resident: v1 and v6 its ``SCALE_AFTER``
+instantiation, which reads q in place and keeps the bias rows resident too,
+v7, v8 and v3 ``SCALED_Q``, v4 ``SCALED_Q_BF16``, v5 ``SCALED_Q_ROUNDED_P``,
+v2 ``DENSE_BIAS``, which reads the dense tensor from device memory as it
+goes.  The bias and the q scaling are plain PyTorch in the wrapper, as in
+the JAX wrappers; v2's dense tensor (277 MB at 3200 window-heads) lives for
+one call.
 """
 
 from __future__ import annotations
@@ -397,14 +406,21 @@ sam_global_attention_v11.launches = 0
 
 # what csrc/window_attention.cu does between its two products: the f32 scores
 # of the unscaled q times ``scale`` (window v1 / v6), the scores of a q that
-# was scaled and rounded outside (window v7 / v8), both plus the two thin bias
-# rows; or the scores of such a q plus a dense ``(tp, tp)`` bias (window v2)
-WINDOW_SCALE_AFTER, WINDOW_SCALED_Q, WINDOW_DENSE_BIAS = 0, 1, 2
+# was scaled and rounded outside (window v7 / v8 / v3), both plus the two thin
+# bias rows; or the scores of such a q plus a dense ``(tp, tp)`` bias (window
+# v2); or v7's scores rounded to bf16 with a bf16 softmax (v4), or with the
+# probabilities rounded before the denominator sums them (v5)
+(WINDOW_SCALE_AFTER, WINDOW_SCALED_Q, WINDOW_DENSE_BIAS, WINDOW_SCALED_Q_BF16,
+ WINDOW_SCALED_Q_ROUNDED_P) = range(5)
 WINDOW_MODES = {"v1": WINDOW_SCALE_AFTER, "v6": WINDOW_SCALE_AFTER,
                 "v7": WINDOW_SCALED_Q, "v8": WINDOW_SCALED_Q,
-                "v2": WINDOW_DENSE_BIAS}
+                "v3": WINDOW_SCALED_Q, "v2": WINDOW_DENSE_BIAS,
+                "v4": WINDOW_SCALED_Q_BF16, "v5": WINDOW_SCALED_Q_ROUNDED_P}
 MAX_WINDOW_TOKENS = 208  # keys a block of the window kernel keeps resident
 DENSE_BIAS_PAD = -1e30  # v2's pad rows and columns, as in the JAX wrapper
+# the augmented-operand variants: the score of a pad key (T <= key < tp),
+# rounded to q's dtype, as their JAX wrapper builds it
+AUGMENTED_PAD = {"v3": -1e30, "v4": -1e4, "v5": -1e4}
 
 
 def window_dense_bias(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
@@ -432,13 +448,16 @@ def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
     wrapper and kernel, over ``(G, T, hd)`` or ``(NW, nh, T, hd)``.  v1 / v6:
     f32 scores of the unscaled q times ``scale``, plus bias rows rounded to
     bf16 whatever q's dtype (v1 ``(s + bias_h) + bias_w``, v6 ``s + (bias_h
-    + bias_w)``).  v7 / v8: q scaled in f32 and rounded to its dtype, the
-    bias rows rounded to it too.  v2: q scaled and rounded likewise, plus the
-    dense bf16 bias of :func:`window_dense_bias`.  Then ``p = exp(s - max)``,
-    rounded to v's
-    dtype before the value product, over the f32 sum of the unrounded ``p``
-    clamped at 1e-30.  Window-heads are chunked under
-    ``sam_flash.MAX_PLAIN_SCORES``."""
+    + bias_w)``).  v7 / v8 / v3 / v4 / v5: q scaled in f32 and rounded to its
+    dtype, the bias rows rounded to it too.  v2: q scaled and rounded
+    likewise, plus the dense bf16 bias of :func:`window_dense_bias`.  Then
+    ``p = exp(s - max)``, rounded to v's dtype before the value product,
+    over the f32 sum of the unrounded ``p`` clamped at 1e-30.  v3 / v4 / v5
+    also score the ``tp - T`` pad keys of their JAX wrapper, at
+    :data:`AUGMENTED_PAD`, against zero rows of v; v4 rounds the scores to
+    bf16 and takes ``s - max`` and ``exp`` in bf16, v5 rounds ``p`` to v's
+    dtype, and both sum the rounded ``p`` as the denominator.  Window-heads
+    are chunked under ``sam_flash.MAX_PLAIN_SCORES``."""
     T, hd = q.shape[-2:]
     shape = q.shape
     q, k, v = (t.reshape(-1, T, hd) for t in (q, k, v))
@@ -463,13 +482,25 @@ def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
                        else None)).float()
             bh, bw = bias[..., :side, None], bias[..., None, side:]
             s = s.reshape(n, T, side, side)
-            if mode == WINDOW_SCALED_Q:
-                s = s + bh + bw
-            else:
+            if mode == WINDOW_SCALE_AFTER:
                 s = s * scale
                 s = (s + bh) + bw if variant == "v1" else s + (bh + bw)
+            else:
+                s = s + bh + bw
         s = s.reshape(n, T, T)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        if variant in AUGMENTED_PAD:
+            tp = -(-T // 16) * 16
+            pen = torch.tensor(AUGMENTED_PAD[variant], dtype=qc.dtype,
+                               device=qc.device).float()
+            s = torch.cat([s, pen.expand(n, T, tp - T)], dim=-1)
+            vc = torch.cat([vc, vc.new_zeros(n, tp - T, hd)], dim=1)
+        if mode == WINDOW_SCALED_Q_BF16:
+            s = s.bfloat16()
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True)).float()
+        else:
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            if mode == WINDOW_SCALED_Q_ROUNDED_P:
+                p = p.to(vc.dtype).float()
         denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         outs.append((matmul_f32(p.to(vc.dtype), vc) / denom).to(qc.dtype))
     return torch.cat(outs).reshape(shape)
@@ -477,7 +508,7 @@ def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
 
 def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
                     wrapper):
-    """Shared body of the five wrappers: no grad, the JAX contract on the
+    """Shared body of the eight wrappers: no grad, the JAX contract on the
     shape, the plain version on CPU tensors, then the kernel over ``(G, T,
     64)`` heads or ``(NW, nh, T, 64)`` strided views read in place; the
     output has q's shape, in memory ``(G, T, 64)`` or ``(NW, T, nh, 64)``."""
@@ -507,7 +538,7 @@ def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
         bias = sam_flash.global_bias_rows(
             q.reshape(G, T, hd), rel_pos_h, rel_pos_w, side,
             log2_domain=False,
-            dtype=None if mode == WINDOW_SCALED_Q else torch.bfloat16)
+            dtype=torch.bfloat16 if mode == WINDOW_SCALE_AFTER else None)
     if mode != WINDOW_SCALE_AFTER:
         q = (q.float() * (1.0 / math.sqrt(hd))).to(q.dtype)
     if q.dim() == 3:
@@ -572,6 +603,60 @@ def sam_window_attention_v2(q, k, v, rel_pos_h, rel_pos_w, side: int):
 
 
 sam_window_attention_v2.launches = 0
+
+
+def sam_window_attention_v3_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v3's plain version: v7's operands and softmax, with the pad
+    keys of the JAX wrapper at -1e30."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v3")
+
+
+def sam_window_attention_v3(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v3: ``[q * scale | bias_h | bias_w | 1]``
+    against ``[k^T ; sel_h ; sel_w ; pad row]``, one augmented product on the
+    TPU; v7's function, through v7's kernel instantiation."""
+    return _window_variant("v3", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v3)
+
+
+sam_window_attention_v3.launches = 0
+
+
+def sam_window_attention_v4_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v4's plain version: v3's operands with the pad keys at -1e4,
+    the scores rounded to bf16, max and ``exp`` in bf16, the f32 sum of the
+    rounded ``p`` below."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v4")
+
+
+def sam_window_attention_v4(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v4: v3's augmented operands, bf16 scores,
+    a bf16 ``exp`` and the denominator summed from the rounded
+    probabilities; the softmax weights carry about 0.4% of rounding by
+    contract."""
+    return _window_variant("v4", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v4)
+
+
+sam_window_attention_v4.launches = 0
+
+
+def sam_window_attention_v5_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Window v5's plain version: v4's operands, f32 scores and ``exp``,
+    ``p`` rounded to v's dtype before both the value product and the f32
+    sum that divides it."""
+    return _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side, "v5")
+
+
+def sam_window_attention_v5(q, k, v, rel_pos_h, rel_pos_w, side: int):
+    """Windowed ViTDet attention, v5: v4's augmented operands with f32
+    scores and an f32 softmax whose denominator sums the rounded
+    probabilities (the TPU kernel's pipelining orders its work only)."""
+    return _window_variant("v5", q, k, v, rel_pos_h, rel_pos_w, side,
+                           sam_window_attention_v5)
+
+
+sam_window_attention_v5.launches = 0
 
 
 def sam_window_attention_v6_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):

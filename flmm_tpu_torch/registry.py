@@ -1,6 +1,14 @@
 """Model-family registry (flmm_tpu/registry.py) for the families the port
-has: config presets, model modules, the reduced-resolution SAM schedule, the
-coarse-mask frame and the all-plain twin of a config."""
+has: config presets, model modules, batch builders, the host processors'
+resize rule, the reduced-resolution SAM schedule, the coarse-mask frame and
+the all-plain twin of a config.
+
+``resolve_family_setup`` waits for a tokenizer in the port.  Until then the
+caller builds its batch-spec half itself, as the JAX function does: the
+``BatchSpec`` gets ``expected_img_start`` from the config, the align of 128
+where the decoder captures through the flash kernel, the SAM sizes of the
+config and ``ProcessorConfig(size=input_size,
+size_rule=FAMILY_SIZE_RULES[family])``."""
 
 from __future__ import annotations
 
@@ -34,6 +42,19 @@ FAMILIES = {
 }
 
 
+# host-processor resize rule per family (data/processors._target_hw)
+FAMILY_SIZE_RULES = {
+    "deepseek_vl": "deepseek",
+    "llava": "llava",
+    "llava_next": "llava",
+    "mgm": "llava",
+    "hpt": "hpt15",
+}
+# family -> kind of batch builder, as in the JAX registry
+BATCH_BUILDERS = {"deepseek_vl": "standard", "llava": "standard",
+                  "llava_next": "anyres", "mgm": "mgm", "hpt": "standard"}
+
+
 def _family(family: str):
     if family not in FAMILIES:
         raise NotImplementedError(
@@ -56,6 +77,22 @@ def get_config(family: str, preset: str, **kwargs):
             f"{', '.join(presets)})")
     mod, _, attr = presets[preset].partition(":")
     return getattr(importlib.import_module(mod), attr)(**kwargs)
+
+
+def get_batch_builder(family: str):
+    """The family's ``(samples, batch_spec) -> batch`` builder: the standard
+    ``collate.build_batch``; the anyres and MGM builders are not ported."""
+    kind = BATCH_BUILDERS.get(family)
+    if kind == "standard":
+        from flmm_tpu_torch.data.collate import build_batch
+
+        return build_batch
+    if kind is None:
+        _family(family)  # raises by name
+    raise NotImplementedError(
+        f"the {kind} batch builder of family {family!r} is not ported to "
+        "flmm_tpu_torch (ported: the standard build_batch; "
+        "data/llava_next.py has only the synthetic anyres batch)")
 
 
 def with_sam_size(cfg, img_size: int):

@@ -13,6 +13,8 @@ on one GPU.
                                   # one point of the family matrix, bs 4: the
                                   # BENCH_* environment of flmm_tpu_torch.bench
                                   # (BENCH_PRESET=air --family hpt: HPT-Air)
+    python3 scripts/torch_profile.py --path eval  # one batch of chip_smoke's
+                                  # eval loop, bs 8, and its host side
 
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
@@ -22,7 +24,10 @@ LLaVA-NeXT and HPT, SAM encoder and whole forward; for training the step's
 forward (the loss), backward and optimizer update.  For DeepSeek-VL serving
 it then times the three stages of K1 (window block) separately at the
 SAM-1024 window shape, for HPT the three stages of K10 (the attention half
-of a global block) at the SAM-1024 global-layer shape.
+of a global block) at the SAM-1024 global-layer shape.  For the eval loop it
+first splits the batch builder's host time by step over chip_smoke.py
+phase 22's samples and times the batch's copy to the card from pageable and
+from pinned memory.
 """
 
 from __future__ import annotations
@@ -31,9 +36,9 @@ import argparse
 import dataclasses
 import pathlib
 import sys
+import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -42,7 +47,9 @@ import chip_smoke  # noqa: E402
 from flmm_tpu_torch import bench, registry  # noqa: E402
 from flmm_tpu_torch.configs import deepseek_vl, llava_next  # noqa: E402
 from flmm_tpu_torch.convert.from_jax import from_jax  # noqa: E402
-from flmm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from flmm_tpu_torch.data import collate, processors  # noqa: E402
+from flmm_tpu_torch.data.synthetic import synthetic_batch, \
+    synthetic_samples  # noqa: E402
 from flmm_tpu_torch.models.frozen import grounding  # noqa: E402
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model  # noqa: E402
 from flmm_tpu_torch.models.llm import decoder  # noqa: E402
@@ -180,22 +187,58 @@ def bench_setup(knobs: bench.Knobs):
     return cfg, stages
 
 
-def device_busy_ms(prof) -> tuple[float, float]:
-    """(busy, window) in ms over the traced forward: the union of the
-    device events' intervals, and the span from the first one's start to
-    the last one's end.  CUPTI's "Command Buffer Full" records (host time
-    blocked on a full launch queue) are no device work and are left out."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.name != "Command Buffer Full")
-    busy, lo, hi = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo = busy + hi - lo, start
-        hi = max(hi, end)
-    busy += hi - lo
-    return busy / 1e3, (hi - spans[0][0]) / 1e3
+def eval_setup(g: torch.Generator):
+    """One batch of chip_smoke.py phase 22 (DeepSeek-VL-1.3B, SAM-1024, bs
+    8 at the 640 bucket); first the batch builder's host time split by step
+    over the phase's 32 samples (host clock, ms a batch of 8) and the
+    batch's copy to the card from pageable and from pinned memory (CUDA
+    events)."""
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    bs = chip_smoke.EVAL_BS
+    samples = synthetic_samples(
+        cfg, n=chip_smoke.EVAL_N, seed=chip_smoke.EVAL_SEED,
+        max_masks=chip_smoke.EVAL_MASKS,
+        caption_tokens=chip_smoke.EVAL_CAPTION)
+    spec = dataclasses.replace(chip_smoke.eval_spec(cfg), seq_len=640)
+    steps = {
+        "sam_preprocess (bilinear to 1024)": lambda s: processors.
+        sam_preprocess(s["image"], spec.sam_size),
+        "square_pad_preprocess (bicubic to 384)": lambda s: processors.
+        square_pad_preprocess(s["image"], spec.processor),
+    }
+    for name, fn in steps.items():
+        t0 = time.perf_counter()
+        for s in samples:
+            fn(s)
+        ms = (time.perf_counter() - t0) * 1e3 * bs / len(samples)
+        print(f"eval host {name}: {ms:.1f} ms a batch of {bs}")
+    t0 = time.perf_counter()
+    for i in range(0, len(samples), bs):
+        batch = collate.build_batch(samples[i:i + bs], spec)
+    ms = (time.perf_counter() - t0) * 1e3 * bs / len(samples)
+    print(f"eval host build_batch in all: {ms:.1f} ms a batch of {bs}")
+    batch.pop("infos")
+    print(f"eval copy, pageable: "
+          f"{chip_smoke.cuda_ms(lambda: from_jax(batch, 'cuda'), 3):.1f} ms")
+    pinned = {k: from_jax(v) for k, v in batch.items()}
+    pinned = {k: ({n: t.pin_memory() for n, t in v.items()}
+                  if isinstance(v, dict) else v.pin_memory())
+              for k, v in pinned.items()}
+
+    def copy_pinned():
+        return {k: ({n: t.to("cuda", non_blocking=True) for n, t in v.items()}
+                    if isinstance(v, dict)
+                    else v.to("cuda", non_blocking=True))
+                for k, v in pinned.items()}
+
+    print(f"eval copy, pinned: {chip_smoke.cuda_ms(copy_pinned, 3):.1f} ms")
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")
+    batch = from_jax(batch, "cuda")
+
+    def stages(c):
+        return {"forward": lambda: grounding.forward(params, c, batch)}
+    return cfg, stages
 
 
 def profile_paths(cfg, stages) -> None:
@@ -212,7 +255,7 @@ def profile_paths(cfg, stages) -> None:
             print(prof.key_averages().table(sort_by="cuda_time_total",
                                             row_limit=25,
                                             max_name_column_width=70))
-            busy, window = device_busy_ms(prof)
+            busy, window = chip_smoke.device_busy_ms(prof)
             print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
                   f"device window ({1 - busy / window:.1%} idle)")
             for stage, fn in stages(c).items():
@@ -327,7 +370,7 @@ def profile_train(g: torch.Generator) -> None:
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=30,
                                         max_name_column_width=70))
-        busy, window = device_busy_ms(prof)
+        busy, window = chip_smoke.device_busy_ms(prof)
         print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
               f"device window ({1 - busy / window:.1%} idle)")
         parts = torch.zeros(3)
@@ -352,7 +395,8 @@ def profile_train(g: torch.Generator) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=("deepseek", "llava_next", "train",
-                                           "hpt", "schedule", "bench"),
+                                           "hpt", "schedule", "bench",
+                                           "eval"),
                         default="deepseek")
     parser.add_argument("--sam-size", type=int, default=768,
                         help="SAM resolution of --path schedule")
@@ -373,7 +417,7 @@ def main() -> None:
             knobs, family=args.family or knobs.family)))
         return
     setup = {"deepseek": deepseek_setup, "llava_next": llava_next_setup,
-             "hpt": hpt_setup}[args.path]
+             "hpt": hpt_setup, "eval": eval_setup}[args.path]
     profile_paths(*setup(g))
     if args.path == "deepseek":
         profile_window_block(g)

@@ -340,19 +340,18 @@ def test_global_layers_take_the_variants_only_on_a_multiple_of_128_tokens():
 
 
 @pytest.mark.parametrize("field, name", [
-    ("window_kernel", "v3"), ("window_kernel", "v4"),
-    ("window_kernel", "v5"), ("window_kernel", "v10"),
+    ("window_kernel", "v10"), ("window_kernel", "v11"),
     ("global_kernel", "v5"), ("global_kernel", "v9"),
     ("global_kernel", "v10")])
 def test_unported_kernel_names_are_refused_by_name(field, name):
-    """Every global name of the JAX package is ported; the window names v3,
-    v4 and v5 are not, v10 has another contract, and a name the JAX package
-    does not have is refused as well."""
+    """Every global and window name of the JAX package is ported; window
+    v10 has another contract, and a name the JAX package does not have is
+    refused as well."""
     with pytest.raises(NotImplementedError, match=f"{field} '{name}'"):
         encoder.SamEncoderConfig(**{field: name})
     for ok in ("v8",) + NAMES:
         assert encoder.SamEncoderConfig(global_kernel=ok).global_kernel == ok
-    for ok in ("v1", "v2", "v6", "v7", "v8", "v9"):
+    for ok in ("v1", "v2", "v3", "v4", "v5", "v6", "v7", "v8", "v9"):
         assert encoder.SamEncoderConfig(window_kernel=ok).window_kernel == ok
 
 

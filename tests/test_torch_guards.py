@@ -1,15 +1,15 @@
 """Guards of the port's boundaries, each in a fresh interpreter:
 
-* importing every flmm_tpu_torch module (the anyres data module included)
-  and chip_smoke pulls in neither JAX nor the JAX package nor PIL,
-  transformers or torchvision (the machine with the card has no JAX and no
-  PIL, and tests/test_grad_parity.py stubs the last two in
-  ``sys.modules``);
+* importing every flmm_tpu_torch module (the anyres data module and the
+  eval loop's host modules, which read images, included) and chip_smoke
+  pulls in neither JAX nor the JAX package nor PIL, transformers or
+  torchvision (the machine with the card has no JAX and no PIL, and
+  tests/test_grad_parity.py stubs the last two in ``sys.modules``);
 * chip_smoke.py refuses to run without a card, and without the rest of the
   repository, and never prints its success line then;
 * the wrappers of the relayout pair (K11), the raw capture (K9), the
   spatial window attention (K12 v10), the global variants v1, v2, v3, v4,
-  v6, v7 and v11 and the window variants v1, v2, v6, v7 and v8 (K12) take
+  v6, v7 and v11 and the window variants v1 to v8 (K12) take
   their plain versions on CPU tensors and launch nothing, and refuse inputs
   that require grad;
 * no wrapper or entry point of the bench.py, schedule_bench.py and
@@ -62,7 +62,9 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "assert 'flmm_tpu_torch.configs.hpt' in names\n"
         "for new in ('ops.boundary', 'ops.sam_flash_experiments',\n"
         "            'kernel_bench', 'bench', 'ops._matmul',\n"
-        "            'schedule_bench', 'bench_families'):\n"
+        "            'schedule_bench', 'bench_families',\n"
+        "            'data.processors', 'data.collate',\n"
+        "            'evalsuite.metrics', 'evalsuite.runner'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
@@ -81,7 +83,9 @@ def test_port_sources_never_import_jax():
     assert len(files) > 20
     for new in ("ops/global_block.py", "configs/hpt.py", "ops/boundary.py",
                 "ops/sam_flash_experiments.py", "kernel_bench.py", "bench.py",
-                "ops/_matmul.py", "schedule_bench.py", "bench_families.py"):
+                "ops/_matmul.py", "schedule_bench.py", "bench_families.py",
+                "data/processors.py", "data/collate.py",
+                "evalsuite/metrics.py", "evalsuite/runner.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -92,6 +96,27 @@ def test_chip_smoke_fails_without_a_card():
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert "no CUDA device" in proc.stderr
+
+
+def test_chip_smoke_names_the_source_and_tpu_site_of_every_wrapper():
+    """Each counted wrapper has a line of the ``kernels`` JSON: a CUDA
+    source in the port and the ``file:line`` of the TPU kernel it
+    replaces, which holds a ``pallas_call``."""
+    code = (
+        "import chip_smoke, json\n"
+        "from flmm_tpu_torch import bench\n"
+        "assert set(chip_smoke.SOURCES) == set(bench.WRAPPERS)\n"
+        "print(json.dumps(chip_smoke.SOURCES))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    import json
+    sources = json.loads(proc.stdout)
+    assert len(sources) == 28
+    for name, (src, site) in sources.items():
+        assert (REPO / src).is_file(), name
+        path, line = site.split(":")
+        lines = (REPO / path).read_text().splitlines()
+        assert "pallas_call" in lines[int(line) - 1], (name, site)
 
 
 def test_chip_smoke_fails_alone(tmp_path):
@@ -125,7 +150,8 @@ def test_kernels_build_at_first_use_and_raise_without_nvcc(call):
 
 WINDOW_VARIANTS = ("sam_window_attention", "sam_window_attention_v2",
                    "sam_window_attention_v6", "sam_window_attention_v7",
-                   "sam_window_attention_v8")
+                   "sam_window_attention_v8", "sam_window_attention_v3",
+                   "sam_window_attention_v4", "sam_window_attention_v5")
 GLOBAL_VARIANTS = ("sam_global_attention", "sam_global_attention_v2",
                    "sam_global_attention_v3", "sam_global_attention_v4",
                    "sam_global_attention_v6", "sam_global_attention_v7",

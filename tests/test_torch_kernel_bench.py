@@ -85,21 +85,15 @@ def test_ops_are_the_jax_scripts():
         assert f'"{op}" in what' in src
 
 
-@pytest.mark.parametrize("stem, name", [
-    ("sam_window_attention", "v3"), ("sam_window_attention", "v4"),
-    ("sam_window_attention", "v5")])
-def test_an_unported_variant_raises_by_name(stem, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kb.kernel_fn(stem, name)
-
-
-def test_unported_shrinks_to_the_three_augmented_window_variants():
-    assert kb.UNPORTED == {"sam_window_attention": ("v3", "v4", "v5"),
+def test_unported_is_empty():
+    assert kb.UNPORTED == {"sam_window_attention": (),
                            "sam_global_attention": ()}
-    # every global name of the JAX package resolves; another name is no
-    # variant at all
+    # every name of the JAX package resolves; another name is no variant at
+    # all
     with pytest.raises(ValueError, match="no variant 'v5'"):
         kb.kernel_fn("sam_global_attention", "v5")
+    with pytest.raises(ValueError, match="no variant 'v11'"):
+        kb.kernel_fn("sam_window_attention", "v11")
 
 
 @pytest.mark.parametrize("name", ["v8", "v1", "v2", "v3", "v4", "v6", "v7",
@@ -117,7 +111,8 @@ def test_the_ported_global_variants_resolve_and_run(name):
     assert _run("encoder", global_kernel=name)[0]["variant"] == f"w=v6,g={name}"
 
 
-@pytest.mark.parametrize("name", ["v9", "v1", "v2", "v6", "v7", "v8"])
+@pytest.mark.parametrize("name", ["v9", "v1", "v2", "v6", "v7", "v8", "v3",
+                                  "v4", "v5"])
 def test_the_ported_window_variants_resolve_and_run(name):
     fn = kb.kernel_fn("sam_window_attention", name)
     assert fn.__name__ == ("sam_window_attention" if name == "v1"
@@ -125,22 +120,23 @@ def test_the_ported_window_variants_resolve_and_run(name):
     rows = _run("window", window_variants=("v9", name))
     assert [r["variant"] for r in rows] == ["v9", name]
     # f32 at the tiny size; v1 and v6 round their bias rows to bf16, v2 its
-    # dense bias
-    assert rows[1]["max_err_vs_v1"] < (2e-2 if name in ("v1", "v2", "v6")
-                                       else 1e-5)
+    # dense bias, v4 its scores and probabilities
+    assert rows[1]["max_err_vs_v1"] < (2e-2 if name in ("v1", "v2", "v6",
+                                                        "v4") else 1e-5)
     assert _run("encoder", window_kernel=name)[0]["variant"] == f"w={name},g=v6"
     assert _run("heads", window_kernel=name)[0]["variant"] == "unet+sam"
 
 
 def test_unported_variants_raise_before_anything_is_timed(capsys):
-    for flag in ("--window-variants", "--window-kernel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            kb.main(["--device", "cpu", "--tiny", "--what", "rtt", flag, "v4"])
-    # no global name of the JAX package is left unported: what it does not
-    # have is no variant
-    for flag in ("--global-variants", "--global-kernel"):
-        with pytest.raises(ValueError, match="no variant 'v5'"):
-            kb.main(["--device", "cpu", "--tiny", "--what", "rtt", flag, "v5"])
+    # no name of the JAX package is left unported: what it does not have is
+    # no variant
+    for flag, name in (("--window-variants", "v11"),
+                       ("--window-kernel", "v11"),
+                       ("--global-variants", "v5"),
+                       ("--global-kernel", "v5")):
+        with pytest.raises(ValueError, match=f"no variant '{name}'"):
+            kb.main(["--device", "cpu", "--tiny", "--what", "rtt", flag,
+                     name])
     assert '"op"' not in capsys.readouterr().out
     with pytest.raises(ValueError, match="window_path"):
         kb.kernel_fn("sam_window_attention", "v10")

@@ -1,6 +1,6 @@
-"""The port's window attention variants v1, v2, v6, v7 and v8 (K12) against the
-JAX package's Pallas kernels in interpret mode on the CPU, and the SAM
-encoder's ``window_kernel`` switch.
+"""The port's window attention variants v1, v2, v3, v4, v5, v6, v7 and v8 (K12)
+against the JAX package's Pallas kernels in interpret mode on the CPU, and
+the SAM encoder's ``window_kernel`` switch.
 
 Inputs come from seeded numpy generators and go to both sides.  On CPU
 tensors each wrapper takes its plain version and launches nothing; the CUDA
@@ -13,8 +13,14 @@ versions add it to the f32 scores; v1 and v6 round their bias rows to bf16
 for f32 inputs too, and v2 its dense bias, on both sides); 2e-2 in bf16 (q,
 the bias rows and the probabilities are rounded to 8 bits of mantissa on
 both sides, at the same places); 1e-3 for the window core and the encoder.
+v4 rounds every score to bf16 and takes ``exp`` in bf16 for f32 inputs too:
+5e-3 in f32 (the compiler behind interpret mode may drop an f32 -> bf16 ->
+f32 rounding pair in front of an f32 product; measured 2.1e-3), 2e-2 for
+the encoder paths (the softmax weights carry about 0.4% of rounding).
 """
 
+import copy
+import dataclasses
 import functools
 
 import numpy as np
@@ -31,7 +37,8 @@ from flmm_tpu_torch.ops import sam_flash
 from flmm_tpu_torch.ops import sam_flash_experiments as sfx
 
 F32_TOL, BF16_TOL, ENCODER_TOL = 2e-4, 2e-2, 1e-3
-NAMES = ("v1", "v2", "v6", "v7", "v8")
+V4_F32_TOL, V4_ENCODER_TOL = 5e-3, 2e-2
+NAMES = ("v1", "v2", "v6", "v7", "v8", "v3", "v4", "v5")
 BF16_BIAS = ("v1", "v2", "v6")  # bias rounded to bf16 whatever q's dtype
 
 
@@ -65,8 +72,9 @@ def test_wrapper_on_cpu_matches_pallas_interpret_f32(name, side, hd, G):
     want = jfn(*map(jnp.asarray, args), side, interpret=True)
     got = wrapper(*map(torch.from_numpy, args), side)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL,
-                               rtol=F32_TOL)
+    tol = V4_F32_TOL if name == "v4" else F32_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
+                               rtol=tol)
     assert wrapper.launches == 0
 
 
@@ -135,6 +143,35 @@ def test_at_head_dim_64_in_bf16_the_two_roundings_coincide():
                    .astype(jnp.float32)), atol=2 ** -8, rtol=2 ** -8)
 
 
+def test_the_augmented_variants_are_v7s_function_but_where_they_round():
+    """v3 is v7's function (the Pallas kernels sum the bias into the scores
+    in another order; the plain versions agree bit for bit on bf16 inputs,
+    where the pad keys' p is exactly 0); v5 rounds p before its denominator
+    sums it, which only bf16 inputs see; v4 rounds scores and p to bf16
+    whatever the inputs.  The -1e4 pad penalty of v4 / v5 is -9984 in
+    bf16, on both sides."""
+    args = _inputs(11, 4, 14, 64)
+    jout = {n: np.asarray(_pair(n)[2](*map(jnp.asarray, args), 14,
+                                      interpret=True)) for n in ("v3", "v7")}
+    assert np.abs(jout["v3"] - jout["v7"]).max() <= 2e-6
+    f32 = [torch.from_numpy(a) for a in args]
+    out = {n: _pair(n)[0](*f32, 14) for n in ("v3", "v4", "v5", "v7")}
+    assert (out["v3"] - out["v7"]).abs().max() <= 1e-6
+    assert (out["v5"] - out["v3"]).abs().max() <= 1e-6
+    # scores of up to ~10 rounded to 8 bits: a few % of a probability
+    assert 1e-4 < (out["v4"] - out["v3"]).abs().max() < 0.1
+    bf16 = [t.bfloat16() for t in f32]
+    out = {n: _pair(n)[0](*bf16, 14) for n in ("v3", "v4", "v5", "v7")}
+    assert torch.equal(out["v3"], out["v7"])
+    for n, tol in (("v5", BF16_TOL), ("v4", 0.1)):
+        assert not torch.equal(out[n], out["v3"])
+        assert torch.allclose(out[n].float(), out["v3"].float(), atol=tol,
+                              rtol=tol)
+    assert torch.tensor(sfx.AUGMENTED_PAD["v4"], dtype=torch.bfloat16
+                        ).item() == -9984.0
+    assert float(jnp.asarray(-1e4, jnp.bfloat16)) == -9984.0
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_wrapper_is_its_plain_version_on_cpu_whatever_the_chunking(
         name, monkeypatch):
@@ -196,7 +233,7 @@ def test_v1_and_v6_round_their_bias_rows_to_bf16_for_f32_inputs_too():
     exact = sam_flash.sam_window_attention_v9_plain(q, k, v, rph, rpw, 7)
     for name in NAMES:
         dev = (_pair(name)[0](q, k, v, rph, rpw, 7) - exact).abs().max()
-        if name in BF16_BIAS:  # 8 bits of bias terms of a few units
+        if name in BF16_BIAS or name == "v4":  # 8 bits of bias or scores
             assert 1e-4 < dev < 1e-1, (name, dev)
         else:
             assert dev < 1e-5, (name, dev)
@@ -243,6 +280,19 @@ def test_v2_is_v7_up_to_the_rounding_of_the_summed_bias():
 
 # --- the encoder's window_kernel switch -------------------------------------
 
+@functools.cache
+def _init_params_np(jcfg, seed):
+    return jax.device_get(jax.jit(lambda k: jencoder.init_params(jcfg, k))(
+        jax.random.key(seed)))
+
+
+def _jax_params(jcfg, seed):
+    """The JAX encoder's init params as numpy, initialised once per config
+    (the window kernel's name does not enter them); a copy to modify."""
+    return copy.deepcopy(_init_params_np(
+        dataclasses.replace(jcfg, window_kernel="v9"), seed))
+
+
 def _interpret_kernels(monkeypatch):
     for name in NAMES:
         monkeypatch.setattr(jsfx, _stem(name), functools.partial(
@@ -260,8 +310,7 @@ def _block_setup(grid, name):
                                      **kw)
     tcfg = encoder.SamEncoderConfig(dtype=torch.float32, flash_window=True,
                                     **kw)
-    bp = jax.device_get(jax.jit(lambda k: jencoder.init_params(jcfg, k))(
-        jax.random.key(1)))["blocks"][0]
+    bp = _jax_params(jcfg, 1)["blocks"][0]
     rng = np.random.default_rng(grid)
     for key in ("bqkv", "bo", "ln1_b", "ln2_b"):
         bp[key] = _r(rng, *bp[key].shape, scale=0.5)
@@ -307,8 +356,10 @@ def test_flash_window_block_on_a_padded_grid_matches_the_plain_block(name):
         encoder.WINDOW_KERNELS[name] = wrapper
     assert calls == [1] and wrapper.launches == 0
     want = encoder._block(x, tbp, tcfg, windowed=True)  # plain on the CPU
-    # v1 / v6 round their bias rows to bf16: 8 bits of a bias of ~0.5
-    tol = 1e-2 if name in BF16_BIAS else ENCODER_TOL
+    # v1 / v6 round their bias rows to bf16: 8 bits of a bias of ~0.5; v4
+    # its scores and probabilities (measured 1.4e-2 on outputs of ~3.4)
+    tol = (1e-2 if name in BF16_BIAS else V4_ENCODER_TOL if name == "v4"
+           else ENCODER_TOL)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=tol)
 
 
@@ -346,8 +397,7 @@ def test_encoder_matches_jax_encoder_through_the_named_kernel(
               window_block_fused=False, **ENC)
     jcfg = jencoder.SamEncoderConfig(dtype=jnp.float32, **kw)
     tcfg = encoder.SamEncoderConfig(dtype=torch.float32, **kw)
-    params = jax.device_get(jax.jit(lambda k: jencoder.init_params(
-        jcfg, k))(jax.random.key(0)))
+    params = _jax_params(jcfg, 0)
     rng = np.random.default_rng(10)
     for bp in params["blocks"]:
         bp["bqkv"] = _r(rng, *bp["bqkv"].shape, scale=0.5)
@@ -362,8 +412,10 @@ def test_encoder_matches_jax_encoder_through_the_named_kernel(
     # v1 / v6 round bias rows to bf16 that the two sides computed from a q
     # differing in its last f32 bits: now and then a row lands one bf16 step
     # (2**-8 of its value) apart, which no f32 tolerance covers (measured
-    # 2.5e-3 on 0.7% of the values); v7 / v8 keep f32 rows
-    tol = 1e-2 if name in BF16_BIAS else ENCODER_TOL
+    # 2.5e-3 on 0.7% of the values); v7 / v8 / v3 / v5 keep f32 rows; v4
+    # rounds its scores and probabilities to bf16 on both sides
+    tol = (1e-2 if name in BF16_BIAS else V4_ENCODER_TOL if name == "v4"
+           else ENCODER_TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
                                rtol=tol)
 
