@@ -36,7 +36,9 @@ Phases; any failure raises and the script exits non-zero:
    same shapes as the other variants, and K3 and K4 at the CLIP-L rows of
    the LLaVA-1.5 and HPT-Air towers (bs 4, 577 and 785 tokens an image);
    the augmented-operand window variants v3, v4 and v5 of K12 at the shapes
-   of the other window variants.
+   of the other window variants; K3, K4 and K8 at the widths of SAM ViT-B
+   (C = 768) and ViT-H (C = 1280), K2's kernel alone beside its wrapper and
+   K1's three launches one by one beside the whole.
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -316,8 +318,9 @@ def family_launches(global_kernel: str) -> dict:
 SOURCES = {
     "window_block": ("flmm_tpu_torch/ops/window_block.py",
                      "flmm_tpu/ops/window_block.py:293"),
-    "sam_global_attention_v8": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash.py:292"),
+    "sam_global_attention_v8": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash.py:292"),
     "fused_ln_qkv": ("flmm_tpu_torch/csrc/ln_gemm.cu",
                      "flmm_tpu/ops/fused_block.py:220"),
     "fused_proj_ln_mlp": ("flmm_tpu_torch/csrc/block_tail.cu",
@@ -325,8 +328,9 @@ SOURCES = {
     "flash_attention_with_merged_capture": (
         "flmm_tpu_torch/csrc/flash_capture.cu",
         "flmm_tpu/ops/flash_attention.py:246"),
-    "sam_window_attention_v9": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash.py:122"),
+    "sam_window_attention_v9": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash.py:122"),
     "plain_flash_attention": ("flmm_tpu_torch/csrc/plain_flash.cu",
                               "flmm_tpu/ops/sam_flash.py:185"),
     "fused_ln_mlp": ("flmm_tpu_torch/csrc/block_tail.cu",
@@ -348,8 +352,9 @@ SOURCES = {
                                 "flmm_tpu/ops/sam_flash_experiments.py:1046"),
     "sam_global_attention_v6": ("flmm_tpu_torch/csrc/relpos_attention.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:942"),
-    "sam_global_attention_v7": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash_experiments.py:981"),
+    "sam_global_attention_v7": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:981"),
     "sam_window_attention": ("flmm_tpu_torch/csrc/window_attention.cu",
                              "flmm_tpu/ops/sam_flash_experiments.py:695"),
     "sam_window_attention_v6": ("flmm_tpu_torch/csrc/window_attention.cu",
@@ -752,6 +757,7 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     window_variant_checks(check, g_sweep)
     sweep_shape_checks(check, g_sweep)
     family_shape_checks(check, g_sweep)
+    sm90_checks(check, results, torch.Generator(device="cuda").manual_seed(6))
     return results
 
 
@@ -1183,6 +1189,94 @@ def family_shape_checks(check, g: torch.Generator) -> None:
               fused_block.fused_proj_ln_mlp_plain,
               (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-5, "quick_gelu"),
               flop=2 * N * C * C + 4 * N * C * F)
+
+
+def sm90_checks(check, results: dict, g: torch.Generator) -> None:
+    """Phase 3 for what came with the wgmma + TMA cores: K3, K4 and K8 at the
+    widths of SAM ViT-B (C = 768, F = 3072) and ViT-H (C = 1280, F = 5120)
+    over a few hundred rows; K2's kernel alone beside its wrapper and K1's
+    three launches one by one beside the whole, at the bs-4 SAM-1024 shapes
+    (recorded as ``split_ms`` on their entries), with the plain rel-pos bias
+    rows computed in front of every K1 call."""
+    hd, nh = 64, 16
+    for C, N, act in ((768, 400, "gelu"), (1280, 520, "quick_gelu")):
+        F = 4 * C
+        x, a = _randn(g, (N, C)), _randn(g, (N, C))
+        lw, lb = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+        wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), .1)
+        wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+        w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+        w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+        label = f"C={C}, F={F}, N={N}, {act}"
+        check("fused_ln_qkv", label, fused_block.fused_ln_qkv,
+              fused_block.fused_ln_qkv_plain, (x, lw, lb, wqkv, bqkv, 1e-6),
+              flop=2 * N * C * 3 * C)
+        check("fused_proj_ln_mlp", label, fused_block.fused_proj_ln_mlp,
+              fused_block.fused_proj_ln_mlp_plain,
+              (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-6, act),
+              flop=2 * N * C * C + 4 * N * C * F)
+        check("fused_ln_mlp", label, fused_block.fused_ln_mlp,
+              fused_block.fused_ln_mlp_plain,
+              (x, lw, lb, w1, b1, w2, b2, 1e-6, act), flop=4 * N * C * F)
+
+    # K2: the wrapper (two table casts and the output) and the kernel alone
+    side = 64
+    S = side * side
+    q, k, v = (_randn(g, (nh * BS, S, hd)) for _ in range(3))
+    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    out = torch.empty_like(q)
+    tables = [t.contiguous() for t in (rph, rpw)]
+    strides = (S * hd, 0, hd)
+    split = {
+        "wrapper": cuda_ms(lambda: sam_flash.sam_global_attention_v8(
+            q, k, v, rph, rpw, side)),
+        "kernel alone": cuda_ms(lambda: sam_flash.relpos_attention_sm90(
+            q, strides, k, v, strides, 1, side, nh * BS, S, out, strides,
+            tables=tables, alpha=sam_flash.LOG2E / math.sqrt(hd)))}
+    results["sam_global_attention_v8"]["split_ms"] = split
+    log(f"phase 3 sam_global_attention_v8 [G={nh * BS}, S={S}]: wrapper "
+        f"{split['wrapper']:.3f} ms, kernel alone {split['kernel alone']:.3f}"
+        " ms")
+    del q, k, v, out
+
+    # K1 at NW=100: its three launches, the whole wrapper, and the plain bias
+    # rows the encoder computes in front of it
+    C, F, ws = 1024, 4096, 14
+    xw, geom = sam_encoder._windowize(_randn(g, (BS, side, side, C)), ws)
+    xw = xw.contiguous()
+    NW, T = xw.shape[:2]
+    valid = sam_encoder._window_valid_tokens(geom, ws, xw.device)
+    lw, lb = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    w_s, b_s = window_block.scaled_qkv_weights(
+        _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1), nh, hd)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+    w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+    rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+    bias = window_block.window_rel_bias_from_x(
+        xw, valid, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, ws, nh, hd)
+    xf, rows_valid = xw.reshape(NW * T, C), valid.reshape(-1)
+    qkv = torch.empty((NW * T, 3 * C), dtype=xw.dtype, device="cuda")
+    attn, out = torch.empty_like(xf), torch.empty_like(xf)
+    strides = (T * 3 * C, hd, 3 * C)
+    split = {
+        "ln_gemm": cuda_ms(lambda: fused_block.ln_gemm(
+            xf, lw, lb, 1e-6, rows_valid, w_s, b_s, qkv)),
+        "attention": cuda_ms(lambda: sam_flash.relpos_attention_sm90(
+            qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides, nh, ws,
+            NW * nh, T, attn, (T * C, hd, C), bias=bias)),
+        "block_tail": cuda_ms(lambda: fused_block.block_tail(
+            xf, attn, wo, bo, lw, lb, 1e-6, w1, b1, w2, b2, "gelu", out)),
+        "whole": cuda_ms(lambda: window_block.window_block(
+            xw, bias, valid, lw, lb, w_s, b_s, wo, bo, lw, lb, w1, b1, w2, b2,
+            ws, nh)),
+        "bias rows (plain, outside K1)": cuda_ms(
+            lambda: window_block.window_rel_bias_from_x(
+                xw, valid, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, ws, nh,
+                hd))}
+    results["window_block"]["split_ms"] = split
+    log(f"phase 3 window_block [NW={NW}]: " + ", ".join(
+        f"{part} {ms:.3f} ms" for part, ms in split.items()))
 
 
 def run_requests(forward, params, cfg, batches) -> tuple[list, float]:

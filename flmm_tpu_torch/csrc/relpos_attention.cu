@@ -1,50 +1,11 @@
 // Non-causal attention with the decomposed relative-position bias of SAM's
-// ViTDet blocks, softmax in base 2.
-//
-// Replaces flmm_tpu/ops/sam_flash.py::sam_global_attention_v8 (K2, the
-// pallas_call at :292) and serves the 16-head 14x14 window attention inside
-// flmm_tpu/ops/window_block.py::window_block (K1).
-//
-//   score(i, j) = q_i . k_j + bias[i, j / side] + bias[i, side + j % side]
-//
-// with q pre-scaled by scale * log2(e) and the bias rows already in the
-// log2 domain (both prepared outside, as the JAX package does), so
-// p = exp2(score - max).  The TPU kernels fold the bias into one augmented-K
-// product, [q | bias_h | bias_w] @ [k ; sel_h ; sel_w]^T, to keep the MXU
-// busy; here the two bias terms come from a shared-memory copy of the
-// block's bias rows and are added to the f32 scores in registers, which
-// costs no tensor-core work and no padded K lanes.  Keys at or beyond S are
-// masked, so any grid side works; pad *tokens* inside S are not masked (K1
-// gives them k = b_k, v = b_v, as the reference does).
-//
-// What bounds it on an H100: at the global-layer shape (G = 64 image-heads,
-// S = 4096, hd = 64) the two products are 275 GFLOP per layer and every
-// score needs one exp2, so the work is tensor-core and SFU time; the
-// (G, S, S) scores must never reach device memory.  The design is
-// FlashAttention-2 style: a block owns 64 query rows of one (image, head),
-// 4 warps of 16 rows; each warp keeps its Q fragments, its 16 x 64 scores,
-// its probabilities and its 16 x 64 f32 output accumulator in registers
-// (raw mma.sync.m16n8k16 bf16, whose fragment layout is known, so the
-// softmax runs on the accumulators directly) while 64-key tiles of K and
-// V^T stream through shared memory.  Not yet: load/compute overlap across
-// tiles, wgmma.
-//
-// It also serves the split window path's attention, K6
-// (flmm_tpu/ops/sam_flash.py::sam_window_attention_v9, the pallas_call at
-// :122): 16 heads of 14x14 windows, T = 196, over the windowised qkv of a
-// SAM-448 window layer (G = 512 window-heads at bs 8).  64-row query blocks
-// cover T in 4 blocks, the last one 4 rows deep; keys past T are masked.
-// A layer is only 5 GFLOP there, and padding T to 256 in the query blocks
-// and key tiles wastes 41% of the products, so per-block staging and the
-// idle tail bound it rather than the tensor cores.
-//
-// It also serves seven of the superseded global variants of
+// ViTDet blocks: the softmax modes of the superseded global variants of
 // flmm_tpu/ops/sam_flash_experiments.py (K12), which differ from K2 as
 // functions only in what happens to the f32 scores, chosen by the SOFTMAX
 // template flag:
-//   SOFTMAX_LOG2         K1, K2, K6, K10 and global v7 (::sam_global_attention_v7,
-//                        the pallas_call at :981): log2-domain operands,
-//                        p = exp2(s - max);
+//
+//   score(i, j) = q_i . k_j + bias[i, j / side] + bias[i, side + j % side]
+//
 //   SOFTMAX_NATURAL      global v3 (:1046), v6 (:942) and v2 (:781), one
 //                        function of bf16 inputs: q scaled by `scale` alone
 //                        and the bias rows in natural base, both rounded to
@@ -65,25 +26,35 @@
 //                        max is rounded at other values before the f32
 //                        rescale brings it to the final max: a difference
 //                        inside the variant's own 0.4% softmax rounding;
-//   SOFTMAX_LOG2_NO_MAX  global v11 (:1309): log2-domain operands and
+//   SOFTMAX_LOG2_NO_MAX  global v11 (:1309): log2-domain operands (q scaled
+//                        by scale * log2 e, the rows in the log2 domain) and
 //                        p = exp2(s) of the raw scores.  No running max is
 //                        kept and nothing is rescaled: the accumulators are
 //                        plain sums and a masked key adds exp2(-1e30) = 0.
 //                        A score of 128 or more overflows to a non-finite
 //                        row, as on the TPU: the caller's precondition.
-// The TPU variants hold a (block_q, S) f32 score strip in VMEM and chunk the
-// query tile to overlap MXU and VPU work; no SM holds such a strip, so they
-// stream key tiles exactly as K2 does.  They are template flags here and
-// not a source of their own because everything but the dozen lines between
-// the two products is K2's; the SOFTMAX_LOG2 instantiation compiles to the
-// code it was before the flag (ptxas.log shows its registers and spills).
+//
+// The base-2 softmax with the running max of K1, K2, K6, K10 and global v7
+// (SOFTMAX_LOG2) lives in csrc/relpos_attention_sm90.cu, on wgmma and TMA;
+// this kernel is the first port of K2, kept for the variants whose rows it
+// times.  What bounds it on an H100: at the global-layer shape (G = 64
+// image-heads, S = 4096, hd = 64) the two products are 275 GFLOP per layer
+// and every score needs one exp, so the work is tensor-core and SFU time;
+// the (G, S, S) scores never reach device memory.  The design is
+// FlashAttention-2 style: a block owns 64 query rows of one (image, head),
+// 4 warps of 16 rows; each warp keeps its Q fragments, its 16 x 64 scores,
+// its probabilities and its 16 x 64 f32 output accumulator in registers
+// (raw mma.sync.m16n8k16 bf16) while 64-key tiles of K and V^T are staged
+// synchronously through shared memory.  The TPU variants hold a (block_q,
+// S) f32 score strip in VMEM and chunk the query tile to overlap MXU and VPU
+// work; no SM holds such a strip, so they stream key tiles.  Keys at or
+// beyond S are masked, so any grid side works.
 //
 // Layout: element (g, t, d) of k and v is at
 //   (g / nh) * s_b + (g % nh) * s_h + t * s_t + d,
-// and of q at the same with its own strides (q_b, q_h, q_t), so K2 passes
-// contiguous (G, S, 64) tensors (nh = 1), K1 reads q, k, v straight out of
-// its (NW, T, 3C) qkv tensor with heads at column offsets, and K6 reads k
-// and v out of the windowised qkv beside a separately scaled q.  The output
+// and of q at the same with its own strides (q_b, q_h, q_t): the variants
+// pass contiguous (G, S, 64) tensors (nh = 1) or (NW, nh, S, 64) views with
+// heads at column offsets beside a separately scaled q.  The output
 // uses the same addressing with its own strides.  All strides and base
 // offsets are multiples of 8 elements (16-byte loads).
 #include <cstdint>
@@ -241,11 +212,10 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
           mx1 = fmaxf(mx1, s[nt][2 + e]);
         }
       // natural-base scores: exp(x) = exp2(x * log2 e), in f32
-      constexpr float TO_LOG2 = SOFTMAX == SOFTMAX_LOG2 ? 1.f : LOG2E;
       const float mn0 = fmaxf(m0, quad_max(mx0));
       const float mn1 = fmaxf(m1, quad_max(mx1));
-      const float alpha0 = exp2f((m0 - mn0) * TO_LOG2);
-      const float alpha1 = exp2f((m1 - mn1) * TO_LOG2);
+      const float alpha0 = exp2f((m0 - mn0) * LOG2E);
+      const float alpha1 = exp2f((m1 - mn1) * LOG2E);
       m0 = mn0;
       m1 = mn1;
       float ps0 = 0.f, ps1 = 0.f;
@@ -261,8 +231,8 @@ relpos_attention_kernel(const bf16* __restrict__ q, long long q_b,
             s[nt][e] = round_bf16(expf(round_bf16(s[nt][e] - mn0)));
             s[nt][2 + e] = round_bf16(expf(round_bf16(s[nt][2 + e] - mn1)));
           } else {
-            s[nt][e] = exp2f((s[nt][e] - mn0) * TO_LOG2);
-            s[nt][2 + e] = exp2f((s[nt][2 + e] - mn1) * TO_LOG2);
+            s[nt][e] = exp2f((s[nt][e] - mn0) * LOG2E);
+            s[nt][2 + e] = exp2f((s[nt][2 + e] - mn1) * LOG2E);
           }
           ps0 += s[nt][e];
           ps1 += s[nt][2 + e];
@@ -341,7 +311,7 @@ extern "C" int flmm_relpos_attention(const void* q, long long q_b,
                                      long long o_h, long long o_t,
                                      void* stream) {
   if (head_dim != HD || G <= 0 || S <= 0 || nh <= 0 || side <= 0 ||
-      softmax < SOFTMAX_LOG2 || softmax > SOFTMAX_NATURAL_BF16 ||
+      softmax <= SOFTMAX_LOG2 || softmax > SOFTMAX_NATURAL_BF16 ||
       side * side != S || G > 65535 || q_b % 8 || q_h % 8 || q_t % 8 ||
       s_b % 8 || s_h % 8 || s_t % 8 ||
       o_b % 2 || o_h % 2 || o_t % 2)
@@ -355,8 +325,7 @@ extern "C" int flmm_relpos_attention(const void* q, long long q_b,
     case SOFTMAX_LOG2_NO_MAX: return FLMM_LAUNCH(SOFTMAX_LOG2_NO_MAX);
     case SOFTMAX_NATURAL_SCALE_AFTER:
       return FLMM_LAUNCH(SOFTMAX_NATURAL_SCALE_AFTER);
-    case SOFTMAX_NATURAL_BF16: return FLMM_LAUNCH(SOFTMAX_NATURAL_BF16);
-    default: return FLMM_LAUNCH(SOFTMAX_LOG2);
+    default: return FLMM_LAUNCH(SOFTMAX_NATURAL_BF16);
   }
 #undef FLMM_LAUNCH
 }

@@ -1,0 +1,457 @@
+// Non-causal attention with the decomposed relative-position bias of SAM's
+// ViTDet blocks, softmax in base 2, on Hopper's wgmma + TMA machinery.
+//
+//   score(i, j) = alpha (q_i . k_j) + bias_h[i, j / side] + bias_w[i, j % side]
+//   p = exp2(score - max),  out_i = sum_j p v_j / sum_j p
+//
+// Replaces flmm_tpu/ops/sam_flash.py::sam_global_attention_v8 (K2, the
+// pallas_call at :292) and serves every caller of that function: the 16-head
+// 14x14 window attention inside flmm_tpu/ops/window_block.py::window_block
+// (K1), ::sam_window_attention_v9 (K6, the pallas_call at :122), the
+// attention of flmm_tpu/ops/global_block.py::global_attn_block (K10) and
+// flmm_tpu/ops/sam_flash_experiments.py::sam_global_attention_v7 (the
+// pallas_call at :981).  The other softmax modes of the superseded global
+// variants stay in csrc/relpos_attention.cu.
+//
+// What bounds it on an H100: at K2's shape (G = 64 image-heads, S = 4096,
+// hd = 64) the two products are 275 GFLOP (0.278 ms at the bf16 peak) and
+// each of the 1.07 G scores needs one exp2 on the SFUs (16 a clock an SM,
+// ~0.3 ms), so tensor cores and SFUs bound it together; the (G, S, S)
+// scores never reach device memory.  The design:
+//
+// - a block owns 64 query rows of one (image, head) per consumer warpgroup
+//   (3 at side 64, 192 rows, one block an SM; 2 elsewhere, 128 rows, two
+//   blocks an SM) and one producer warp.  The producer keeps TMA loads of
+//   64-key K and V tiles (128-byte swizzle) in flight through a ring of
+//   STAGES shared-memory stages with full / empty mbarriers;
+// - S = Q K^T is wgmma m64n64k16 with Q and K straight from the swizzled
+//   tiles; the online softmax runs in base 2 on the f32 accumulators; the
+//   probabilities, rounded to bf16, are the A operand of O += P V straight
+//   from registers, and V is read through wgmma's transposed-B (MN-major)
+//   descriptor -- no transpose of V anywhere.  The warpgroups interleave:
+//   one's softmax runs beside another's products.  (Issuing S(t + 1)
+//   before P(t) V(t) inside a warpgroup was slower in a trial build: more
+//   registers and waits for no overlap the other warpgroups did not give.)
+// - the bias rows reach shared memory (f32, 2 side a row, padded to an odd
+//   stride against bank conflicts) in one of two ways.  From tables (K2, K6, global v7): the block's two (2 side - 1, 64)
+//   rel-pos tables come in by TMA beside Q, each warpgroup forms Q T^T with
+//   one more wgmma (2 x 64 x 128 x 64 at side 64, ~6% of the key loop's
+//   products) and scatters column m of row i to key row or column
+//   y_i - m + side - 1 (x_i for the width table), times log2(e); q is read
+//   unscaled and alpha = scale * log2(e) goes onto the f32 scores, so the
+//   wrapper runs no pass over q.  From rows (K1, K10): the (G, S, 2 side)
+//   log2-domain rows the JAX layout carries, with q pre-scaled (alpha = 1);
+// - where a key tile is one grid row (side 64), each thread keeps the width
+//   bias of its 16 key columns in registers and reads one height bias a row
+//   and tile; elsewhere (side 14, 28, ...; at least 8) it reads both per
+//   score, walking the keys' grid rows and columns without a division.
+//
+// Layouts: element (g, t, d) of q is at (g / nh) q_b + (g % nh) q_h + t q_t
+// + d, of k and v likewise with (s_b, s_h, s_t), of out with (o_b, o_h,
+// o_t).  Each of q, k and v is read through a 2D tensor map over its rows
+// (pitch q_t or s_t, 64-row boxes at column (g % nh) q_h and row (g / nh)
+// q_b / q_t + t), so contiguous (G, S, 64) heads (K2) and (NW, nh, T, 64)
+// views of a (NW T, 3C) qkv tensor (K1, K6, K10) are read in place.  A key
+// tile that runs past S reads the next window's rows (or TMA's zeros past
+// the tensor): those keys are masked by index, never by value.  Query rows
+// past S are computed and not stored.  Pad tokens inside S are not masked
+// (K1 gives them k = b_k, v = b_v, as the reference does).
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int HD = 64, BKV = 64, STAGES = 3;
+constexpr int TILE_BYTES = 64 * HD * 2;        // one 64-row box
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;    // K and V
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Byte offsets into the 1024-aligned dynamic shared memory.
+struct Layout {
+  int stages, tables, bias, bars, total;
+};
+
+// cons consumer warpgroups of 64 query rows each
+__host__ __device__ inline Layout layout(int side, int nt, int cons) {
+  Layout l;
+  l.stages = cons * TILE_BYTES;
+  l.tables = l.stages + STAGES * STAGE_BYTES;
+  l.bias = l.tables + 2 * nt * 128;
+  l.bars = l.bias + 64 * cons * (2 * side + 1) * 4;
+  l.total = l.bars + (2 * STAGES + 1) * 8;
+  return l;
+}
+
+// The table product of one warpgroup, 64 rows x NT table rows.
+template <int NT>
+__device__ __forceinline__ void table_product(float* acc, const void* q,
+                                              const unsigned char* table) {
+  sm90::fence_regs<NT / 2>(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = sm90::desc_kmajor(static_cast<const unsigned char*>(q) + kk * 32);
+    const uint64_t db = sm90::desc_kmajor(table + kk * 32);
+    if constexpr (NT == 32) sm90::wgmma_ss_n32<0>(acc, da, db, kk > 0);
+    else if constexpr (NT == 64) sm90::wgmma_ss_n64<0>(acc, da, db, kk > 0);
+    else sm90::wgmma_ss_n128<0>(acc, da, db, kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs<NT / 2>(acc);
+}
+
+// TABLES: bias rows from the two rel-pos tables (NT rows each), else from
+// `bias`; ROW_TILE: side == BKV, a key tile is one grid row.
+template <bool TABLES, bool ROW_TILE, int NT, int CONS>
+__global__ void __launch_bounds__(CONS * 128 + 32,
+                                  ROW_TILE || NT == 128 ? 1 : 2)
+relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_th,
+                   const __grid_constant__ CUtensorMap map_tw, int nh,
+                   int q_row_step, int q_col_step, int kv_row_step,
+                   int kv_col_step, const bf16* __restrict__ bias, int side,
+                   int S, float alpha, bf16* __restrict__ out, long long o_b,
+                   long long o_h, long long o_t) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const Layout L = layout(side, TABLES ? NT : 0, CONS);
+  float* Bsm = reinterpret_cast<float*>(smem + L.bias);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int g = blockIdx.y, q0 = blockIdx.x * 64 * CONS;
+  const int img = g / nh, head = g % nh;
+  const int KT = (S + BKV - 1) / BKV;
+  const int two_side = 2 * side, bld = two_side + 1;  // odd: no bank
+                                                       // conflicts
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONS * 4);  // one arrival a warp
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONS) {
+    // producer warp: one thread loads Q (and the tables), then keeps the
+    // K / V ring full
+    if (tid == CONS * 128) {
+      const int qr = img * q_row_step + q0, qc = head * q_col_step;
+      sm90::mbar_expect_tx(qbar,
+                           CONS * TILE_BYTES + (TABLES ? 2 * NT * 128 : 0));
+      for (int c = 0; c < CONS; ++c)
+        sm90::tma_load_2d(smem + c * TILE_BYTES, &map_q, qbar, qc,
+                          qr + 64 * c);
+      if constexpr (TABLES) {
+        sm90::tma_load_2d(smem + L.tables, &map_th, qbar, 0, 0);
+        sm90::tma_load_2d(smem + L.tables + NT * 128, &map_tw, qbar, 0, 0);
+      }
+      const int kr = img * kv_row_step, kc = head * kv_col_step;
+      for (int t = 0; t < KT; ++t) {
+        const int s = t % STAGES;
+        sm90::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + L.stages + s * STAGE_BYTES;
+        sm90::mbar_expect_tx(&full[s], STAGE_BYTES);
+        sm90::tma_load_2d(st, &map_k, &full[s], kc, kr + t * BKV);
+        sm90::tma_load_2d(st + TILE_BYTES, &map_v, &full[s], kc,
+                          kr + t * BKV);
+      }
+    }
+    return;
+  }
+
+  // This thread's two rows (accumulator rows lane / 4 and lane / 4 + 8 of
+  // its warp's 16) and its column pair (lane % 4) * 2 of every 8.
+  const int warp = (tid % 128) / 32, lane = tid % 32, c2 = (lane % 4) * 2;
+  const int row0 = wg * 64 + warp * 16 + lane / 4, row1 = row0 + 8;
+  const int t0 = q0 + row0, t1 = q0 + row1;
+  float* B0 = Bsm + row0 * bld;
+  float* B1 = Bsm + row1 * bld;
+  const unsigned char* Qw = smem + wg * TILE_BYTES;
+
+  if constexpr (!TABLES) {
+    // this warpgroup's 64 bias rows, zeros past S
+    for (int idx = tid % 128; idx < 64 * two_side; idx += 128) {
+      const int r = wg * 64 + idx / two_side, t = q0 + r;
+      Bsm[r * bld + idx % two_side] =
+          t < S ? __bfloat162float(
+                      bias[((long long)g * S + t) * two_side + idx % two_side])
+                : 0.f;
+    }
+    sm90::mbar_wait(qbar, 0);
+  } else {
+    sm90::mbar_wait(qbar, 0);
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int tab = 0; tab < 2; ++tab) {
+      table_product<NT>(acc, Qw, smem + L.tables + tab * NT * 128);
+      // column m of row t: key row (tab 0) or column (tab 1)
+      // y - m + side - 1, y the query's grid row or column
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = h ? t1 : t0;
+        float* dst = (h ? B1 : B0) + tab * side;
+        if (t >= S) {
+          for (int kk = 0; kk < side; ++kk) dst[kk] = 0.f;
+          continue;
+        }
+        const int y = (tab == 0 ? t / side : t % side) + side - 1;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kk = y - (8 * j + c2 + e);
+            if (kk >= 0 && kk < side) dst[kk] = acc[4 * j + 2 * h + e] * LOG2E;
+          }
+      }
+    }
+  }
+  sm90::named_sync(1 + wg, 128);
+
+  // side 64: the width bias of this thread's 16 key columns, every tile
+  float bw0[ROW_TILE ? BKV / 4 : 1], bw1[ROW_TILE ? BKV / 4 : 1];
+  if constexpr (ROW_TILE) {
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bw0[2 * j + e] = B0[BKV + 8 * j + c2 + e];
+        bw1[2 * j + e] = B1[BKV + 8 * j + c2 + e];
+      }
+  }
+
+  // elsewhere: the grid row and column of this thread's first key column
+  // (kv0 + c2), carried from tile to tile without a division (side >= 8)
+  const int step_h = BKV / side, step_w = BKV % side;
+  int kh_t = 0, kw_t = c2;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+  // S(t) = Q K(t)^T, 64 x 64 keys: issued, not waited for
+  auto issue_qk = [&](int t, float* sc) {
+    const unsigned char* Ks = smem + L.stages + (t % STAGES) * STAGE_BYTES;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sm90::wgmma_ss_n64<0>(sc, sm90::desc_kmajor(Qw + kk * 32),
+                            sm90::desc_kmajor(Ks + kk * 32), kk > 0);
+    sm90::wgmma_commit();
+  };
+
+  // alpha * s + bias, keys past S masked, then the online softmax in base
+  // 2 in place: sc becomes p; r0 / r1 rescale what came before
+  auto softmax = [&](int t, float* sc, float& r0, float& r1) {
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+    if constexpr (ROW_TILE) {
+      const float bh0 = B0[t], bh1 = B1[t];
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& a = sc[4 * j + e];
+          float& b = sc[4 * j + 2 + e];
+          a = fmaf(a, alpha, bh0 + bw0[2 * j + e]);
+          b = fmaf(b, alpha, bh1 + bw1[2 * j + e]);
+          mx0 = fmaxf(mx0, a);
+          mx1 = fmaxf(mx1, b);
+        }
+    } else {
+      int kh = kh_t, kw = kw_t;  // key column 8 j + c2 of the tile
+      const int key0 = t * BKV + c2;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        const bool wrap = kw + 1 == side;  // key column 8 j + c2 + 1
+        const int kh1 = wrap ? kh + 1 : kh, kw1 = wrap ? 0 : kw + 1;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& a = sc[4 * j + e];
+          float& b = sc[4 * j + 2 + e];
+          const int h = e ? kh1 : kh, w = side + (e ? kw1 : kw);
+          if (key0 + 8 * j + e < S) {
+            a = fmaf(a, alpha, B0[h] + B0[w]);
+            b = fmaf(b, alpha, B1[h] + B1[w]);
+          } else {
+            a = -CUDART_INF_F;
+            b = -CUDART_INF_F;
+          }
+          mx0 = fmaxf(mx0, a);
+          mx1 = fmaxf(mx1, b);
+        }
+        kw += 8;
+        if (kw >= side) {
+          kw -= side;
+          ++kh;
+        }
+      }
+      kw_t += step_w;
+      kh_t += step_h;
+      if (kw_t >= side) {
+        kw_t -= side;
+        ++kh_t;
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    r0 = sm90::ex2(m0 - mn0);
+    r1 = sm90::ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = sm90::ex2(sc[4 * j + e] - mn0);
+        sc[4 * j + 2 + e] = sm90::ex2(sc[4 * j + 2 + e] - mn1);
+        ps0 += sc[4 * j + e];
+        ps1 += sc[4 * j + 2 + e];
+      }
+    l0 = l0 * r0 + ps0;  // this thread's columns; summed over the quad at
+    l1 = l1 * r1 + ps1;  // the end
+  };
+
+  // p, rounded to bf16: the score accumulators of 16 keys are one A
+  // fragment of P V
+  uint32_t pa[BKV / 16][4];
+  auto pack_p = [&](const float* sc) {
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      pa[kk][0] = pack2(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack2(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack2(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack2(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+
+  // per key tile: S = Q K^T, the softmax, O += P V; the two warpgroups
+  // interleave, one's softmax beside the other's products
+  float sc[BKV / 2], r0, r1;
+  for (int t = 0; t < KT; ++t) {
+    sm90::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    issue_qk(t, sc);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs<BKV / 2>(sc);
+    softmax(t, sc, r0, r1);
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      o[4 * dt] *= r0;
+      o[4 * dt + 1] *= r0;
+      o[4 * dt + 2] *= r1;
+      o[4 * dt + 3] *= r1;
+    }
+    pack_p(sc);
+    const unsigned char* Vs =
+        smem + L.stages + (t % STAGES) * STAGE_BYTES + TILE_BYTES;
+    sm90::fence_regs<HD / 2>(o);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      sm90::wgmma_rs_n64<1>(o, pa[kk],
+                            sm90::desc_mnmajor(Vs + kk * 2048, TILE_BYTES), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs<HD / 2>(o);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[t % STAGES]);
+  }
+
+  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  bf16* ob = out + (long long)img * o_b + (long long)head * o_h;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    const int d = dt * 8 + c2;
+    if (t0 < S)
+      *reinterpret_cast<uint32_t*>(ob + t0 * o_t + d) =
+          pack2(o[4 * dt] * inv0, o[4 * dt + 1] * inv0);
+    if (t1 < S)
+      *reinterpret_cast<uint32_t*>(ob + t1 * o_t + d) =
+          pack2(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+  }
+}
+
+// The tensor map of a (G, S, 64) operand with strides (b, h, t): its rows
+// of pitch t, every image's S rows b / t rows after the last one's, its
+// heads h columns apart.
+int head_map(CUtensorMap* map, const void* p, long long b, long long h,
+             long long t, int nh, int G, int S) {
+  const long long cols = (nh - 1) * h + HD;
+  if (t % 8 || h % 8 || b % t || cols > t || b / t > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
+  return make_tile_map(map, p, cols, (long long)(G / nh - 1) * (b / t) + S, t,
+                       64);
+}
+
+// Side 64 (a key tile is one grid row): 3 consumer warpgroups, 192 query
+// rows a block, one block an SM (200 KB of shared memory); elsewhere 2 of
+// them and two blocks an SM, whose prologues and short key loops (4 tiles
+// at T = 196) overlap.
+template <bool TABLES, bool ROW_TILE, int NT>
+int launch(const CUtensorMap* maps, int nh, long long q_b, long long q_h,
+           long long q_t, long long s_b, long long s_h, long long s_t,
+           const bf16* bias, int side, int G, int S, float alpha, bf16* out,
+           long long o_b, long long o_h, long long o_t, cudaStream_t stream) {
+  constexpr int CONS = ROW_TILE ? 3 : 2;
+  auto kernel = relpos_sm90_kernel<TABLES, ROW_TILE, NT, CONS>;
+  const size_t smem = layout(side, TABLES ? NT : 0, CONS).total + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + 64 * CONS - 1) / (64 * CONS), G);
+  kernel<<<grid, CONS * 128 + 32, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], nh, (int)(q_b / q_t),
+      (int)q_h, (int)(s_b / s_t), (int)s_h, bias, side, S, alpha, out, o_b,
+      o_h, o_t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bias (G, S, 2 side) log2-domain rows, or else table_h and table_w, the
+// (2 side - 1, 64) rel-pos tables (side <= 64) in natural base.
+extern "C" int flmm_relpos_attention_sm90(
+    const void* q, long long q_b, long long q_h, long long q_t, const void* k,
+    const void* v, long long s_b, long long s_h, long long s_t, int nh,
+    const void* bias, const void* table_h, const void* table_w, int side,
+    int G, int S, float alpha, void* out, long long o_b, long long o_h,
+    long long o_t, void* stream) {
+  const bool tables = table_h != nullptr;
+  if (G <= 0 || G > 65535 || nh <= 0 || G % nh || side < 8 ||
+      side * side != S || (tables ? table_w == nullptr || 2 * side - 1 > 128
+                                  : bias == nullptr) ||
+      o_b % 2 || o_h % 2 || o_t % 2)
+    return (int)cudaErrorInvalidValue;
+  if (nh == 1) q_h = s_h = 0;
+  CUtensorMap maps[5] = {};
+  int e = head_map(&maps[0], q, q_b, q_h, q_t, nh, G, S);
+  if (!e) e = head_map(&maps[1], k, s_b, s_h, s_t, nh, G, S);
+  if (!e) e = head_map(&maps[2], v, s_b, s_h, s_t, nh, G, S);
+  const int n = 2 * side - 1, nt = n <= 32 ? 32 : n <= 64 ? 64 : 128;
+  if (!e && tables) e = make_tile_map(&maps[3], table_h, HD, n, HD, nt);
+  if (!e && tables) e = make_tile_map(&maps[4], table_w, HD, n, HD, nt);
+  if (e) return e;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FLMM_LAUNCH(TABLES, ROW_TILE, NT)                                    \
+  launch<TABLES, ROW_TILE, NT>(maps, nh, q_b, q_h, q_t, s_b, s_h, s_t,       \
+                               (const bf16*)bias, side, G, S, alpha,         \
+                               (bf16*)out, o_b, o_h, o_t, st)
+  if (!tables) return side == BKV ? FLMM_LAUNCH(false, true, 0)
+                                  : FLMM_LAUNCH(false, false, 0);
+  if (side == BKV) return FLMM_LAUNCH(true, true, 128);
+  if (nt == 32) return FLMM_LAUNCH(true, false, 32);
+  if (nt == 64) return FLMM_LAUNCH(true, false, 64);
+  return FLMM_LAUNCH(true, false, 128);
+#undef FLMM_LAUNCH
+}

@@ -311,7 +311,9 @@ def _ln_mlp_residual(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
 def flash_gate(cfg: SamEncoderConfig, H: int, W: int, windowed: bool) -> bool:
     """The config's side of the split kernel path's gate (the other side is
     ``x.is_cuda``): a global layer takes its attention kernel on a square
-    grid of a multiple of 128 tokens; ``v8`` masks its keys and takes any."""
+    grid of a multiple of 128 tokens; ``v8`` masks its keys and takes any
+    (its kernel: sides 8 to ``sam_flash.MAX_TABLE_SIDE``, which covers every
+    configured SAM size)."""
     if windowed:
         return cfg.flash_window
     return (cfg.flash_global and H == W

@@ -4,7 +4,11 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per source, all started together, then linked into one shared
 library with a plain C interface, cached under ``build/`` at the root of the
 checkout by a digest of the sources and flags, and loaded with ``ctypes``.
-Nothing here runs at import time; a refused or failed build raises.
+The wgmma + TMA kernels encode their tensor maps with the driver's
+``cuTensorMapEncodeTiled``, which csrc/sm90.cuh fetches at run time through
+``cudaGetDriverEntryPoint``: the library links the CUDA runtime only, no
+``-lcuda``.  Nothing here runs at import time; a refused or failed build
+raises.
 """
 
 from __future__ import annotations
@@ -28,18 +32,24 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # A, M, K, ln_w, ln_b, eps, row_valid, B, N, bias, out, stats, stream
+    # A, M, K, ln_w, ln_b, eps, row_valid, B, N, bias, out, ln_out, stream
     "flmm_ln_gemm": (_P, _I, _I, _P, _P, _F, _P, _P, _I, _P, _P, _P, _P),
     # shortcut, attn, N, C, F, wo, bo, ln_w, ln_b, eps, w1, b1, w2, b2, act,
-    # out, stream
+    # out, x_f32, ln, h, stream
     "flmm_block_tail": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P,
-                        _P, _I, _P, _P),
+                        _P, _I, _P, _P, _P, _P, _P),
     # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, G, S, head_dim,
     # softmax, scale, out, o_b, o_h, o_t, stream
     "flmm_relpos_attention": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P, _I,
                               _I, _I, _I, _I, _F, _P, _L, _L, _L, _P),
-    # x, N, C, F, ln_w, ln_b, eps, w1, b1, w2, b2, act, out, stream
-    "flmm_ln_mlp": (_P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _I, _P, _P),
+    # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, table_h, table_w,
+    # side, G, S, alpha, out, o_b, o_h, o_t, stream
+    "flmm_relpos_attention_sm90": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P,
+                                   _P, _P, _I, _I, _I, _F, _P, _L, _L, _L,
+                                   _P),
+    # x, N, C, F, ln_w, ln_b, eps, w1, b1, w2, b2, act, out, ln, h, stream
+    "flmm_ln_mlp": (_P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _I, _P, _P,
+                    _P, _P),
     # A, M, K, B, N, bias, resid, out (f32), stream
     "flmm_gemm_residual_f32": (_P, _I, _I, _P, _I, _P, _P, _P, _P),
     # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, nh, G, S,

@@ -6,22 +6,24 @@ The TPU kernel holds one image's LN output (8 MB) in VMEM and walks the
 heads on a sequential grid, adding each head's ``attn_h @ Wo[h]`` into an f32
 output block it revisits.  No SM holds 8 MB, and blocks on Hopper run in no
 order, so heads adding into one output would race.  The port runs three
-hand-written phases over all images instead:
+hand-written phases over all images instead, the products on the wgmma +
+TMA GEMM core of csrc/gemm_sm90.cuh:
 
-1. csrc/ln_gemm.cu -- LN1 fused into the qkv product with the scaled
-   weights (q carries ``scale * log2(e)``);
-2. csrc/relpos_attention.cu -- per (image, head) attention read straight
-   out of the ``(B*S, 3C)`` qkv rows, the log2-domain bias rows added to the
-   f32 scores in registers, base-2 softmax; each head's output is rounded to
-   the working dtype, as in the TPU kernel;
+1. csrc/ln_gemm.cu -- the LN1 row pass, then the qkv product with the
+   scaled weights (q carries ``scale * log2(e)``);
+2. csrc/relpos_attention_sm90.cu -- per (image, head) attention read
+   straight out of the ``(B*S, 3C)`` qkv rows through tensor maps, the
+   log2-domain bias rows added to the f32 scores, base-2 softmax; each
+   head's output is rounded to the working dtype, as in the TPU kernel;
 3. csrc/ln_gemm.cu, f32 epilogue -- ``x + attn @ wo + bo``: one block owns
    an output tile and sums over all heads' columns in a fixed order in f32,
    so there are no atomics and two runs give the same bits; the result is
    written unrounded and the caller casts once.
 
-The qkv rows and the per-head attention output make one round trip through
-device memory (100 MB + 34 MB per bs-4 layer).  The wrapper counts one
-launch of K10 per call and raises no other wrapper's count.
+The normed rows, the qkv rows and the per-head attention output make one
+round trip through device memory (34 + 100 + 34 MB per bs-4 layer).  The
+wrapper counts one launch of K10 per call and raises no other wrapper's
+count.
 """
 
 from __future__ import annotations
@@ -108,9 +110,9 @@ def global_attn_block(x, bias, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,
     ln_gemm(xf, ln1_w, ln1_b, eps, None, wqkv_s, bqkv_s, qkv)
     attn = torch.empty((B * S, C), dtype=x.dtype, device=x.device)
     strides = (S * 3 * C, hd, 3 * C)
-    sam_flash.relpos_attention(qkv, strides, qkv[:, C:], qkv[:, 2 * C:],
-                               strides, nh, bias, side, B * nh, S, attn,
-                               (S * C, hd, C))
+    sam_flash.relpos_attention_sm90(qkv, strides, qkv[:, C:], qkv[:, 2 * C:],
+                                    strides, nh, side, B * nh, S, attn,
+                                    (S * C, hd, C), bias=bias)
     out = torch.empty((B * S, C), dtype=torch.float32, device=x.device)
     gemm_residual_f32(attn, wo, bo, xf, out)
     global_attn_block.launches += 1

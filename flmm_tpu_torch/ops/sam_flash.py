@@ -4,13 +4,17 @@ grid and K6 (::sam_window_attention_v9) over the 14x14 windows of the split
 window path; and K7 (::plain_flash_attention), the bias-free attention of
 the vision towers (csrc/plain_flash.cu).
 
-Each wrapper prepares the thin operands outside the kernel as the JAX
-package does (``_global_augmented_operands`` and the v9 wrapper at
-:88-103): q scaled by ``scale * log2(e)`` and the bias rows
-``(G, S, 2*side)`` in the log2 domain from the unscaled q, both rounded to
-the working dtype.  The TPU kernels fold the bias into an augmented-K
-product; the Hopper kernel (csrc/relpos_attention.cu) adds it to the f32
-scores in registers and never writes the ``(G, S, S)`` scores.
+The JAX wrappers prepare thin operands outside their kernels
+(``_global_augmented_operands`` and the v9 wrapper at :88-103): q scaled by
+``scale * log2(e)`` and the bias rows ``(G, S, 2*side)`` in the log2
+domain, folded into an augmented-K product.  K2 and K6 here launch
+csrc/relpos_attention_sm90.cu, which reads the unscaled q, k and v in place
+and the two rel-pos tables, forms the bias rows itself with one more
+tensor-core product (:func:`table_bias_rows` is its plain twin), puts
+``scale * log2(e)`` on the f32 scores and never writes the ``(G, S, S)``
+scores: the wrapper runs no pass over q.  The natural-base variants of
+flmm_tpu_torch.ops.sam_flash_experiments keep the prepared operands and
+csrc/relpos_attention.cu.
 """
 
 from __future__ import annotations
@@ -28,15 +32,18 @@ HEAD_DIM = 64  # the rel-pos kernel's head width
 PLAIN_HEAD_DIMS = (64, 72)  # the bias-free kernel's (72: SigLIP-SO400M)
 # f32 scores the plain global attention holds at a time (256 MB)
 MAX_PLAIN_SCORES = 1 << 26
-# what csrc/relpos_attention.cu does with the f32 scores: base-2 softmax with
-# the running max (K1, K2, K6, K10, global v7), natural-base softmax (global
-# v2 / v3 / v6), exp2 of the raw log2-domain scores with no max (global v11),
+# what the kernels do with the f32 scores: base-2 softmax with the running
+# max (K1, K2, K6, K10, global v7: csrc/relpos_attention_sm90.cu); and in
+# csrc/relpos_attention.cu natural-base softmax (global v2 / v3 / v6), exp2
+# of the raw log2-domain scores with no max (global v11),
 # natural-base softmax of the unscaled q's scores times ``scale`` (global v1),
 # or natural-base softmax with scores, exponent and probabilities rounded to
 # bf16 and the denominator summed from the rounded probabilities (global v4)
 SOFTMAX_LOG2, SOFTMAX_NATURAL, SOFTMAX_LOG2_NO_MAX = 0, 1, 2
 SOFTMAX_NATURAL_SCALE_AFTER, SOFTMAX_NATURAL_BF16 = 3, 4
 LOG2_DOMAIN = (SOFTMAX_LOG2, SOFTMAX_LOG2_NO_MAX)
+# the largest grid side whose (2 side - 1)-row tables the wgmma kernel takes
+MAX_TABLE_SIDE = 64
 
 
 def rel_pos_coords(side: int, device) -> torch.Tensor:
@@ -62,6 +69,25 @@ def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int,
         bias_h, bias_w = bias_h * LOG2E, bias_w * LOG2E
     return torch.cat([bias_h, bias_w], dim=-1).reshape(
         G, S, 2 * side).to(dtype or q.dtype)
+
+
+def table_bias_rows(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
+    """The bias rows ``(G, S, 2*side)`` in f32 and the log2 domain as
+    csrc/relpos_attention_sm90.cu forms them from the tables: the product of
+    the unscaled q with each ``(2*side - 1, hd)`` table, then for query
+    ``(y, x)`` and key row (column) ``k`` the column ``y - k + side - 1``
+    (``x - k + side - 1``), times log2(e).  The plain twin of the kernel's
+    staging; the function of :func:`global_bias_rows`."""
+    G, S, hd = q.shape
+    n = 2 * side - 1
+    t = torch.arange(S, device=q.device)
+    k = torch.arange(side, device=q.device)
+    rows = []
+    for table, pos in ((rel_pos_h, t // side), (rel_pos_w, t % side)):
+        prod = matmul_f32(q, table[:n].to(q.dtype).transpose(0, 1))
+        idx = pos[:, None] - k[None, :] + side - 1  # (S, side)
+        rows.append(torch.gather(prod, 2, idx.expand(G, S, side)))
+    return torch.cat(rows, dim=-1) * LOG2E
 
 
 def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
@@ -99,13 +125,16 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
 
 def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
             softmax: int = SOFTMAX_LOG2, bias_dtype=None):
-    """Prepare the operands as the JAX wrappers do (in the log2 domain for
-    the ``LOG2_DOMAIN`` codes, else in natural base; q left unscaled for
+    """Launch one of the two kernels over ``(G, S, 64)`` heads or ``(NW, nh,
+    S, 64)`` strided views; the output has q's shape, in memory ``(G, S,
+    64)`` or ``(NW, S, nh, 64)``.  ``SOFTMAX_LOG2``: csrc/
+    relpos_attention_sm90.cu reads q, k and v in place and the first ``2 *
+    side - 1`` rows of the tables in bf16.  Other codes: the operands are
+    prepared as the JAX wrappers do (in the log2 domain for the
+    ``LOG2_DOMAIN`` codes, else in natural base; q left unscaled for
     ``SOFTMAX_NATURAL_SCALE_AFTER``, whose kernel scales the scores; the
-    bias rows rounded to ``bias_dtype``, default q's) and launch
-    csrc/relpos_attention.cu over ``(G, S, 64)`` heads or ``(NW, nh, S,
-    64)`` strided views; the output has q's shape, in memory ``(G, S, 64)``
-    or ``(NW, S, nh, 64)``."""
+    bias rows rounded to ``bias_dtype``, default q's) for
+    csrc/relpos_attention.cu."""
     S, hd = q.shape[-2:]
     if (S != side * side or k.shape != q.shape or v.shape != q.shape
             or q.dim() not in (3, 4)):
@@ -116,8 +145,38 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
                          f"got {hd}")
     G = math.prod(q.shape[:-2])
     nh = 1 if q.dim() == 3 else q.shape[1]
-    log2_domain = softmax in LOG2_DOMAIN
     scale = 1.0 / math.sqrt(hd)
+    if q.dim() == 3:
+        k, v = k.contiguous(), v.contiguous()
+        out = torch.empty((G, S, hd), dtype=q.dtype, device=q.device)
+        out_view, out_strides = out, (S * hd, 0, hd)
+    else:
+        out = torch.empty((q.shape[0], S, nh, hd), dtype=q.dtype,
+                          device=q.device)
+        out_view, out_strides = out.transpose(1, 2), (S * nh * hd, hd, nh * hd)
+    # (s_b, s_h, s_t) of k and v, read in place
+    strides = _head_strides(name, k)
+    if _head_strides(name, v) != strides:
+        raise ValueError(f"{name}: k and v differ in strides: {k.stride()} "
+                         f"{v.stride()}")
+    if softmax == SOFTMAX_LOG2:
+        n = 2 * side - 1
+        if (side > MAX_TABLE_SIDE or rel_pos_h.shape[0] < n
+                or rel_pos_w.shape[0] < n):
+            raise ValueError(
+                f"{name}: the kernel takes grid sides up to {MAX_TABLE_SIDE} "
+                f"and tables of 2 * side - 1 rows; got side {side}, tables "
+                f"{tuple(rel_pos_h.shape)} {tuple(rel_pos_w.shape)}")
+        tables = [t[:n].to(q.dtype).contiguous()
+                  for t in (rel_pos_h, rel_pos_w)]
+        if q.dim() == 3:
+            q = q.contiguous()
+        _cuda.check_cuda(name, *tables, out)
+        relpos_attention_sm90(q, _head_strides(name, q), k, v, strides,
+                              nh, side, G, S, out, out_strides, tables=tables,
+                              alpha=scale * LOG2E)
+        return out_view
+    log2_domain = softmax in LOG2_DOMAIN
     if softmax == SOFTMAX_NATURAL_SCALE_AFTER:
         qs = q.reshape(G, S, hd).contiguous()
     else:
@@ -126,27 +185,7 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
             G, S, hd).contiguous()
     bias = global_bias_rows(q.reshape(G, S, hd), rel_pos_h, rel_pos_w, side,
                             log2_domain, bias_dtype)
-    if q.dim() == 3:
-        k, v = k.contiguous(), v.contiguous()
-        out = torch.empty_like(qs)
-        out_view, out_strides = out, (S * hd, 0, hd)
-    else:
-        out = torch.empty((q.shape[0], S, nh, hd), dtype=q.dtype,
-                          device=q.device)
-        out_view, out_strides = out.transpose(1, 2), (S * nh * hd, hd, nh * hd)
     _cuda.check_cuda(name, qs, bias, out)
-    # (s_b, s_h, s_t) of k and v, read in place
-    strides = k.stride()[:3] if k.dim() == 4 else (k.stride(0), 0,
-                                                   k.stride(1))
-    for t in (k, v):
-        if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride() !=
-                k.stride() or t.stride(-1) != 1 or any(s % 8 for s in strides)
-                or t.data_ptr() % 16):
-            raise ValueError(
-                f"{name}: k and v must be bf16 CUDA tensors with one set of "
-                "strides, a contiguous last dim, strides that are multiples "
-                f"of 8 and 16-byte alignment; got {t.dtype}, strides "
-                f"{t.stride()}")
     relpos_attention(qs, (S * nh * hd, S * hd, hd), k, v, strides, nh, bias,
                      side, G, S, out, out_strides, softmax, scale)
     return out_view
@@ -154,7 +193,8 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
 
 def sam_global_attention_v8(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global ViTDet attention over ``(G, S, hd)`` heads (K2); keys at or
-    beyond ``S = side**2`` are masked in-kernel for any grid side."""
+    beyond ``S = side**2`` are masked in-kernel for any grid side up to
+    ``MAX_TABLE_SIDE``."""
     _cuda.check_no_grad("sam_global_attention_v8", q, k, v, rel_pos_h,
                         rel_pos_w)
     if not q.is_cuda:
@@ -202,9 +242,9 @@ sam_window_attention_v9.launches = 0
 
 
 def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
-                     out_strides, softmax: int = SOFTMAX_LOG2,
-                     scale: float = 1.0) -> None:
-    """Launch csrc/relpos_attention.cu; element ``(g, t, d)`` of k and v is
+                     out_strides, softmax: int, scale: float = 1.0) -> None:
+    """Launch csrc/relpos_attention.cu (every code but ``SOFTMAX_LOG2``);
+    element ``(g, t, d)`` of k and v is
     at ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] +
     d`` from each pointer, of q likewise with ``q_strides``; ``softmax`` is
     one of the ``SOFTMAX_*`` codes, and ``scale`` multiplies the scores of
@@ -213,6 +253,23 @@ def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
         "flmm_relpos_attention", q.data_ptr(), *q_strides, k.data_ptr(),
         v.data_ptr(), *strides, nh, bias.data_ptr(), side, G, S, HEAD_DIM,
         softmax, scale, out.data_ptr(), *out_strides, _cuda.stream(q))
+
+
+def relpos_attention_sm90(q, q_strides, k, v, strides, nh, side, G, S, out,
+                          out_strides, bias=None, tables=None,
+                          alpha: float = 1.0) -> None:
+    """Launch csrc/relpos_attention_sm90.cu: the base-2 softmax of ``alpha *
+    q.k`` plus the bias, addressed as :func:`relpos_attention`.  The bias is
+    ``bias``, ``(G, S, 2*side)`` log2-domain rows, or else comes from
+    ``tables``, the two ``(2*side - 1, 64)`` bf16 rel-pos tables in natural
+    base (the kernel multiplies their products with q by log2(e)).
+    Uncounted: the wrappers count."""
+    th, tw = (None, None) if tables is None else (t.data_ptr() for t in tables)
+    _cuda.launch(
+        "flmm_relpos_attention_sm90", q.data_ptr(), *q_strides, k.data_ptr(),
+        v.data_ptr(), *strides, nh, None if bias is None else bias.data_ptr(),
+        th, tw, side, G, S, alpha, out.data_ptr(), *out_strides,
+        _cuda.stream(q))
 
 
 def plain_flash_attention_plain(q, k, v):

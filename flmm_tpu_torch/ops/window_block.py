@@ -3,19 +3,21 @@
 
 The TPU kernel keeps every weight of the block (~25 MB) resident in VMEM and
 runs LN1 + qkv + 16-head attention + out-proj + LN2 + MLP per window group.
-No SM holds that, so on Hopper the block is three kernels over all windows:
+No SM holds that, so on Hopper the block is three stages over all windows,
+the products on the wgmma + TMA GEMM core of csrc/gemm_sm90.cuh:
 
-1. csrc/ln_gemm.cu -- masked LN1 fused into the qkv product: the normed
-   rows of geometric pad tokens are zeroed, so pad keys carry ``k = b_k``
-   and ``v = b_v`` and stay in the softmax, as in the reference;
-2. csrc/relpos_attention.cu -- per (window, head) attention read straight
-   out of the ``(NW, T, 3C)`` qkv tensor, the decomposed rel-pos bias rows
-   added in-kernel, base-2 softmax;
-3. csrc/block_tail.cu -- out-proj + residual + LN2 + MLP + residual, the
-   ``(N, 4C)`` hidden kept on chip.
+1. csrc/ln_gemm.cu -- the masked LN1 row pass, then the qkv product: the
+   normed rows of geometric pad tokens are zeroed, so pad keys carry ``k =
+   b_k`` and ``v = b_v`` and stay in the softmax, as in the reference;
+2. csrc/relpos_attention_sm90.cu -- per (window, head) attention read
+   straight out of the ``(NW, T, 3C)`` qkv tensor through tensor maps, the
+   decomposed rel-pos bias rows added to the f32 scores, base-2 softmax;
+3. csrc/block_tail.cu -- out-proj + residual (f32), the LN2 row pass, the
+   hidden product with its GELU and the residual product.
 
-The qkv tensor makes one round trip through device memory.  The wrapper
-counts one launch of K1 per call.
+The normed rows, the qkv tensor and the ``(N, 4C)`` hidden make one round
+trip through device memory each.  The wrapper counts one launch of K1 per
+call.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from flmm_tpu_torch.models.sam.common import layer_norm
 from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.fused_block import activation, block_tail, ln_gemm
-from flmm_tpu_torch.ops.sam_flash import LN2, LOG2E, rel_pos_coords, relpos_attention
+from flmm_tpu_torch.ops.sam_flash import LN2, LOG2E, rel_pos_coords, \
+    relpos_attention_sm90
 
 
 def scaled_qkv_weights(wqkv, bqkv, nh: int, hd: int):
@@ -132,8 +135,9 @@ def window_block(x, bias, valid, ln1_w, ln1_b, wqkv_s, bqkv_s, wo, bo,
             wqkv_s, bqkv_s, qkv)
     attn = torch.empty((NW * T, C), dtype=x.dtype, device=x.device)
     strides = (T * 3 * C, hd, 3 * C)
-    relpos_attention(qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides, nh,
-                     bias, side, NW * nh, T, attn, (T * C, hd, C))
+    relpos_attention_sm90(qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides,
+                          nh, side, NW * nh, T, attn, (T * C, hd, C),
+                          bias=bias)
     out = torch.empty_like(xf)
     block_tail(xf, attn, wo, bo, ln2_w, ln2_b, eps, w1, b1, w2, b2, "gelu",
                out)

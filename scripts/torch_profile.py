@@ -22,10 +22,11 @@ from torch.profiler over one forward (or step), the device's busy and idle
 time, and stage times from CUDA events: vision tower, LLM capture for
 LLaVA-NeXT and HPT, SAM encoder and whole forward; for training the step's
 forward (the loss), backward and optimizer update.  For DeepSeek-VL serving
-it then times the three stages of K1 (window block) separately at the
-SAM-1024 window shape, for HPT the three stages of K10 (the attention half
-of a global block) at the SAM-1024 global-layer shape.  For the eval loop it
-first splits the batch builder's host time by step over chip_smoke.py
+it (and ``--path bench`` at bench.py's default point) then times the three
+stages of K1 (window block) separately at the SAM-1024 window shape and K2's
+kernel beside its wrapper, for HPT the three stages of K10 (the attention
+half of a global block) at the SAM-1024 global-layer shape.  For the eval
+loop it first splits the batch builder's host time by step over chip_smoke.py
 phase 22's samples and times the batch's copy to the card from pageable and
 from pinned memory.
 """
@@ -284,10 +285,10 @@ def profile_window_block(g: torch.Generator) -> None:
     parts = {
         "qkv ln_gemm": lambda: fused_block.ln_gemm(
             xf, lw, lb, 1e-6, valid.reshape(-1), w_s, b_s, qkv),
-        "window attention": lambda: sam_flash.relpos_attention(
+        "window attention": lambda: sam_flash.relpos_attention_sm90(
             qkv, (T * 3 * C, hd, 3 * C), qkv[:, C:], qkv[:, 2 * C:],
-            (T * 3 * C, hd, 3 * C), nh, bias, ws, NW * nh, T, attn,
-            (T * C, hd, C)),
+            (T * 3 * C, hd, 3 * C), nh, ws, NW * nh, T, attn,
+            (T * C, hd, C), bias=bias),
         "block_tail": lambda: fused_block.block_tail(
             xf, attn, wo, bo, lw, lb, 1e-6, w1, b1, w2, b2, "gelu", out),
         "rel-pos bias rows (plain)": lambda: window_block.window_rel_bias_from_x(
@@ -295,6 +296,31 @@ def profile_window_block(g: torch.Generator) -> None:
     }
     for part, fn in parts.items():
         print(f"K1 {part} (NW={NW}): {chip_smoke.cuda_ms(fn):.3f} ms")
+    print(f"K1 whole wrapper (NW={NW}): " + str(chip_smoke.cuda_ms(
+        lambda: window_block.window_block(
+            xw, bias, valid, lw, lb, w_s, b_s, wo, bo, lw, lb, w1, b1, w2, b2,
+            ws, nh))) + " ms")
+
+
+def profile_global_attention(g: torch.Generator) -> None:
+    """K2 at the bs-4 SAM-1024 global layer: the wrapper, and the kernel
+    alone on the same tables."""
+    hd, side, G = 64, 64, 16 * chip_smoke.BS
+    S = side * side
+    q, k, v = (chip_smoke._randn(g, (G, S, hd)) for _ in range(3))
+    rph, rpw = (chip_smoke._randn(g, (2 * side - 1, hd), 0.1)
+                for _ in range(2))
+    out = torch.empty_like(q)
+    strides = (S * hd, 0, hd)
+    parts = {
+        "whole wrapper": lambda: sam_flash.sam_global_attention_v8(
+            q, k, v, rph, rpw, side),
+        "kernel alone": lambda: sam_flash.relpos_attention_sm90(
+            q, strides, k, v, strides, 1, side, G, S, out, strides,
+            tables=(rph, rpw), alpha=sam_flash.LOG2E / 8),
+    }
+    for part, fn in parts.items():
+        print(f"K2 {part} (G={G}, S={S}): {chip_smoke.cuda_ms(fn):.3f} ms")
 
 
 def profile_global_block(g: torch.Generator) -> None:
@@ -316,9 +342,9 @@ def profile_global_block(g: torch.Generator) -> None:
     parts = {
         "qkv ln_gemm": lambda: fused_block.ln_gemm(
             xf, lw, lb, 1e-6, None, w_s, b_s, qkv),
-        "global attention": lambda: sam_flash.relpos_attention(
-            qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides, nh, bias,
-            side, B * nh, S, attn, (S * C, hd, C)),
+        "global attention": lambda: sam_flash.relpos_attention_sm90(
+            qkv, strides, qkv[:, C:], qkv[:, 2 * C:], strides, nh, side,
+            B * nh, S, attn, (S * C, hd, C), bias=bias),
         "out-proj + residual, f32": lambda: fused_block.gemm_residual_f32(
             attn, wo, bo, xf, out),
         "rel-pos bias rows (plain)":
@@ -412,15 +438,21 @@ def main() -> None:
         profile_paths(*schedule_setup(args.sam_size))
         return
     if args.path == "bench":
-        knobs = bench.Knobs.from_env()
-        profile_paths(*bench_setup(dataclasses.replace(
-            knobs, family=args.family or knobs.family)))
+        knobs = dataclasses.replace(bench.Knobs.from_env(),
+                                    family=args.family or None)
+        knobs = dataclasses.replace(
+            knobs, family=knobs.family or bench.Knobs.from_env().family)
+        profile_paths(*bench_setup(knobs))
+        if knobs == bench.Knobs():  # bench.py's default point
+            profile_window_block(g)
+            profile_global_attention(g)
         return
     setup = {"deepseek": deepseek_setup, "llava_next": llava_next_setup,
              "hpt": hpt_setup, "eval": eval_setup}[args.path]
     profile_paths(*setup(g))
     if args.path == "deepseek":
         profile_window_block(g)
+        profile_global_attention(g)
     elif args.path == "hpt":
         profile_global_block(g)
 
