@@ -38,7 +38,11 @@ Phases; any failure raises and the script exits non-zero:
    the augmented-operand window variants v3, v4 and v5 of K12 at the shapes
    of the other window variants; K3, K4 and K8 at the widths of SAM ViT-B
    (C = 768) and ViT-H (C = 1280), K2's kernel alone beside its wrapper and
-   K1's three launches one by one beside the whole.
+   K1's three launches one by one beside the whole; every window variant
+   and v10 (one window core, csrc/window_attention_sm90.cu) with its
+   kernel alone beside its wrapper, and the memory the v2 wrapper adds above
+   its inputs; K2 at the grid sides 5 (the tiny configs' SAM-80), 7, 80
+   (SAM-1280) and 128 (SAM-2048), K6 at window side 7 and K10 at side 5.
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -177,6 +181,7 @@ ANYRES_SIZES = ((600, 640), (900, 280))
 HPT_IMG_START, HPT_SEQ = 128, 1280
 # published dense peaks of one H100 SXM: bf16 tensor-core rate, memory rate
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+SLEEP_CYCLES = 50_000_000  # the GPU sleep ahead of a timed loop (cuda_ms)
 # kernel vs plain version, both bf16: max |diff| over max |plain| and the
 # correlation of the flattened outputs
 KERNEL_REL_ERR, KERNEL_CORR = 2e-2, 0.999
@@ -344,7 +349,7 @@ SOURCES = {
     "windowize": ("flmm_tpu_torch/csrc/boundary.cu",
                   "flmm_tpu/ops/boundary.py:85"),
     "sam_window_attention_v10": (
-        "flmm_tpu_torch/csrc/spatial_window_attention.cu",
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
         "flmm_tpu/ops/sam_flash_experiments.py:1222"),
     "sam_global_attention_v11": ("flmm_tpu_torch/csrc/relpos_attention.cu",
                                  "flmm_tpu/ops/sam_flash_experiments.py:1309"),
@@ -355,13 +360,17 @@ SOURCES = {
     "sam_global_attention_v7": (
         "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
         "flmm_tpu/ops/sam_flash_experiments.py:981"),
-    "sam_window_attention": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                              "flmm_tpu/ops/sam_flash_experiments.py:695"),
-    "sam_window_attention_v6": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v6": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:185"),
-    "sam_window_attention_v7": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v7": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:270"),
-    "sam_window_attention_v8": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v8": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:346"),
     "sam_global_attention": ("flmm_tpu_torch/csrc/relpos_attention.cu",
                              "flmm_tpu/ops/sam_flash_experiments.py:1107"),
@@ -369,13 +378,17 @@ SOURCES = {
                                 "flmm_tpu/ops/sam_flash_experiments.py:781"),
     "sam_global_attention_v4": ("flmm_tpu_torch/csrc/relpos_attention.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:859"),
-    "sam_window_attention_v2": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v2": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:422"),
-    "sam_window_attention_v3": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v3": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:640"),
-    "sam_window_attention_v4": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v4": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:545"),
-    "sam_window_attention_v5": ("flmm_tpu_torch/csrc/window_attention.cu",
+    "sam_window_attention_v5": (
+        "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:545"),
 }
 
@@ -385,12 +398,17 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls after one warm-up,
-    from CUDA events."""
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls after
+    one warm-up, from CUDA events.  A sleep kernel (about 25-30 ms) runs
+    ahead of the start event, so the host has enqueued the calls before the
+    first one starts: a wrapper whose host-side launch cost exceeds its
+    kernel's time (a small window attention) reads its device time, not the
+    host's."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -758,6 +776,7 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     sweep_shape_checks(check, g_sweep)
     family_shape_checks(check, g_sweep)
     sm90_checks(check, results, torch.Generator(device="cuda").manual_seed(6))
+    side_checks(check, torch.Generator(device="cuda").manual_seed(7))
     return results
 
 
@@ -847,12 +866,19 @@ def kernel_bench_checks(check, g: torch.Generator) -> None:
           (qkv, rph, rpw, side, grid_hw), flop=4 * hd * pairs,
           library_fn=lambda: _sdpa(*heads, mask), library_view=spatial,
           moved=moved)
-    # how much of the wrapper's time is its plain preparation: the bias rows
-    # alone, timed the same way
-    rows_ms = cuda_ms(lambda: sam_flash_experiments.window_bias_rows(
-        qkv, rph, rpw, side))
-    log(f"phase 3 sam_window_attention_v10: the wrapper's plain bias rows "
-        f"alone {rows_ms:.3f} ms of the kernel time above")
+    # the wrapper runs no plain preparation: its time beside the kernel's
+    sfx = sam_flash_experiments
+    tables = sam_flash.kernel_tables("v10", rph, rpw, side,
+                                     sfx.MAX_WINDOW_SIDE)
+    out = torch.empty((BENCH_BS, Hp, Hp, nh * hd), dtype=qkv.dtype,
+                      device="cuda")
+    wrapper_ms = cuda_ms(lambda: sfx.sam_window_attention_v10(
+        qkv, rph, rpw, side, grid_hw))
+    alone_ms = cuda_ms(lambda: sfx.spatial_window_attention_sm90(
+        qkv, tables, side, grid_hw, out))
+    log(f"phase 3 sam_window_attention_v10: wrapper {wrapper_ms:.3f} ms, "
+        f"kernel alone {alone_ms:.3f} ms; plain preparation on the kernel "
+        "path: none")
 
 
 def bench_shape_checks(check, g: torch.Generator) -> None:
@@ -1038,13 +1064,12 @@ def window_variant_checks(check, g: torch.Generator) -> None:
     (K12) at the shapes their paths give them: the kernel bench's 3200
     contiguous window-heads (8 images x 25 windows x 16 heads), the same as
     views of a windowised qkv, and the views of the SAM-768 bs-4 encoder (64
-    windows).  Each
-    variant's result is also held beside K6's (v9) on the same inputs, and
-    its wrapper's plain preparation (bias rows, q scaling) is timed alone.
-    The bytes counted are q, k, v, the output and the two tables, as for
-    K6; v2's dense bias is the wrapper's own intermediate, so its kernel
-    alone, which also reads that tensor, has a larger bound, logged beside
-    the time of building it."""
+    windows).  Each variant's result is also held beside K6's (v9) on the
+    same inputs, and its wrapper is timed beside its kernel alone (the
+    wrappers run no plain preparation).  The bytes counted are q, k, v, the
+    output and the two tables, as for K6.  The memory the v2 wrapper
+    allocates above its inputs is its output and the two bf16 tables: the
+    dense bias of the plain version is not made."""
     ws, hd, nh = 14, 64, 16
     T = ws * ws
     sfx = sam_flash_experiments
@@ -1069,14 +1094,30 @@ def window_variant_checks(check, g: torch.Generator) -> None:
             mask = mask.reshape(-1, nh, T, T)
         ref = sam_flash.sam_window_attention_v9(q, k, v, rph, rpw, ws)
         outs = {}
+        nh_l = 1 if q.dim() == 3 else nh
+        tables = sam_flash.kernel_tables("window", rph, rpw, ws,
+                                         sfx.MAX_WINDOW_SIDE)
+        if q.dim() == 3:
+            out, o_str = torch.empty_like(q), (T * hd, 0, hd)
+        else:
+            out = torch.empty((q.shape[0], T, nh, hd), dtype=q.dtype,
+                              device="cuda")
+            o_str = (T * nh * hd, hd, nh * hd)
+        q_str, kv_str = (sam_flash._head_strides("window", t) for t in (q, k))
         for name, (wrapper, plain) in variants.items():
             check(WINDOW_WRAPPER[name], label, wrapper, plain,
                   (q, k, v, rph, rpw, ws), flop=4 * G * T * T * hd,
                   library_fn=lambda: _sdpa(q, k, v, mask))
             outs[name] = wrapper(q, k, v, rph, rpw, ws)
             diff = (outs[name].float() - ref.float()).abs().max().item()
+            wrapper_ms = cuda_ms(lambda: wrapper(q, k, v, rph, rpw, ws))
+            alone_ms = cuda_ms(lambda: sfx.window_attention_sm90(
+                q, q_str, k, v, kv_str, nh_l, tables, ws, G, T,
+                sfx.WINDOW_MODES[name], out, o_str))
             log(f"phase 3 {WINDOW_WRAPPER[name]} [{label}]: max |diff| "
-                f"against sam_window_attention_v9 {diff:.3e}")
+                f"against sam_window_attention_v9 {diff:.3e}; wrapper "
+                f"{wrapper_ms:.3f} ms, kernel alone {alone_ms:.3f} ms, plain "
+                "preparation on the kernel path: none")
         # scale = 2**-3 at head_dim 64, so scaling q commutes with rounding
         # it: the two kernel instantiations are one function of bf16 inputs
         log(f"phase 3 window variants [{label}]: v1 equals v6 bit for bit: "
@@ -1096,25 +1137,25 @@ def window_variant_checks(check, g: torch.Generator) -> None:
             f"v5 against v7 "
             f"{(outs['v5'].float() - outs['v7'].float()).abs().max():.3e}")
         del mask, ref, outs
-        qf = q.reshape(G, T, hd)
-        rows_ms = cuda_ms(lambda: sam_flash.global_bias_rows(
-            qf, rph, rpw, ws, log2_domain=False, dtype=torch.bfloat16))
-        scale_ms = cuda_ms(lambda: (q.float() * 0.125).to(q.dtype))
-        log(f"phase 3 window variants [{label}]: of the wrappers' time above, "
-            f"the plain bias rows alone {rows_ms:.3f} ms (v1, v6, v7, v8, v3, "
-            f"v4, v5) and the plain q scaling alone {scale_ms:.3f} ms (v7, "
-            "v8, v2, v3, v4, v5)")
-        dense_ms = cuda_ms(lambda: sam_flash_experiments.window_dense_bias(
-            qf, rph, rpw, ws))
-        dense = sam_flash_experiments.window_dense_bias(qf, rph, rpw, ws)
-        alone = (_tensor_bytes(q, k, v, q, dense) / PEAK_BYTES * 1e3)
-        log(f"phase 3 sam_window_attention_v2 [{label}]: the plain dense "
-            f"bias alone {dense_ms:.3f} ms of the wrapper's time "
-            f"({_tensor_bytes(dense) / 1e6:.1f} MB, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB so far); the "
-            f"kernel alone, reading it too, has a least time of {alone:.4f} "
-            "ms")
-        del dense
+        # v2's kernel path: what its call adds to the allocated memory at
+        # its peak, against its output and tables (the plain version's
+        # dense bias would be G * 208 * 208 * 2 bytes)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        v2_out = sfx.sam_window_attention_v2(q, k, v, rph, rpw, ws)
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - base
+        own = _tensor_bytes(v2_out, *tables)
+        dense = G * 208 * 208 * 2
+        log(f"phase 3 sam_window_attention_v2 [{label}]: peak memory above "
+            f"its inputs {added / 1e6:.1f} MB (its output and tables "
+            f"{own / 1e6:.1f} MB; the plain dense bias {dense / 1e6:.1f} MB "
+            "is not made)")
+        if added > own + (1 << 20):
+            raise AssertionError("sam_window_attention_v2 allocates more "
+                                 "than its output on the kernel path")
+        del v2_out, out
 
 
 def sweep_shape_checks(check, g: torch.Generator) -> None:
@@ -1277,6 +1318,58 @@ def sm90_checks(check, results: dict, g: torch.Generator) -> None:
     results["window_block"]["split_ms"] = split
     log(f"phase 3 window_block [NW={NW}]: " + ", ".join(
         f"{part} {ms:.3f} ms" for part, ms in split.items()))
+
+
+def side_checks(check, g: torch.Generator) -> None:
+    """Phase 3 at the grid sides the rel-pos core takes beyond those of the
+    paths above: K2 at sides 5 (the tiny configs' SAM-80 grid), 7, 80
+    (SAM-1280) and 128 (SAM-2048, one image: the f32 bias rows leave room
+    for one consumer warpgroup a block); K6 at window side 7; K10 at side 5,
+    where its wrapper runs the same kernel from bias rows.  The SDPA mask of
+    side 128 would take 8.6 GB: no library call there."""
+    hd, nh, C = 64, 16, 1024
+    for side, imgs in ((5, BS), (7, BS), (80, 1), (128, 1)):
+        S, G = side * side, nh * imgs
+        q, k, v = (_randn(g, (G, S, hd)) for _ in range(3))
+        rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+        mask = _attention_mask(q, rph, rpw, side) if side < 128 else None
+        check("sam_global_attention_v8", f"side {side}, G={G}, S={S}",
+              sam_flash.sam_global_attention_v8,
+              sam_flash.sam_global_attention_v8_plain,
+              (q, k, v, rph, rpw, side), flop=4 * G * S * S * hd,
+              library_fn=(None if mask is None
+                          else lambda: _sdpa(q, k, v, mask)))
+        del q, k, v, mask
+
+    ws, NW = 7, 4 * BS
+    T = ws * ws
+    heads = _window_views(g, NW, nh, T)
+    rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+    mask = _attention_mask(heads[0].reshape(NW * nh, T, hd), rph, rpw,
+                           ws).reshape(NW, nh, T, T)
+    check("sam_window_attention_v9", f"window side {ws}, G={NW * nh}, "
+          f"T={T}, (NW, nh, T, hd) views", sam_flash.sam_window_attention_v9,
+          sam_flash.sam_window_attention_v9_plain, (*heads, rph, rpw, ws),
+          flop=4 * NW * nh * T * T * hd,
+          library_fn=lambda: _sdpa(*heads, mask))
+    del heads, mask
+
+    side = 5
+    S = side * side
+    x = _randn(g, (BS, S, C))
+    lw, lb = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    w_s, b_s = window_block.scaled_qkv_weights(
+        _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1), nh, hd)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    bias = global_block.global_rel_bias_from_x(
+        x, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, side, nh, hd)
+    check("global_attn_block", f"side {side}, B={BS}, S={S}, C={C}, f32 "
+          "result", global_block.global_attn_block,
+          global_block.global_attn_block_plain,
+          (x, bias, lw, lb, w_s, b_s, wo, bo, side, nh),
+          flop=2 * BS * S * C * 3 * C + 4 * BS * nh * S * S * hd
+          + 2 * BS * S * C * C)
 
 
 def run_requests(forward, params, cfg, batches) -> tuple[list, float]:

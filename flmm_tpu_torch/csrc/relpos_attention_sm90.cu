@@ -43,8 +43,19 @@
 //   log2-domain rows the JAX layout carries, with q pre-scaled (alpha = 1);
 // - where a key tile is one grid row (side 64), each thread keeps the width
 //   bias of its 16 key columns in registers and reads one height bias a row
-//   and tile; elsewhere (side 14, 28, ...; at least 8) it reads both per
-//   score, walking the keys' grid rows and columns without a division.
+//   and tile; elsewhere (any other side, 1 and up) it reads both per score,
+//   walking the keys' grid rows and columns without a division: 8 / side
+//   rows and 8 % side columns per 8 key columns, 64 / side and 64 % side
+//   per key tile, one carry each;
+// - every grid side from 1 to 147.  Tables of up to 128 rows (side <= 64)
+//   are one wgmma of N = 32, 64 or 128; longer ones (SAM above 1024: side
+//   80 at 1280, 128 at 2048) come in as chunks of 128 rows, one product and
+//   one scatter each, column m of chunk c being table row 128 c + m.  The
+//   f32 bias rows grow with the side (64 x (2 side + 1) x 4 bytes a
+//   consumer warpgroup, 66 KB at side 128), so where two consumer
+//   warpgroups no longer fit the 227 KB of shared memory a block has, the
+//   launcher takes one (64 query rows a block); side 147 is the widest
+//   grid whose one-warpgroup block fits, and a wider one is refused.
 //
 // Layouts: element (g, t, d) of q is at (g / nh) q_b + (g % nh) q_h + t q_t
 // + d, of k and v likewise with (s_b, s_h, s_t), of out with (o_b, o_h,
@@ -60,7 +71,8 @@
 
 namespace {
 
-constexpr int HD = 64, BKV = 64, STAGES = 3;
+constexpr int HD = 64, BKV = 64, STAGES = 3, MAX_SIDE = 147;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block can have
 constexpr int TILE_BYTES = 64 * HD * 2;        // one 64-row box
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;    // K and V
 constexpr float LOG2E = 1.4426950408889634f;
@@ -70,7 +82,8 @@ struct Layout {
   int stages, tables, bias, bars, total;
 };
 
-// cons consumer warpgroups of 64 query rows each
+// cons consumer warpgroups of 64 query rows each; nt rows of each table
+// resident (0: bias rows from device memory)
 __host__ __device__ inline Layout layout(int side, int nt, int cons) {
   Layout l;
   l.stages = cons * TILE_BYTES;
@@ -81,27 +94,8 @@ __host__ __device__ inline Layout layout(int side, int nt, int cons) {
   return l;
 }
 
-// The table product of one warpgroup, 64 rows x NT table rows.
-template <int NT>
-__device__ __forceinline__ void table_product(float* acc, const void* q,
-                                              const unsigned char* table) {
-  sm90::fence_regs<NT / 2>(acc);
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint64_t da = sm90::desc_kmajor(static_cast<const unsigned char*>(q) + kk * 32);
-    const uint64_t db = sm90::desc_kmajor(table + kk * 32);
-    if constexpr (NT == 32) sm90::wgmma_ss_n32<0>(acc, da, db, kk > 0);
-    else if constexpr (NT == 64) sm90::wgmma_ss_n64<0>(acc, da, db, kk > 0);
-    else sm90::wgmma_ss_n128<0>(acc, da, db, kk > 0);
-  }
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs<NT / 2>(acc);
-}
-
-// TABLES: bias rows from the two rel-pos tables (NT rows each), else from
-// `bias`; ROW_TILE: side == BKV, a key tile is one grid row.
+// TABLES: bias rows from the two rel-pos tables (chunks of NT rows), else
+// from `bias`; ROW_TILE: side == BKV, a key tile is one grid row.
 template <bool TABLES, bool ROW_TILE, int NT, int CONS>
 __global__ void __launch_bounds__(CONS * 128 + 32,
                                   ROW_TILE || NT == 128 ? 1 : 2)
@@ -117,7 +111,10 @@ relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  const Layout L = layout(side, TABLES ? NT : 0, CONS);
+  // table chunks of NT rows: one but for tables of more than 128 rows
+  const int chunks = TABLES ? (2 * side - 1 + NT - 1) / NT : 0;
+  const int table_bytes = chunks * NT * 128;
+  const Layout L = layout(side, chunks * NT, CONS);
   float* Bsm = reinterpret_cast<float*>(smem + L.bias);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + STAGES;
@@ -144,14 +141,15 @@ relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // K / V ring full
     if (tid == CONS * 128) {
       const int qr = img * q_row_step + q0, qc = head * q_col_step;
-      sm90::mbar_expect_tx(qbar,
-                           CONS * TILE_BYTES + (TABLES ? 2 * NT * 128 : 0));
+      sm90::mbar_expect_tx(qbar, CONS * TILE_BYTES + 2 * table_bytes);
       for (int c = 0; c < CONS; ++c)
         sm90::tma_load_2d(smem + c * TILE_BYTES, &map_q, qbar, qc,
                           qr + 64 * c);
-      if constexpr (TABLES) {
-        sm90::tma_load_2d(smem + L.tables, &map_th, qbar, 0, 0);
-        sm90::tma_load_2d(smem + L.tables + NT * 128, &map_tw, qbar, 0, 0);
+      for (int c = 0; c < chunks; ++c) {
+        sm90::tma_load_2d(smem + L.tables + c * NT * 128, &map_th, qbar, 0,
+                          c * NT);
+        sm90::tma_load_2d(smem + L.tables + table_bytes + c * NT * 128,
+                          &map_tw, qbar, 0, c * NT);
       }
       const int kr = img * kv_row_step, kc = head * kv_col_step;
       for (int t = 0; t < KT; ++t) {
@@ -192,28 +190,33 @@ relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int tab = 0; tab < 2; ++tab) {
-      table_product<NT>(acc, Qw, smem + L.tables + tab * NT * 128);
-      // column m of row t: key row (tab 0) or column (tab 1)
-      // y - m + side - 1, y the query's grid row or column
+    for (int tab = 0; tab < 2; ++tab)
+      for (int c = 0; c < chunks; ++c) {
+        sm90::table_product<NT>(
+            acc, Qw, smem + L.tables + tab * table_bytes + c * NT * 128);
+        // column m of row t (table row c NT + m): key row (tab 0) or
+        // column (tab 1) y - c NT - m + side - 1, y the query's grid row
+        // or column
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = h ? t1 : t0;
-        float* dst = (h ? B1 : B0) + tab * side;
-        if (t >= S) {
-          for (int kk = 0; kk < side; ++kk) dst[kk] = 0.f;
-          continue;
-        }
-        const int y = (tab == 0 ? t / side : t % side) + side - 1;
-#pragma unroll
-        for (int j = 0; j < NT / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int kk = y - (8 * j + c2 + e);
-            if (kk >= 0 && kk < side) dst[kk] = acc[4 * j + 2 * h + e] * LOG2E;
+        for (int h = 0; h < 2; ++h) {
+          const int t = h ? t1 : t0;
+          float* dst = (h ? B1 : B0) + tab * side;
+          if (t >= S) {
+            if (c == 0)
+              for (int kk = 0; kk < side; ++kk) dst[kk] = 0.f;
+            continue;
           }
+          const int y = (tab == 0 ? t / side : t % side) + side - 1 - c * NT;
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kk = y - (8 * j + c2 + e);
+              if (kk >= 0 && kk < side)
+                dst[kk] = acc[4 * j + 2 * h + e] * LOG2E;
+            }
+        }
       }
-    }
   }
   sm90::named_sync(1 + wg, 128);
 
@@ -230,9 +233,10 @@ relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // elsewhere: the grid row and column of this thread's first key column
-  // (kv0 + c2), carried from tile to tile without a division (side >= 8)
+  // (kv0 + c2), carried from tile to tile without a division; any side
   const int step_h = BKV / side, step_w = BKV % side;
-  int kh_t = 0, kw_t = c2;
+  const int step8_h = 8 / side, step8_w = 8 % side;
+  int kh_t = c2 / side, kw_t = c2 % side;
 
   float o[HD / 2];
 #pragma unroll
@@ -289,7 +293,8 @@ relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           mx0 = fmaxf(mx0, a);
           mx1 = fmaxf(mx1, b);
         }
-        kw += 8;
+        kw += step8_w;
+        kh += step8_h;
         if (kw >= side) {
           kw -= side;
           ++kh;
@@ -382,30 +387,23 @@ relpos_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// The tensor map of a (G, S, 64) operand with strides (b, h, t): its rows
-// of pitch t, every image's S rows b / t rows after the last one's, its
-// heads h columns apart.
-int head_map(CUtensorMap* map, const void* p, long long b, long long h,
-             long long t, int nh, int G, int S) {
-  const long long cols = (nh - 1) * h + HD;
-  if (t % 8 || h % 8 || b % t || cols > t || b / t > (1ll << 30))
-    return (int)cudaErrorInvalidValue;
-  return make_tile_map(map, p, cols, (long long)(G / nh - 1) * (b / t) + S, t,
-                       64);
-}
-
 // Side 64 (a key tile is one grid row): 3 consumer warpgroups, 192 query
 // rows a block, one block an SM (200 KB of shared memory); elsewhere 2 of
 // them and two blocks an SM, whose prologues and short key loops (4 tiles
-// at T = 196) overlap.
-template <bool TABLES, bool ROW_TILE, int NT>
+// at T = 196) overlap, or 1 where the bias rows of 2 do not fit.
+size_t smem_bytes(int side, int nt, int cons) {
+  return layout(side, nt, cons).total + 1024;  // + the 1024 alignment
+}
+
+template <bool TABLES, bool ROW_TILE, int NT, int CONS>
 int launch(const CUtensorMap* maps, int nh, long long q_b, long long q_h,
            long long q_t, long long s_b, long long s_h, long long s_t,
            const bf16* bias, int side, int G, int S, float alpha, bf16* out,
            long long o_b, long long o_h, long long o_t, cudaStream_t stream) {
-  constexpr int CONS = ROW_TILE ? 3 : 2;
   auto kernel = relpos_sm90_kernel<TABLES, ROW_TILE, NT, CONS>;
-  const size_t smem = layout(side, TABLES ? NT : 0, CONS).total + 1024;
+  const int nt = TABLES ? (2 * side - 1 + NT - 1) / NT * NT : 0;
+  const size_t smem = smem_bytes(side, nt, CONS);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -420,7 +418,7 @@ int launch(const CUtensorMap* maps, int nh, long long q_b, long long q_h,
 }  // namespace
 
 // bias (G, S, 2 side) log2-domain rows, or else table_h and table_w, the
-// (2 side - 1, 64) rel-pos tables (side <= 64) in natural base.
+// (2 side - 1, 64) rel-pos tables in natural base; 1 <= side <= 147.
 extern "C" int flmm_relpos_attention_sm90(
     const void* q, long long q_b, long long q_h, long long q_t, const void* k,
     const void* v, long long s_b, long long s_h, long long s_t, int nh,
@@ -428,30 +426,38 @@ extern "C" int flmm_relpos_attention_sm90(
     int G, int S, float alpha, void* out, long long o_b, long long o_h,
     long long o_t, void* stream) {
   const bool tables = table_h != nullptr;
-  if (G <= 0 || G > 65535 || nh <= 0 || G % nh || side < 8 ||
-      side * side != S || (tables ? table_w == nullptr || 2 * side - 1 > 128
-                                  : bias == nullptr) ||
+  if (G <= 0 || G > 65535 || nh <= 0 || G % nh || side < 1 ||
+      side > MAX_SIDE || side * side != S ||
+      (tables ? table_w == nullptr : bias == nullptr) ||
       o_b % 2 || o_h % 2 || o_t % 2)
     return (int)cudaErrorInvalidValue;
   if (nh == 1) q_h = s_h = 0;
   CUtensorMap maps[5] = {};
-  int e = head_map(&maps[0], q, q_b, q_h, q_t, nh, G, S);
-  if (!e) e = head_map(&maps[1], k, s_b, s_h, s_t, nh, G, S);
-  if (!e) e = head_map(&maps[2], v, s_b, s_h, s_t, nh, G, S);
+  int e = make_head_map(&maps[0], q, q_b, q_h, q_t, nh, G, S, 64);
+  if (!e) e = make_head_map(&maps[1], k, s_b, s_h, s_t, nh, G, S, 64);
+  if (!e) e = make_head_map(&maps[2], v, s_b, s_h, s_t, nh, G, S, 64);
+  // one box of the table rows, or boxes of 128 rows
   const int n = 2 * side - 1, nt = n <= 32 ? 32 : n <= 64 ? 64 : 128;
   if (!e && tables) e = make_tile_map(&maps[3], table_h, HD, n, HD, nt);
   if (!e && tables) e = make_tile_map(&maps[4], table_w, HD, n, HD, nt);
   if (e) return e;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FLMM_LAUNCH(TABLES, ROW_TILE, NT)                                    \
-  launch<TABLES, ROW_TILE, NT>(maps, nh, q_b, q_h, q_t, s_b, s_h, s_t,       \
-                               (const bf16*)bias, side, G, S, alpha,         \
-                               (bf16*)out, o_b, o_h, o_t, st)
-  if (!tables) return side == BKV ? FLMM_LAUNCH(false, true, 0)
-                                  : FLMM_LAUNCH(false, false, 0);
-  if (side == BKV) return FLMM_LAUNCH(true, true, 128);
-  if (nt == 32) return FLMM_LAUNCH(true, false, 32);
-  if (nt == 64) return FLMM_LAUNCH(true, false, 64);
-  return FLMM_LAUNCH(true, false, 128);
+  // two consumer warpgroups where their bias rows fit, else one
+  const bool two =
+      smem_bytes(side, tables ? (n + nt - 1) / nt * nt : 0, 2) <= SMEM_LIMIT;
+#define FLMM_LAUNCH(TABLES, ROW_TILE, NT, CONS)                              \
+  launch<TABLES, ROW_TILE, NT, CONS>(maps, nh, q_b, q_h, q_t, s_b, s_h, s_t, \
+                                     (const bf16*)bias, side, G, S, alpha,   \
+                                     (bf16*)out, o_b, o_h, o_t, st)
+  if (!tables) {
+    if (side == BKV) return FLMM_LAUNCH(false, true, 0, 3);
+    return two ? FLMM_LAUNCH(false, false, 0, 2)
+               : FLMM_LAUNCH(false, false, 0, 1);
+  }
+  if (side == BKV) return FLMM_LAUNCH(true, true, 128, 3);
+  if (nt == 32) return FLMM_LAUNCH(true, false, 32, 2);
+  if (nt == 64) return FLMM_LAUNCH(true, false, 64, 2);
+  return two ? FLMM_LAUNCH(true, false, 128, 2)
+             : FLMM_LAUNCH(true, false, 128, 1);
 #undef FLMM_LAUNCH
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels
-// (csrc/gemm_sm90.cuh, csrc/relpos_attention_sm90.cu): mbarriers, TMA tile
-// loads, shared-memory matrix descriptors and wgmma.mma_async, written out
-// in PTX.
+// (csrc/gemm_sm90.cuh, csrc/relpos_attention_sm90.cu,
+// csrc/window_attention_sm90.cu): mbarriers, 2D and 3D TMA tile loads,
+// shared-memory matrix descriptors and wgmma.mma_async, written out in PTX.
 //
 // Every tile a wgmma reads from shared memory is stored in the 128-byte
 // swizzle: rows of 64 bf16 (128 bytes), 16-byte chunk c of row r at chunk
@@ -74,6 +74,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA -----------------------------------------------------------------
 
+// One 3D box of `map` at (c0, c1, c2), fastest dimension first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One 2D box of `map` at (column c0, row c1) -> shared memory; completion
 // is counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -89,6 +101,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // Barrier over `threads` threads (a multiple of 32) with id 1..15.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Hand registers between the warpgroups of a warp-specialised block: the
+// producer's warpgroup gives some back (dec), the consumers' take them
+// (inc).  Executed by every thread of a warpgroup.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- wgmma ---------------------------------------------------------------
@@ -180,6 +211,53 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "n"(TB));
 }
 
+// m64n208: the score row of a 14 x 14 window (196 keys padded to 13 k16
+// steps) in one instruction, 104 f32 accumulators a thread.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n208(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103}, %104, %105, p, 1, 1, 0, %107;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n208(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103}, {%104, %105, %106, %107}, %108, p, 1, 1, %110;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// The rel-pos table product of one warpgroup: its 64 query rows (a K-major
+// tile of 64 bf16 columns) times the NT rows of a table, acc = Q T^T in the
+// accumulator layout above, waited for.
+template <int NT>
+__device__ __forceinline__ void table_product(float* acc, const void* q,
+                                              const unsigned char* table) {
+  fence_regs<NT / 2>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da =
+        desc_kmajor(static_cast<const unsigned char*>(q) + kk * 32);
+    const uint64_t db = desc_kmajor(table + kk * 32);
+    if constexpr (NT == 32) wgmma_ss_n32<0>(acc, da, db, kk > 0);
+    else if constexpr (NT == 64) wgmma_ss_n64<0>(acc, da, db, kk > 0);
+    else wgmma_ss_n128<0>(acc, da, db, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<NT / 2>(acc);
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -228,6 +306,49 @@ static inline int make_tile_map(CUtensorMap* map, const void* base,
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Host: the tensor map of a (G, S, 64) operand with strides (b, h, t): its
+// rows of pitch t, every image's S rows b / t rows after the last one's, its
+// nh heads h columns apart; boxes of 64 x box_rows.
+static inline int make_head_map(CUtensorMap* map, const void* p, long long b,
+                                long long h, long long t, int nh, int G,
+                                int S, int box_rows) {
+  const long long cols = (nh - 1) * h + 64;
+  if (t % 8 || h % 8 || b % t || cols > t || b / t > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
+  return make_tile_map(map, p, cols, (long long)(G / nh - 1) * (b / t) + S, t,
+                       box_rows);
+}
+
+// Host: a 3D tensor map of bf16 (`cols` elements of which a box reads 64,
+// then `n1` rows `pitch1` elements apart, then `n2` planes `pitch2` apart)
+// with boxes of 64 x box1 x box2 and the 128-byte swizzle.  The box lands
+// in shared memory as box1 * box2 rows of 128 bytes, dimension 1 fastest.
+// Returns 0 or a cudaError_t.
+static inline int make_tile_map_3d(CUtensorMap* map, const void* base,
+                                   unsigned long long cols,
+                                   unsigned long long n1,
+                                   unsigned long long pitch1,
+                                   unsigned long long n2,
+                                   unsigned long long pitch2, int box1,
+                                   int box2) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || pitch1 % 8 || pitch2 % 8 ||
+      cols == 0 || n1 == 0 || n2 == 0 || cols > pitch1 || box1 <= 0 ||
+      box1 > 256 || box2 <= 0 || box2 > 256)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cols, n1, n2};
+  const cuuint64_t strides[2] = {pitch1 * 2, pitch2 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, (cuuint32_t)box2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -312,8 +312,8 @@ def flash_gate(cfg: SamEncoderConfig, H: int, W: int, windowed: bool) -> bool:
     """The config's side of the split kernel path's gate (the other side is
     ``x.is_cuda``): a global layer takes its attention kernel on a square
     grid of a multiple of 128 tokens; ``v8`` masks its keys and takes any
-    (its kernel: sides 8 to ``sam_flash.MAX_TABLE_SIDE``, which covers every
-    configured SAM size)."""
+    (its kernel: sides 1 to ``sam_flash.MAX_TABLE_SIDE``, 147, which covers
+    every configured SAM size and SAM up to 2352 px)."""
     if windowed:
         return cfg.flash_window
     return (cfg.flash_global and H == W

@@ -71,14 +71,14 @@ _SIGNATURES = {
     # x, out, B, H, W, Hp, Wp, ws, 16-byte vectors per token, stream
     "flmm_windowize": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "flmm_dewindowize": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # qkv, bias (f32), B, Hp, Wp, nh, head_dim, side, grid_hw, scale2, out,
-    # stream
-    "flmm_spatial_window_attention": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                      _P, _P),
-    # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, G, T, head_dim,
-    # mode, scale, out, o_b, o_h, o_t, stream
-    "flmm_window_attention": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P, _I,
-                              _I, _I, _I, _I, _F, _P, _L, _L, _L, _P),
+    # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, table_h, table_w, side, G,
+    # T, mode, out, o_b, o_h, o_t, stream
+    "flmm_window_attention_sm90": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I,
+                                   _P, _P, _I, _I, _I, _I, _P, _L, _L, _L,
+                                   _P),
+    # qkv, table_h, table_w, B, Hp, Wp, nh, side, grid_hw, alpha, out, stream
+    "flmm_spatial_window_attention_sm90": (_P, _P, _P, _I, _I, _I, _I, _I,
+                                           _I, _F, _P, _P),
 }
 
 

@@ -42,8 +42,10 @@ MAX_PLAIN_SCORES = 1 << 26
 SOFTMAX_LOG2, SOFTMAX_NATURAL, SOFTMAX_LOG2_NO_MAX = 0, 1, 2
 SOFTMAX_NATURAL_SCALE_AFTER, SOFTMAX_NATURAL_BF16 = 3, 4
 LOG2_DOMAIN = (SOFTMAX_LOG2, SOFTMAX_LOG2_NO_MAX)
-# the largest grid side whose (2 side - 1)-row tables the wgmma kernel takes
-MAX_TABLE_SIDE = 64
+# the largest grid side the wgmma kernel takes: its tables come in as chunks
+# of 128 rows, and at side 147 the f32 bias rows of one consumer warpgroup,
+# the tables, Q and the K / V ring just fit a block's 227 KB of shared memory
+MAX_TABLE_SIDE = 147
 
 
 def rel_pos_coords(side: int, device) -> torch.Tensor:
@@ -71,13 +73,16 @@ def global_bias_rows(q, rel_pos_h, rel_pos_w, side: int,
         G, S, 2 * side).to(dtype or q.dtype)
 
 
-def table_bias_rows(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
+def table_bias_rows(q, rel_pos_h, rel_pos_w, side: int,
+                    log2_domain: bool = True) -> torch.Tensor:
     """The bias rows ``(G, S, 2*side)`` in f32 and the log2 domain as
     csrc/relpos_attention_sm90.cu forms them from the tables: the product of
     the unscaled q with each ``(2*side - 1, hd)`` table, then for query
     ``(y, x)`` and key row (column) ``k`` the column ``y - k + side - 1``
-    (``x - k + side - 1``), times log2(e).  The plain twin of the kernel's
-    staging; the function of :func:`global_bias_rows`."""
+    (``x - k + side - 1``), times log2(e) (with ``log2_domain=False`` in
+    natural base, as csrc/window_attention_sm90.cu keeps them).  The plain
+    twin of the kernels' staging; the function of
+    :func:`global_bias_rows`."""
     G, S, hd = q.shape
     n = 2 * side - 1
     t = torch.arange(S, device=q.device)
@@ -87,7 +92,8 @@ def table_bias_rows(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
         prod = matmul_f32(q, table[:n].to(q.dtype).transpose(0, 1))
         idx = pos[:, None] - k[None, :] + side - 1  # (S, side)
         rows.append(torch.gather(prod, 2, idx.expand(G, S, side)))
-    return torch.cat(rows, dim=-1) * LOG2E
+    rows = torch.cat(rows, dim=-1)
+    return rows * LOG2E if log2_domain else rows
 
 
 def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
@@ -160,15 +166,8 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
         raise ValueError(f"{name}: k and v differ in strides: {k.stride()} "
                          f"{v.stride()}")
     if softmax == SOFTMAX_LOG2:
-        n = 2 * side - 1
-        if (side > MAX_TABLE_SIDE or rel_pos_h.shape[0] < n
-                or rel_pos_w.shape[0] < n):
-            raise ValueError(
-                f"{name}: the kernel takes grid sides up to {MAX_TABLE_SIDE} "
-                f"and tables of 2 * side - 1 rows; got side {side}, tables "
-                f"{tuple(rel_pos_h.shape)} {tuple(rel_pos_w.shape)}")
-        tables = [t[:n].to(q.dtype).contiguous()
-                  for t in (rel_pos_h, rel_pos_w)]
+        tables = kernel_tables(name, rel_pos_h, rel_pos_w, side,
+                               MAX_TABLE_SIDE)
         if q.dim() == 3:
             q = q.contiguous()
         _cuda.check_cuda(name, *tables, out)
@@ -191,9 +190,24 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
     return out_view
 
 
+def kernel_tables(name, rel_pos_h, rel_pos_w, side: int, max_side: int):
+    """The first ``2 * side - 1`` rows of the two rel-pos tables in bf16,
+    contiguous, as a wgmma kernel reads them; raise unless ``1 <= side <=
+    max_side`` and both tables have those rows."""
+    n = 2 * side - 1
+    if (not 1 <= side <= max_side or rel_pos_h.shape[0] < n
+            or rel_pos_w.shape[0] < n):
+        raise ValueError(
+            f"{name}: the kernel takes grid sides 1 to {max_side} and tables "
+            f"of 2 * side - 1 rows; got side {side}, tables "
+            f"{tuple(rel_pos_h.shape)} {tuple(rel_pos_w.shape)}")
+    return [t[:n].to(torch.bfloat16).contiguous()
+            for t in (rel_pos_h, rel_pos_w)]
+
+
 def sam_global_attention_v8(q, k, v, rel_pos_h, rel_pos_w, side: int):
     """Global ViTDet attention over ``(G, S, hd)`` heads (K2); keys at or
-    beyond ``S = side**2`` are masked in-kernel for any grid side up to
+    beyond ``S = side**2`` are masked in-kernel for any grid side from 1 to
     ``MAX_TABLE_SIDE``."""
     _cuda.check_no_grad("sam_global_attention_v8", q, k, v, rel_pos_h,
                         rel_pos_w)

@@ -14,13 +14,13 @@ windowised qkv tensor: ``sam_window_attention`` (v1, :695), ``_v2`` (:422),
 v10 takes the qkv tensor as the projection leaves it, spatial ``(B, Hp, Wp,
 nh * 3 * hd)`` with the columns permuted head-major ``[q_h | k_h | v_h]``,
 and returns the attention output spatially ``(B, Hp, Wp, nh * hd)``: the
-window partition and the head split are addressing inside the kernel
-(csrc/spatial_window_attention.cu), so nothing is windowised or transposed
-outside.  Keys at or beyond ``grid_hw`` are masked out of the softmax
-(unlike K1 and K6, where pad tokens stay in it).  The JAX kernel leaves the
-output beyond ``grid_hw`` unspecified; here it is 0, on both the kernel and
-the plain path.  As in the JAX wrapper, only the thin bias rows are made
-outside, by two einsums over the unscaled q.
+window partition and the head split are the addressing of a 3D tensor map
+inside the kernel (csrc/window_attention_sm90.cu), so nothing is windowised
+or transposed outside.  Keys at or beyond ``grid_hw`` are masked out of the
+softmax (unlike K1 and K6, where pad tokens stay in it).  The JAX kernel
+leaves the output beyond ``grid_hw`` unspecified; here it is 0, on both the
+kernel and the plain path.  The JAX wrapper makes the thin bias rows
+outside; the kernel forms them from the tables.
 
 The global variants differ from K2 (``sam_flash.sam_global_attention_v8``)
 as functions only in the domain of the operands their wrappers round to the
@@ -60,14 +60,15 @@ through the ones column (-1e30 for v3, -1e4 rounded to q's dtype for v4 and
 v5).  v3 is v7's function; v4 rounds every score to bf16, takes the max and
 ``exp`` in bf16 and divides by the f32 sum of the rounded ``p``; v5 keeps
 f32 scores and ``exp`` but divides by the f32 sum of ``p`` rounded to v's
-dtype.  All eight launch csrc/window_attention.cu, where a block keeps one
-window-head's K and V resident: v1 and v6 its ``SCALE_AFTER``
-instantiation, which reads q in place and keeps the bias rows resident too,
-v7, v8 and v3 ``SCALED_Q``, v4 ``SCALED_Q_BF16``, v5 ``SCALED_Q_ROUNDED_P``,
-v2 ``DENSE_BIAS``, which reads the dense tensor from device memory as it
-goes.  The bias and the q scaling are plain PyTorch in the wrapper, as in
-the JAX wrappers; v2's dense tensor (277 MB at 3200 window-heads) lives for
-one call.
+dtype.  All eight, and v10, launch csrc/window_attention_sm90.cu, a wgmma +
+TMA core that reads q, k and v in place and the two rel-pos tables, forms
+the bias rows itself from the tables (:func:`window_table_bias` is the plain
+twin of what it stages) and folds the q scaling into the f32 scores (at
+head_dim 64, ``scale`` = 2^-3 and ``bf16(q * scale) = q * scale``): the
+wrappers run no pass over q, and v2's dense ``(G, tp, tp)`` tensor exists on
+the plain path only.  v1 and v6 pass its ``SCALE_AFTER`` mode, v7, v8 and
+v3 ``SCALED_Q`` (one function with it), v4 ``SCALED_Q_BF16``, v5
+``SCALED_Q_ROUNDED_P``, v2 ``DENSE_BIAS``.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ import torch
 
 from flmm_tpu_torch.ops import _cuda, sam_flash
 from flmm_tpu_torch.ops._matmul import matmul_f32
-from flmm_tpu_torch.ops.sam_flash import HEAD_DIM, LOG2E, rel_pos_coords, \
+from flmm_tpu_torch.ops.sam_flash import HEAD_DIM, LOG2E, \
     sam_global_attention_v8_plain
 
 
@@ -112,6 +113,15 @@ def _grid_valid(Hp: int, Wp: int, grid_hw: int, device) -> torch.Tensor:
             & (torch.arange(Wp, device=device) < grid_hw)[None, :])
 
 
+def spatial_heads(qkv, side: int, nh: int, hd: int) -> torch.Tensor:
+    """The window partition and head split of the head-major spatial qkv as
+    copies: ``(3, B * nwy * nwx * nh, T, hd)``, q, k and v of window-head
+    ``((b * nwy + wy) * nwx + wx) * nh + h``, token ``t = y * side + x``."""
+    B, Hp, Wp, _ = qkv.shape
+    x = qkv.reshape(B, Hp // side, side, Wp // side, side, nh, 3, hd)
+    return x.permute(6, 0, 1, 3, 5, 2, 4, 7).reshape(3, -1, side * side, hd)
+
+
 def sam_window_attention_v10_plain(qkv, rel_pos_h, rel_pos_w, side: int,
                                    grid_hw: int):
     """K12 v10's plain version: window partition and head split as copies,
@@ -121,8 +131,7 @@ def sam_window_attention_v10_plain(qkv, rel_pos_h, rel_pos_w, side: int,
     B, Hp, Wp, nh, hd = _geometry("sam_window_attention_v10_plain", qkv,
                                   rel_pos_h, side, grid_hw)
     nwy, nwx, T = Hp // side, Wp // side, side * side
-    x = qkv.reshape(B, nwy, side, nwx, side, nh, 3, hd)
-    x = x.permute(6, 0, 1, 3, 5, 2, 4, 7).reshape(3, -1, T, hd)
+    x = spatial_heads(qkv, side, nh, hd)
     valid = _grid_valid(Hp, Wp, grid_hw, qkv.device)
     key_valid = valid.reshape(nwy, side, nwx, side).permute(0, 2, 1, 3)
     key_valid = key_valid.reshape(1, nwy, nwx, 1, T).expand(
@@ -132,23 +141,6 @@ def sam_window_attention_v10_plain(qkv, rel_pos_h, rel_pos_w, side: int,
     out = out.reshape(B, nwy, nwx, nh, side, side, hd)
     out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, Hp, Wp, nh * hd)
     return torch.where(valid[None, :, :, None], out, 0.0)
-
-
-def window_bias_rows(qkv, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
-    """The decomposed rel-pos bias rows ``[bias_h | bias_w]`` of every
-    (image, window, head), ``(B, nwy, nwx, nh, T, 2 * side)`` f32 in the log2
-    domain, from the unscaled q columns of the head-major spatial qkv."""
-    B, Hp, Wp, C3 = qkv.shape
-    hd = rel_pos_h.shape[-1]
-    nh, nwy, nwx = C3 // (3 * hd), Hp // side, Wp // side
-    coords = rel_pos_coords(side, qkv.device)
-    rh = rel_pos_h[coords].to(qkv.dtype).float()  # (side, side, hd)
-    rw = rel_pos_w[coords].to(qkv.dtype).float()
-    q_sp = qkv.reshape(B, nwy, side, nwx, side, nh, 3 * hd)[..., :hd].float()
-    bias_h = torch.einsum("bYyXxhd,ykd->bYXhyxk", q_sp, rh)
-    bias_w = torch.einsum("bYyXxhd,xkd->bYXhyxk", q_sp, rw)
-    bias = torch.cat([bias_h, bias_w], dim=-1) * LOG2E
-    return bias.reshape(B, nwy, nwx, nh, side * side, 2 * side)
 
 
 def sam_window_attention_v10(qkv, rel_pos_h, rel_pos_w, side: int,
@@ -172,18 +164,29 @@ def sam_window_attention_v10(qkv, rel_pos_h, rel_pos_w, side: int,
     if hd != HEAD_DIM:
         raise ValueError(f"{name}: kernel built for head_dim {HEAD_DIM}, "
                          f"got {hd}")
-    bias = window_bias_rows(qkv, rel_pos_h, rel_pos_w, side)
+    tables = sam_flash.kernel_tables(name, rel_pos_h, rel_pos_w, side,
+                                     MAX_WINDOW_SIDE)
     out = torch.empty((B, Hp, Wp, nh * hd), dtype=qkv.dtype,
                       device=qkv.device)
-    # contiguous and 16-byte aligned: each token's q | k | v of one head is
-    # 384 contiguous bytes at a multiple of 16
-    _cuda.check_cuda(name, qkv, out)
-    _cuda.check_cuda(name, bias, dtype=torch.float32)
-    _cuda.launch("flmm_spatial_window_attention", qkv.data_ptr(),
-                 bias.data_ptr(), B, Hp, Wp, nh, hd, side, grid_hw,
-                 LOG2E / math.sqrt(hd), out.data_ptr(), _cuda.stream(qkv))
+    # contiguous and 16-byte aligned, as the 3D tensor map reads it
+    _cuda.check_cuda(name, qkv, out, *tables)
+    spatial_window_attention_sm90(qkv, tables, side, grid_hw, out)
     sam_window_attention_v10.launches += 1
     return out
+
+
+def spatial_window_attention_sm90(qkv, tables, side: int, grid_hw: int,
+                                  out) -> None:
+    """Launch csrc/window_attention_sm90.cu's ``SPATIAL_LOG2`` mode over the
+    contiguous head-major ``(B, Hp, Wp, nh * 192)`` qkv into ``(B, Hp, Wp,
+    nh * 64)`` ``out``; ``tables`` as :func:`sam_flash.kernel_tables` gives
+    them.  Uncounted: the wrapper counts."""
+    B, Hp, Wp, C3 = qkv.shape
+    _cuda.launch("flmm_spatial_window_attention_sm90", qkv.data_ptr(),
+                 tables[0].data_ptr(), tables[1].data_ptr(), B, Hp, Wp,
+                 C3 // (3 * HEAD_DIM), side, grid_hw,
+                 LOG2E / math.sqrt(HEAD_DIM), out.data_ptr(),
+                 _cuda.stream(qkv))
 
 
 sam_window_attention_v10.launches = 0
@@ -404,19 +407,23 @@ def sam_global_attention_v11(q, k, v, rel_pos_h, rel_pos_w, side: int):
 sam_global_attention_v11.launches = 0
 
 
-# what csrc/window_attention.cu does between its two products: the f32 scores
-# of the unscaled q times ``scale`` (window v1 / v6), the scores of a q that
-# was scaled and rounded outside (window v7 / v8 / v3), both plus the two thin
+# what the variants' functions do between their two products: the f32
+# scores of the unscaled q times ``scale`` (window v1 / v6), the scores of a q
+# that was scaled and rounded (window v7 / v8 / v3), both plus the two thin
 # bias rows; or the scores of such a q plus a dense ``(tp, tp)`` bias (window
 # v2); or v7's scores rounded to bf16 with a bf16 softmax (v4), or with the
-# probabilities rounded before the denominator sums them (v5)
+# probabilities rounded before the denominator sums them (v5).  The codes are
+# csrc/window_attention_sm90.cu's ``MODE``s (v10's, 5, has an entry point of
+# its own)
 (WINDOW_SCALE_AFTER, WINDOW_SCALED_Q, WINDOW_DENSE_BIAS, WINDOW_SCALED_Q_BF16,
  WINDOW_SCALED_Q_ROUNDED_P) = range(5)
 WINDOW_MODES = {"v1": WINDOW_SCALE_AFTER, "v6": WINDOW_SCALE_AFTER,
                 "v7": WINDOW_SCALED_Q, "v8": WINDOW_SCALED_Q,
                 "v3": WINDOW_SCALED_Q, "v2": WINDOW_DENSE_BIAS,
                 "v4": WINDOW_SCALED_Q_BF16, "v5": WINDOW_SCALED_Q_ROUNDED_P}
-MAX_WINDOW_TOKENS = 208  # keys a block of the window kernel keeps resident
+# the window core holds a row of 208 key columns in registers (13 k16 steps)
+MAX_WINDOW_TOKENS = 208
+MAX_WINDOW_SIDE = 14
 DENSE_BIAS_PAD = -1e30  # v2's pad rows and columns, as in the JAX wrapper
 # the augmented-operand variants: the score of a pad key (T <= key < tp),
 # rounded to q's dtype, as their JAX wrapper builds it
@@ -440,6 +447,24 @@ def window_dense_bias(q, rel_pos_h, rel_pos_w, side: int) -> torch.Tensor:
     torch.add(rows[..., :side, None], rows[..., None, side:],
               out=dense[:, :T, :T].unflatten(-1, (side, side)))
     return dense
+
+
+def window_table_bias(q, rel_pos_h, rel_pos_w, side: int,
+                      variant: str) -> torch.Tensor:
+    """The plain twin of the bias csrc/window_attention_sm90.cu stages for
+    ``(G, T, hd)`` window-heads: the table product of the unscaled q
+    gathered at ``y - k + side - 1`` (:func:`sam_flash.table_bias_rows`),
+    then rounded as the variant's kernel mode does, all as f32: the
+    natural-base rows ``(G, T, 2 * side)`` rounded to bf16 (v1, v6, v7, v8,
+    v3, v4, v5); v2's ``(G, T, T)`` per-score ``bf16(bias_h + bias_w)`` of
+    the f32 rows; v10's log2-domain rows rounded to bf16."""
+    rows = sam_flash.table_bias_rows(q, rel_pos_h, rel_pos_w, side,
+                                     log2_domain=variant == "v10")
+    if variant != "v2":
+        return rows.bfloat16().float()
+    G, T, _ = rows.shape
+    dense = rows[..., :side, None] + rows[..., None, side:]
+    return dense.reshape(G, T, T).bfloat16().float()
 
 
 def _window_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
@@ -530,17 +555,8 @@ def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
                          f"head_dim {hd} and {T} tokens")
     G = math.prod(q.shape[:-2])
     nh = 1 if q.dim() == 3 else q.shape[1]
-    mode = WINDOW_MODES[variant]
-    if mode == WINDOW_DENSE_BIAS:
-        bias = window_dense_bias(q.reshape(G, T, hd), rel_pos_h, rel_pos_w,
-                                 side)
-    else:
-        bias = sam_flash.global_bias_rows(
-            q.reshape(G, T, hd), rel_pos_h, rel_pos_w, side,
-            log2_domain=False,
-            dtype=torch.bfloat16 if mode == WINDOW_SCALE_AFTER else None)
-    if mode != WINDOW_SCALE_AFTER:
-        q = (q.float() * (1.0 / math.sqrt(hd))).to(q.dtype)
+    tables = sam_flash.kernel_tables(name, rel_pos_h, rel_pos_w, side,
+                                     MAX_WINDOW_SIDE)
     if q.dim() == 3:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = torch.empty((G, T, hd), dtype=q.dtype, device=q.device)
@@ -549,27 +565,33 @@ def _window_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
         out = torch.empty((q.shape[0], T, nh, hd), dtype=q.dtype,
                           device=q.device)
         out_view, out_strides = out.transpose(1, 2), (T * nh * hd, hd, nh * hd)
-    _cuda.check_cuda(name, bias, out)
+    _cuda.check_cuda(name, out, *tables)
 
-    def strides(t):  # (s_b, s_h, s_t), read in place
-        return t.stride()[:3] if t.dim() == 4 else (t.stride(0), 0,
-                                                    t.stride(1))
-
-    for t in (q, k, v):
-        if (t.dtype != torch.bfloat16 or not t.is_cuda or t.stride(-1) != 1
-                or any(s % 8 for s in strides(t)) or t.data_ptr() % 16
-                or (t is v and t.stride() != k.stride())):
-            raise ValueError(
-                f"{name}: q, k and v must be bf16 CUDA tensors with a "
-                "contiguous last dim, strides that are multiples of 8 and "
-                "16-byte alignment, k and v with one set of strides; got "
-                f"{t.dtype}, strides {t.stride()}")
-    _cuda.launch(
-        "flmm_window_attention", q.data_ptr(), *strides(q), k.data_ptr(),
-        v.data_ptr(), *strides(k), nh, bias.data_ptr(), side, G, T, hd, mode,
-        1.0 / math.sqrt(hd), out.data_ptr(), *out_strides, _cuda.stream(q))
+    strides = sam_flash._head_strides(name, k)
+    if sam_flash._head_strides(name, v) != strides:
+        raise ValueError(f"{name}: k and v differ in strides: {k.stride()} "
+                         f"{v.stride()}")
+    window_attention_sm90(q, sam_flash._head_strides(name, q), k, v, strides,
+                          nh, tables, side, G, T, WINDOW_MODES[variant], out,
+                          out_strides)
     wrapper.launches += 1
     return out_view
+
+
+def window_attention_sm90(q, q_strides, k, v, strides, nh, tables,
+                          side: int, G: int, T: int, mode: int, out,
+                          out_strides) -> None:
+    """Launch csrc/window_attention_sm90.cu in one of the ``WINDOW_*`` modes
+    over ``(G, T, 64)`` window-heads: element ``(g, t, d)`` of k and v at
+    ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] + d``,
+    of q with ``q_strides``, of ``out`` with ``out_strides``; ``tables`` as
+    :func:`sam_flash.kernel_tables` gives them.  Uncounted: the wrappers
+    count."""
+    _cuda.launch(
+        "flmm_window_attention_sm90", q.data_ptr(), *q_strides, k.data_ptr(),
+        v.data_ptr(), *strides, nh, tables[0].data_ptr(),
+        tables[1].data_ptr(), side, G, T, mode, out.data_ptr(), *out_strides,
+        _cuda.stream(q))
 
 
 def sam_window_attention_plain(q, k, v, rel_pos_h, rel_pos_w, side: int):

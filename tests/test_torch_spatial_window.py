@@ -6,8 +6,8 @@ ragged edge: 12 -> 14), in f32, inputs from a seeded numpy generator; and on
 an unpadded grid against the port's plain K6 route, which computes the same
 function there.
 
-The CUDA kernel (csrc/spatial_window_attention.cu) runs only on the card,
-where chip_smoke.py holds it to this plain version.
+The CUDA kernel (csrc/window_attention_sm90.cu, its ``SPATIAL_LOG2`` mode)
+runs only on the card, where chip_smoke.py holds it to this plain version.
 
 Tolerance: f32 on both sides; the Pallas kernel folds the bias into one
 augmented product in base 2, the plain version adds it in natural base:

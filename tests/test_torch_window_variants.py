@@ -4,7 +4,7 @@ the SAM encoder's ``window_kernel`` switch.
 
 Inputs come from seeded numpy generators and go to both sides.  On CPU
 tensors each wrapper takes its plain version and launches nothing; the CUDA
-kernel (csrc/window_attention.cu with a ``MODE`` flag) runs only on the card,
+kernel (csrc/window_attention_sm90.cu with a ``MODE`` flag) runs only on the card,
 where chip_smoke.py holds it against these plain versions.
 
 Tolerances: 2e-4 in f32 (other summation orders; the TPU kernels expand the
