@@ -15,7 +15,8 @@ Phases; any failure raises and the script exits non-zero:
    flash capture at the LLaVA-NeXT decoder shape, K2 at the SAM-448 grid
    (side 28) and K6 window attention at the SAM-448 training shape; K7
    tower flash attention at the HPT tower shape (head dim 72, read in place
-   from the qkv rows) and at the CLIP shape (S = 577, head dim 64), K8 LN2 +
+   from the qkv rows) and at the CLIP shape (S = 577, head dim 64), also as
+   views of qkv rows at S = 577 and head dims 72 and 64, K8 LN2 +
    MLP and K10 the attention half of a global SAM block at the SAM-1024
    global-layer shape (K10's f32 result also bit for bit equal across two
    runs), K5 again at the HPT decoder shape (GQA 32/8); K9 raw capture at
@@ -25,8 +26,12 @@ Phases; any failure raises and the script exits non-zero:
    at the bs-8 grid padded to 70 x 70; then K1, K2, K3, K4, K5, K6, K8 and
    K10 once more at the shapes phase 13's bench gives them (bs 8 at the
    SAM-1024 grid, the SigLIP rows, the aligned decoder); and the global
-   variants v11, v3, v6 and v7 of K12 at the bs-4 and bs-8 SAM-1024 grid
-   (v11 also at side 28), each also beside K2 on the same inputs; the
+   variants v11, v3, v6 and v7 of K12 (all on K2's core, csrc/
+   relpos_attention_sm90.cu, in their softmax modes) at the bs-4 and bs-8
+   SAM-1024 grid and at the grid sides 28, 5 and 80 where their JAX
+   preconditions take them, each also beside K2 on the same inputs and its
+   kernel alone beside its wrapper, with the memory its wrapper adds above
+   its inputs asserted to be its output and tables; the
    window variants v1, v6, v7 and v8 of K12 at the kernel bench's bs-8 shape
    (3200 window-heads, contiguous and as views of the windowised qkv) and
    at the SAM-768 bs-4 shape, each also beside K6; and K6, K3, K4 and K2 at
@@ -351,12 +356,15 @@ SOURCES = {
     "sam_window_attention_v10": (
         "flmm_tpu_torch/csrc/window_attention_sm90.cu",
         "flmm_tpu/ops/sam_flash_experiments.py:1222"),
-    "sam_global_attention_v11": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                 "flmm_tpu/ops/sam_flash_experiments.py:1309"),
-    "sam_global_attention_v3": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash_experiments.py:1046"),
-    "sam_global_attention_v6": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash_experiments.py:942"),
+    "sam_global_attention_v11": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:1309"),
+    "sam_global_attention_v3": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:1046"),
+    "sam_global_attention_v6": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:942"),
     "sam_global_attention_v7": (
         "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
         "flmm_tpu/ops/sam_flash_experiments.py:981"),
@@ -372,12 +380,15 @@ SOURCES = {
     "sam_window_attention_v8": (
         "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:346"),
-    "sam_global_attention": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                             "flmm_tpu/ops/sam_flash_experiments.py:1107"),
-    "sam_global_attention_v2": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash_experiments.py:781"),
-    "sam_global_attention_v4": ("flmm_tpu_torch/csrc/relpos_attention.cu",
-                                "flmm_tpu/ops/sam_flash_experiments.py:859"),
+    "sam_global_attention": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:1107"),
+    "sam_global_attention_v2": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:781"),
+    "sam_global_attention_v4": (
+        "flmm_tpu_torch/csrc/relpos_attention_sm90.cu",
+        "flmm_tpu/ops/sam_flash_experiments.py:859"),
     "sam_window_attention_v2": (
         "flmm_tpu_torch/csrc/window_attention_sm90.cu",
                                 "flmm_tpu/ops/sam_flash_experiments.py:422"),
@@ -445,11 +456,38 @@ def phase_card() -> str:
     return card
 
 
+def ptxas_summary(text: str) -> dict:
+    """Per source of the build's ``ptxas.log``: its kernels' registers and
+    the spill stores of those that spill, by mangled name."""
+    out, src, entry = {}, None, None
+    for line in text.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+            out[src] = {"registers": [], "spills": {}}
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "bytes spill stores" in line and src:
+            stores = int(line.split("bytes spill stores")[0].split(",")[-1])
+            if stores:
+                out[src]["spills"][entry] = stores
+        elif "Used" in line and "registers" in line and src:
+            out[src]["registers"].append(
+                int(line.split("Used")[1].split("registers")[0]))
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _cuda.library()
     log(f"phase 2 build: kernel library ready in "
         f"{time.perf_counter() - t0:.1f} s")
+    log_path = _cuda.BUILD / "ptxas.log"
+    if log_path.exists():  # absent when an earlier run built the library
+        for src, r in ptxas_summary(log_path.read_text()).items():
+            regs = r["registers"]
+            log(f"phase 2 ptxas {src}: {len(regs)} kernels, "
+                f"{min(regs, default=0)}-{max(regs, default=0)} registers; "
+                f"spill stores {r['spills'] or 'none'}")
 
 
 def _randn(g, shape, scale=1.0, shift=0.0):
@@ -768,6 +806,17 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
           sam_flash.plain_flash_attention,
           sam_flash.plain_flash_attention_plain, (q, k, v),
           flop=4 * BS * H * 577 * 577 * 64, library_fn=lambda: _sdpa(q, k, v))
+    # the odd S at both head widths, as (B, H, S, hd) views of qkv rows (the
+    # CLIP-L towers at hd 64; hd 72 past a 64-key tile's end)
+    for hd_v in (72, 64):
+        qkv = _randn(g_hpt, (BS, 577, 3 * H * hd_v))
+        heads = [t.reshape(BS, 577, H, hd_v).transpose(1, 2)
+                 for t in qkv.split(H * hd_v, dim=-1)]
+        check("plain_flash_attention", f"G={BS * H}, S=577, hd={hd_v}, (B, "
+              "H, S, hd) views", sam_flash.plain_flash_attention,
+              sam_flash.plain_flash_attention_plain, heads,
+              flop=4 * BS * H * 577 * 577 * hd_v,
+              library_fn=lambda: _sdpa(*heads))
     del q, k, v, qkv, heads, mask
     kernel_bench_checks(check, g_bench)
     bench_shape_checks(check, g_bench)
@@ -996,57 +1045,99 @@ def bench_shape_checks(check, g: torch.Generator) -> None:
 
 
 def global_variant_checks(check, g: torch.Generator) -> None:
-    """Phase 3 for the global variants v11, v3, v6, v7, v1, v2 and v4 (K12)
-    at the shapes their paths give them: 4 images x 16 heads over the 64 x
-    64 grid (the bench.py twin and the family matrix at bs 4) and 8 images
-    (the kernel bench); v11 also at side 28, whose 784 keys end inside a
-    64-key tile.  Each variant's result is also held beside K2's (v8) on the
-    same inputs, and v1 and v2 beside v3, whose function they are on bf16
-    inputs at head_dim 64 up to the order of two f32 additions."""
-    hd, nh, side = 64, 16, 64
+    """Phase 3 for the global variants v11, v3, v6, v7, v1, v2 and v4 (K12),
+    all on K2's wgmma + TMA core (csrc/relpos_attention_sm90.cu) in their
+    softmax modes, at the shapes their paths give them: 4 images x 16 heads
+    over the 64 x 64 grid (the bench.py twin and the family matrix at bs 4)
+    and 8 images (the kernel bench); then at the grid sides 5 (the tiny
+    configs' SAM-80), 28 (SAM-448, 784 keys ending inside a 64-key tile; v11
+    there at bs 8) and 80 (SAM-1280, one image), each variant where its JAX
+    precondition takes the side.  Each variant's result is also held beside
+    K2's (v8) on the same inputs, its wrapper timed beside K2's and beside
+    its kernel alone, and the memory its call allocates above its inputs is
+    asserted to be its output and the two bf16 tables: no bias rows and no
+    scaled copy of q.  v1 and v2 are also held beside v3, whose function
+    they are on bf16 inputs at head_dim 64 up to the order of two f32
+    additions (v2 = v3 bit for bit: one instantiation)."""
+    hd, nh = 64, 16
+    sfx = sam_flash_experiments
     variants = {
-        name: (getattr(sam_flash_experiments, GLOBAL_WRAPPER[name]),
-               getattr(sam_flash_experiments, GLOBAL_WRAPPER[name] + "_plain"))
+        name: (getattr(sfx, GLOBAL_WRAPPER[name]),
+               getattr(sfx, GLOBAL_WRAPPER[name] + "_plain"))
         for name in ("v11", "v3", "v6", "v7") + NEW_GLOBALS}
 
-    def check_all(label, q, k, v, rph, rpw, side, names, mask=None):
+    def check_all(label, q, k, v, rph, rpw, side, mask=None):
         ref = sam_flash.sam_global_attention_v8(q, k, v, rph, rpw, side)
+        k2_ms = cuda_ms(lambda: sam_flash.sam_global_attention_v8(
+            q, k, v, rph, rpw, side))
         G, S, _ = q.shape
+        tables = sam_flash.kernel_tables("global", rph, rpw, side,
+                                         sam_flash.MAX_TABLE_SIDE)
+        out, strides = torch.empty_like(q), (S * hd, 0, hd)
         outs = {}
-        for name in names:
-            wrapper, plain = variants[name]
+        for name, (wrapper, plain) in variants.items():
+            needs = sfx.GLOBAL_VARIANTS[name][2]
+            if needs is not None and needs(S, side) is not None:
+                continue  # the JAX function refuses this grid too
             check(GLOBAL_WRAPPER[name], label, wrapper, plain,
                   (q, k, v, rph, rpw, side), flop=4 * G * S * S * hd,
                   library_fn=None if mask is None
                   else lambda: _sdpa(q, k, v, mask))
+            # what the call allocates above its inputs, at its peak
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             outs[name] = wrapper(q, k, v, rph, rpw, side)
+            torch.cuda.synchronize()
+            added = torch.cuda.max_memory_allocated() - base
+            own = _tensor_bytes(outs[name], *tables)
+            code = sfx.GLOBAL_VARIANTS[name][0]
+            alpha = (1.0 if code == sam_flash.SOFTMAX_NATURAL_BF16
+                     else sam_flash.LOG2E) / math.sqrt(hd)
+            alone_ms = cuda_ms(lambda: sam_flash.relpos_attention_sm90(
+                q, strides, k, v, strides, 1, side, G, S, out, strides,
+                tables=tables, softmax=code, alpha=alpha))
+            wrapper_ms = cuda_ms(lambda: wrapper(q, k, v, rph, rpw, side))
             diff = (outs[name].float() - ref.float()).abs().max().item()
             log(f"phase 3 {GLOBAL_WRAPPER[name]} [{label}]: max |diff| "
-                f"against sam_global_attention_v8 {diff:.3e}")
-        if "v1" in outs:
+                f"against sam_global_attention_v8 {diff:.3e}; wrapper "
+                f"{wrapper_ms:.3f} ms, kernel alone {alone_ms:.3f} ms, "
+                f"sam_global_attention_v8 {k2_ms:.3f} ms "
+                f"({wrapper_ms / k2_ms:.2f}x); peak memory above its inputs "
+                f"{added / 1e6:.1f} MB (its output and tables "
+                f"{own / 1e6:.1f} MB)")
+            if added > own + (1 << 20):
+                raise AssertionError(f"{GLOBAL_WRAPPER[name]} allocates more "
+                                     "than its output and tables on the "
+                                     "kernel path")
+        if "v2" in outs and "v3" in outs:
             log(f"phase 3 global variants [{label}]: v2 equals v3 bit for "
-                f"bit: {torch.equal(outs['v2'], outs['v3'])}, v1 equals v3: "
-                f"{torch.equal(outs['v1'], outs['v3'])} (max |diff| "
-                f"{(outs['v1'].float() - outs['v3'].float()).abs().max():.3e}"
-                "), v4 against v3 max |diff| "
-                f"{(outs['v4'].float() - outs['v3'].float()).abs().max():.3e}")
+                f"bit: {torch.equal(outs['v2'], outs['v3'])}")
             if not torch.equal(outs["v2"], outs["v3"]):
                 raise AssertionError("two names of one kernel instantiation "
                                      "disagree")
+        for other in ("v1", "v4"):
+            if other in outs and "v3" in outs:
+                d = (outs[other].float() - outs["v3"].float()).abs().max()
+                log(f"phase 3 global variants [{label}]: {other} against v3 "
+                    f"max |diff| {d:.3e}")
+        del out, outs, ref
 
     for B in (BS, BENCH_BS):
+        side = 64
         q, k, v = (_randn(g, (nh * B, side * side, hd)) for _ in range(3))
         rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
         # the library call's mask, 2.1 GB at bs 4 and 4.3 GB at bs 8
         mask = _attention_mask(q, rph, rpw, side)
         check_all(f"G={nh * B}, S={side * side}", q, k, v, rph, rpw, side,
-                  variants, mask)
+                  mask)
         del mask
-    side = TRAIN_SAM // 16
-    q, k, v = (_randn(g, (nh * TRAIN_BS, side * side, hd)) for _ in range(3))
-    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
-    check_all(f"G={nh * TRAIN_BS}, S={side * side}", q, k, v, rph, rpw, side,
-              ("v11",), _attention_mask(q, rph, rpw, side))
+    for side, G in ((TRAIN_SAM // 16, nh * TRAIN_BS), (5, nh * BS),
+                    (80, nh)):
+        q, k, v = (_randn(g, (G, side * side, hd)) for _ in range(3))
+        rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+        check_all(f"side {side}, G={G}, S={side * side}", q, k, v, rph, rpw,
+                  side, _attention_mask(q, rph, rpw, side))
 
 
 def _window_views(g: torch.Generator, NW: int, nh: int = 16, T: int = 196,

@@ -38,14 +38,10 @@ _SIGNATURES = {
     # out, x_f32, ln, h, stream
     "flmm_block_tail": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P,
                         _P, _I, _P, _P, _P, _P, _P),
-    # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, side, G, S, head_dim,
-    # softmax, scale, out, o_b, o_h, o_t, stream
-    "flmm_relpos_attention": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P, _I,
-                              _I, _I, _I, _I, _F, _P, _L, _L, _L, _P),
     # q, q_b, q_h, q_t, k, v, s_b, s_h, s_t, nh, bias, table_h, table_w,
-    # side, G, S, alpha, out, o_b, o_h, o_t, stream
+    # side, G, S, softmax, alpha, out, o_b, o_h, o_t, stream
     "flmm_relpos_attention_sm90": (_P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _P,
-                                   _P, _P, _I, _I, _I, _F, _P, _L, _L, _L,
+                                   _P, _P, _I, _I, _I, _I, _F, _P, _L, _L, _L,
                                    _P),
     # x, N, C, F, ln_w, ln_b, eps, w1, b1, w2, b2, act, out, ln, h, stream
     "flmm_ln_mlp": (_P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _I, _P, _P,

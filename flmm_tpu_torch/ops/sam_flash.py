@@ -12,9 +12,9 @@ csrc/relpos_attention_sm90.cu, which reads the unscaled q, k and v in place
 and the two rel-pos tables, forms the bias rows itself with one more
 tensor-core product (:func:`table_bias_rows` is its plain twin), puts
 ``scale * log2(e)`` on the f32 scores and never writes the ``(G, S, S)``
-scores: the wrapper runs no pass over q.  The natural-base variants of
-flmm_tpu_torch.ops.sam_flash_experiments keep the prepared operands and
-csrc/relpos_attention.cu.
+scores: the wrapper runs no pass over q.  The global variants of
+flmm_tpu_torch.ops.sam_flash_experiments launch the same kernel in their
+own softmax modes, from the tables too.
 """
 
 from __future__ import annotations
@@ -32,19 +32,21 @@ HEAD_DIM = 64  # the rel-pos kernel's head width
 PLAIN_HEAD_DIMS = (64, 72)  # the bias-free kernel's (72: SigLIP-SO400M)
 # f32 scores the plain global attention holds at a time (256 MB)
 MAX_PLAIN_SCORES = 1 << 26
-# what the kernels do with the f32 scores: base-2 softmax with the running
-# max (K1, K2, K6, K10, global v7: csrc/relpos_attention_sm90.cu); and in
-# csrc/relpos_attention.cu natural-base softmax (global v2 / v3 / v6), exp2
-# of the raw log2-domain scores with no max (global v11),
-# natural-base softmax of the unscaled q's scores times ``scale`` (global v1),
-# or natural-base softmax with scores, exponent and probabilities rounded to
-# bf16 and the denominator summed from the rounded probabilities (global v4)
+# what csrc/relpos_attention_sm90.cu does with the f32 scores (its softmax
+# modes): base-2 softmax with the running max (K1, K2, K6, K10, global v7);
+# natural-base softmax over bias rows rounded to bf16 (global v2 / v3 / v6),
+# exp2 of the raw log2-domain scores with no max (global v11),
+# natural-base softmax of the scores times ``scale`` plus ``bias_h``, then
+# plus ``bias_w`` (global v1), or natural-base softmax with scores, exponent
+# and probabilities rounded to bf16 and the denominator summed from the
+# rounded probabilities (global v4)
 SOFTMAX_LOG2, SOFTMAX_NATURAL, SOFTMAX_LOG2_NO_MAX = 0, 1, 2
 SOFTMAX_NATURAL_SCALE_AFTER, SOFTMAX_NATURAL_BF16 = 3, 4
 LOG2_DOMAIN = (SOFTMAX_LOG2, SOFTMAX_LOG2_NO_MAX)
-# the largest grid side the wgmma kernel takes: its tables come in as chunks
-# of 128 rows, and at side 147 the f32 bias rows of one consumer warpgroup,
-# the tables, Q and the K / V ring just fit a block's 227 KB of shared memory
+# the largest grid side the wgmma kernel takes, in every mode: its tables
+# come in as chunks of rows, and at side 147 the f32 bias rows of one
+# consumer warpgroup, the tables, Q and the K / V ring just fit a block's
+# 227 KB of shared memory
 MAX_TABLE_SIDE = 147
 
 
@@ -130,17 +132,13 @@ def sam_global_attention_v8_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
 
 
 def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
-            softmax: int = SOFTMAX_LOG2, bias_dtype=None):
-    """Launch one of the two kernels over ``(G, S, 64)`` heads or ``(NW, nh,
-    S, 64)`` strided views; the output has q's shape, in memory ``(G, S,
-    64)`` or ``(NW, S, nh, 64)``.  ``SOFTMAX_LOG2``: csrc/
-    relpos_attention_sm90.cu reads q, k and v in place and the first ``2 *
-    side - 1`` rows of the tables in bf16.  Other codes: the operands are
-    prepared as the JAX wrappers do (in the log2 domain for the
-    ``LOG2_DOMAIN`` codes, else in natural base; q left unscaled for
-    ``SOFTMAX_NATURAL_SCALE_AFTER``, whose kernel scales the scores; the
-    bias rows rounded to ``bias_dtype``, default q's) for
-    csrc/relpos_attention.cu."""
+            softmax: int = SOFTMAX_LOG2):
+    """Launch csrc/relpos_attention_sm90.cu in the ``softmax`` mode over
+    ``(G, S, 64)`` heads or ``(NW, nh, S, 64)`` strided views, read in place
+    with the first ``2 * side - 1`` rows of the tables in bf16; the output
+    has q's shape, in memory ``(G, S, 64)`` or ``(NW, S, nh, 64)``.  The
+    factor of the f32 scores is ``scale * log2(e)``, or ``scale`` for
+    ``SOFTMAX_NATURAL_BF16``, whose scores stay in natural base."""
     S, hd = q.shape[-2:]
     if (S != side * side or k.shape != q.shape or v.shape != q.shape
             or q.dim() not in (3, 4)):
@@ -149,11 +147,12 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
     if hd != HEAD_DIM:
         raise ValueError(f"{name}: kernel built for head_dim {HEAD_DIM}, "
                          f"got {hd}")
+    tables = kernel_tables(name, rel_pos_h, rel_pos_w, side, MAX_TABLE_SIDE)
     G = math.prod(q.shape[:-2])
     nh = 1 if q.dim() == 3 else q.shape[1]
     scale = 1.0 / math.sqrt(hd)
     if q.dim() == 3:
-        k, v = k.contiguous(), v.contiguous()
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = torch.empty((G, S, hd), dtype=q.dtype, device=q.device)
         out_view, out_strides = out, (S * hd, 0, hd)
     else:
@@ -165,28 +164,11 @@ def _launch(name, q, k, v, rel_pos_h, rel_pos_w, side: int,
     if _head_strides(name, v) != strides:
         raise ValueError(f"{name}: k and v differ in strides: {k.stride()} "
                          f"{v.stride()}")
-    if softmax == SOFTMAX_LOG2:
-        tables = kernel_tables(name, rel_pos_h, rel_pos_w, side,
-                               MAX_TABLE_SIDE)
-        if q.dim() == 3:
-            q = q.contiguous()
-        _cuda.check_cuda(name, *tables, out)
-        relpos_attention_sm90(q, _head_strides(name, q), k, v, strides,
-                              nh, side, G, S, out, out_strides, tables=tables,
-                              alpha=scale * LOG2E)
-        return out_view
-    log2_domain = softmax in LOG2_DOMAIN
-    if softmax == SOFTMAX_NATURAL_SCALE_AFTER:
-        qs = q.reshape(G, S, hd).contiguous()
-    else:
-        mult = LOG2E if log2_domain else 1.0
-        qs = (q.float() * (mult * scale)).to(q.dtype).reshape(
-            G, S, hd).contiguous()
-    bias = global_bias_rows(q.reshape(G, S, hd), rel_pos_h, rel_pos_w, side,
-                            log2_domain, bias_dtype)
-    _cuda.check_cuda(name, qs, bias, out)
-    relpos_attention(qs, (S * nh * hd, S * hd, hd), k, v, strides, nh, bias,
-                     side, G, S, out, out_strides, softmax, scale)
+    _cuda.check_cuda(name, *tables, out)
+    relpos_attention_sm90(
+        q, _head_strides(name, q), k, v, strides, nh, side, G, S, out,
+        out_strides, tables=tables, softmax=softmax,
+        alpha=scale * (1.0 if softmax == SOFTMAX_NATURAL_BF16 else LOG2E))
     return out_view
 
 
@@ -255,34 +237,24 @@ def sam_window_attention_v9(q, k, v, rel_pos_h, rel_pos_w, side: int):
 sam_window_attention_v9.launches = 0
 
 
-def relpos_attention(q, q_strides, k, v, strides, nh, bias, side, G, S, out,
-                     out_strides, softmax: int, scale: float = 1.0) -> None:
-    """Launch csrc/relpos_attention.cu (every code but ``SOFTMAX_LOG2``);
-    element ``(g, t, d)`` of k and v is
-    at ``(g // nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] +
-    d`` from each pointer, of q likewise with ``q_strides``; ``softmax`` is
-    one of the ``SOFTMAX_*`` codes, and ``scale`` multiplies the scores of
-    ``SOFTMAX_NATURAL_SCALE_AFTER`` alone.  Uncounted: the wrappers count."""
-    _cuda.launch(
-        "flmm_relpos_attention", q.data_ptr(), *q_strides, k.data_ptr(),
-        v.data_ptr(), *strides, nh, bias.data_ptr(), side, G, S, HEAD_DIM,
-        softmax, scale, out.data_ptr(), *out_strides, _cuda.stream(q))
-
-
 def relpos_attention_sm90(q, q_strides, k, v, strides, nh, side, G, S, out,
                           out_strides, bias=None, tables=None,
+                          softmax: int = SOFTMAX_LOG2,
                           alpha: float = 1.0) -> None:
-    """Launch csrc/relpos_attention_sm90.cu: the base-2 softmax of ``alpha *
-    q.k`` plus the bias, addressed as :func:`relpos_attention`.  The bias is
-    ``bias``, ``(G, S, 2*side)`` log2-domain rows, or else comes from
-    ``tables``, the two ``(2*side - 1, 64)`` bf16 rel-pos tables in natural
-    base (the kernel multiplies their products with q by log2(e)).
-    Uncounted: the wrappers count."""
+    """Launch csrc/relpos_attention_sm90.cu: the ``softmax`` mode of ``alpha
+    * q.k`` plus the bias.  Element ``(g, t, d)`` of k and v is at ``(g //
+    nh) * strides[0] + (g % nh) * strides[1] + t * strides[2] + d`` from
+    each pointer, of q likewise with ``q_strides``, of ``out`` with
+    ``out_strides``.  The bias is ``bias``, ``(G, S, 2*side)`` log2-domain
+    rows (``SOFTMAX_LOG2`` only), or else comes from ``tables``, the two
+    ``(2*side - 1, 64)`` bf16 rel-pos tables in natural base (the kernel
+    stages their products with q as the mode rounds them).  Uncounted: the
+    wrappers count."""
     th, tw = (None, None) if tables is None else (t.data_ptr() for t in tables)
     _cuda.launch(
         "flmm_relpos_attention_sm90", q.data_ptr(), *q_strides, k.data_ptr(),
         v.data_ptr(), *strides, nh, None if bias is None else bias.data_ptr(),
-        th, tw, side, G, S, alpha, out.data_ptr(), *out_strides,
+        th, tw, side, G, S, softmax, alpha, out.data_ptr(), *out_strides,
         _cuda.stream(q))
 
 
@@ -293,6 +265,17 @@ def plain_flash_attention_plain(q, k, v):
     qs = (q.float() * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
     logits = matmul_f32(qs, k.transpose(-1, -2))
     return torch.softmax(logits, dim=-1).to(q.dtype) @ v
+
+
+def plain_flash_boxes(x) -> torch.Tensor:
+    """The plain twin of what csrc/plain_flash.cu stages of a ``(G, S, hd)``
+    operand: each head row as ``ceil(hd / 64)`` boxes of 64 columns and the
+    tokens in tiles of 64, zeros past ``hd`` and past ``S`` (the kernel's
+    tensor map ends there), ``(G, S rounded up to 64, 64 * boxes)``.  At hd
+    72 the second box is columns 64-71 and zeros."""
+    G, S, hd = x.shape
+    return torch.nn.functional.pad(
+        x, (0, -(-hd // 64) * 64 - hd, 0, -(-S // 64) * 64 - S))
 
 
 def _head_strides(name, t):

@@ -40,7 +40,12 @@ by the f32 sum of the bf16-rounded ``p`` (on the TPU a ones-column of v): by
 its contract the softmax weights carry about 0.4% of rounding.  Each wrapper
 mirrors the shape preconditions of its JAX function (the query and key tiles
 of v1 refuse SAM-768's 2304 tokens, the query tile of v2 takes them).  All
-seven launch csrc/relpos_attention.cu with the matching ``SOFTMAX_*`` flag.
+seven launch K2's wgmma + TMA core, csrc/relpos_attention_sm90.cu, in the
+matching ``SOFTMAX_*`` mode: it reads q, k and v in place and the two rel-pos
+tables, stages the bias rows from the tables rounded as each JAX wrapper
+rounds them (:func:`global_table_bias` is the plain twin) and puts the q
+scaling on the f32 scores, so the wrappers run no pass over q and make no
+bias rows; like K2 they take grid sides 1 to ``sam_flash.MAX_TABLE_SIDE``.
 
 The window variants take a one-shot natural-base softmax over a window's T
 keys and differ as functions only in where the operands are rounded: v1 and
@@ -268,12 +273,30 @@ def _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side: int,
     return torch.cat(outs, dim=1)
 
 
+def global_table_bias(q, rel_pos_h, rel_pos_w, side: int,
+                      variant: str) -> torch.Tensor:
+    """The plain twin of the bias rows csrc/relpos_attention_sm90.cu stages
+    for a global variant over ``(G, S, hd)`` heads, ``(G, S, 2 * side)`` in
+    f32: the table product of the unscaled q gathered at ``y - k + side -
+    1`` (:func:`sam_flash.table_bias_rows`), rounded to bf16 in natural base
+    (v1, v2, v3, v4, v6) or in the log2 domain (v11), as each JAX wrapper
+    rounds the rows it hands its ``pallas_call``; v7's are K2's f32
+    log2-domain rows."""
+    softmax = GLOBAL_VARIANTS[variant][0]
+    rows = sam_flash.table_bias_rows(
+        q, rel_pos_h, rel_pos_w, side,
+        log2_domain=softmax in sam_flash.LOG2_DOMAIN)
+    if softmax == sam_flash.SOFTMAX_LOG2:
+        return rows
+    return rows.bfloat16().float()
+
+
 def _global_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
                     wrapper):
     """Shared body of the seven wrappers: no grad, the JAX contract on the
     shape, the plain version on CPU tensors, then the kernel."""
     name = wrapper.__name__
-    softmax, bias_dtype, needs = GLOBAL_VARIANTS[variant]
+    softmax, _, needs = GLOBAL_VARIANTS[variant]
     _cuda.check_no_grad(name, q, k, v, rel_pos_h, rel_pos_w)
     shaped = (q.dim() == 3 and q.shape[1] == side * side
               and k.shape == q.shape and v.shape == q.shape)
@@ -287,7 +310,7 @@ def _global_variant(variant, q, k, v, rel_pos_h, rel_pos_w, side: int,
         return _global_variant_plain(q, k, v, rel_pos_h, rel_pos_w, side,
                                      variant)
     out = sam_flash._launch(name, q, k, v, rel_pos_h, rel_pos_w, side,
-                            softmax, bias_dtype)
+                            softmax)
     wrapper.launches += 1
     return out
 

@@ -4,8 +4,8 @@ the SAM encoder's ``global_kernel`` switch.
 
 Inputs come from seeded numpy generators and go to both sides.  On CPU
 tensors each wrapper takes its plain version and launches nothing; the CUDA
-kernel (csrc/relpos_attention.cu with a ``SOFTMAX_*`` flag) runs only on the
-card, where chip_smoke.py holds it against these plain versions.
+kernel (csrc/relpos_attention_sm90.cu in a ``SOFTMAX_*`` mode) runs only on
+the card, where chip_smoke.py holds it against these plain versions.
 
 Tolerances: 2e-4 in f32 (other summation orders; the TPU kernels take the
 bias out of one augmented product, the plain versions add it to the f32

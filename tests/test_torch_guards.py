@@ -112,6 +112,15 @@ def test_chip_smoke_names_the_source_and_tpu_site_of_every_wrapper():
     import json
     sources = json.loads(proc.stdout)
     assert len(sources) == 28
+    # every global variant runs on K2's wgmma + TMA core; the first port's
+    # rel-pos kernel is gone
+    assert not (REPO / "flmm_tpu_torch/csrc/relpos_attention.cu").exists()
+    for name in ("sam_global_attention", "sam_global_attention_v2",
+                 "sam_global_attention_v3", "sam_global_attention_v4",
+                 "sam_global_attention_v6", "sam_global_attention_v7",
+                 "sam_global_attention_v11"):
+        assert sources[name][0] == \
+            "flmm_tpu_torch/csrc/relpos_attention_sm90.cu", name
     for name, (src, site) in sources.items():
         assert (REPO / src).is_file(), name
         path, line = site.split(":")
