@@ -87,18 +87,6 @@ struct Cfg {
   static constexpr int SMEM = BARS + (2 * STAGES + 1) * 8 + 1024;
 };
 
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-          sm90::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_u32(bar)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // Four 8 x 8 bf16 matrices, transposed: thread i gives the address of row
 // i % 8 of matrix i / 8 and receives, of matrix m, column lane / 4 at rows
 // (lane % 4) * 2 and + 1 in r[m] -- the B fragment of mma.sync m16n8k16
@@ -149,18 +137,18 @@ plain_flash_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       sm90::mbar_expect_tx(qbar, C::Q_BYTES);
       for (int c = 0; c < CONS; ++c)
         for (int b = 0; b < C::BOXES; ++b)
-          tma_load_4d(smem + (c * C::BOXES + b) * TILE_BYTES, &map_q, qbar,
-                      64 * b, q0 + 64 * c, head, img);
+          sm90::tma_load_4d(smem + (c * C::BOXES + b) * TILE_BYTES, &map_q,
+                            qbar, 64 * b, q0 + 64 * c, head, img);
       for (int t = 0; t < KT; ++t) {
         const int s = t % C::STAGES;
         sm90::mbar_wait(&empty[s], ((t / C::STAGES) & 1) ^ 1);
         unsigned char* st = smem + C::Q_BYTES + s * C::STAGE_BYTES;
         sm90::mbar_expect_tx(&full[s], C::STAGE_BYTES);
         for (int b = 0; b < C::BOXES; ++b) {
-          tma_load_4d(st + b * TILE_BYTES, &map_k, &full[s], 64 * b, t * BKV,
-                      head, img);
-          tma_load_4d(st + (C::BOXES + b) * TILE_BYTES, &map_v, &full[s],
-                      64 * b, t * BKV, head, img);
+          sm90::tma_load_4d(st + b * TILE_BYTES, &map_k, &full[s], 64 * b,
+                            t * BKV, head, img);
+          sm90::tma_load_4d(st + (C::BOXES + b) * TILE_BYTES, &map_v,
+                            &full[s], 64 * b, t * BKV, head, img);
         }
       }
     }
@@ -308,34 +296,6 @@ plain_flash_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) store(dt * 8 + c2, o + 4 * dt);
   if constexpr (TAIL) store(64 + c2, ot);
-}
-
-// The 4D tensor map (column, token, head, image) of (G, S, hd) heads with
-// element (g, t, d) at (g / nh) b + (g % nh) h + t t_ + d: extents hd, S, nh
-// and G / nh, boxes of 64 columns x 64 tokens, 128-byte swizzle, zeros past
-// every extent.  Returns 0 or a cudaError_t.
-int make_heads_map(CUtensorMap* map, const void* base, long long b,
-                   long long h, long long t_, int nh, int G, int S, int hd) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  // a dimension of extent 1 takes any valid stride
-  if (nh == 1) h = t_;
-  if (G / nh == 1) b = t_;
-  if (reinterpret_cast<uintptr_t>(base) % 16 || t_ % 8 || h % 8 || b % 8 ||
-      t_ <= 0 || h <= 0 || b <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)nh,
-                              (cuuint64_t)(G / nh)};
-  const cuuint64_t strides[3] = {(cuuint64_t)t_ * 2, (cuuint64_t)h * 2,
-                                 (cuuint64_t)b * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int HD>

@@ -5,8 +5,8 @@ K9: the same attention with the raw capture (::flash_attention_with_capture).
 The replacement for ``output_attentions=True``: besides the attention
 output it returns, per mask, the merged probabilities of the query rows over
 the image keys ``[img_start, img_start + n_img)``, without an ``S x S``
-matrix in device memory.  The wrapper launches csrc/flash_capture.cu for
-CUDA tensors and takes the plain PyTorch version only for CPU tensors.
+matrix in device memory.  The wrapper launches csrc/flash_capture_sm90.cu
+for CUDA tensors and takes the plain PyTorch version only for CPU tensors.
 
 Alignment contract, as in the JAX package: ``S`` and ``img_start`` are
 multiples of 128 and the 128-padded image block fits in the sequence.
@@ -26,7 +26,7 @@ from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops._matmul import matmul_f32
 
 BLOCK = 128
-MAX_MASKS = 32  # csrc/flash_capture.cu MAX_M
+MAX_MASKS = 32  # csrc/flash_capture_sm90.cu MAX_M
 
 
 def _check_contract(q, k, v, key_valid, merge_matrix, img_start, n_img):
@@ -129,6 +129,9 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
     # decoder's (B, S, H * hd) rows without a copy
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    # which 64-row query blocks merge into a mask: the capture pass skips
+    # the others
+    flags = torch.empty((B, S // 64), dtype=torch.uint8, device=q.device)
     merged = torch.empty((B, H, M, n_img), dtype=torch.float32,
                          device=q.device)
     _cuda.launch(
@@ -136,7 +139,7 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
         *k.stride()[:3], v.data_ptr(), *v.stride()[:3], B, H, KV, S, hd,
         valid.data_ptr(), mm.data_ptr(), M, img_start, n_img,
         out.data_ptr(), S * H * hd, hd, H * hd, lse.data_ptr(),
-        merged.data_ptr(), _cuda.stream(q))
+        flags.data_ptr(), merged.data_ptr(), _cuda.stream(q))
     flash_attention_with_merged_capture.launches += 1
     return out.transpose(1, 2), merged
 

@@ -4,7 +4,7 @@ tests/test_flash_attention.py runs it), and the port decoder's flash path
 against JAX ``forward_capture`` with that kernel, in f32, inputs from a
 seeded numpy generator.
 
-The CUDA kernel (csrc/flash_capture.cu) runs only on the card, where
+The CUDA kernel (csrc/flash_capture_sm90.cu) runs only on the card, where
 chip_smoke.py holds it to this plain version at the LLaVA-NeXT shapes.
 
 Tolerances: the Pallas kernel rounds the merge matrix and the probability

@@ -121,6 +121,12 @@ def test_chip_smoke_names_the_source_and_tpu_site_of_every_wrapper():
                  "sam_global_attention_v11"):
         assert sources[name][0] == \
             "flmm_tpu_torch/csrc/relpos_attention_sm90.cu", name
+    # K5 and K9 run the wgmma + TMA capture source; the first port's is gone
+    assert not (REPO / "flmm_tpu_torch/csrc/flash_capture.cu").exists()
+    for name in ("flash_attention_with_merged_capture",
+                 "flash_attention_with_capture"):
+        assert sources[name][0] == \
+            "flmm_tpu_torch/csrc/flash_capture_sm90.cu", name
     for name, (src, site) in sources.items():
         assert (REPO / src).is_file(), name
         path, line = site.split(":")

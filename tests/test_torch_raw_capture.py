@@ -3,7 +3,7 @@ query row over the image keys), on the CPU: its plain version against the
 JAX package's Pallas kernel in interpret mode at the shapes of
 tests/test_flash_attention.py, in f32, inputs from a seeded numpy generator.
 
-The CUDA kernel (csrc/flash_capture.cu, ``flmm_flash_capture_raw``) runs
+The CUDA kernel (csrc/flash_capture_sm90.cu, ``flmm_flash_capture_raw``) runs
 only on the card, where chip_smoke.py holds it to this plain version.
 
 Tolerance: both sides are f32 with other summation orders (the Pallas kernel
