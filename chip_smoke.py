@@ -52,7 +52,11 @@ Phases; any failure raises and the script exits non-zero:
    and v10 (one window core, csrc/window_attention_sm90.cu) with its
    kernel alone beside its wrapper, and the memory the v2 wrapper adds above
    its inputs; K2 at the grid sides 5 (the tiny configs' SAM-80), 7, 80
-   (SAM-1280) and 128 (SAM-2048), K6 at window side 7 and K10 at side 5.
+   (SAM-1280) and 128 (SAM-2048), K6 at window side 7 and K10 at side 5;
+   K1 over one image's 25 windows, K2 over one image's 16 heads (S =
+   4096), K3 and K4 over one image's SAM global rows (N = 4096) and the
+   SigLIP rows of one and two images (N = 576, 1152): the generation
+   path's shapes.
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -137,7 +141,32 @@ Phases; any failure raises and the script exits non-zero:
     SAM-768 through window_kernel = v3, v4, v5 and v9 (20 launches of the
     named wrapper a forward, logits beside v9's); forward ms, host ms,
     samples/s, peak memory and the device's busy share over the loop;
-23. report times.
+23. report times;
+24. run the generation path (flmm_tpu_torch.generation.api, the grounder
+    API) at DeepSeek-VL-1.3B with lm_head at full width and depth, random
+    weights from a seed and a word-level stand-in tokenizer, through
+    make_grounder("deepseek_vl"): answer (64 new tokens with the per-step
+    capture) on a 480 x 640 image, ground on two token spans of the answer
+    and on a noun chunk's span where the chunker finds one, visual_cot_v1
+    on that image and visual_cot_v2 on a 333 x 500 one, each call with the
+    exact launch counts (answer K3 / K4 24 each, the SigLIP tower at bs 1;
+    ground K1 20, K2 4, K3 / K4 4, the SAM encoder at bs 1; each CoT both
+    and the two-image round's tower at bs 2: K3 / K4 52), finite outputs of
+    the expected shapes, the bf16 KV-cache decode's rows and hidden states
+    at steps 0, 1 and the last against the decoder's full forward over the
+    grown sequence (corr >= 0.999), and the all-plain grounder on the same
+    weights beside it: prefill capture and prompt hidden (corr >= 0.999),
+    first-step logits (>= 0.99), how long a prefix of the tokens agrees,
+    ground's SAM low-res logits on one answer's maps (>= 0.99), and its
+    coarse (>= 0.999) and SAM low-res logits on each path's own prompt
+    capture over the question, as visual_cot_v2 grounds it; all read from
+    the answer entry point (its _generate's result kept on the way);
+    from CUDA events the first token's ms (answer with one new token), split
+    into what comes before _generate (the host's image preparation,
+    tokenisation, the tower) and _generate (prefill and the first step), and
+    decode ms a token (the 64-token _generate less that), tokens/s,
+    ground and CoT ms on the host clock, the device's busy share of one
+    answer (profiler) and peak memory.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -154,7 +183,9 @@ import pathlib
 import subprocess
 import tempfile
 import time
+import zlib
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -169,8 +200,12 @@ from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
 from flmm_tpu_torch.data.processors import ProcessorConfig
 from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
 from flmm_tpu_torch.evalsuite import metrics, runner
+from flmm_tpu_torch.generation import api as generation
+from flmm_tpu_torch.generation.noun_chunks import char_span_to_token_span, \
+    noun_chunks
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
+from flmm_tpu_torch.models.llm import decoder as llm_decoder
 from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.models.vision import vit
@@ -320,6 +355,27 @@ EVAL_N, EVAL_SEED, EVAL_BS, EVAL_SEQ, EVAL_MASKS, EVAL_CAPTION = (
 EVAL_BUCKETS = (608, 640, 704)
 EVAL_WINDOWS = NEW_WINDOWS + ("v9",)
 EVAL_GT_MIN = 85.0  # cIoU and mIoU of the ground truth as +-8 logits
+# the generation path (phase 24): DeepSeek-VL-1.3B with lm_head through the
+# grounder API; two images of different aspect, (h, w); answers of up to 64
+# new tokens.  Per call: the SigLIP tower at bs 1 (answer, the CoT's
+# thought), at bs 2 (the CoT's two-image round) and the SAM ViT-L encoder
+# at bs 1 (ground); the decoder's prefill and decode are plain
+GEN_SEED, GEN_MAX_NEW = 9, 64
+GEN_IMAGES = ((480, 640), (333, 500))
+GEN_QUESTION = ("What is on the wooden table in this picture, and what "
+                "colour is the small cup next to it?")
+_TOWER = {"fused_ln_qkv": 24, "fused_proj_ln_mlp": 24}
+_SAM_BS1 = {"window_block": 20, "sam_global_attention_v8": 4,
+            "fused_ln_qkv": 4, "fused_proj_ln_mlp": 4}
+_COT = {**_SAM_BS1, "fused_ln_qkv": 52, "fused_proj_ln_mlp": 52}
+GEN_LAUNCHES = {"answer": _TOWER, "ground": _SAM_BS1, "visual_cot_v1": _COT,
+                "visual_cot_v2": _COT}
+# words of the stand-in tokenizer (ids 1000 up); any id decodes to one
+GEN_WORDS = (
+    "a the two some red blue green white black small large old wooden "
+    "dog cat man woman hat cup table chair book car tree bird window road "
+    "field bag plate bottle is are on in with and of near next to holding "
+    "sitting standing there it . ,").split()
 
 
 def family_launches(global_kernel: str) -> dict:
@@ -901,6 +957,8 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     family_shape_checks(check, g_sweep)
     sm90_checks(check, results, torch.Generator(device="cuda").manual_seed(6))
     side_checks(check, torch.Generator(device="cuda").manual_seed(7))
+    generation_shape_checks(check,
+                            torch.Generator(device="cuda").manual_seed(8))
     return results
 
 
@@ -1405,6 +1463,58 @@ def family_shape_checks(check, g: torch.Generator) -> None:
               fused_block.fused_proj_ln_mlp_plain,
               (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-5, "quick_gelu"),
               flop=2 * N * C * C + 4 * N * C * F)
+
+
+def generation_shape_checks(check, g: torch.Generator) -> None:
+    """Phase 3 at the shapes the generation path (phase 24) gives the
+    kernels: K3 and K4 over the SAM global rows of one image (N = 4096) and
+    the SigLIP rows of one and two images (N = 576, 1152), K2 over one
+    image's 16 heads (G = 16, S = 4096), K1 over one image's 25 windows."""
+    C, F, hd, nh, ws, side = 1024, 4096, 64, 16, 14, 64
+    S = side * side
+    lw, lb = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    l2w, l2b = _randn(g, (C,), 0.1, 1.0), _randn(g, (C,), 0.1)
+    wqkv, bqkv = _randn(g, (C, 3 * C), C ** -0.5), _randn(g, (3 * C,), 0.1)
+    wo, bo = _randn(g, (C, C), C ** -0.5), _randn(g, (C,), 0.1)
+    w1, b1 = _randn(g, (C, F), C ** -0.5), _randn(g, (F,), 0.1)
+    w2, b2 = _randn(g, (F, C), F ** -0.5), _randn(g, (C,), 0.1)
+    for label, N in (("generation SAM global bs 1, N=4096", S),
+                     ("generation SigLIP bs 1, N=576", 576),
+                     ("generation SigLIP bs 2, N=1152", 1152)):
+        x, a = _randn(g, (N, C)), _randn(g, (N, C))
+        check("fused_ln_qkv", label, fused_block.fused_ln_qkv,
+              fused_block.fused_ln_qkv_plain, (x, lw, lb, wqkv, bqkv, 1e-6),
+              flop=2 * N * C * 3 * C)
+        check("fused_proj_ln_mlp", label, fused_block.fused_proj_ln_mlp,
+              fused_block.fused_proj_ln_mlp_plain,
+              (x, a, wo, bo, lw, lb, w1, b1, w2, b2, 1e-6, "gelu"),
+              flop=2 * N * C * C + 4 * N * C * F)
+    del x, a
+
+    q, k, v = (_randn(g, (nh, S, hd)) for _ in range(3))
+    rph, rpw = (_randn(g, (2 * side - 1, hd), 0.1) for _ in range(2))
+    mask = _attention_mask(q, rph, rpw, side)  # outside the timing
+    check("sam_global_attention_v8", f"generation bs 1, G={nh}, S={S}",
+          sam_flash.sam_global_attention_v8,
+          sam_flash.sam_global_attention_v8_plain, (q, k, v, rph, rpw, side),
+          flop=4 * nh * S * S * hd, library_fn=lambda: _sdpa(q, k, v, mask))
+    del q, k, v, mask
+
+    w_s, b_s = window_block.scaled_qkv_weights(wqkv, bqkv, nh, hd)
+    x = _randn(g, (1, side, side, C))
+    xw, geom = sam_encoder._windowize(x, ws)
+    xw = xw.contiguous()
+    valid = sam_encoder._window_valid_tokens(geom, ws, x.device)
+    rph, rpw = (_randn(g, (2 * ws - 1, hd), 0.1) for _ in range(2))
+    bias = window_block.window_rel_bias_from_x(
+        xw, valid, lw, lb, w_s[:, :C], b_s[:C], rph, rpw, ws, nh, hd)
+    NW, T = xw.shape[:2]
+    check("window_block", f"generation bs 1, NW={NW}, T={T}, padded grid",
+          window_block.window_block, window_block.window_block_plain,
+          (xw, bias, valid, lw, lb, w_s, b_s, wo, bo, l2w, l2b, w1, b1, w2,
+           b2, ws, nh),
+          flop=NW * T * (2 * C * 3 * C + 2 * C * C + 4 * C * F)
+          + 4 * NW * nh * T * T * hd)
 
 
 def sm90_checks(check, results: dict, g: torch.Generator) -> None:
@@ -2493,6 +2603,308 @@ def run_eval_phase(g: torch.Generator, card: str) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+class WordTokenizer:
+    """Word-level stand-in for DeepSeek-VL's tokenizer (the machine with the
+    card has no tokenizers or transformers): one id per whitespace-separated
+    word.  The special words take DeepSeek-LLM's ids (BOS 100000, the stop
+    word 100001, ``<image_placeholder>`` 100015), the words of
+    ``GEN_WORDS`` 1000 up, any other word a CRC32 below 100000; every id
+    decodes to one word, so a random model's answer reads as words."""
+
+    BOS = 100000
+    SPECIAL = {"<｜end▁of▁sentence｜>": 100001, "<image_placeholder>": 100015}
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        ids = [self.BOS] if add_special_tokens else []
+        text = text.replace("<image_placeholder>", " <image_placeholder> ")
+        for w in text.split():
+            if w in self.SPECIAL:
+                ids.append(self.SPECIAL[w])
+            elif w in GEN_WORDS:
+                ids.append(1000 + GEN_WORDS.index(w))
+            else:
+                ids.append(1000 + zlib.crc32(w.encode()) % 99000)
+        return ids
+
+    def decode(self, ids) -> str:
+        names = {v: k for k, v in self.SPECIAL.items()}
+        return " ".join(names.get(int(i), GEN_WORDS[int(i) % len(GEN_WORDS)])
+                        for i in ids)
+
+
+def _counted(fn) -> tuple:
+    """``fn()`` with every launch count at 0 just before and read just
+    after: ``(result, host ms, launches)``."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def _check_launches(call: str, launches: dict, total: dict) -> None:
+    want = {name: GEN_LAUNCHES[call].get(name, 0) for name in WRAPPERS}
+    log(f"phase 24 generation {call}: launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected "
+        f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
+    if launches != want:
+        raise AssertionError(f"generation {call}: kernel launch counts "
+                             "differ from the path's")
+    for name, n in launches.items():
+        total[name] += n
+
+
+def _answer_traced(grounder, image, max_new: int | None = None) -> tuple:
+    """One ``answer`` request through the entry point.  Returns its result,
+    the dict its ``_generate`` returned (with the arguments it took under
+    'args') and CUDA-event ms: 'call' the whole request, 'before' the part
+    ahead of ``_generate`` (image preparation on the host, tokenisation,
+    the tower), 'generate' the prefill and decode.  The spans hold the
+    host's gaps."""
+    seen = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def spy(*args):
+        ev[1].record()
+        result = type(grounder)._generate(grounder, *args)
+        ev[2].record()
+        seen.update(result, args=args)
+        return result
+
+    grounder._generate = spy
+    try:
+        ev[0].record()
+        out = grounder.answer(image, GEN_QUESTION, max_new_tokens=max_new)
+        ev[3].record()
+    finally:
+        del grounder._generate
+    torch.cuda.synchronize()
+    return out, seen, {"call": ev[0].elapsed_time(ev[3]),
+                       "before": ev[0].elapsed_time(ev[1]),
+                       "generate": ev[1].elapsed_time(ev[2])}
+
+
+def _agree(label: str, got, want, bound: float,
+           pair: str = "the kernel path vs the plain path") -> None:
+    rel, corr = agreement(got, want)
+    log(f"phase 24 generation {label}: {pair} max_rel_err {rel:.3e} corr "
+        f"{corr:.6f} (bound {bound})")
+    if corr < bound:
+        raise AssertionError(f"generation {label}: {pair} disagree")
+
+
+def run_generation(card: str) -> dict:
+    """Phase 24: DeepSeek-VL-1.3B (lm_head kept) through the grounder API:
+    answer, ground, visual_cot_v1 and visual_cot_v2, each with exact launch
+    counts, against the all-plain grounder on the same weights.  Its peak
+    memory is counted above what the earlier phases leave allocated."""
+    base = torch.cuda.memory_allocated()
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    g = torch.Generator(device="cuda").manual_seed(GEN_SEED)
+    params = grounding.init_params(cfg, g, "cuda")
+    randomize_rel_pos(params, g)
+    tokenizer = WordTokenizer()
+    kernel = generation.make_grounder("deepseek_vl", cfg, params, tokenizer,
+                                      max_new_tokens=GEN_MAX_NEW)
+    plain = generation.make_grounder(
+        "deepseek_vl", registry.plain_config(cfg), params, tokenizer,
+        max_new_tokens=GEN_MAX_NEW)
+    rng = np.random.default_rng(GEN_SEED)
+    images = [rng.integers(0, 256, (h, w, 3), np.uint8)
+              for h, w in GEN_IMAGES]
+    total = dict.fromkeys(WRAPPERS, 0)
+    L, H = cfg.llm.num_layers, cfg.llm.num_heads
+    n_img = cfg.num_img_tokens
+
+    warm = kernel.answer(images[1], GEN_QUESTION, max_new_tokens=2)
+    kernel.ground(warm, [(0, 1)])
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+
+    # answer: 64 new tokens with the per-step capture, then the 1-token
+    # request (its _generate: the prefill and the first step); decode ms a
+    # token is the difference of the two _generate spans over the other steps
+    (out, gen, ev_ms), answer_ms, launches = _counted(
+        lambda: _answer_traced(kernel, images[0]))
+    _check_launches("answer", launches, total)
+    (_, _, first_ev), _, launches = _counted(
+        lambda: _answer_traced(kernel, images[0], 1))
+    _check_launches("answer", launches, total)
+    T = len(out["output_ids"])
+    maps, hidden = out["attention_maps"], out["hidden_states"]
+    if not (1 <= T <= GEN_MAX_NEW and tuple(maps.shape) == (L, H, T, n_img)
+            and tuple(hidden.shape) == (T, cfg.llm.hidden_size)
+            and torch.isfinite(maps).all() and torch.isfinite(hidden).all()
+            and ((maps.sum(-1) - 1.0).abs() < 1.0).all()):
+        raise AssertionError("generation answer: wrong shapes or values")
+    if not (int(out["output_ids"].max()) < cfg.llm.vocab_size
+            and out["output_ids"].min() >= 0):
+        raise AssertionError("generation answer: token ids out of range")
+    log(f"phase 24 generation answer: {T} tokens, {out['output_text'][:80]!r}"
+        f"...; attention maps {tuple(maps.shape)}, hidden "
+        f"{tuple(hidden.shape)}, finite")
+
+    # the bf16 KV-cache decode against the decoder's full forward over the
+    # grown sequence: the first steps' and the last step's rows
+    llm_p = params["frozen"]["llm"]
+    embeds, img_start = gen["args"][0], gen["args"][1]
+    S = embeds.shape[0]
+    lw = torch.softmax(params["trainable"]["text_layer_weights"], 0)
+    ids = torch.as_tensor(out["output_ids"], device="cuda").long()
+    with torch.no_grad():
+        for t in sorted({0, 1, T - 1} & set(range(T))):
+            # step t feeds token t at position S + t
+            grown = torch.cat([embeds, llm_decoder.embed_tokens(
+                llm_p, cfg.llm, ids[:t + 1]).to(embeds.dtype)])
+            full = llm_decoder.forward_capture(
+                llm_p, cfg.llm, grown[None],
+                torch.ones((1, S + t + 1), dtype=torch.bool, device="cuda"),
+                img_start, n_img, layer_weights=lw)
+            pair = "the KV-cache decode vs the full forward"
+            _agree(f"decode step {t} rows (L, H, n_img)", gen["attn"][t],
+                   full["attn"][0][:, :, S + t], FORWARD_CORR["attn"], pair)
+            _agree(f"decode step {t} hidden", gen["hidden"][t],
+                   full["hidden"][0, S + t], FORWARD_CORR["hidden"], pair)
+            del full
+
+    # the same requests on the all-plain grounder: prefill capture, prompt
+    # hidden and first-step logits side by side
+    (pout, pgen, plain_ev), plain_answer_ms, _ = _counted(
+        lambda: _answer_traced(plain, images[0]))
+    _, _, plain_first_ev = _answer_traced(plain, images[0], 1)
+    _agree("prefill capture (L, H, S, n_img)", gen["prompt_attn"],
+           pgen["prompt_attn"], FORWARD_CORR["attn"])
+    _agree("prompt hidden", gen["prompt_hidden"], pgen["prompt_hidden"],
+           FORWARD_CORR["hidden"])
+    _agree("first-step logits",
+           llm_decoder.logits(llm_p, cfg.llm, gen["last_hidden"]),
+           llm_decoder.logits(llm_p, cfg.llm, pgen["last_hidden"]), 0.99)
+    pT = len(pout["output_ids"])
+    same = int(np.argmin(np.append(
+        out["output_ids"][:pT] == pout["output_ids"][:T], False)))
+    log(f"phase 24 generation tokens: the plain path's agree with the "
+        f"kernel path's for the first {same} of {min(T, pT)} (greedy argmax "
+        f"over {cfg.llm.vocab_size} bf16 logits of a random model may flip "
+        "on rounding)")
+    first_ms, prefill_ms = first_ev["call"], first_ev["generate"]
+    decode_ms = ((ev_ms["generate"] - prefill_ms) / (T - 1) if T > 1
+                 else math.nan)
+    plain_prefill_ms = plain_first_ev["generate"]
+    plain_decode_ms = ((plain_ev["generate"] - plain_prefill_ms) / (pT - 1)
+                       if pT > 1 else math.nan)
+
+    # the same answer under the profiler: the device's busy share of the
+    # request and its device operations a generated token
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel.answer(images[0], GEN_QUESTION)
+        torch.cuda.synchronize()
+    busy_ms, window_ms = device_busy_ms(prof)
+    device_ops = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and e.name != "Command Buffer Full")
+    del prof
+    log(f"phase 24 generation answer under the profiler: device busy "
+        f"{busy_ms:.1f} of {window_ms:.1f} ms ({busy_ms / window_ms:.1%}), "
+        f"{device_ops} device operations, {device_ops / T:.0f} a generated "
+        "token")
+
+    # ground: two token spans of the answer and one noun chunk's, if any
+    half = max(1, T // 2)
+    spans = [(0, half), (half, T)] if T > 1 else [(0, 1)]
+    chunk = None
+    for s_char, e_char, phrase in noun_chunks(out["output_text"]):
+        span = char_span_to_token_span(tokenizer, list(out["output_ids"]),
+                                       (s_char, e_char))
+        if span:
+            chunk = (phrase, span)
+            spans.append(span)
+            break
+    log("phase 24 generation noun chunk: " + (
+        f"{chunk[0]!r} at tokens {chunk[1]}" if chunk else
+        "none in the answer's text (random weights); only the two token "
+        "spans are grounded"))
+    (coarse, masks), ground_ms, launches = _counted(
+        lambda: kernel.ground(out, spans))
+    _check_launches("ground", launches, total)
+    h0, w0 = GEN_IMAGES[0]
+    if (masks.shape != (len(spans), h0, w0) or masks.dtype != np.uint8
+            or not torch.isfinite(coarse).all()):
+        raise AssertionError("generation ground: wrong masks or logits")
+    log(f"phase 24 generation ground: {len(spans)} spans {spans}, masks "
+        f"{masks.shape}, mask pixels {masks.reshape(len(spans), -1).sum(1)}")
+    # one answer's maps on both grounders: the SAM encoder's K1-K4 alone
+    # differ (the coarse logits come from a plain U-Net on equal maps)
+    got = kernel.ground_logits(out, spans)
+    want = plain.ground_logits(out, spans)
+    _agree("ground SAM low-res logits (one answer's maps)", got[1], want[1],
+           FORWARD_CORR["sam_logits"])
+    # each grounder's own prompt capture over the question's tokens, as
+    # visual_cot_v2 grounds it: the coarse logits carry the tower's K3 / K4
+    q_span = [(img_start + n_img, S)]
+    got = kernel.ground_logits({**out, "attention_maps": gen["prompt_attn"],
+                                "hidden_states": gen["prompt_hidden"]},
+                               q_span)
+    want = plain.ground_logits({**out, "attention_maps": pgen["prompt_attn"],
+                                "hidden_states": pgen["prompt_hidden"]},
+                               q_span)
+    _agree(f"ground coarse logits (each path's prompt capture, tokens "
+           f"{q_span[0]})", got[0], want[0], FORWARD_CORR["attn"])
+    _agree("ground SAM low-res logits (each path's prompt capture)", got[1],
+           want[1], FORWARD_CORR["sam_logits"])
+    del got, want, coarse, gen, pgen
+
+    cot = {}
+    for version, image in (("v1", images[0]), ("v2", images[1])):
+        (thought, bbox, final, mask), ms, launches = _counted(
+            lambda: getattr(kernel, f"visual_cot_{version}")(
+                image, GEN_QUESTION))
+        _check_launches(f"visual_cot_{version}", launches, total)
+        h, w = image.shape[:2]
+        x0, y0, x1, y1 = bbox
+        if not (isinstance(final, str) and isinstance(thought, str)
+                and 0 <= x0 < x1 <= w and 0 <= y0 < y1 <= h
+                and mask.shape == (h, w)):
+            raise AssertionError(f"generation visual_cot_{version}: bad "
+                                 "result")
+        cot[version] = ms
+        log(f"phase 24 generation visual_cot_{version} on {h} x {w}: "
+            f"thought {thought[:40]!r}, box {bbox}, answer "
+            f"{len(final.split())} words, {ms:.1f} ms")
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    stats = {
+        "first_token_ms": first_ms,
+        "prepare_and_tower_ms": first_ev["before"],
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "answer_ms": answer_ms, "tokens_per_s": T * 1e3 / answer_ms,
+        "ground_ms": ground_ms, "cot_v1_ms": cot["v1"],
+        "cot_v2_ms": cot["v2"], "peak_gb": peak_gb,
+        "plain_first_token_ms": plain_first_ev["call"],
+        "plain_prefill_ms": plain_prefill_ms,
+        "plain_decode_ms_per_token": plain_decode_ms,
+        "plain_answer_ms": plain_answer_ms,
+        "busy_share": busy_ms / window_ms, "device_ops_per_token":
+            device_ops / T}
+    log(f"phase 24 generation timing ({card}), CUDA events: first token "
+        f"{first_ms:.1f} ms (answer with 1 new token) = image preparation "
+        f"on the host, tokenisation and the tower {first_ev['before']:.1f} "
+        f"ms + prefill and the first step {prefill_ms:.1f} ms; decode "
+        f"{decode_ms:.2f} ms a token (the {T}-token answer's _generate "
+        f"{ev_ms['generate']:.1f} ms less the prefill's, over {T - 1} "
+        f"steps); answer {answer_ms:.1f} ms on the host clock = "
+        f"{stats['tokens_per_s']:.1f} tokens/s, ground {ground_ms:.1f} ms "
+        f"({len(spans)} spans), visual_cot_v1 {cot['v1']:.1f} ms, "
+        f"visual_cot_v2 {cot['v2']:.1f} ms, peak {peak_gb:.2f} GB; plain "
+        f"path first token {plain_first_ev['call']:.1f} ms, prefill "
+        f"{plain_prefill_ms:.1f} ms, decode "
+        f"{plain_decode_ms:.2f} ms a token, answer {plain_answer_ms:.1f} ms")
+    del kernel, plain, params
+    torch.cuda.empty_cache()
+    return {"launches": total, "stats": stats}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str) -> None:
     """One row of the bench.py twin: its keys, its settings and the exact
     launch counts per forward (run() itself refuses non-finite logits)."""
@@ -2564,12 +2976,13 @@ def main() -> None:
             f"ms/{unit}, {r['bs'] * 1e3 / r['plain_ms']:.2f} img/s, peak "
             f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of {what} "
             "after one warm-up)")
+    gen = run_generation(card)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
-             compared, evals)),
+             compared, evals, gen)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -2578,7 +2991,8 @@ def main() -> None:
              "window_variant_encoder": variants["launches"][name],
              "bench_families": families["launches"][name],
              "family_forwards": compared["launches"][name],
-             "eval": evals["launches"][name]},
+             "eval": evals["launches"][name],
+             "generation": gen["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

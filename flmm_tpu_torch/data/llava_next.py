@@ -12,6 +12,9 @@ everything derived from the token streams and the image sizes -- the
 ``text_idx`` and the geometry -- while the pixels (base view and tiles,
 SAM input) and the loss targets are drawn from a seed, since nothing on the
 serving path needs a resized photo.  ``infos`` is not built.
+:func:`anyres_process` resizes a real ``(H, W, 3)`` uint8 image into the
+base view and the tiles (the generation path's input), with
+``processors.resample`` in place of PIL's bicubic resize.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import math
 import numpy as np
 
 from flmm_tpu_torch.data import geometry
+from flmm_tpu_torch.data.processors import resample
 from flmm_tpu_torch.registry import get_coarse_hw
 
 DEFAULT_PINPOINTS = ((336, 672), (672, 336), (672, 672), (1008, 336),
@@ -108,6 +112,39 @@ def anyres_geometry(orig_hw: tuple, spec: AnyresSpec) -> dict:
     fh, fw, pad_r, pad_c = unpad_feature_hw(
         orig_hw, (ph * spec.grid, pw * spec.grid))
     return {"grid": (ph, pw), "fine_hw": (fh, fw), "fine_pad": (pad_r, pad_c)}
+
+
+def _normalize(image: np.ndarray, spec: AnyresSpec) -> np.ndarray:
+    arr = image.astype(np.float32) / 255.0
+    return (arr - np.asarray(spec.mean, np.float32)) / np.asarray(
+        spec.std, np.float32)
+
+
+def anyres_process(image: np.ndarray, spec: AnyresSpec) -> dict:
+    """``(H, W, 3)`` uint8 image -> the normalised base view ``(g, g, 3)``
+    and tiles ``(n, g, g, 3)``, the grid shape and the fine-frame geometry:
+    a bicubic resize into the best pinpoint, centred on a black canvas, cut
+    into tiles; the base view is the whole image resized to one tile."""
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"an image is an (H, W, 3) uint8 array, got "
+                         f"{image.dtype} {image.shape}")
+    h, w, _ = image.shape
+    th, tw = select_best_resolution((h, w), spec.pinpoints)
+    nh, nw = _patch_output_size(h, w, th, tw)
+    canvas = np.zeros((th, tw, 3), np.uint8)
+    top, left = (th - nh) // 2, (tw - nw) // 2
+    canvas[top:top + nh, left:left + nw] = resample(image, (nh, nw),
+                                                    "bicubic")
+    carr = _normalize(canvas, spec)
+    g = spec.tile_size
+    ph, pw = th // g, tw // g
+    tiles = [carr[r * g:(r + 1) * g, c * g:(c + 1) * g]
+             for r in range(ph) for c in range(pw)]
+    base = _normalize(resample(image, (g, g), "bicubic"), spec)
+    geo = anyres_geometry((h, w), spec)
+    return {"base": base, "tiles": np.stack(tiles), "grid": geo["grid"],
+            "fine_hw": geo["fine_hw"], "fine_pad": geo["fine_pad"],
+            "orig_hw": (h, w)}
 
 
 def block_layout(spec: AnyresSpec, grid: tuple, fine_hw: tuple,

@@ -143,25 +143,48 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def project_qkv(lp: dict, cfg: DecoderConfig, h: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor) -> tuple:
+    """The attention inputs of one layer from its residual stream ``h``
+    ``(B, S, D)``: LN1, the q / k / v products (and biases), RoPE on q and
+    k; ``(B, S, H, hd)``, ``(B, S, KV, hd)``, ``(B, S, KV, hd)``."""
+    B, S, _ = h.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = rms_norm(h, lp["ln1"], cfg.rms_eps, cfg.gemma_norm)
+    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
+    k = apply_rope(k.reshape(B, S, KV, hd), cos, sin)
+    return q, k, v.reshape(B, S, KV, hd)
+
+
+def mlp_residual(h: torch.Tensor, lp: dict, cfg: DecoderConfig
+                 ) -> torch.Tensor:
+    """``h`` plus the gated MLP of its LN2."""
+    x2 = rms_norm(h, lp["ln2"], cfg.rms_eps, cfg.gemma_norm)
+    return h + (_act(x2 @ lp["w_gate"], cfg.act)
+                * (x2 @ lp["w_up"])) @ lp["w_down"]
+
+
 def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
                cfg: DecoderConfig, img_start: int, n_img: int, merge: str,
-               flash_ok: bool = False):
+               flash_ok: bool = False, kv: tuple | None = None):
     """One decoder layer with fused attention capture; returns
     ``(h, acc, side)`` where ``side`` is the merged ``(B, H, M, n_img)``
     capture, or the raw ``(B, H, S, n_img)`` one without a merge matrix.
-    ``flash_ok`` routes attention and the (mean) capture through K5."""
+    ``flash_ok`` routes attention and the (mean) capture through K5.
+    ``kv``: this layer's ``(B, S_tot, KV, hd)`` key and value caches, whose
+    first ``S`` rows take its keys and values (the generation prefill)."""
     B, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
     merge_matrix = aux.get("merge_matrix")
 
-    x = rms_norm(h, lp["ln1"], cfg.rms_eps, cfg.gemma_norm)
-    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
-    if cfg.attn_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), aux["cos"], aux["sin"])
-    k = apply_rope(k.reshape(B, S, KV, hd), aux["cos"], aux["sin"])
-    v = v.reshape(B, S, KV, hd)
+    q, k, v = project_qkv(lp, cfg, h, aux["cos"], aux["sin"])
+    if kv is not None:
+        kv[0][:, :S] = k
+        kv[1][:, :S] = v
     if flash_ok:
         # K5 reads the kv head h // (H // KV) itself: no repeated k / v
         out4, side = flash_attention_with_merged_capture(
@@ -177,10 +200,7 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
             + aux["bias"]
         probs = torch.softmax(logits, dim=-1)  # f32
         out = (probs.to(cfg.dtype) @ v).transpose(1, 2).reshape(B, S, H * hd)
-    h = h + out @ lp["wo"]
-
-    x2 = rms_norm(h, lp["ln2"], cfg.rms_eps, cfg.gemma_norm)
-    h = h + (_act(x2 @ lp["w_gate"], cfg.act) * (x2 @ lp["w_up"])) @ lp["w_down"]
+    h = mlp_residual(h + out @ lp["wo"], lp, cfg)
 
     # the layer weights' only gradient path (the JAX stop_gradient)
     acc = acc + w_l * h.detach().float()
@@ -242,12 +262,15 @@ def forward_capture(params: dict, cfg: DecoderConfig,
                     merge_matrix: torch.Tensor | None = None,
                     merge: str = "mean",
                     layer_weights: torch.Tensor | None = None,
-                    position_ids: torch.Tensor | None = None) -> dict:
+                    position_ids: torch.Tensor | None = None,
+                    kv_cache: tuple | None = None) -> dict:
     """Run the frozen decoder, capturing merged text->image attention.
 
     Returns ``attn`` (``(B, L, H, M, n_img)`` merged, or raw without a merge
     matrix), ``hidden`` (``(B, S, D)`` f32 layer-weighted sum) and
-    ``last_hidden`` (post final norm).
+    ``last_hidden`` (post final norm).  ``kv_cache``: ``(k, v)`` caches
+    ``(L, B, S_tot, KV, hd)`` whose first ``S`` rows of each layer take its
+    keys and values.
     """
     B, S, D = inputs_embeds.shape
     L = cfg.num_layers
@@ -265,14 +288,23 @@ def forward_capture(params: dict, cfg: DecoderConfig,
     for i in range(L):
         lp = {k: v[i] for k, v in params["layers"].items()}
         w_l = layer_weights[i] if i < L - 1 else 0.0
+        kv = None if kv_cache is None else (kv_cache[0][i], kv_cache[1][i])
         h, acc, side = layer_step(lp, w_l, h, acc, aux, cfg, img_start,
-                                  n_img, merge, flash_ok)
+                                  n_img, merge, flash_ok, kv)
         sides.append(side)
     last_hidden = rms_norm(h, params["final_norm"], cfg.rms_eps,
                            cfg.gemma_norm)
     hidden = acc + layer_weights[L - 1] * last_hidden.detach().float()
     return {"attn": torch.stack(sides, dim=1), "hidden": hidden,
             "last_hidden": last_hidden}
+
+
+def logits(params: dict, cfg: DecoderConfig,
+           last_hidden: torch.Tensor) -> torch.Tensor:
+    """Next-token logits of post-final-norm states: the tied embedding's
+    transpose, else ``lm_head``."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return last_hidden @ head
 
 
 def embed_tokens(params: dict, cfg: DecoderConfig,

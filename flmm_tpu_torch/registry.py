@@ -1,7 +1,8 @@
 """Model-family registry (flmm_tpu/registry.py) for the families the port
-has: config presets, model modules, batch builders, the host processors'
-resize rule, the reduced-resolution SAM schedule, the coarse-mask frame and
-the all-plain twin of a config.
+has: config presets, model modules, batch builders, the prompt template and
+image placeholder of each family, the host processors' resize rule, the
+reduced-resolution SAM schedule, the coarse-mask frame and the all-plain
+twin of a config.
 
 ``resolve_family_setup`` waits for a tokenizer in the port.  Until then the
 caller builds its batch-spec half itself, as the JAX function does: the
@@ -41,6 +42,26 @@ FAMILIES = {
     }),
 }
 
+
+# prompt template per family (data/tokenization.TEMPLATES; the LLaVA-NeXT
+# mistral preset and the MGM vicuna presets override it)
+FAMILY_TEMPLATES = {
+    "deepseek_vl": "deepseek",
+    "llava": "vicuna",
+    "llava_next": "vicuna",
+    "mgm": "gemma",
+    "hpt": "internlm2_chat",
+}
+
+# image placeholder per family: DeepSeek-VL's is a token of its tokenizer;
+# the others split the prompt on '<image>' and splice the image ids
+FAMILY_IMAGE_TOKENS = {
+    "deepseek_vl": "<image_placeholder>",
+    "llava": "<image>",
+    "llava_next": "<image>",
+    "mgm": "<image>",
+    "hpt": "<image>",
+}
 
 # host-processor resize rule per family (data/processors._target_hw)
 FAMILY_SIZE_RULES = {

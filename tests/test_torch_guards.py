@@ -1,7 +1,8 @@
 """Guards of the port's boundaries, each in a fresh interpreter:
 
-* importing every flmm_tpu_torch module (the anyres data module and the
-  eval loop's host modules, which read images, included) and chip_smoke
+* importing every flmm_tpu_torch module (the anyres data module, the
+  eval loop's host modules and the generation slice, which read images,
+  included) and chip_smoke
   pulls in neither JAX nor the JAX package nor PIL, transformers or
   torchvision (the machine with the card has no JAX and no PIL, and
   tests/test_grad_parity.py stubs the last two in ``sys.modules``);
@@ -89,6 +90,29 @@ def test_port_sources_never_import_jax():
         assert REPO / "flmm_tpu_torch" / new in files
     for f in files:
         assert not pattern.search(f.read_text()), f
+
+
+def test_generation_slice_imports_no_jax_pil_or_hf():
+    """The grounder API, noun chunks and the tokenisation module, imported
+    alone in a fresh interpreter and called, load none of the forbidden
+    modules (spaCy is tried only inside the call, and is absent)."""
+    code = (
+        "import sys\n"
+        "import flmm_tpu_torch.generation.api as api\n"
+        "import flmm_tpu_torch.data.tokenization\n"
+        "import flmm_tpu_torch.generation.noun_chunks as nc\n"
+        "nc.noun_chunks('a red dog on the table')\n"
+        "for n in ('generation.decode', 'generation.noun_chunks',\n"
+        "          'generation.api', 'data.tokenization'):\n"
+        "    assert 'flmm_tpu_torch.' + n in sys.modules, n\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    for f in ("generation/api.py", "generation/decode.py",
+              "generation/noun_chunks.py", "data/tokenization.py"):
+        assert (REPO / "flmm_tpu_torch" / f).is_file(), f
 
 
 def test_chip_smoke_fails_without_a_card():
