@@ -166,7 +166,24 @@ Phases; any failure raises and the script exits non-zero:
     tokenisation, the tower) and _generate (prefill and the first step), and
     decode ms a token (the 64-token _generate less that), tokens/s,
     ground and CoT ms on the host clock, the device's busy share of one
-    answer (profiler) and peak memory.
+    answer (profiler) and peak memory;
+25. files in, scores out: decode every image of the committed fixture tree
+    (tests/data: JPEGs at COCO sizes in 4:2:0, 4:2:2, 4:4:4, grey and with
+    restart markers, panoptic PNGs) with the PIL-free decoder, each to the
+    sha256 PIL's decode gave (tests/data/manifest.json); write a
+    DeepSeek-VL-1.3B checkpoint at full width and depth in the
+    deepseek-vl-1.3b-chat layout (two bf16 safetensors shards), a SAM ViT-L
+    .pth in the official layout and a released F-LMM trained .pth, from a
+    seed, into a temporary directory, and load them back through
+    registry.get_loader and restore_trainable bit for bit; then run
+    flmm_tpu_torch.eval_refcoco (8 splits, --debug) and eval_png in process
+    at their defaults (bs 8, S=704, SAM-1024) with the word-level tokenizer:
+    launches 20/4/28/28 a forward, every expression's and narrative mask's
+    score finite, the SAM low-res logits of every batch against the
+    all-plain forward's (corr >= 0.99), and each CLI's own chain fed the
+    ground truth as +-8 logits above 85 cIoU per split and 0.85 AA; load
+    GB/s, decode ms an image, samples/s, forward and host ms a batch (the
+    host's split into decode, reads and the batch builder) and peak memory.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -175,12 +192,15 @@ holds the per-kernel results.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import pathlib
 import subprocess
+import sys
 import tempfile
 import time
 import zlib
@@ -191,14 +211,17 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from flmm_tpu_torch import bench as e2e_bench
-from flmm_tpu_torch import bench_families, kernel_bench, registry, \
-    schedule_bench
+from flmm_tpu_torch import bench_families, eval_png, eval_refcoco, \
+    kernel_bench, registry, schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.data import collate, image_io
+from flmm_tpu_torch.data import io as data_io
 from flmm_tpu_torch.data.collate import BatchSpec, build_batch
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
 from flmm_tpu_torch.data.processors import ProcessorConfig
 from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
+from flmm_tpu_torch.evalsuite import cli as eval_cli
 from flmm_tpu_torch.evalsuite import metrics, runner
 from flmm_tpu_torch.generation import api as generation
 from flmm_tpu_torch.generation.noun_chunks import char_span_to_token_span, \
@@ -215,6 +238,7 @@ from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
 from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
+from tests import checkpoint_writers
 
 BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
 # LLaVA-NeXT requests: bs 2, the vicuna template's 35 prompt tokens padded
@@ -376,6 +400,14 @@ GEN_WORDS = (
     "dog cat man woman hat cup table chair book car tree bird window road "
     "field bag plate bottle is are on in with and of near next to holding "
     "sitting standing there it . ,").split()
+# files in, scores out (phase 25): DeepSeek-VL-1.3B, SAM ViT-L and
+# released-layout head checkpoints written from a seed, the committed fixture
+# tree (tests/data, made by tests/make_fixture_data.py), the eval CLIs at
+# their defaults on the card
+FILES_SEED = 11
+FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+FILES_GT_MIN = {"cIoU": 85.0, "AA": 0.85}  # AA is a fraction, cIoU percent
+DECODE_REPEATS = 5
 
 
 def family_launches(global_kernel: str) -> dict:
@@ -2905,6 +2937,321 @@ def run_generation(card: str) -> dict:
     return {"launches": total, "stats": stats}
 
 
+def _trees_equal(got, want, where: str = "") -> None:
+    """Same structure, dtypes, shapes and bits."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"files: keys differ at {where or '/'}")
+        for k in want:
+            _trees_equal(got[k], want[k], f"{where}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"files: lengths differ at {where}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _trees_equal(a, b, f"{where}/{i}")
+    elif not (got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got, want.to(got.device))):
+        raise AssertionError(f"files: leaf {where} differs from the tree it "
+                             "was written from")
+
+
+@contextlib.contextmanager
+def _wrapped(module, name: str, wrapper):
+    """``module.name`` replaced by ``wrapper(original)`` inside the block."""
+    original = getattr(module, name)
+    setattr(module, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def _timed(run: dict, key: str):
+    """A wrapper that adds the host seconds and the calls of a function to
+    ``run[key]`` and ``run[key + '_n']``."""
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            run[key] += time.perf_counter() - t0
+            run[key + "_n"] += 1
+            return out
+        return timed
+    return wrap
+
+
+def run_cli(main, argv: list, replace=None) -> dict:
+    """One eval CLI's ``main`` in process with the word-level tokenizer, its
+    output on stderr, every launch count at 0 just before and read just
+    after.  Its forwards are recorded (batch, SAM logits, CUDA-event ms,
+    host seconds) and timed against its reads, decodes, batch builds and
+    model setup.  ``replace(batch)`` stands in for the forward."""
+    run = {"batches": [], "logits": [], "forward_ms": [], "forward_s": 0.0}
+    for key in ("read", "decode", "build", "setup"):
+        run[key] = 0.0
+        run[key + "_n"] = 0
+
+    def recording(make):
+        def factory(model, params, cfg, device):
+            run.update(params=params, cfg=cfg)
+            predict = replace or make(model, params, cfg, device)
+
+            def forward(batch):
+                t0 = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = predict(batch)
+                end.record()
+                torch.cuda.synchronize()
+                run["forward_s"] += time.perf_counter() - t0
+                run["forward_ms"].append(start.elapsed_time(end))
+                run["batches"].append(batch)
+                run["logits"].append(out)
+                return out
+            return forward
+        return factory
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_wrapped(data_io, "read_bytes",
+                                     _timed(run, "read")))
+        stack.enter_context(_wrapped(image_io, "decode_image",
+                                     _timed(run, "decode")))
+        stack.enter_context(_wrapped(collate, "build_batch",
+                                     _timed(run, "build")))
+        stack.enter_context(_wrapped(eval_cli, "setup",
+                                     _timed(run, "setup")))
+        stack.enter_context(_wrapped(eval_cli, "make_predict", recording))
+        stack.enter_context(contextlib.redirect_stdout(sys.stderr))
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run["results"] = main(argv, tokenizer=WordTokenizer())
+        torch.cuda.synchronize()
+        run["wall_s"] = time.perf_counter() - t0
+    run["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    run["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return run
+
+
+def write_world(root: pathlib.Path, card: str) -> dict:
+    """Phase 25's checkpoints under ``root``, from one seed on the card: the
+    DeepSeek-VL-1.3B checkpoint at full width and depth in the
+    deepseek-vl-1.3b-chat layout as two bf16 safetensors shards, a SAM ViT-L
+    ``.pth`` in the official layout in f32 and a released F-LMM trained
+    ``.pth``.  Returns the paths and the trees they hold."""
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    g = torch.Generator(device="cuda").manual_seed(FILES_SEED)
+    params = grounding.init_params(cfg, g, "cuda")
+    randomize_rel_pos(params, g)
+    fro = params["frozen"]
+    # the released checkpoint is bf16 throughout, the aligner too: its f32
+    # tree holds bf16 values, so the load gives the same bits back
+    for layer in fro["projector"]:
+        for k in ("w", "b"):
+            layer[k] = layer[k].to(torch.bfloat16).float()
+    sam = fro.pop("sam_encoder")
+    paths = {"checkpoint": root / "deepseek-vl-1.3b-chat",
+             "sam": root / "sam_vit_l.pth", "trained": root / "flmm.pth"}
+    t0 = time.perf_counter()
+    sd = checkpoint_writers.deepseek_vl_state_dict(fro, torch.bfloat16)
+    n_params = sum(t.numel() for t in sd.values())
+    written = checkpoint_writers.write_shards(paths["checkpoint"], sd, 2)
+    del sd
+    sd = checkpoint_writers.sam_encoder_state_dict(sam, dtype=torch.float32)
+    n_sam = sum(t.numel() for t in sd.values())
+    torch.save(sd, paths["sam"])
+    del sd
+    torch.save({"state_dict": checkpoint_writers.released_trained_state_dict(
+        params["trainable"])}, paths["trained"])
+    sizes = {k: sum(f.stat().st_size for f in
+                    (p.iterdir() if p.is_dir() else [p]))
+             for k, p in paths.items()}
+    log(f"phase 25 files ({card}): wrote DeepSeek-VL-1.3B ({n_params / 1e9:.3f}"
+        f" G parameters, 2 bf16 safetensors shards, {written / 1e9:.3f} GB), "
+        f"SAM ViT-L ({n_sam / 1e9:.3f} G parameters, f32 .pth, "
+        f"{sizes['sam'] / 1e9:.3f} GB) and the trained heads "
+        f"({sizes['trained'] / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"cfg": cfg, "paths": paths, "sizes": sizes,
+            "frozen": {**fro, "sam_encoder": sam},
+            "trainable": params["trainable"]}
+
+
+def check_loads(world: dict, card: str) -> dict:
+    """Load the checkpoints through ``get_loader`` and ``restore_trainable``
+    onto the card: every leaf equals the tree it was written from."""
+    cfg, paths = world["cfg"], world["paths"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frozen = registry.get_loader("deepseek_vl")(
+        str(paths["checkpoint"]), cfg, str(paths["sam"]), device="cuda")
+    torch.cuda.synchronize()
+    frozen_s = time.perf_counter() - t0
+    template = grounding.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    t0 = time.perf_counter()
+    trainable = ckpt.restore_trainable(str(paths["trained"]), cfg,
+                                       template["trainable"])
+    torch.cuda.synchronize()
+    trained_s = time.perf_counter() - t0
+    _trees_equal(frozen, world["frozen"])
+    _trees_equal(trainable, world["trainable"])
+    nbytes = world["sizes"]["checkpoint"] + world["sizes"]["sam"]
+    stats = {"load_s": frozen_s, "load_gb": nbytes / 1e9,
+             "load_gb_per_s": nbytes / 1e9 / frozen_s,
+             "trained_s": trained_s}
+    log(f"phase 25 files ({card}): get_loader('deepseek_vl') read "
+        f"{nbytes / 1e9:.3f} GB (the 2 shards and the SAM .pth) onto the card "
+        f"in {frozen_s:.2f} s = {stats['load_gb_per_s']:.2f} GB/s; "
+        f"restore_trainable read the released .pth in {trained_s:.3f} s; "
+        "every leaf of both trees equals the written one bit for bit")
+    del frozen, trainable, template
+    torch.cuda.empty_cache()
+    return stats
+
+
+def check_decodes(manifest: dict, card: str) -> dict:
+    """Every committed fixture image through ``open_image``: the sha256 of
+    its pixels equals PIL's (the manifest); ms per image on the host."""
+    times = {".jpg": [], ".png": []}
+    for name, want in manifest["images"].items():
+        path = str(FIXTURE / name)
+        px = image_io.open_image(path)
+        if (list(px.shape) != want["shape"] or
+                hashlib.sha256(px.tobytes()).hexdigest() != want["sha256"]):
+            raise AssertionError(f"files: {name} decodes to other pixels "
+                                 "than PIL's")
+        data = data_io.read_bytes(path)
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPEATS):
+            image_io.decode_image(data, path)
+        times[pathlib.Path(name).suffix].append(
+            (time.perf_counter() - t0) * 1e3 / DECODE_REPEATS)
+    stats = {"jpeg_ms": sum(times[".jpg"]) / len(times[".jpg"]),
+             "png_ms": sum(times[".png"]) / len(times[".png"])}
+    log(f"phase 25 files ({card}): {len(manifest['images'])} fixture images "
+        f"decoded without PIL to PIL's pixels (sha256); on the host "
+        f"{stats['jpeg_ms']:.2f} ms a JPEG ({len(times['.jpg'])} files, "
+        f"427 x 640 to 640 x 480) and {stats['png_ms']:.2f} ms a panoptic "
+        f"PNG, mean of {DECODE_REPEATS} decodes each")
+    return stats
+
+
+def check_cli(label: str, run: dict, want_n: dict, card: str) -> dict:
+    """The launches (exact a forward), the scores (finite, every mask), the
+    kernel forward against the all-plain one on the same batches, and the
+    times of one CLI run."""
+    batches = len(run["batches"])
+    per_forward = EXPECTED_LAUNCHES["deepseek_vl_1_3b"]
+    want = {k: per_forward.get(k, 0) * batches for k in WRAPPERS}
+    log(f"phase 25 {label}: {json.dumps(run['results'])}; {batches} "
+        f"forwards; launches {({k: n for k, n in run['launches'].items() if n})}")
+    if run["launches"] != want:
+        raise AssertionError(f"{label}: launches differ from {want}")
+    for key, n in want_n.items():
+        res = run["results"][key] if key else run["results"]
+        if res["n"] != n or not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{label} {key}: {res}, not {n} finite "
+                                 "scores")
+    plain = registry.plain_config(run["cfg"])
+    with torch.no_grad():
+        for i, (batch, logits) in enumerate(zip(run["batches"],
+                                                run["logits"])):
+            want_l = grounding.forward(run["params"], plain, from_jax(
+                batch, "cuda"))["sam_logits"]
+            rel, corr = agreement(logits, want_l)
+            log(f"phase 25 {label} batch {i}: sam_logits kernel vs plain "
+                f"forward max_rel_err {rel:.3e} corr {corr:.6f} (bound "
+                f"{FORWARD_CORR['sam_logits']})")
+            if corr < FORWARD_CORR["sam_logits"]:
+                raise AssertionError(f"{label}: the logits disagree")
+    eval_s = run["wall_s"] - run["setup"]
+    host_s = eval_s - run["forward_s"]
+    stats = {
+        "samples": run["n_samples"],
+        "samples_per_s": run["n_samples"] / eval_s,
+        "setup_s": run["setup"], "eval_s": eval_s,
+        "forward_ms": sum(run["forward_ms"]) / batches,
+        "host_ms": host_s * 1e3 / batches,
+        "decode_ms": run["decode"] * 1e3 / batches,
+        "read_ms": run["read"] * 1e3 / batches,
+        "build_ms": run["build"] * 1e3 / batches,
+        "peak_gb": run["peak_gb"]}
+    log(f"phase 25 {label} ({card}): {run['n_samples']} samples in {batches} "
+        f"batches of 8 in {eval_s:.2f} s after a model setup of "
+        f"{run['setup']:.2f} s (the checkpoints' load onto the "
+        f"card): {stats['samples_per_s']:.2f} samples/s; forward "
+        f"{stats['forward_ms']:.1f} ms a batch (CUDA events); host "
+        f"{stats['host_ms']:.1f} ms a batch, of it image decode "
+        f"{stats['decode_ms']:.1f} ms ({run['decode_n']} images), file reads "
+        f"{stats['read_ms']:.2f} ms and the batch builder "
+        f"{stats['build_ms']:.1f} ms; peak {stats['peak_gb']:.2f} GB above "
+        "what was allocated before")
+    return stats
+
+
+def run_files(card: str) -> dict:
+    """Phase 25: files in, scores out.  The checkpoints written and loaded
+    back bit for bit, the fixture images decoded to PIL's pixels, then
+    ``eval_refcoco`` (8 splits, ``--debug``) and ``eval_png`` at their
+    defaults on the card through the kernels, against the all-plain forward
+    on the same batches, and their own chain fed the ground truth."""
+    manifest = json.loads((FIXTURE / "manifest.json").read_text())
+    stats = {"decode": check_decodes(manifest, card)}
+    total = dict.fromkeys(WRAPPERS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        world = write_world(pathlib.Path(tmp), card)
+        stats["load"] = check_loads(world, card)
+        del world["frozen"], world["trainable"]
+        torch.cuda.empty_cache()
+        paths = world["paths"]
+        common = ["--checkpoint", str(paths["checkpoint"]),
+                  "--sam-checkpoint", str(paths["sam"]),
+                  "--trained", str(paths["trained"])]
+        narratives = json.loads((FIXTURE / "png" / "annotations" /
+                                 "png_coco_val2017.json").read_text())
+        # (main, argv, masks by result key, samples, the oracle's metric);
+        # a RefCOCO sample is one expression with its mask
+        clis = {
+            "eval_refcoco": (eval_refcoco.main, common + [
+                "--data-root", str(FIXTURE / "refcoco"), "--debug"],
+                manifest["refcoco_expressions"],
+                sum(manifest["refcoco_expressions"].values()), "cIoU"),
+            "eval_png": (eval_png.main, common + [
+                "--data-root", str(FIXTURE / "png"), "--debug"],
+                {"": manifest["png_masks"]}, len(narratives), "AA")}
+        for name, (main_fn, argv, want_n, n_samples, metric) in clis.items():
+            run = run_cli(main_fn, argv)
+            run["n_samples"] = n_samples
+            stats[name] = check_cli(name, run, want_n, card)
+            for k in WRAPPERS:
+                total[k] += run["launches"][k]
+            del run
+            torch.cuda.empty_cache()
+
+            def gt_logits(batch):
+                """The ground truth as +-8 logits."""
+                gt = torch.from_numpy(batch["gt_sam"]).cuda()
+                return torch.where(gt > 0.5, 8.0, -8.0)
+
+            oracle = run_cli(main_fn, argv, replace=gt_logits)
+            scores = {k: v[metric] for k, v in oracle["results"].items()} \
+                if metric == "cIoU" else {"": oracle["results"][metric]}
+            log(f"phase 25 {name} ground truth as logits through the CLI's "
+                f"own chain: {metric} {scores} (bound "
+                f"{FILES_GT_MIN[metric]})")
+            if not min(scores.values()) > FILES_GT_MIN[metric]:
+                raise AssertionError(f"{name}: the ground truth scores "
+                                     f"{scores}")
+            del oracle
+            torch.cuda.empty_cache()
+    return {"launches": total, "stats": stats}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str) -> None:
     """One row of the bench.py twin: its keys, its settings and the exact
     launch counts per forward (run() itself refuses non-finite logits)."""
@@ -2977,12 +3324,22 @@ def main() -> None:
             f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of {what} "
             "after one warm-up)")
     gen = run_generation(card)
+    files = run_files(card)
+    st = files["stats"]
+    log(f"phase 25 timing files ({card}): load "
+        f"{st['load']['load_gb_per_s']:.2f} GB/s, decode "
+        f"{st['decode']['jpeg_ms']:.2f} ms a JPEG; eval_refcoco "
+        f"{st['eval_refcoco']['samples_per_s']:.2f} samples/s, forward "
+        f"{st['eval_refcoco']['forward_ms']:.1f} ms and host "
+        f"{st['eval_refcoco']['host_ms']:.1f} ms a batch, peak "
+        f"{st['eval_refcoco']['peak_gb']:.2f} GB; eval_png "
+        f"{st['eval_png']['samples_per_s']:.2f} samples/s")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
-             compared, evals, gen)),
+             compared, evals, gen, files)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -2992,7 +3349,8 @@ def main() -> None:
              "bench_families": families["launches"][name],
              "family_forwards": compared["launches"][name],
              "eval": evals["launches"][name],
-             "generation": gen["launches"][name]},
+             "generation": gen["launches"][name],
+             "files": files["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

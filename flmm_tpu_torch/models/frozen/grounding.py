@@ -61,39 +61,52 @@ class GroundingConfig:
         return self.llm.num_layers * self.llm.num_heads
 
 
+def _linear(i: int, o: int, generator: torch.Generator, device) -> dict:
+    return {"w": torch.randn((i, o), generator=generator, device=device)
+            / math.sqrt(i),
+            "b": torch.zeros((o,), device=device)}
+
+
+def init_frozen(cfg: GroundingConfig, generator: torch.Generator, device,
+                skip=()) -> dict:
+    """The random frozen tree of :func:`init_params` without the keys in
+    ``skip``, which draw nothing from ``generator`` (a loader supplies
+    them)."""
+    d_llm, d_vis = cfg.llm.hidden_size, cfg.vision.hidden_size
+    parts = {
+        "llm": lambda: llm.init_params(cfg.llm, generator, device),
+        "vision": lambda: vit.init_params(cfg.vision, generator, device),
+        "projector": lambda: [
+            _linear(d_vis if i == 0 else d_llm, d_llm, generator, device)
+            for i in range(cfg.projector_depth)],
+        "sam_encoder": lambda: sam_encoder.init_params(cfg.sam.encoder,
+                                                       generator, device),
+    }
+    return {k: make() for k, make in parts.items() if k not in skip}
+
+
+def init_trainable(cfg: GroundingConfig, generator: torch.Generator,
+                   device) -> dict:
+    """The random trainable tree of :func:`init_params`."""
+    return {
+        "unet": unet.init_params(cfg.unet, generator, device),
+        "text_proj": _linear(cfg.llm.hidden_size, cfg.sam.prompt.embed_dim,
+                             generator, device),
+        "text_layer_weights": torch.ones((cfg.llm.num_layers,),
+                                         device=device),
+        "sam": {
+            "prompt": spe.init_params(cfg.sam.prompt, generator, device),
+            "decoder": smd.init_params(cfg.sam.decoder, generator, device),
+        },
+    }
+
+
 def init_params(cfg: GroundingConfig, generator: torch.Generator,
                 device) -> dict:
     """Random parameters with the JAX tree's keys, shapes and dtypes, built
     directly on ``device``."""
-    d_llm, d_vis = cfg.llm.hidden_size, cfg.vision.hidden_size
-    d_sam = cfg.sam.prompt.embed_dim
-
-    def lin(i, o):
-        return {"w": torch.randn((i, o), generator=generator, device=device)
-                / math.sqrt(i),
-                "b": torch.zeros((o,), device=device)}
-
-    return {
-        "frozen": {
-            "llm": llm.init_params(cfg.llm, generator, device),
-            "vision": vit.init_params(cfg.vision, generator, device),
-            "projector": [lin(d_vis if i == 0 else d_llm, d_llm)
-                          for i in range(cfg.projector_depth)],
-            "sam_encoder": sam_encoder.init_params(cfg.sam.encoder,
-                                                   generator, device),
-        },
-        "trainable": {
-            "unet": unet.init_params(cfg.unet, generator, device),
-            "text_proj": lin(d_llm, d_sam),
-            "text_layer_weights": torch.ones((cfg.llm.num_layers,),
-                                             device=device),
-            "sam": {
-                "prompt": spe.init_params(cfg.sam.prompt, generator, device),
-                "decoder": smd.init_params(cfg.sam.decoder, generator,
-                                           device),
-            },
-        },
-    }
+    return {"frozen": init_frozen(cfg, generator, device),
+            "trainable": init_trainable(cfg, generator, device)}
 
 
 def _project(features: torch.Tensor, layers: list) -> torch.Tensor:

@@ -48,15 +48,32 @@ class LlavaNextConfig:
         return self.base.clip_shape
 
 
+def _newline(cfg: LlavaNextConfig, generator: torch.Generator, device):
+    d = cfg.base.llm.hidden_size
+    return (torch.randn((d,), generator=generator, device=device) * 0.02
+            ).to(cfg.base.dtype)
+
+
 def init_params(cfg: LlavaNextConfig, generator: torch.Generator,
                 device) -> dict:
     """The grounding tree plus the ``image_newline`` embedding."""
     params = grounding.init_params(cfg.base, generator, device)
-    d = cfg.base.llm.hidden_size
-    params["frozen"]["image_newline"] = (
-        torch.randn((d,), generator=generator, device=device) * 0.02
-    ).to(cfg.base.dtype)
+    params["frozen"]["image_newline"] = _newline(cfg, generator, device)
     return params
+
+
+def init_frozen(cfg: LlavaNextConfig, generator: torch.Generator, device,
+                skip=()) -> dict:
+    """:func:`grounding.init_frozen` with ``image_newline``, less ``skip``."""
+    frozen = grounding.init_frozen(cfg.base, generator, device, skip)
+    if "image_newline" not in skip:
+        frozen["image_newline"] = _newline(cfg, generator, device)
+    return frozen
+
+
+def init_trainable(cfg: LlavaNextConfig, generator: torch.Generator,
+                   device) -> dict:
+    return grounding.init_trainable(cfg.base, generator, device)
 
 
 def pack_embeds(params: dict, cfg: LlavaNextConfig, batch: dict):

@@ -1,15 +1,10 @@
 """Model-family registry (flmm_tpu/registry.py) for the families the port
-has: config presets, model modules, batch builders, the prompt template and
-image placeholder of each family, the host processors' resize rule, the
-reduced-resolution SAM schedule, the coarse-mask frame and the all-plain
-twin of a config.
-
-``resolve_family_setup`` waits for a tokenizer in the port.  Until then the
-caller builds its batch-spec half itself, as the JAX function does: the
-``BatchSpec`` gets ``expected_img_start`` from the config, the align of 128
-where the decoder captures through the flash kernel, the SAM sizes of the
-config and ``ProcessorConfig(size=input_size,
-size_rule=FAMILY_SIZE_RULES[family])``."""
+has: config presets, model modules, batch builders, the prompt template,
+image placeholder and caption prompt of each family, the host processors'
+resize rule, the reduced-resolution SAM schedule, the coarse-mask frame,
+the frozen-checkpoint loaders, ``resolve_family_setup`` (config, tokenised
+prompt and batch-spec kwargs that agree with each other) and the all-plain
+twin of a config."""
 
 from __future__ import annotations
 
@@ -71,6 +66,16 @@ FAMILY_SIZE_RULES = {
     "mgm": "llava",
     "hpt": "hpt15",
 }
+# the released configs' caption prompt (reference configs/*/*.py:48-55):
+# one image placeholder, expanded to n_img ids at encode time
+FAMILY_PROMPTS = {
+    "deepseek_vl": ("<image_placeholder>"
+                    "Please give me a description of the image."),
+    "llava": "<image>\nPlease give me a description of the image.",
+    "llava_next": "<image>\nPlease give me a description of the image.",
+    "mgm": "<image>\nPlease give me a description of the image.",
+    "hpt": "<image>\nPlease give me a description of the image.",
+}
 # family -> kind of batch builder, as in the JAX registry
 BATCH_BUILDERS = {"deepseek_vl": "standard", "llava": "standard",
                   "llava_next": "anyres", "mgm": "mgm", "hpt": "standard"}
@@ -114,6 +119,81 @@ def get_batch_builder(family: str):
         f"the {kind} batch builder of family {family!r} is not ported to "
         "flmm_tpu_torch (ported: the standard build_batch; "
         "data/llava_next.py has only the synthetic anyres batch)")
+
+
+def build_prompt(family: str, tokenizer, n_img: int,
+                 template: str | None = None, prompt: str | None = None,
+                 image_token_id: int | None = None):
+    """The family's tokenised prompt (``tokenization.encode_multimodal_
+    prompt``); ``template`` / ``prompt`` override the released configs'.
+    The returned RenderedPrompt's ``img_start`` comes from the tokenizer."""
+    from flmm_tpu_torch.data import tokenization as tok
+
+    tpl = tok.TEMPLATES[template or FAMILY_TEMPLATES[family]]
+    return tok.encode_multimodal_prompt(
+        tokenizer, tpl, prompt or FAMILY_PROMPTS[family],
+        FAMILY_IMAGE_TOKENS[family], n_img, image_token_id=image_token_id)
+
+
+def _flash_align(base):
+    return 128 if getattr(base.llm, "use_flash_capture", False) else None
+
+
+def resolve_family_setup(family: str, preset: str, tokenizer,
+                         template: str | None = None,
+                         prompt: str | None = None,
+                         sam_size: int | None = None, **cfg_kwargs):
+    """``(config, RenderedPrompt, batch-spec kwargs)`` that agree: the
+    image block's start is taken from the real tokenisation of the family
+    prompt (rounded up to 128 when the preset captures through the flash
+    kernel), the config is rebuilt with it, and the kwargs every batch
+    builder needs (``align_image_block``, ``expected_img_start``, the SAM
+    sizes, the processor) come from that config."""
+    from flmm_tpu_torch.data.processors import ProcessorConfig
+
+    cfg = get_config(family, preset, **cfg_kwargs)
+    base = cfg.base if hasattr(cfg, "base") else cfg
+    rp = build_prompt(family, tokenizer, base.num_img_tokens,
+                      template=template, prompt=prompt)
+    align = _flash_align(base)
+    derived = rp.img_start
+    if align:
+        derived += (align - derived % align) % align
+    if derived != base.img_start:
+        cfg = get_config(family, preset, img_start=derived, **cfg_kwargs)
+        base = cfg.base if hasattr(cfg, "base") else cfg
+        align = _flash_align(base)
+    if sam_size is not None and sam_size != base.sam.encoder.img_size:
+        cfg = with_sam_size(cfg, sam_size)
+        base = cfg.base if hasattr(cfg, "base") else cfg
+    spec_kwargs = {"align_image_block": align,
+                   "expected_img_start": base.img_start,
+                   "sam_size": base.sam.encoder.img_size,
+                   "prompt_size": base.sam.prompt_size,
+                   "processor": ProcessorConfig(
+                       size=base.input_size,
+                       size_rule=FAMILY_SIZE_RULES[family])}
+    return cfg, rp, spec_kwargs
+
+
+def get_loader(family: str):
+    """The frozen-checkpoint loader of a family:
+    ``loader(checkpoint_dir, cfg, sam_checkpoint=None, device="cpu")``."""
+    from flmm_tpu_torch.convert import load as load_mod
+
+    if family == "mgm":
+        raise NotImplementedError(
+            "the MGM loaders (convnext_params, mgm_frozen) are not ported: "
+            "ROADMAP queue 1 item 8")
+    _family(family)  # raises by name
+
+    def llava_next(checkpoint_dir, cfg, sam_checkpoint=None, device="cpu"):
+        return load_mod.llava_frozen(checkpoint_dir, cfg, sam_checkpoint,
+                                     next_variant=True, device=device)
+
+    return {"deepseek_vl": load_mod.deepseek_vl_frozen,
+            "llava": load_mod.llava_frozen, "llava_next": llava_next,
+            "hpt": load_mod.hpt_frozen}[family]
 
 
 def with_sam_size(cfg, img_size: int):

@@ -3,8 +3,9 @@ state -- trainable params, optimizer moments and update count (which is the
 schedule's position), step and guard counters -- as ``step_<n>/state.pt``
 under the work directory, in the port's own format (``torch.save``).  The
 frozen weights are re-made at load time, as the reference re-reads them
-from the upstream checkpoints.  Reading the JAX package's Orbax directories
-is not ported."""
+from the upstream checkpoints.  ``restore_trainable`` also takes a released
+F-LMM checkpoint.  Reading the JAX package's Orbax directories is not
+ported: it needs orbax / tensorstore, which import JAX."""
 
 from __future__ import annotations
 
@@ -62,6 +63,34 @@ def restore(path: str | pathlib.Path, template: dict) -> dict:
     loaded = torch.load(pathlib.Path(path) / STATE_FILE, map_location="cpu",
                         weights_only=True)
     return _load_into(template, loaded, "")
+
+
+def restore_trainable(path: str | pathlib.Path, cfg, trainable: dict) -> dict:
+    """The trainable tree from either kind of checkpoint, for ``--trained``.
+
+    A torch-file suffix (``.pth`` / ``.bin`` / ``.pt`` / ``.safetensors``)
+    is a released F-LMM checkpoint, converted by
+    :func:`flmm_tpu_torch.convert.load.reference_trained` onto the device
+    of ``trainable``'s leaves.  A directory is one of
+    the port's own ``step_<n>`` checkpoints: its trained params are read
+    into the tensors of ``trainable``.  An Orbax directory written by the
+    JAX trainer is refused."""
+    p = pathlib.Path(path)
+    if str(path).endswith((".pth", ".bin", ".pt", ".safetensors")):
+        from flmm_tpu_torch.convert import load as conv
+        from flmm_tpu_torch.train.loop import tree_leaves
+
+        device = next(t for _, t in tree_leaves(trainable)).device
+        return conv.reference_trained(str(path), cfg, device=device)
+    if (p / "_METADATA").exists() or (p / "_CHECKPOINT_METADATA").exists():
+        raise NotImplementedError(
+            f"{p} is an Orbax checkpoint of the JAX trainer; reading it needs "
+            "orbax and tensorstore, which import JAX (ROADMAP queue 1: the "
+            "Orbax reader).  Pass a released F-LMM .pth / .bin / "
+            ".safetensors or a step_<n> directory of the port's trainer")
+    loaded = torch.load(p / STATE_FILE, map_location="cpu",
+                        weights_only=True)
+    return _load_into(trainable, loaded["params"], "/params")
 
 
 def latest(dirpath: str | pathlib.Path) -> pathlib.Path | None:
