@@ -56,7 +56,8 @@ Phases; any failure raises and the script exits non-zero:
    K1 over one image's 25 windows, K2 over one image's 16 heads (S =
    4096), K3 and K4 over one image's SAM global rows (N = 4096) and the
    SigLIP rows of one and two images (N = 576, 1152): the generation
-   path's shapes.
+   path's shapes; K5 at the DeepSeek-VL-7B aligned decoder layer (B = 4,
+   32 heads, S = 768, the image block of 576 at 128).
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -184,6 +185,24 @@ Phases; any failure raises and the script exits non-zero:
     ground truth as +-8 logits above 85 cIoU per split and 0.85 AA; load
     GB/s, decode ms an image, samples/s, forward and host ms a batch (the
     host's split into decode, reads and the batch builder) and peak memory.
+26. DeepSeek-VL-7B, the hybrid tower (DeepSeek-LLM-7B, 30 layers x 32
+    heads; SigLIP-L/384 beside SAM-B at 1024 through the split projector;
+    SAM ViT-L at 1024), random weights from a seed with non-zero rel-pos
+    tables in both SAM trunks, hd_alpha 0.5 and a neck_hd apart from the
+    encoder neck: serve 4 bs-4 requests eagerly (img_start 5, S=672;
+    K1/K2/K3/K4/K5 20/4/28/28/0 a forward; the SAM-B trunk runs plain) and
+    aligned (img_start 128, S=768; K5 30), each beside the all-plain
+    forward (image embeddings, maps, SAM embedding, hidden corr >= 0.999,
+    logits >= 0.99; the SAM-B output bit for bit equal), with the device ms
+    of each stage (SAM-B trunk, SigLIP, projector, decoder capture, SAM
+    ViT-L encoder, heads) on both paths; bench_torch.py's row at
+    BENCH_PRESET=7b; and 3 steps of the trainer CLI at --preset 7b
+    --sam-size 448 --batch-size 8 (finite losses, launches 0/4/48/48/0 and
+    K6 20 a step, the frozen tree's per-leaf checksums unchanged);
+27. LLaVA-NeXT over Mistral-7B (GQA 32/8), built by the bench.py twin at
+    bs 2: one kernel forward with its exact launches (20/4/27/27/32) beside
+    the all-plain forward, and bench_torch.py's row at
+    BENCH_FAMILY=llava_next BENCH_PRESET=mistral_7b.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -195,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -231,11 +251,12 @@ from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
 from flmm_tpu_torch.models.llm import decoder as llm_decoder
 from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
-from flmm_tpu_torch.models.vision import vit
+from flmm_tpu_torch.models.vision import sam_tower, vit
 from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
     global_block, masks, sam_flash, sam_flash_experiments, window_block
 from flmm_tpu_torch.ops._matmul import matmul_f32
+from flmm_tpu_torch.train import __main__ as trainer_cli
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
 from tests import checkpoint_writers
@@ -260,6 +281,7 @@ MERGED_REL_ERR = 1e-4
 # kernel forward vs all-plain forward (bf16 differences compound through
 # 24 SAM blocks, the 23-24 tower blocks and the decoder)
 FORWARD_CORR = {"sam_embedding": 0.999, "attn": 0.999,
+                "image_embeddings": 0.999,
                 "vision_features": 0.999, "hidden": 0.999,
                 "coarse_logits": 0.99, "sam_logits": 0.99}
 # training: bs 8 at the SAM-448 schedule, scripts/train.py's random stream
@@ -294,6 +316,23 @@ EXPECTED_LAUNCHES = {  # per forward when serving, per step when training
         "flash_attention_with_merged_capture": 0,
         "sam_window_attention_v9": 20, "plain_flash_attention": 0,
         "fused_ln_mlp": 0, "global_attn_block": 0},
+    # the 7B hybrid: the SAM-B trunk runs plain, so the 1.3B path's counts;
+    # aligned, K5 in each of the 30 decoder layers
+    "deepseek_vl_7b": {
+        "window_block": 20, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28,
+        "flash_attention_with_merged_capture": 0},
+    "deepseek_vl_7b_aligned": {
+        "window_block": 20, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 28, "fused_proj_ln_mlp": 28,
+        "flash_attention_with_merged_capture": 30},
+    "deepseek_vl_7b_train_sam448": {
+        "sam_global_attention_v8": 4, "fused_ln_qkv": 48,
+        "fused_proj_ln_mlp": 48, "sam_window_attention_v9": 20},
+    "llava_next_mistral_7b": {
+        "window_block": 20, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 27, "fused_proj_ln_mlp": 27,
+        "flash_attention_with_merged_capture": 32},
     # the tower's K3 / K4 gate is closed (mlp_dim 4304 % 512 != 0), 26 of its
     # 27 layers run (features at layer -2), and the 4 global SAM layers go
     # K10 + K8 instead of K3 + K2 + K4
@@ -405,6 +444,16 @@ GEN_WORDS = (
 # tree (tests/data, made by tests/make_fixture_data.py), the eval CLIs at
 # their defaults on the card
 FILES_SEED = 11
+# DeepSeek-VL-7B (phase 26): 4 requests at bs 4 after a warm-up, eager (the
+# raw prompt layout, S = 672) and aligned (the image block at 128, S = 768,
+# K5 in the 30 decoder layers); the trainer's steps at SAM-448, bs 8; then
+# (phase 27) LLaVA-NeXT over Mistral-7B at phase 6's bs 2
+HYBRID_SEED, HYBRID_REQUESTS = 12, 4
+HYBRID_ALIGNED_START, HYBRID_ALIGNED_SEQ = 128, 768
+HYBRID_TRAIN_STEPS = 3
+HYBRID_STAGE_ITERS = 3  # the first forward of the split is a warm-up
+STAGES = ("sam_b_trunk", "siglip", "projector", "decoder_capture",
+          "sam_l_encoder", "heads")
 FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data"
 FILES_GT_MIN = {"cIoU": 85.0, "AA": 0.85}  # AA is a fraction, cIoU percent
 DECODE_REPEATS = 5
@@ -709,20 +758,41 @@ def hpt_batches(cfg, n: int, device=None) -> list:
     return out
 
 
-def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
-                  g_bench: torch.Generator, g_e2e: torch.Generator,
-                  g_sweep: torch.Generator) -> dict:
-    """Each kernel against its plain version at the main paths' shapes.
-    The checks that came with the HPT path draw from ``g_hpt``, those that
-    came with the kernel bench from ``g_bench``, those of the global
-    variants from ``g_e2e`` and those of the window variants and the size
-    sweep from ``g_sweep``, so that the earlier paths keep the weights and
-    inputs ``g`` and ``g_hpt`` have always given them (phase 9's U-Net
-    gradient comparison is sensitive to the state the training steps
-    reach)."""
-    C, F, hd = 1024, 4096, 64
-    results = {}
+def check_capture(check, gen: torch.Generator, label: str, batch: dict,
+                  H: int, KV: int, img_start: int, n_img: int) -> None:
+    """K5 at one decoder layer of a serving path that captures through it,
+    with the path's key holes and merge matrix (``batch``, numpy); q, k, v
+    as (B, H, S, hd) views of the decoder's (B, S, H, hd) projections."""
+    valid = torch.from_numpy(batch["attn_mask"]).cuda()
+    mm = masks.mean_merge_matrix(
+        torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)
+    B, S = valid.shape
+    hd = 128
+    q = _randn(gen, (B, S, H, hd)).transpose(1, 2)
+    k, v = (_randn(gen, (B, S, KV, hd)).transpose(1, 2) for _ in range(2))
+    # what this batch needs: 4 * hd FLOP per visible (query, key) pair
+    # and head, and the merge of its text rows' image-block
+    # probabilities, 2 * M * n_img FLOP per row and head
+    pairs = int(valid.cumsum(1).sum())
+    text_rows = int((mm != 0).any(dim=-1).sum())
+    label = (f"{label}: B={B}, H={H}, KV={KV}, S={S}, n_img={n_img}, "
+             f"M={MASKS}")
+    args = (q, k, v, valid, mm, img_start, n_img)
+    entry = check("flash_attention_with_merged_capture", label,
+                  flash_attention.flash_attention_with_merged_capture,
+                  flash_attention.flash_attention_with_merged_capture_plain,
+                  args, rel_bounds=(KERNEL_REL_ERR, MERGED_REL_ERR),
+                  flop=4 * H * hd * pairs
+                  + 2 * H * MASKS * n_img * text_rows)
+    capture_passes(
+        entry, "flash_attention_with_merged_capture", label,
+        lambda: flash_attention.flash_attention_with_merged_capture(
+            *args), q, k, v, merged=True)
 
+
+def make_check(results: dict):
+    """The phase-3 check of one kernel at one shape, recording into
+    ``results`` by kernel name."""
     def check(name, label, wrapper, plain, args, flop, library_fn=None,
               library_view=None, moved=None, exact=False, rel_bounds=None):
         """Compare, time and bound one kernel: ``flop`` is the operations of
@@ -790,6 +860,24 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
             return results[name]
         results[name]["other_shapes"].append(entry)
         return entry
+
+    return check
+
+
+def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
+                  g_bench: torch.Generator, g_e2e: torch.Generator,
+                  g_sweep: torch.Generator) -> dict:
+    """Each kernel against its plain version at the main paths' shapes.
+    The checks that came with the HPT path draw from ``g_hpt``, those that
+    came with the kernel bench from ``g_bench``, those of the global
+    variants from ``g_e2e`` and those of the window variants and the size
+    sweep from ``g_sweep``, so that the earlier paths keep the weights and
+    inputs ``g`` and ``g_hpt`` have always given them (phase 9's U-Net
+    gradient comparison is sensitive to the state the training steps
+    reach)."""
+    C, F, hd = 1024, 4096, 64
+    results = {}
+    check = make_check(results)
 
     def ln_params(gen=g):
         return _randn(gen, (C,), 0.1, 1.0), _randn(gen, (C,), 0.1)
@@ -888,41 +976,12 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
           flop=NW * T * (2 * C * 3 * C + 2 * C * C + 4 * C * F)
           + 4 * NW * nh * T * T * hd)
 
-    # K5: one decoder layer of each serving path that captures through it,
-    # with the path's key holes and merge matrix; q, k, v as (B, H, S, hd)
-    # views of the decoder's (B, S, H, hd) projections
-    def check_capture(gen, label, batch, H, KV, img_start, n_img):
-        valid = torch.from_numpy(batch["attn_mask"]).cuda()
-        mm = masks.mean_merge_matrix(
-            torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)
-        B, S = valid.shape
-        hd = 128
-        q = _randn(gen, (B, S, H, hd)).transpose(1, 2)
-        k, v = (_randn(gen, (B, S, KV, hd)).transpose(1, 2) for _ in range(2))
-        # what this batch needs: 4 * hd FLOP per visible (query, key) pair
-        # and head, and the merge of its text rows' image-block
-        # probabilities, 2 * M * n_img FLOP per row and head
-        pairs = int(valid.cumsum(1).sum())
-        text_rows = int((mm != 0).any(dim=-1).sum())
-        label = (f"{label}: B={B}, H={H}, KV={KV}, S={S}, n_img={n_img}, "
-                 f"M={MASKS}")
-        args = (q, k, v, valid, mm, img_start, n_img)
-        entry = check("flash_attention_with_merged_capture", label,
-                      flash_attention.flash_attention_with_merged_capture,
-                      flash_attention.flash_attention_with_merged_capture_plain,
-                      args, rel_bounds=(KERNEL_REL_ERR, MERGED_REL_ERR),
-                      flop=4 * H * hd * pairs
-                      + 2 * H * MASKS * n_img * text_rows)
-        capture_passes(
-            entry, "flash_attention_with_merged_capture", label,
-            lambda: flash_attention.flash_attention_with_merged_capture(
-                *args), q, k, v, merged=True)
-
-    check_capture(g, "LLaVA-NeXT", anyres_batches(
+    # K5: one decoder layer of each serving path that captures through it
+    check_capture(check, g, "LLaVA-NeXT", anyres_batches(
         llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START))[0],
         32, 32, ANYRES_IMG_START, 2928)
-    check_capture(g_hpt, "HPT-Air-1.5", hpt_batches(hpt_config(), 1)[0], 32,
-                  8, HPT_IMG_START, 1024)
+    check_capture(check, g_hpt, "HPT-Air-1.5",
+                  hpt_batches(hpt_config(), 1)[0], 32, 8, HPT_IMG_START, 1024)
 
     # K2 over the SAM-448 grid: 8 images x 16 heads, side 28 (S = 784)
     hd = 64
@@ -991,7 +1050,21 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     side_checks(check, torch.Generator(device="cuda").manual_seed(7))
     generation_shape_checks(check,
                             torch.Generator(device="cuda").manual_seed(8))
+    hybrid_shape_checks(check, torch.Generator(device="cuda").manual_seed(10))
     return results
+
+
+def hybrid_shape_checks(check, g: torch.Generator) -> None:
+    """Phase 3 for the DeepSeek-VL-7B path (phase 26): K5 at its aligned
+    decoder layer, 32 heads of 128 (MHA) over S = 768 with the image block
+    of 576 at 128.  Its K1-K4 shapes are the 1.3B path's: the SigLIP tower
+    and SAM ViT-L are the same at bs 4, and the SAM-B trunk runs plain."""
+    batch = synthetic_batch(
+        deepseek_vl.deepseek_vl_7b(img_start=HYBRID_ALIGNED_START),
+        batch_size=BS, seq_len=HYBRID_ALIGNED_SEQ, max_masks=MASKS,
+        text_tokens_per_mask=TEXT, seed=0)
+    check_capture(check, g, "DeepSeek-VL-7B aligned", batch, 32, 32,
+                  HYBRID_ALIGNED_START, 576)
 
 
 def kernel_bench_checks(check, g: torch.Generator) -> None:
@@ -3252,24 +3325,278 @@ def run_files(card: str) -> dict:
     return {"launches": total, "stats": stats}
 
 
-def check_e2e_row(phase: int, row: dict, global_kernel: str) -> None:
+def stage_split(params: dict, cfg, batch: dict) -> dict:
+    """Device ms of each stage of one hybrid forward (CUDA events between
+    the stages, the module calls ``grounding.forward`` makes), the mean over
+    the last ``HYBRID_STAGE_ITERS - 1`` of ``HYBRID_STAGE_ITERS`` forwards;
+    ``forward`` is the span of all six."""
+    fro = params["frozen"]
+    runs = []
+    with torch.no_grad():
+        for _ in range(HYBRID_STAGE_ITERS):
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(len(STAGES) + 1)]
+            marks[0].record()
+            high = sam_tower.forward(fro["vision_high"], cfg.hybrid_high,
+                                     batch["hires_pixel_values"])
+            marks[1].record()
+            feats = vit.forward(fro["vision"], cfg.vision,
+                                batch["pixel_values"],
+                                select_layer=cfg.vision_select_layer)
+            marks[2].record()
+            img = grounding._project_hybrid(
+                high.reshape(high.shape[0], -1, high.shape[-1]), feats,
+                fro["projector"]).to(cfg.dtype)
+            marks[3].record()
+            attn, hidden = grounding.decoder_capture(params, cfg, batch, img)
+            marks[4].record()
+            emb = sam_encoder.forward(fro["sam_encoder"], cfg.sam.encoder,
+                                      batch["sam_pixel_values"])
+            marks[5].record()
+            grounding.heads_forward(params, cfg, attn, hidden, batch,
+                                    img_emb=emb)
+            marks[6].record()
+            runs.append(marks)
+            del high, feats, img, attn, hidden, emb
+    torch.cuda.synchronize()
+    timed = runs[1:]
+    ms = {name: sum(m[i].elapsed_time(m[i + 1]) for m in timed) / len(timed)
+          for i, name in enumerate(STAGES)}
+    ms["forward"] = sum(m[0].elapsed_time(m[-1]) for m in timed) / len(timed)
+    return ms
+
+
+def run_hybrid_serving(g: torch.Generator, card: str) -> dict:
+    """Phase 26, serving: the DeepSeek-VL-7B forward at full width and
+    depth, eager and aligned, each beside its all-plain forward, with the
+    stage split of both paths."""
+    cfg = deepseek_vl.deepseek_vl_7b()
+    params = grounding.init_params(cfg, g, "cuda")
+    params["frozen"]["llm"].pop("lm_head")  # the forward never uses it
+    e2e_bench.randomize_frozen(params, g)
+    fro = params["frozen"]
+    paths = {}
+    for path, img_start, seq in (
+            ("deepseek_vl_7b", cfg.img_start, SEQ),
+            ("deepseek_vl_7b_aligned", HYBRID_ALIGNED_START,
+             HYBRID_ALIGNED_SEQ)):
+        cfg_p = deepseek_vl.deepseek_vl_7b(img_start=img_start)
+        batches = [from_jax(synthetic_batch(
+            cfg_p, batch_size=BS, seq_len=seq, max_masks=MASKS,
+            text_tokens_per_mask=TEXT, seed=seed), "cuda")
+            for seed in range(HYBRID_REQUESTS + 1)]
+        Hc, Wc = unet.output_hw(cfg_p.unet, (cfg_p.clip_shape,) * 2)
+        P = cfg_p.sam.prompt_size
+        shapes = {"sam_logits": (BS, MASKS, P, P),
+                  "coarse_logits": (BS, MASKS, Hc, Wc),
+                  "iou_pred": (BS, MASKS), "boxes": (BS, MASKS, 4),
+                  "hidden": (BS, seq, cfg_p.llm.hidden_size)}
+        served = phase_serve(26, path, grounding.forward, params, cfg_p,
+                             batches, shapes)
+
+        def hybrid_pairs(cfg, plain, batch, path=path):
+            high = [sam_tower.forward(fro["vision_high"], c.hybrid_high,
+                                      batch["hires_pixel_values"])
+                    for c in (cfg, plain)]
+            if not torch.equal(*high):
+                raise AssertionError(f"{path}: the SAM-B tower differs "
+                                     "between the kernel and the plain "
+                                     "config (both run its plain path)")
+            log(f"phase 26 {path} sam_b_tower {tuple(high[0].shape)}: bit "
+                "for bit equal on the kernel and the plain path")
+            del high
+            embeds = [grounding.image_embeddings(fro, c, batch)
+                      for c in (cfg, plain)]
+            attn = [grounding.decoder_capture(params, c, batch, e)[0]
+                    for c, e in zip((cfg, plain), embeds)]
+            return {"image_embeddings": tuple(embeds), "attn": tuple(attn),
+                    "sam_embedding": tuple(sam_encoder.forward(
+                        fro["sam_encoder"], c.sam.encoder,
+                        batch["sam_pixel_values"]) for c in (cfg, plain))}
+
+        phase_compare(26, path, grounding.forward, params, cfg_p, served,
+                      hybrid_pairs)
+        served["stages"] = {
+            "kernel": stage_split(params, cfg_p, served["requests"][0]),
+            "plain": stage_split(params, registry.plain_config(cfg_p),
+                                 served["requests"][0])}
+        for which, ms in served["stages"].items():
+            log(f"phase 26 stages {path} {which} path ({card}): " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in ms.items())
+                + f" (CUDA events, bs {BS}, S={seq}, mean of "
+                f"{HYBRID_STAGE_ITERS - 1} forwards after one)")
+        log(f"phase 26 timing {path} ({card}): kernel path "
+            f"{served['ms']:.1f} ms/forward, {BS * 1e3 / served['ms']:.2f} "
+            f"img/s, peak {served['peak_gb']:.2f} GB; plain path "
+            f"{served['plain_ms']:.1f} ms/forward, "
+            f"{BS * 1e3 / served['plain_ms']:.2f} img/s, peak "
+            f"{served['plain_peak_gb']:.2f} GB (bs {BS}, mean of "
+            f"{len(served['requests'])} requests after one warm-up)")
+        del served["requests"], served["outs"], batches
+        paths[path] = served
+    del params, fro
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _leaf_checksums(tree: dict) -> dict:
+    """Per leaf, the int64 sum of its bit pattern, in chunks of 2^24 words
+    (no int64 copy of a whole 7B leaf): one changed bit of a leaf changes
+    its sum."""
+    ints = {2: torch.int16, 4: torch.int32}
+    leaves = train_loop.tree_leaves(tree)
+    sums = torch.stack([sum(
+        c.sum(dtype=torch.int64) for c in t.contiguous().view(
+            ints[t.element_size()]).flatten().split(1 << 24))
+        for _, t in leaves])
+    return dict(zip((p for p, _ in leaves), sums.tolist()))
+
+
+def run_hybrid_train(card: str) -> dict:
+    """Phase 26, training: ``python -m flmm_tpu_torch.train --preset 7b
+    --sam-size 448 --batch-size 8 --synthetic`` for 3 steps, in process:
+    finite losses, the exact launches a step, s/step and peak memory, and
+    the frozen tree's per-leaf checksums the same after the steps as
+    before the first."""
+    seen = {}
+
+    def recording(make):
+        def factory(loss_fn, opt):
+            step = make(loss_fn, opt)
+
+            def checked(state, frozen, batch):
+                if "before" not in seen:
+                    seen["before"] = _leaf_checksums(frozen)
+                seen["frozen"] = frozen
+                return step(state, frozen, batch)
+            return checked
+        return factory
+
+    out = io.StringIO()
+    argv = ["--family", "deepseek_vl", "--preset", "7b", "--synthetic",
+            "--sam-size", str(TRAIN_SAM), "--batch-size", str(TRAIN_BS),
+            "--steps", str(HYBRID_TRAIN_STEPS), "--log-interval", "1"]
+    with tempfile.TemporaryDirectory() as work, \
+            _wrapped(train_loop, "make_train_step", recording), \
+            contextlib.redirect_stdout(out):
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer_cli.main([*argv, "--work-dir", work])
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+    log(f"phase 26 train deepseek_vl_7b: {' '.join(argv)}: "
+        + "; ".join(f"step {r['step']} loss {r['loss']:.4f} "
+                    f"{r['sec_per_step']:.3f} s/step" for r in rows))
+    if len(rows) != HYBRID_TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError("7b trainer: a step is missing or its loss is "
+                             "not finite")
+    want = {k: n * HYBRID_TRAIN_STEPS for k, n in
+            EXPECTED_LAUNCHES["deepseek_vl_7b_train_sam448"].items()}
+    after = _leaf_checksums(seen.pop("frozen"))
+    log(f"phase 26 train deepseek_vl_7b: launches {launches} (expected "
+        f"{want}); frozen tree: {len(after)} leaves, per-leaf checksums "
+        f"unchanged: {after == seen['before']}")
+    if launches != want:
+        raise AssertionError("7b trainer: kernel launch counts differ from "
+                             "the main path")
+    if after != seen["before"]:
+        raise AssertionError("7b trainer: the steps changed the frozen tree")
+    s_step = [r["sec_per_step"] for r in rows]
+    log(f"phase 26 timing train deepseek_vl_7b SAM-{TRAIN_SAM} ({card}): "
+        f"{s_step[-1]:.3f} s/step (the last step on the trainer's own timer; "
+        f"all steps {[round(x, 3) for x in s_step]}), "
+        f"{TRAIN_BS / s_step[-1]:.2f} img/s, "
+        f"peak {peak_gb:.2f} GB, {wall:.1f} s for the CLI in all (bs "
+        f"{TRAIN_BS}, {HYBRID_TRAIN_STEPS} steps)")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "s_per_step": s_step, "peak_gb": peak_gb}
+
+
+def run_hybrid(card: str) -> dict:
+    """Phase 26: DeepSeek-VL-7B served eagerly and aligned, its
+    bench_torch.py row, and its trainer's steps."""
+    paths = run_hybrid_serving(
+        torch.Generator(device="cuda").manual_seed(HYBRID_SEED), card)
+    knobs = e2e_bench.Knobs(preset="7b")
+    row = e2e_bench.run(BS, E2E_ITERS, knobs, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    check_e2e_row(26, row, "v8", preset="7b",
+                  launches=EXPECTED_LAUNCHES["deepseek_vl_7b"])
+    train = run_hybrid_train(card)
+    return {"paths": paths, "row": row, "train": train, "launches": {
+        name: row["launches"][name] * row["iters"]
+        + train["launches"][name] for name in WRAPPERS}}
+
+
+def run_mistral(card: str) -> dict:
+    """Phase 27: LLaVA-NeXT over Mistral-7B, built by the bench.py twin at
+    phase 6's bs 2: one kernel forward with its exact launches beside the
+    all-plain forward, then its bench_torch.py row."""
+    device = torch.device("cuda")
+    path = "llava_next_mistral_7b"
+    knobs = e2e_bench.Knobs(family="llava_next", preset="mistral_7b")
+    model, cfg, params, batch = e2e_bench.build(ANYRES_BS, knobs, device)
+    with torch.no_grad():
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        out = model.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        want = EXPECTED_LAUNCHES[path]
+        log(f"phase 27 {path}: bs {ANYRES_BS}, S="
+            f"{batch['input_ids'].shape[1]}, image block at "
+            f"{cfg.base.img_start}; launches {launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"{path}: kernel launch counts differ "
+                                 "from the main path")
+        ref = model.forward(params, registry.plain_config(cfg), batch)
+        for key in ("hidden", "coarse_logits", "sam_logits"):
+            rel, corr = agreement(out[key], ref[key])
+            log(f"phase 27 {path} {key}: kernel vs plain forward "
+                f"max_rel_err {rel:.3e} corr {corr:.6f} (bound "
+                f"{FORWARD_CORR[key]})")
+            if corr < FORWARD_CORR[key]:
+                raise AssertionError(f"{path} {key}: kernel forward "
+                                     "disagrees with the plain forward")
+    del model, params, batch, out, ref
+    torch.cuda.empty_cache()
+    row = e2e_bench.run(ANYRES_BS, E2E_ITERS, knobs, device)
+    torch.cuda.empty_cache()
+    check_e2e_row(27, row, "v8", family="llava_next", preset="mistral_7b",
+                  bs=ANYRES_BS, launches=want)
+    return {"paths": {path: {"launches": launches}}, "row": row,
+            "launches": {name: row["launches"][name] * row["iters"]
+                         for name in WRAPPERS}}
+
+
+def check_e2e_row(phase: int, row: dict, global_kernel: str,
+                  family: str = "deepseek_vl", preset: str = "1_3b",
+                  bs: int = BS, launches: dict | None = None) -> None:
     """One row of the bench.py twin: its keys, its settings and the exact
-    launch counts per forward (run() itself refuses non-finite logits)."""
+    launch counts per forward (``launches``, default the 1.3B path's at
+    ``global_kernel``; run() itself refuses non-finite logits)."""
     log(f"phase {phase} bench_torch {json.dumps(row)}")
-    want = {name: E2E_LAUNCHES[global_kernel].get(name, 0)
-            for name in WRAPPERS}
+    what = f"bench {family} {preset} {global_kernel}"
+    launches = launches or E2E_LAUNCHES[global_kernel]
+    want = {name: launches.get(name, 0) for name in WRAPPERS}
     if row["launches"] != want:
-        raise AssertionError(f"bench {global_kernel}: launches per forward "
-                             f"differ from {want}")
+        raise AssertionError(f"{what}: launches per forward differ from "
+                             f"{want}")
     if (row["global_kernel"], row["bs"], row["sam_size"], row["iters"],
             row["family"], row["preset"]) != (
-                global_kernel, BS, 1024, E2E_ITERS, "deepseek_vl", "1_3b"):
-        raise AssertionError(f"bench {global_kernel}: wrong settings in "
-                             "the row")
+                global_kernel, bs, 1024, E2E_ITERS, family, preset):
+        raise AssertionError(f"{what}: wrong settings in the row")
     for r in (row, row["plain"]):
         if not (math.isfinite(r["value"]) and r["value"] > 0
                 and 0 < r["ms_min"] <= r["ms_mean"] <= r["ms_max"]):
-            raise AssertionError(f"bench {global_kernel}: bad time in {r}")
+            raise AssertionError(f"{what}: bad time in {r}")
 
 
 def main() -> None:
@@ -3334,12 +3661,17 @@ def main() -> None:
         f"{st['eval_refcoco']['host_ms']:.1f} ms a batch, peak "
         f"{st['eval_refcoco']['peak_gb']:.2f} GB; eval_png "
         f"{st['eval_png']['samples_per_s']:.2f} samples/s")
+    hybrid = run_hybrid(card)
+    paths.update(hybrid["paths"])
+    torch.cuda.empty_cache()
+    mistral = run_mistral(card)
+    paths.update(mistral["paths"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
-             compared, evals, gen, files)),
+             compared, evals, gen, files, hybrid, mistral)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -3350,7 +3682,9 @@ def main() -> None:
              "family_forwards": compared["launches"][name],
              "eval": evals["launches"][name],
              "generation": gen["launches"][name],
-             "files": files["launches"][name]},
+             "files": files["launches"][name],
+             "deepseek_vl_7b_bench_train": hybrid["launches"][name],
+             "llava_next_mistral_7b_bench": mistral["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ and, on the same weights and inputs, for the all-plain path
 Env knobs, with the JAX script's names and defaults:
   BENCH_FAMILY        deepseek_vl (default) | llava | llava_next | hpt
                       (mgm is not ported and raises)
-  BENCH_PRESET        family preset (default: the flagship per family)
+  BENCH_PRESET        family preset (default: the flagship per family;
+                      deepseek_vl's 7b runs the hybrid SAM-B tower)
   BENCH_SAM_SIZE      SAM encoder resolution (default 1024; the
                       reduced-resolution deployment schedule)
   BENCH_BS            comma list of batch sizes to try (default "4,8,2,1")
@@ -79,6 +80,7 @@ FLAGSHIP = {
 WARMUP = 2
 ANYRES_SIZES = ((600, 640), (900, 280))  # (h, w): a 2x2 and a 3x1 tile grid
 REL_POS_STD = 0.05
+HD_ALPHA = 0.5
 # every wrapper that counts its kernel launches, by name
 WRAPPERS = {
     "window_block": window_block.window_block,
@@ -207,14 +209,30 @@ def _family_batch(cfg, family: str, batch_size: int, seq_len: int,
                                   max_masks=8, caption_tokens=12)
 
 
-def _randomize_rel_pos(params: dict, g: torch.Generator) -> None:
-    """Non-zero SAM rel-pos tables, as a released checkpoint has (the init
-    leaves them 0), so the bias term of the attention kernels does work."""
-    for bp in params["frozen"]["sam_encoder"]["blocks"]:
+def _noisy(t: torch.Tensor, g: torch.Generator, std) -> torch.Tensor:
+    return (t.float() + torch.randn(t.shape, generator=g, device=t.device)
+            * std).to(t.dtype)
+
+
+def randomize_frozen(params: dict, g: torch.Generator) -> None:
+    """What the init leaves trivial, made as a released checkpoint has it:
+    non-zero rel-pos tables in every SAM trunk, so the bias term of the
+    attention kernels and of the plain path does work; and in a hybrid
+    tower (DeepSeek-VL-7B) an HD branch that adds something: ``hd_alpha``
+    at ``HD_ALPHA`` (the init: 0) and ``neck_hd`` apart from the encoder
+    neck (the init: a copy), each kernel moved by its own spread and each
+    LayerNorm leaf by 0.1."""
+    fro = params["frozen"]
+    tower = fro.get("vision_high")
+    trunks = [fro["sam_encoder"]] + ([tower["encoder"]] if tower else [])
+    for bp in (bp for trunk in trunks for bp in trunk["blocks"]):
         for key in ("rel_pos_h", "rel_pos_w"):
-            t = bp[key]
-            bp[key] = (torch.randn(t.shape, generator=g, device=t.device)
-                       * REL_POS_STD).to(t.dtype)
+            bp[key] = _noisy(torch.zeros_like(bp[key]), g, REL_POS_STD)
+    if tower:
+        tower["hd_alpha"] = torch.full_like(tower["hd_alpha"], HD_ALPHA)
+        tower["neck_hd"] = {
+            k: _noisy(t, g, t.float().std() if k.endswith("kernel") else 0.1)
+            for k, t in tower["neck_hd"].items()}
 
 
 def build(batch_size: int, knobs: Knobs = Knobs(), device="cuda",
@@ -229,7 +247,7 @@ def build(batch_size: int, knobs: Knobs = Knobs(), device="cuda",
     g = torch.Generator(device=device).manual_seed(seed)
     params = model.init_params(cfg, g, device)
     params["frozen"]["llm"].pop("lm_head", None)
-    _randomize_rel_pos(params, g)
+    randomize_frozen(params, g)
     seq_len = resolve_seq_len(cfg, knobs.family, knobs.seq_len)
     batch = from_jax(_family_batch(cfg, knobs.family, batch_size, seq_len,
                                    native_start), device)

@@ -1,9 +1,12 @@
-"""DeepSeek-VL presets (flmm_tpu/configs/deepseek_vl.py): the 1.3B grounding
-stack, its SAM ViT-L refiner and a toy ``tiny`` preset with the same
-topology for the CPU tests.  The config dataclasses live beside the modules
-they configure, as in the JAX package."""
+"""DeepSeek-VL presets (flmm_tpu/configs/deepseek_vl.py): the 1.3B and 7B
+grounding stacks, their SAM ViT-L refiner and the toy ``tiny`` and
+``tiny_hybrid`` presets with the same topologies for the CPU tests.  The
+config dataclasses live beside the modules they configure, as in the JAX
+package."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -15,6 +18,7 @@ from flmm_tpu_torch.models.sam.image_encoder import SamEncoderConfig
 from flmm_tpu_torch.models.sam.mask_decoder import MaskDecoderConfig
 from flmm_tpu_torch.models.sam.prompt_encoder import PromptEncoderConfig
 from flmm_tpu_torch.models.sam.transformer import TwoWayConfig
+from flmm_tpu_torch.models.vision.sam_tower import SamTowerConfig
 from flmm_tpu_torch.models.vision.vit import ViTConfig
 
 
@@ -66,6 +70,29 @@ def deepseek_vl_1_3b(dtype=torch.bfloat16, img_start: int = 5,
     )
 
 
+def deepseek_vl_7b(dtype=torch.bfloat16,
+                   img_start: int = 5) -> GroundingConfig:
+    """DeepSeek-VL-7B-chat grounding stack: DeepSeek-LLM 7B (30 layers x 32
+    heads, hidden 4096, ffn 11008) over the hybrid tower, SAM-B at 1024 for
+    576 high-resolution tokens beside SigLIP-L/16-384 (reference
+    deepseek_vl/models/clip_encoder.py:126-203), fused by the split
+    mlp_gelu projector; U-Net over 30 x 32 maps; the SAM ViT-L refiner.
+    The SAM-B trunk keeps its config's plain path."""
+    llm = DecoderConfig(
+        vocab_size=102400, hidden_size=4096, num_layers=30, num_heads=32,
+        num_kv_heads=32, head_dim=128, intermediate_size=11008,
+        rope_theta=10000.0, rms_eps=1e-6, dtype=dtype,
+        use_flash_capture=img_start % 128 == 0,
+    )
+    hybrid = SamTowerConfig(dtype=dtype)
+    hybrid = dataclasses.replace(
+        hybrid, encoder=dataclasses.replace(hybrid.encoder, dtype=dtype))
+    return dataclasses.replace(
+        deepseek_vl_1_3b(dtype, img_start=img_start), llm=llm,
+        unet=UNetConfig(in_channels=30 * 32), hybrid_high=hybrid,
+        image_input_size=384)
+
+
 def tiny(dtype=torch.float32, img_start: int = 3) -> GroundingConfig:
     """Toy dimensions with the production topology (CPU-runnable)."""
     llm = DecoderConfig(
@@ -101,3 +128,19 @@ def tiny(dtype=torch.float32, img_start: int = 3) -> GroundingConfig:
         sam=sam, projector_depth=2, img_start=img_start, num_img_tokens=64,
         clip_shape=8, dtype=dtype,
     )
+
+
+def tiny_hybrid(dtype=torch.float32, img_start: int = 3) -> GroundingConfig:
+    """``tiny`` with a toy hybrid tower (the 7B topology): a 64 px SAM trunk
+    of a 4 x 4 grid whose neck is resized to 32, so that the two stride-2
+    convolutions give the 8 x 8 clip grid."""
+    hybrid = SamTowerConfig(
+        encoder=SamEncoderConfig(
+            img_size=64, patch_size=16, embed_dim=16, depth=2, num_heads=2,
+            mlp_ratio=2.0, out_chans=8, window_size=2,
+            global_attn_indexes=(1,), dtype=dtype,
+        ),
+        downsample_channels=(16, 32), neck_size=32, dtype=dtype,
+    )
+    return dataclasses.replace(tiny(dtype=dtype, img_start=img_start),
+                               hybrid_high=hybrid)

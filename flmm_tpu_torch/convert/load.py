@@ -167,7 +167,17 @@ def deepseek_vl_frozen(checkpoint_dir: str, cfg,
     """deepseek-ai/deepseek-vl-*-chat -> frozen tree.  Key layout
     (deepseek_vl/models/modeling_vlm.py): ``language_model.*`` (HF Llama),
     ``vision_model.vision_tower.*`` (timm SigLIP trunk), ``aligner.layers.*``
-    (mlp_gelu)."""
+    (mlp_gelu).  A hybrid-tower config (DeepSeek-VL-7B) is refused:
+    ``flmm_tpu``'s loader reads no SAM-B tower and no split projector (it
+    would return the 1.3B layout's tree), so the port has no layout to hold
+    one to."""
+    if getattr(cfg, "hybrid_high", None) is not None:
+        raise NotImplementedError(
+            "deepseek_vl_frozen: the hybrid tower of DeepSeek-VL-7B is not "
+            "readable from a checkpoint: flmm_tpu/convert/load.py:101-122 "
+            "reads neither the SAM-B high-resolution tower (vision_high) nor "
+            "the split projector (high_up, low_up, layers), so neither does "
+            "the port (ROADMAP queue 1, the hybrid loader)")
     sd = load_state_dict(checkpoint_dir)
     frozen = {
         "llm": hf_weights.llama_decoder_params(

@@ -12,12 +12,19 @@ from flmm_tpu_torch.data import geometry
 from flmm_tpu_torch.models.mask_head.unet import output_hw
 
 
+def _hires_size(cfg) -> int | None:
+    """The hybrid tower's input side, None for a single-tower config."""
+    hybrid = getattr(cfg, "hybrid_high", None)
+    return hybrid.encoder.img_size if hybrid is not None else None
+
+
 def synthetic_batch(cfg, batch_size: int = 2, seq_len: int | None = None,
                     max_masks: int = 3, text_tokens_per_mask: int = 4,
                     seed: int = 0, image_token_id: int = 5) -> dict:
     """A dict of numpy arrays: input_ids, attn_mask, mask_ids, mask_valid,
-    text_idx, text_valid, pixel_values (NHWC), sam_pixel_values, geom and
-    the loss targets gt_coarse, coarse_weight, gt_sam, sam_weight."""
+    text_idx, text_valid, pixel_values (NHWC), hires_pixel_values (hybrid
+    towers only), sam_pixel_values, geom and the loss targets gt_coarse,
+    coarse_weight, gt_sam, sam_weight."""
     rng = np.random.default_rng(seed)
     B, M, T = batch_size, max_masks, text_tokens_per_mask
     n_img = cfg.num_img_tokens
@@ -83,6 +90,11 @@ def synthetic_batch(cfg, batch_size: int = 2, seq_len: int | None = None,
         "text_valid": text_valid,
         "pixel_values": rng.standard_normal(
             (B, lmm_size, lmm_size, 3)).astype(np.float32) * 0.3,
+        # a hybrid tower's high-resolution pixels, drawn here as the JAX
+        # package draws them: between the two other images
+        **({"hires_pixel_values": rng.standard_normal(
+            (B, _hires_size(cfg), _hires_size(cfg), 3)).astype(np.float32)
+            * 0.3} if _hires_size(cfg) else {}),
         "sam_pixel_values": rng.standard_normal(
             (B, sam_size, sam_size, 3)).astype(np.float32) * 0.3,
         "geom": geometry.batch_geom(metas, (Hc, Wc), sam_hws),
@@ -210,6 +222,11 @@ def synthetic_grounding_batch(cfg, batch_size: int = 4, seed: int = 0,
         "text_idx": text_idx,
         "text_valid": text_valid,
         "pixel_values": pixels,
+        # zeros, as the JAX package gives them: the high-resolution branch
+        # sees no rectangle in this task
+        **({"hires_pixel_values": np.zeros(
+            (B, _hires_size(cfg), _hires_size(cfg), 3), np.float32)}
+           if _hires_size(cfg) else {}),
         "sam_pixel_values": sam_px,
         "geom": geometry.batch_geom(metas, (Hc, Wc), sam_hws),
         "gt_coarse": gt_coarse * cw[:, None],

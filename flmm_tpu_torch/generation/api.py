@@ -17,7 +17,9 @@ a CPU device), where its params must live: the tower, decoder, U-Net, SAM
 encoder and refiner are the port's modules, so on a CUDA tensor they launch
 the same kernels as the grounding forward.  An answer keeps its attention
 maps and hidden states as tensors on the device; ids, text, masks and
-boxes are host values.  ``MGMGrounder`` waits for the MGM family.
+boxes are host values.  ``MGMGrounder`` waits for the MGM family; a
+hybrid-tower config (DeepSeek-VL-7B) is refused, as the JAX grounder cannot
+run one.
 """
 
 from __future__ import annotations
@@ -225,6 +227,14 @@ class Grounder:
     device: Any = "cuda"
 
     def __post_init__(self):
+        if getattr(self.cfg, "hybrid_high", None) is not None:
+            raise NotImplementedError(
+                "Grounder: the hybrid tower of DeepSeek-VL-7B is not ported "
+                "to generation: flmm_tpu's Grounder._tower calls _project on "
+                "the split projector's dict and fails "
+                "(flmm_tpu/generation/api.py:186-192), so it has no hybrid "
+                "grounder to hold one to (ROADMAP queue 1, the hybrid "
+                "Grounder)")
         self.device = torch.device(self.device)
         self.image_token_id = _sentinel_image_token_id(
             self.tokenizer, self.image_token)

@@ -1,8 +1,10 @@
 """Frozen-LMM grounding model for contiguous-image-block families
 (flmm_tpu/models/frozen/grounding.py): vision tower -> MLP aligner ->
 frozen decoder with per-mask attention capture -> U-Net coarse head -> SAM
-encoder + refiner -> losses (:func:`loss_fn`).  Not ported yet: the
-DeepSeek-VL-7B hybrid tower.
+encoder + refiner -> losses (:func:`loss_fn`).  DeepSeek-VL-7B's hybrid
+tower (``hybrid_high``) adds the SAM-B high-resolution branch
+(models/vision/sam_tower.py), fused with the low-resolution tower by the
+split projector (:func:`_project_hybrid`).
 
 Autograd: only the trainable tree carries gradients.  The frozen towers,
 decoder and SAM encoder see no tensor that requires grad, so autograd
@@ -27,7 +29,7 @@ from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.models.sam import mask_decoder as smd
 from flmm_tpu_torch.models.sam import prompt_encoder as spe
-from flmm_tpu_torch.models.vision import vit
+from flmm_tpu_torch.models.vision import sam_tower, vit
 from flmm_tpu_torch.ops import masks as mask_ops
 
 
@@ -45,12 +47,11 @@ class GroundingConfig:
     vision_select_layer: int = -1
     vision_drop_cls: bool = False
     image_input_size: int | None = None
+    # DeepSeek-VL-7B: the SAM-B high-resolution tower's SamTowerConfig
+    # beside cfg.vision (reference deepseek_vl/models/clip_encoder.py:
+    # 126-203); None for single-tower families
     hybrid_high: Any = None
     dtype: torch.dtype = torch.bfloat16
-
-    def __post_init__(self):
-        if self.hybrid_high is not None:
-            raise NotImplementedError("the hybrid SAM-B tower is not ported")
 
     @property
     def input_size(self) -> int:
@@ -73,15 +74,29 @@ def init_frozen(cfg: GroundingConfig, generator: torch.Generator, device,
     ``skip``, which draw nothing from ``generator`` (a loader supplies
     them)."""
     d_llm, d_vis = cfg.llm.hidden_size, cfg.vision.hidden_size
+    hybrid = cfg.hybrid_high
+
+    def projector():
+        if hybrid is None:
+            return [_linear(d_vis if i == 0 else d_llm, d_llm, generator,
+                            device) for i in range(cfg.projector_depth)]
+        # low_high_hybrid_split_mlp_gelu (reference projector.py:47-56)
+        return {"high_up": _linear(hybrid.out_channels, d_llm // 2,
+                                   generator, device),
+                "low_up": _linear(d_vis, d_llm // 2, generator, device),
+                "layers": [_linear(d_llm, d_llm, generator, device)
+                           for _ in range(cfg.projector_depth - 1)]}
+
     parts = {
         "llm": lambda: llm.init_params(cfg.llm, generator, device),
         "vision": lambda: vit.init_params(cfg.vision, generator, device),
-        "projector": lambda: [
-            _linear(d_vis if i == 0 else d_llm, d_llm, generator, device)
-            for i in range(cfg.projector_depth)],
+        "projector": projector,
         "sam_encoder": lambda: sam_encoder.init_params(cfg.sam.encoder,
                                                        generator, device),
     }
+    if hybrid is not None:
+        parts["vision_high"] = lambda: sam_tower.init_params(
+            hybrid, generator, device)
     return {k: make() for k, make in parts.items() if k not in skip}
 
 
@@ -119,24 +134,59 @@ def _project(features: torch.Tensor, layers: list) -> torch.Tensor:
     return x
 
 
-def forward(params: dict, cfg: GroundingConfig, batch: dict) -> dict:
-    """Grounding forward for a static-shape batch (schema of
-    flmm_tpu.models.frozen.grounding.forward, as tensors on one device).
+def _project_hybrid(high: torch.Tensor, low: torch.Tensor,
+                    p: dict) -> torch.Tensor:
+    """low_high_hybrid_split_mlp_gelu (reference projector.py:77-82): each
+    tower's tokens up to half the LLM width, concatenated, then GELU +
+    linear layers, each product in its operand's dtype."""
+    def linear(x, q):
+        return x @ q["w"].to(x.dtype) + q["b"].to(x.dtype)
 
-    Returns coarse_logits ``(B, M, Hc, Wc)``, sam_logits ``(B, M, P, P)``,
-    iou_pred ``(B, M)``, hidden ``(B, S, D)`` and boxes ``(B, M, 4)``.
-    """
-    fro, tra = params["frozen"], params["trainable"]
-    B, S = batch["input_ids"].shape
-    M = batch["mask_valid"].shape[1]
-    n_img = cfg.num_img_tokens
+    x = torch.cat([linear(high, p["high_up"]), linear(low, p["low_up"])],
+                  dim=-1)
+    for q in p["layers"]:
+        x = linear(F.gelu(x), q)
+    return x
 
+
+def image_embeddings(fro: dict, cfg: GroundingConfig,
+                     batch: dict) -> torch.Tensor:
+    """The tower(s) and the aligner: ``(B, n_img, D)`` in ``cfg.dtype``."""
     feats = vit.forward(fro["vision"], cfg.vision, batch["pixel_values"],
                         select_layer=cfg.vision_select_layer)
     if cfg.vision_drop_cls:
         feats = feats[:, 1:]
-    img_embeds = _project(feats, fro["projector"]).to(cfg.dtype)
+    if cfg.hybrid_high is None:
+        return _project(feats, fro["projector"]).to(cfg.dtype)
+    high = sam_tower.forward(fro["vision_high"], cfg.hybrid_high,
+                             batch["hires_pixel_values"])
+    high = high.reshape(high.shape[0], -1, high.shape[-1])
+    return _project_hybrid(high, feats, fro["projector"]).to(cfg.dtype)
 
+
+def forward(params: dict, cfg: GroundingConfig, batch: dict) -> dict:
+    """Grounding forward for a static-shape batch (schema of
+    flmm_tpu.models.frozen.grounding.forward, as tensors on one device;
+    ``hires_pixel_values`` for a hybrid tower).
+
+    Returns coarse_logits ``(B, M, Hc, Wc)``, sam_logits ``(B, M, P, P)``,
+    iou_pred ``(B, M)``, hidden ``(B, S, D)`` and boxes ``(B, M, 4)``.
+    """
+    img_embeds = image_embeddings(params["frozen"], cfg, batch)
+    attn, hidden = decoder_capture(params, cfg, batch, img_embeds)
+    return heads_forward(params, cfg, attn, hidden, batch)
+
+
+def decoder_capture(params: dict, cfg: GroundingConfig, batch: dict,
+                    img_embeds: torch.Tensor) -> tuple:
+    """The image embeddings written into the token embeddings at
+    ``img_start``, then the frozen decoder with the per-mask capture:
+    ``(B*M, g, g, L*H)`` attention images (channels layer-major) and the
+    ``(B, S, D)`` layer-weighted hidden states."""
+    fro, tra = params["frozen"], params["trainable"]
+    B = batch["input_ids"].shape[0]
+    M = batch["mask_valid"].shape[1]
+    n_img = cfg.num_img_tokens
     embeds = llm.embed_tokens(fro["llm"], cfg.llm,
                               batch["input_ids"]).to(cfg.dtype)
     embeds[:, cfg.img_start:cfg.img_start + n_img] = img_embeds
@@ -152,17 +202,17 @@ def forward(params: dict, cfg: GroundingConfig, batch: dict) -> dict:
         merge=cfg.merge, layer_weights=lw,
         position_ids=batch.get("position_ids"))
 
-    # per-mask attention images, channels layer-major
     L_, H_, g = cfg.llm.num_layers, cfg.llm.num_heads, cfg.clip_shape
     attn = out["attn"].permute(0, 3, 1, 2, 4).reshape(B * M, L_ * H_, g, g)
-    return heads_forward(params, cfg, attn.permute(0, 2, 3, 1),
-                         out["hidden"], batch)
+    return attn.permute(0, 2, 3, 1), out["hidden"]
 
 
 def heads_forward(params: dict, cfg: GroundingConfig,
                   attn_nhwc: torch.Tensor, hidden: torch.Tensor,
-                  batch: dict) -> dict:
-    """Attention images ``(B*M, h, w, C)`` -> U-Net -> text prompts -> SAM."""
+                  batch: dict, img_emb: torch.Tensor | None = None) -> dict:
+    """Attention images ``(B*M, h, w, C)`` -> U-Net -> text prompts -> SAM.
+    ``img_emb``: the SAM encoder's embedding of ``sam_pixel_values``, when
+    the caller has it already."""
     fro, tra = params["frozen"], params["trainable"]
     B, M = batch["mask_valid"].shape
 
@@ -175,8 +225,9 @@ def heads_forward(params: dict, cfg: GroundingConfig,
     text = hidden[rows, batch["text_idx"]] @ tp["w"] + tp["b"]
     text = text * batch["text_valid"][..., None]
 
-    img_emb = sam_encoder.forward(fro["sam_encoder"], cfg.sam.encoder,
-                                  batch["sam_pixel_values"])
+    if img_emb is None:
+        img_emb = sam_encoder.forward(fro["sam_encoder"], cfg.sam.encoder,
+                                      batch["sam_pixel_values"])
     geom = batch["geom"]
     refined = [sam_refiner.refine(
         tra["sam"], cfg.sam, img_emb[b], coarse[b],

@@ -18,7 +18,9 @@ from flmm_tpu_torch.models.mask_head.unet import output_hw
 FAMILIES = {
     "deepseek_vl": ("flmm_tpu_torch.models.frozen.deepseek_vl", {
         "1_3b": "flmm_tpu_torch.configs.deepseek_vl:deepseek_vl_1_3b",
+        "7b": "flmm_tpu_torch.configs.deepseek_vl:deepseek_vl_7b",
         "tiny": "flmm_tpu_torch.configs.deepseek_vl:tiny",
+        "tiny_hybrid": "flmm_tpu_torch.configs.deepseek_vl:tiny_hybrid",
     }),
     "llava": ("flmm_tpu_torch.models.frozen.grounding", {
         "1_5_7b": "flmm_tpu_torch.configs.llava:llava_1_5_7b",
@@ -148,7 +150,10 @@ def resolve_family_setup(family: str, preset: str, tokenizer,
     prompt (rounded up to 128 when the preset captures through the flash
     kernel), the config is rebuilt with it, and the kwargs every batch
     builder needs (``align_image_block``, ``expected_img_start``, the SAM
-    sizes, the processor) come from that config."""
+    sizes, the processor and, for a hybrid tower, ``hires_size``) come from
+    that config.  The JAX registry leaves ``hires_size`` out
+    (flmm_tpu/registry.py:181-187), so its batches of a hybrid config lack
+    the high-resolution pixels; the port passes it."""
     from flmm_tpu_torch.data.processors import ProcessorConfig
 
     cfg = get_config(family, preset, **cfg_kwargs)
@@ -173,6 +178,8 @@ def resolve_family_setup(family: str, preset: str, tokenizer,
                    "processor": ProcessorConfig(
                        size=base.input_size,
                        size_rule=FAMILY_SIZE_RULES[family])}
+    if getattr(base, "hybrid_high", None) is not None:
+        spec_kwargs["hires_size"] = base.hybrid_high.encoder.img_size
     return cfg, rp, spec_kwargs
 
 

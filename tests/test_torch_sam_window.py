@@ -146,8 +146,10 @@ def test_registry_families():
     cfg = registry.get_config("deepseek_vl", "1_3b", img_start=128)
     assert cfg.llm.use_flash_capture and cfg.sam.encoder.img_size == 1024
     assert registry.get_config("hpt", "air").image_input_size == 392
-    for family, preset in (("mgm", "tiny"), ("hpt", "pro"),
-                           ("deepseek_vl", "7b")):
+    hybrid = registry.get_config("deepseek_vl", "7b")
+    assert hybrid.hybrid_high.encoder.embed_dim == 768
+    assert hybrid.llm.num_layers == 30 and not hybrid.llm.use_flash_capture
+    for family, preset in (("mgm", "tiny"), ("hpt", "pro")):
         with pytest.raises(NotImplementedError, match="not ported"):
             registry.get_config(family, preset)
 
