@@ -57,7 +57,9 @@ Phases; any failure raises and the script exits non-zero:
    4096), K3 and K4 over one image's SAM global rows (N = 4096) and the
    SigLIP rows of one and two images (N = 576, 1152): the generation
    path's shapes; K5 at the DeepSeek-VL-7B aligned decoder layer (B = 4,
-   32 heads, S = 768, the image block of 576 at 128).
+   32 heads, S = 768, the image block of 576 at 128) and at the MGM-HD
+   decoder layer (B = 2, 32 heads of 128, S = 3200, the image block of 2880
+   at 128, no key holes).
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -126,8 +128,10 @@ Phases; any failure raises and the script exits non-zero:
     HPT-Air (a 7B Llama decoder + CLIP-L/14 at 392 over a resampled
     pos-embed, knob at v4), each a child process of the bench.py twin at
     full width and depth, bs 4, SAM-1024: a bf16 row without error, finite
-    logits, the exact launch counts per forward; and the rows of what is
-    not ported (the mgm family, the int8 decoder), which must say so;
+    logits, the exact launch counts per forward; MGM-Gemma-2B (CLIP-L/336 +
+    ConvNeXt-L at 768, the global kernel at its default v8) the same way
+    (K1/K2/K3/K4 20/4/27/27); and the row of what is not ported (the int8
+    decoder), which must say so;
 21. build both families in process and compare the forward through each of
     the global kernels v1, v2 and v4 (counts at 0 just before, read just
     after) with the all-plain forward of the same weights;
@@ -202,7 +206,45 @@ Phases; any failure raises and the script exits non-zero:
 27. LLaVA-NeXT over Mistral-7B (GQA 32/8), built by the bench.py twin at
     bs 2: one kernel forward with its exact launches (20/4/27/27/32) beside
     the all-plain forward, and bench_torch.py's row at
-    BENCH_FAMILY=llava_next BENCH_PRESET=mistral_7b.
+    BENCH_FAMILY=llava_next BENCH_PRESET=mistral_7b;
+28. MGM-Gemma-2B (Gemma-2B, 18 layers x 8 heads of 256, MQA, the (1 + w)
+    norm, gelu_tanh, the scaled embedding, the tied head; CLIP-L/336 read
+    at layer -2; ConvNeXt-L at 768 with its layer scales at 0.1; the
+    patch-info mining resampler; SAM ViT-L at 1024), random weights from a
+    seed: serve 3 bs-4 requests of synthetic samples through
+    build_mgm_batch (S = 704, the eager capture): shapes, finite values,
+    K1/K2/K3/K4/K5 20/4/27/27/0 a forward; beside the all-plain forward
+    (image embeddings, i.e. the CLIP features plus the mined tokens through
+    the projector, stitched maps, SAM embedding, hidden corr >= 0.999,
+    logits >= 0.99); the device ms of each stage (CLIP tower, ConvNeXt,
+    resampler + projector, decoder capture, SAM ViT-L, heads) on both paths
+    and peak memory;
+29. MGM-Vicuna-7B-HD with the image block at 128: 3 bs-2 requests at S =
+    3200, each image a 2 x 2 crop grid plus the global crop (2880 image
+    tokens, the 5 crops in one tower batch) and ConvNeXt-L at 1536, the
+    maps stitched to 48 x 48 beside the upsampled global map: the same
+    checks, K5 32 a forward; the plain path captures eagerly (S x S);
+30. MGM-Mixtral-8x7B, the MoE MLP at full width (8 experts of 4096 x 14336
+    computed densely, the top 2 a token): the decoder cut to 4 of its 32
+    layers (the whole model is 93 GB in bf16), the U-Net's in_channels
+    from the cut depth; one bs-4 forward with K1/K2/K3/K4 20/4/27/27 beside
+    the all-plain one;
+31. the grounder API at MGM-Gemma-2B through make_grounder("mgm") with a
+    word-level stand-in tokenizer carrying Gemma's special ids: answer (32
+    new tokens; CLIP K3 / K4 23 each), ground on one span (SAM K1/K2/K3/K4
+    20/4/4/4) and visual_cot_v1 (20/4/50/50: the two-image round encodes
+    both images in one tower batch), the prefill capture and prompt hidden
+    (corr >= 0.999), the tied head's first-step logits (>= 0.99) and
+    ground's SAM logits (>= 0.99) beside the all-plain grounder's; times
+    and peak memory;
+32. MGM files in, scores out: a full-width gemma_2b model from a seed
+    written as MGM's main checkpoint (model.*, model.mm_projector.*,
+    model.vlm_uni_*), a CLIP-L HF tower directory and an open_clip
+    ConvNeXt-L open_clip_pytorch_model.bin, with a SAM ViT-L .pth and the
+    released-layout heads, loaded back through get_loader("mgm") and
+    restore_trainable bit for bit; eval_refcoco --family mgm --preset
+    gemma_2b --debug and eval_png --family mgm over tests/data with phase
+    25's gates (20/4/27/27 a forward).
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -234,8 +276,10 @@ from flmm_tpu_torch import bench as e2e_bench
 from flmm_tpu_torch import bench_families, eval_png, eval_refcoco, \
     kernel_bench, registry, schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
+from flmm_tpu_torch.configs import mgm as mgm_configs
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data import collate, image_io
+from flmm_tpu_torch.data import mgm as mgm_data
 from flmm_tpu_torch.data import io as data_io
 from flmm_tpu_torch.data.collate import BatchSpec, build_batch
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
@@ -248,10 +292,11 @@ from flmm_tpu_torch.generation.noun_chunks import char_span_to_token_span, \
     noun_chunks
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
+from flmm_tpu_torch.models.frozen import mgm as mgm_model
 from flmm_tpu_torch.models.llm import decoder as llm_decoder
 from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
-from flmm_tpu_torch.models.vision import sam_tower, vit
+from flmm_tpu_torch.models.vision import convnext, sam_tower, vit
 from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
     global_block, masks, sam_flash, sam_flash_experiments, window_block
@@ -382,6 +427,19 @@ BENCH_LAUNCHES = {
     "heads": _SAM_1024,
     "rtt": {},
 }
+# MGM (phases 28-32), per forward: CLIP-L/336's 23 layers (features at layer
+# -2; the crops of a request in one batch) and SAM's 4 global layers go
+# K3 / K4, SAM's 20 window layers K1, its global attention K2; ConvNeXt, the
+# resampler and the MoE MLP run plain (plain XLA in the JAX package); HD's
+# 2880-token image block at 128 takes K5 in each of Vicuna-7B's 32 layers,
+# the single-crop presets the eager capture
+_MGM = {"window_block": 20, "sam_global_attention_v8": 4,
+        "fused_ln_qkv": 27, "fused_proj_ln_mlp": 27}
+EXPECTED_LAUNCHES.update({
+    "mgm_gemma_2b": _MGM,
+    "mgm_vicuna_7b_hd": {**_MGM, "flash_attention_with_merged_capture": 32},
+    "mgm_mixtral_8x7b_4_layers": _MGM,
+})
 WRAPPERS = e2e_bench.WRAPPERS  # every counted wrapper, by name
 for _counts in EXPECTED_LAUNCHES.values():  # kernels not named: 0
     for _name in WRAPPERS:
@@ -457,6 +515,25 @@ STAGES = ("sam_b_trunk", "siglip", "projector", "decoder_capture",
 FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data"
 FILES_GT_MIN = {"cIoU": 85.0, "AA": 0.85}  # AA is a fraction, cIoU percent
 DECODE_REPEATS = 5
+# MGM (phases 28-32): Gemma-2B over CLIP-L/336 and ConvNeXt-L at 768, bs 4,
+# the image block at 4 (S = 704 holds the longest prompt); Vicuna-7B HD at
+# bs 2, the image block of 5 x 576 at 128, S = 3200 (ConvNeXt-L at 1536);
+# the Mixtral-8x7B decoder cut to 4 layers; the grounder and files in,
+# scores out at Gemma-2B
+MGM_SEED, MGM_REQUESTS, MGM_SEQ = 13, 3, 704
+MGM_HD_START, MGM_HD_BS, MGM_HD_SEQ = 128, 2, 3200
+MGM_MOE_LAYERS = 4
+MGM_GEN_SEED, MGM_GEN_MAX_NEW, MGM_FILES_SEED = 14, 32, 15
+MGM_GAMMA = 0.1  # ConvNeXt's layer scale, a trained tower's order
+MGM_STAGES = ("clip_tower", "convnext", "resampler_projector",
+              "decoder_capture", "sam_l_encoder", "heads")
+# the grounder's calls: the CLIP tower at bs 1 (answer) and bs 2 (the CoT's
+# two-image round), SAM at bs 1 (ground)
+MGM_GEN_LAUNCHES = {
+    "answer": {"fused_ln_qkv": 23, "fused_proj_ln_mlp": 23},
+    "ground": _SAM_BS1,
+    "visual_cot_v1": {**_SAM_BS1, "fused_ln_qkv": 50,
+                      "fused_proj_ln_mlp": 50}}
 
 
 def family_launches(global_kernel: str) -> dict:
@@ -1051,7 +1128,26 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
     generation_shape_checks(check,
                             torch.Generator(device="cuda").manual_seed(8))
     hybrid_shape_checks(check, torch.Generator(device="cuda").manual_seed(10))
+    mgm_shape_checks(check, torch.Generator(device="cuda").manual_seed(16))
     return results
+
+
+def mgm_shape_checks(check, g: torch.Generator) -> None:
+    """Phase 3 for the MGM paths (phases 28-32): K5 at the HD decoder layer,
+    Vicuna-7B's 32 heads of 128 (MHA) over S = 3200 with the image block of
+    2880 at 128 (padded to 2944) and no key holes.  Their K1-K4 shapes are
+    the LLaVA paths': CLIP-L/336 rows of 4 x 577 (Gemma-2B, bs 4) and 2 x
+    5 x 577 (HD, bs 2, the 5 crops in one batch), SAM ViT-L at 1024."""
+    cfg = mgm_configs.mgm_vicuna_7b_hd(img_start=MGM_HD_START)
+    batch = e2e_bench.mgm_batch(cfg, MGM_HD_BS, MGM_HD_SEQ)
+    valid = batch["attn_mask"]
+    n = valid.sum(1, keepdims=True)
+    if valid.shape[1] != MGM_HD_SEQ or not (
+            valid == (np.arange(MGM_HD_SEQ) < n)).all():
+        raise AssertionError("MGM-HD batch: not S = 3200 with each prompt "
+                             "a prefix (no key holes)")
+    check_capture(check, g, "MGM-Vicuna-7B-HD", batch, 32, 32,
+                  MGM_HD_START, cfg.base.num_img_tokens)
 
 
 def hybrid_shape_checks(check, g: torch.Generator) -> None:
@@ -2366,8 +2462,8 @@ def _with_env(env: dict, fn):
 
 def run_family_matrix() -> dict:
     """Phase 20: the family matrix over the two families that had not run on
-    a card, one child process of the bench.py twin per point, and the rows
-    of what is not ported.  The counts are the children's own (each child
+    a card and the mgm family's flagship, one child process of the bench.py
+    twin per point, and the row of what is not ported (the int8 decoder).  The counts are the children's own (each child
     sets them to 0 after its warm-up forwards and reads them after the timed
     ones); this process launches nothing here."""
     bench_keys = ("BENCH_FAMILY", "BENCH_PRESET", "BENCH_SAM_SIZE", "BENCH_BS",
@@ -2410,18 +2506,43 @@ def run_family_matrix() -> dict:
                 rows[family] = row
                 for k in WRAPPERS:
                     launches[k] += row["launches"][k] * row["iters"]
+            # the mgm family's flagship (Gemma-2B) at the default v8
+            t0 = time.perf_counter()
+            mgm = _with_env({"BENCH_ITERS": str(FAMILY_ITERS)},
+                            lambda: bench_families.main(
+                                ["--families", "mgm", *common]))
+            row = mgm["rows"][-1]
+            log(f"phase 20 bench_families {json.dumps(row)} "
+                f"({time.perf_counter() - t0:.1f} s with the child's start "
+                "and parameters)")
+            want = {k: EXPECTED_LAUNCHES["mgm_gemma_2b"].get(k, 0)
+                    for k in WRAPPERS}
+            if "error" in row or row["mode"] != "bf16" or (
+                    row["family"], row["preset"], row["bs"], row["sam_size"],
+                    row["iters"], row["global_kernel"]) != (
+                        "mgm", "gemma_2b", BS, 1024, FAMILY_ITERS, "v8"):
+                raise AssertionError(f"bench_families mgm: no bf16 row of "
+                                     f"gemma_2b without error: {row}")
+            if row["launches"] != want:
+                raise AssertionError("bench_families mgm: launches per "
+                                     f"forward differ from {want}")
+            for r in (row, row["plain"]):
+                if not (math.isfinite(r["value"]) and r["value"] > 0 and
+                        0 < r["ms_min"] <= r["ms_mean"] <= r["ms_max"]):
+                    raise AssertionError(f"bench_families mgm: bad time in "
+                                         f"{r}")
+            rows["mgm"] = row
+            for k in WRAPPERS:
+                launches[k] += row["launches"][k] * row["iters"]
             # what is not ported says so, and nothing runs in its place
-            mgm = bench_families.main(["--families", "mgm", *common])
             quant = bench_families.run_one(
                 "hpt", "int8_llm", dict(bench_families.PLAN["hpt"][-1][1]),
                 1024, FAMILY_TIMEOUT)
-            for row, word in ((mgm["rows"][-1], "mgm"),
-                              (quant, "BENCH_QUANT_LLM=1")):
-                log(f"phase 20 bench_families {json.dumps(row)}")
-                if not (word in row.get("error", "")
-                        and "not ported" in row["error"]):
-                    raise AssertionError("bench_families: the row of what is "
-                                         f"not ported does not say so: {row}")
+            log(f"phase 20 bench_families {json.dumps(quant)}")
+            if not ("BENCH_QUANT_LLM=1" in quant.get("error", "")
+                    and "not ported" in quant["error"]):
+                raise AssertionError("bench_families: the row of what is "
+                                     f"not ported does not say so: {quant}")
             kept = [(r["family"], r["mode"]) for r in mgm["rows"]]
             if kept != [("llava", "bf16"), ("hpt", "bf16"), ("mgm", "bf16")]:
                 raise AssertionError(f"bench_families: --out holds {kept}")
@@ -2750,9 +2871,10 @@ def _counted(fn) -> tuple:
     return out, ms, {name: w.launches for name, w in WRAPPERS.items()}
 
 
-def _check_launches(call: str, launches: dict, total: dict) -> None:
-    want = {name: GEN_LAUNCHES[call].get(name, 0) for name in WRAPPERS}
-    log(f"phase 24 generation {call}: launches "
+def _check_launches(call: str, launches: dict, total: dict,
+                    table: dict = GEN_LAUNCHES, phase: int = 24) -> None:
+    want = {name: table[call].get(name, 0) for name in WRAPPERS}
+    log(f"phase {phase} generation {call}: launches "
         f"{ {k: v for k, v in launches.items() if v} } (expected "
         f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     if launches != want:
@@ -2793,9 +2915,10 @@ def _answer_traced(grounder, image, max_new: int | None = None) -> tuple:
 
 
 def _agree(label: str, got, want, bound: float,
-           pair: str = "the kernel path vs the plain path") -> None:
+           pair: str = "the kernel path vs the plain path",
+           phase: int = 24) -> None:
     rel, corr = agreement(got, want)
-    log(f"phase 24 generation {label}: {pair} max_rel_err {rel:.3e} corr "
+    log(f"phase {phase} generation {label}: {pair} max_rel_err {rel:.3e} corr "
         f"{corr:.6f} (bound {bound})")
     if corr < bound:
         raise AssertionError(f"generation {label}: {pair} disagree")
@@ -3053,7 +3176,7 @@ def _timed(run: dict, key: str):
     return wrap
 
 
-def run_cli(main, argv: list, replace=None) -> dict:
+def run_cli(main, argv: list, replace=None, tokenizer_cls=None) -> dict:
     """One eval CLI's ``main`` in process with the word-level tokenizer, its
     output on stderr, every launch count at 0 just before and read just
     after.  Its forwards are recorded (batch, SAM logits, CUDA-event ms,
@@ -3092,6 +3215,8 @@ def run_cli(main, argv: list, replace=None) -> dict:
                                      _timed(run, "decode")))
         stack.enter_context(_wrapped(collate, "build_batch",
                                      _timed(run, "build")))
+        stack.enter_context(_wrapped(mgm_data, "build_mgm_batch",
+                                     _timed(run, "build")))
         stack.enter_context(_wrapped(eval_cli, "setup",
                                      _timed(run, "setup")))
         stack.enter_context(_wrapped(eval_cli, "make_predict", recording))
@@ -3102,7 +3227,8 @@ def run_cli(main, argv: list, replace=None) -> dict:
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run["results"] = main(argv, tokenizer=WordTokenizer())
+        run["results"] = main(argv,
+                              tokenizer=(tokenizer_cls or WordTokenizer)())
         torch.cuda.synchronize()
         run["wall_s"] = time.perf_counter() - t0
     run["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
@@ -3214,14 +3340,16 @@ def check_decodes(manifest: dict, card: str) -> dict:
     return stats
 
 
-def check_cli(label: str, run: dict, want_n: dict, card: str) -> dict:
-    """The launches (exact a forward), the scores (finite, every mask), the
-    kernel forward against the all-plain one on the same batches, and the
-    times of one CLI run."""
+def check_cli(label: str, run: dict, want_n: dict, card: str,
+              path: str = "deepseek_vl_1_3b", forward=grounding.forward,
+              phase: int = 25) -> dict:
+    """The launches (exact a forward, those of ``path``), the scores
+    (finite, every mask), the kernel ``forward`` against the all-plain one
+    on the same batches, and the times of one CLI run."""
     batches = len(run["batches"])
-    per_forward = EXPECTED_LAUNCHES["deepseek_vl_1_3b"]
+    per_forward = EXPECTED_LAUNCHES[path]
     want = {k: per_forward.get(k, 0) * batches for k in WRAPPERS}
-    log(f"phase 25 {label}: {json.dumps(run['results'])}; {batches} "
+    log(f"phase {phase} {label}: {json.dumps(run['results'])}; {batches} "
         f"forwards; launches {({k: n for k, n in run['launches'].items() if n})}")
     if run["launches"] != want:
         raise AssertionError(f"{label}: launches differ from {want}")
@@ -3234,10 +3362,10 @@ def check_cli(label: str, run: dict, want_n: dict, card: str) -> dict:
     with torch.no_grad():
         for i, (batch, logits) in enumerate(zip(run["batches"],
                                                 run["logits"])):
-            want_l = grounding.forward(run["params"], plain, from_jax(
+            want_l = forward(run["params"], plain, from_jax(
                 batch, "cuda"))["sam_logits"]
             rel, corr = agreement(logits, want_l)
-            log(f"phase 25 {label} batch {i}: sam_logits kernel vs plain "
+            log(f"phase {phase} {label} batch {i}: sam_logits kernel vs plain "
                 f"forward max_rel_err {rel:.3e} corr {corr:.6f} (bound "
                 f"{FORWARD_CORR['sam_logits']})")
             if corr < FORWARD_CORR["sam_logits"]:
@@ -3254,7 +3382,7 @@ def check_cli(label: str, run: dict, want_n: dict, card: str) -> dict:
         "read_ms": run["read"] * 1e3 / batches,
         "build_ms": run["build"] * 1e3 / batches,
         "peak_gb": run["peak_gb"]}
-    log(f"phase 25 {label} ({card}): {run['n_samples']} samples in {batches} "
+    log(f"phase {phase} {label} ({card}): {run['n_samples']} samples in {batches} "
         f"batches of 8 in {eval_s:.2f} s after a model setup of "
         f"{run['setup']:.2f} s (the checkpoints' load onto the "
         f"card): {stats['samples_per_s']:.2f} samples/s; forward "
@@ -3267,6 +3395,56 @@ def check_cli(label: str, run: dict, want_n: dict, card: str) -> dict:
     return stats
 
 
+def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
+                  path: str = "deepseek_vl_1_3b", forward=grounding.forward,
+                  tokenizer_cls=None) -> tuple:
+    """``eval_refcoco`` (8 splits, ``--debug``) and ``eval_png`` in process
+    over the fixture tree with the checkpoint flags ``common``, each run
+    checked (``check_cli``) and run once more with the ground truth as
+    +-8 logits in place of the forward; ``(stats, launches)``."""
+    stats, total = {}, dict.fromkeys(WRAPPERS, 0)
+    narratives = json.loads((FIXTURE / "png" / "annotations" /
+                             "png_coco_val2017.json").read_text())
+    # (main, argv, masks by result key, samples, the oracle's metric); a
+    # RefCOCO sample is one expression with its mask
+    clis = {
+        "eval_refcoco": (eval_refcoco.main, common + [
+            "--data-root", str(FIXTURE / "refcoco"), "--debug"],
+            manifest["refcoco_expressions"],
+            sum(manifest["refcoco_expressions"].values()), "cIoU"),
+        "eval_png": (eval_png.main, common + [
+            "--data-root", str(FIXTURE / "png"), "--debug"],
+            {"": manifest["png_masks"]}, len(narratives), "AA")}
+    for name, (main_fn, argv, want_n, n_samples, metric) in clis.items():
+        run = run_cli(main_fn, argv, tokenizer_cls=tokenizer_cls)
+        run["n_samples"] = n_samples
+        stats[name] = check_cli(name, run, want_n, card, path, forward,
+                                phase)
+        for k in WRAPPERS:
+            total[k] += run["launches"][k]
+        del run
+        torch.cuda.empty_cache()
+
+        def gt_logits(batch):
+            """The ground truth as +-8 logits."""
+            gt = torch.from_numpy(batch["gt_sam"]).cuda()
+            return torch.where(gt > 0.5, 8.0, -8.0)
+
+        oracle = run_cli(main_fn, argv, replace=gt_logits,
+                         tokenizer_cls=tokenizer_cls)
+        scores = {k: v[metric] for k, v in oracle["results"].items()} \
+            if metric == "cIoU" else {"": oracle["results"][metric]}
+        log(f"phase {phase} {name} ground truth as logits through the "
+            f"CLI's own chain: {metric} {scores} (bound "
+            f"{FILES_GT_MIN[metric]})")
+        if not min(scores.values()) > FILES_GT_MIN[metric]:
+            raise AssertionError(f"{name}: the ground truth scores "
+                                 f"{scores}")
+        del oracle
+        torch.cuda.empty_cache()
+    return stats, total
+
+
 def run_files(card: str) -> dict:
     """Phase 25: files in, scores out.  The checkpoints written and loaded
     back bit for bit, the fixture images decoded to PIL's pixels, then
@@ -3275,7 +3453,6 @@ def run_files(card: str) -> dict:
     on the same batches, and their own chain fed the ground truth."""
     manifest = json.loads((FIXTURE / "manifest.json").read_text())
     stats = {"decode": check_decodes(manifest, card)}
-    total = dict.fromkeys(WRAPPERS, 0)
     with tempfile.TemporaryDirectory() as tmp:
         world = write_world(pathlib.Path(tmp), card)
         stats["load"] = check_loads(world, card)
@@ -3285,43 +3462,8 @@ def run_files(card: str) -> dict:
         common = ["--checkpoint", str(paths["checkpoint"]),
                   "--sam-checkpoint", str(paths["sam"]),
                   "--trained", str(paths["trained"])]
-        narratives = json.loads((FIXTURE / "png" / "annotations" /
-                                 "png_coco_val2017.json").read_text())
-        # (main, argv, masks by result key, samples, the oracle's metric);
-        # a RefCOCO sample is one expression with its mask
-        clis = {
-            "eval_refcoco": (eval_refcoco.main, common + [
-                "--data-root", str(FIXTURE / "refcoco"), "--debug"],
-                manifest["refcoco_expressions"],
-                sum(manifest["refcoco_expressions"].values()), "cIoU"),
-            "eval_png": (eval_png.main, common + [
-                "--data-root", str(FIXTURE / "png"), "--debug"],
-                {"": manifest["png_masks"]}, len(narratives), "AA")}
-        for name, (main_fn, argv, want_n, n_samples, metric) in clis.items():
-            run = run_cli(main_fn, argv)
-            run["n_samples"] = n_samples
-            stats[name] = check_cli(name, run, want_n, card)
-            for k in WRAPPERS:
-                total[k] += run["launches"][k]
-            del run
-            torch.cuda.empty_cache()
-
-            def gt_logits(batch):
-                """The ground truth as +-8 logits."""
-                gt = torch.from_numpy(batch["gt_sam"]).cuda()
-                return torch.where(gt > 0.5, 8.0, -8.0)
-
-            oracle = run_cli(main_fn, argv, replace=gt_logits)
-            scores = {k: v[metric] for k, v in oracle["results"].items()} \
-                if metric == "cIoU" else {"": oracle["results"][metric]}
-            log(f"phase 25 {name} ground truth as logits through the CLI's "
-                f"own chain: {metric} {scores} (bound "
-                f"{FILES_GT_MIN[metric]})")
-            if not min(scores.values()) > FILES_GT_MIN[metric]:
-                raise AssertionError(f"{name}: the ground truth scores "
-                                     f"{scores}")
-            del oracle
-            torch.cuda.empty_cache()
+        cli_stats, total = run_eval_clis(25, common, card, manifest)
+        stats.update(cli_stats)
     return {"launches": total, "stats": stats}
 
 
@@ -3358,10 +3500,16 @@ def stage_split(params: dict, cfg, batch: dict) -> dict:
             marks[6].record()
             runs.append(marks)
             del high, feats, img, attn, hidden, emb
+    return _stage_ms(runs, STAGES)
+
+
+def _stage_ms(runs: list, names: tuple) -> dict:
+    """Mean device ms between consecutive events of each run but the first
+    (a warm-up), by stage name, and their whole span as ``forward``."""
     torch.cuda.synchronize()
     timed = runs[1:]
     ms = {name: sum(m[i].elapsed_time(m[i + 1]) for m in timed) / len(timed)
-          for i, name in enumerate(STAGES)}
+          for i, name in enumerate(names)}
     ms["forward"] = sum(m[0].elapsed_time(m[-1]) for m in timed) / len(timed)
     return ms
 
@@ -3576,6 +3724,388 @@ def run_mistral(card: str) -> dict:
                          for name in WRAPPERS}}
 
 
+# --- MGM (phases 28-32) -------------------------------------------------------
+
+def randomize_aux(params: dict, g: torch.Generator) -> None:
+    """ConvNeXt's layer scales at about ``MGM_GAMMA``, a trained tower's
+    order (the init's 1e-6 makes every block the identity)."""
+    for stage in params["frozen"]["aux_tower"]["stages"]:
+        for bp in stage["blocks"]:
+            bp["gamma"] = _randn(g, bp["gamma"].shape, 0.02, MGM_GAMMA)
+
+
+def mgm_params(cfg, seed: int) -> dict:
+    """An MGM model on the card from ``seed``: non-zero SAM rel-pos tables
+    and ConvNeXt layer scales."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = mgm_model.init_params(cfg, g, "cuda")
+    randomize_rel_pos(params, g)
+    randomize_aux(params, g)
+    return params
+
+
+def mgm_batches(cfg, bs: int, seq: int, n: int = MGM_REQUESTS + 1) -> list:
+    """The warm-up batch and ``n - 1`` distinct requests of an MGM phase:
+    the samples of seeds 0 .. n - 1 through ``build_mgm_batch`` as the
+    bench.py twin builds them, on the card."""
+    return [from_jax(e2e_bench.mgm_batch(cfg, bs, seq, seed=seed), "cuda")
+            for seed in range(n)]
+
+
+def mgm_shapes(cfg, bs: int, seq: int) -> dict:
+    Hc, Wc = registry.get_coarse_hw(cfg)
+    P = cfg.base.sam.prompt_size
+    return {"sam_logits": (bs, MASKS, P, P),
+            "coarse_logits": (bs, MASKS, Hc, Wc), "iou_pred": (bs, MASKS),
+            "boxes": (bs, MASKS, 4),
+            "hidden": (bs, seq, cfg.base.llm.hidden_size)}
+
+
+def mgm_pairs(params: dict):
+    """What phase_compare holds between the kernel and the plain config
+    beyond the outputs: the image embeddings (the CLIP features plus the
+    mined aux tokens through the projector; ConvNeXt and the resampler run
+    plain on both), the stitched attention maps and the SAM embedding."""
+    fro = params["frozen"]
+
+    def pairs(cfg, plain, batch):
+        aux = convnext.forward(fro["aux_tower"], cfg.aux,
+                               batch["aux_pixel_values"])
+        embeds = tuple(mgm_model.mine_and_project(
+            fro, c, mgm_model.tower_features(fro, c, batch["pixel_values"]),
+            aux) for c in (cfg, plain))
+        del aux
+        maps = tuple(mgm_model.assemble_attention(c, mgm_model.capture(
+            params, c, batch, e)["attn"]) for c, e in zip((cfg, plain),
+                                                          embeds))
+        return {"image_embeddings": embeds, "attn": maps,
+                "sam_embedding": tuple(sam_encoder.forward(
+                    fro["sam_encoder"], c.base.sam.encoder,
+                    batch["sam_pixel_values"]) for c in (cfg, plain))}
+    return pairs
+
+
+def mgm_stage_split(params: dict, cfg, batch: dict) -> dict:
+    """Device ms of each stage of one MGM forward (CUDA events between the
+    calls ``mgm.forward`` makes), as ``stage_split``."""
+    fro = params["frozen"]
+    runs = []
+    with torch.no_grad():
+        for _ in range(HYBRID_STAGE_ITERS):
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(len(MGM_STAGES) + 1)]
+            marks[0].record()
+            feats = mgm_model.tower_features(fro, cfg, batch["pixel_values"])
+            marks[1].record()
+            aux = convnext.forward(fro["aux_tower"], cfg.aux,
+                                   batch["aux_pixel_values"])
+            marks[2].record()
+            img = mgm_model.mine_and_project(fro, cfg, feats, aux)
+            marks[3].record()
+            out = mgm_model.capture(params, cfg, batch, img)
+            marks[4].record()
+            emb = sam_encoder.forward(fro["sam_encoder"], cfg.base.sam.encoder,
+                                      batch["sam_pixel_values"])
+            marks[5].record()
+            grounding.heads_forward(
+                params, cfg.base, mgm_model.assemble_attention(
+                    cfg, out["attn"]), out["hidden"], batch, img_emb=emb)
+            marks[6].record()
+            runs.append(marks)
+            del feats, aux, img, out, emb
+    return _stage_ms(runs, MGM_STAGES)
+
+
+def run_mgm_path(phase: int, path: str, cfg, bs: int, seq: int,
+                 card: str) -> dict:
+    """One MGM serving path at full width: 3 requests beside the all-plain
+    forward, the stage split of both paths, times and peak memory."""
+    params = mgm_params(cfg, MGM_SEED)
+    params["frozen"]["llm"].pop("lm_head", None)  # the forward never uses it
+    batches = mgm_batches(cfg, bs, seq)
+    served = phase_serve(phase, path, mgm_model.forward, params, cfg,
+                         batches, mgm_shapes(cfg, bs, seq))
+    phase_compare(phase, path, mgm_model.forward, params, cfg, served,
+                  mgm_pairs(params))
+    served["stages"] = {
+        "kernel": mgm_stage_split(params, cfg, served["requests"][0]),
+        "plain": mgm_stage_split(params, registry.plain_config(cfg),
+                                 served["requests"][0])}
+    for which, ms in served["stages"].items():
+        log(f"phase {phase} stages {path} {which} path ({card}): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+            + f" (CUDA events, bs {bs}, S={seq}, mean of "
+            f"{HYBRID_STAGE_ITERS - 1} forwards after one)")
+    log(f"phase {phase} timing {path} ({card}): kernel path "
+        f"{served['ms']:.1f} ms/forward, {bs * 1e3 / served['ms']:.2f} "
+        f"img/s, peak {served['peak_gb']:.2f} GB; plain path "
+        f"{served['plain_ms']:.1f} ms/forward, "
+        f"{bs * 1e3 / served['plain_ms']:.2f} img/s, peak "
+        f"{served['plain_peak_gb']:.2f} GB (bs {bs}, mean of "
+        f"{len(served['requests'])} requests after one warm-up, host clock)")
+    del served["requests"], served["outs"], batches, params
+    torch.cuda.empty_cache()
+    return served
+
+
+def mgm_mixtral_cut():
+    """MGM-Mixtral-8x7B with its decoder cut to ``MGM_MOE_LAYERS`` of 32
+    layers (93 GB in bf16 whole) and the U-Net's in_channels derived from
+    the cut depth as the preset derives them."""
+    cfg = mgm_configs.mgm_mixtral_8x7b()
+    base = cfg.base
+    llm = dataclasses.replace(base.llm, num_layers=MGM_MOE_LAYERS)
+    return dataclasses.replace(cfg, base=dataclasses.replace(
+        base, llm=llm, unet=dataclasses.replace(
+            base.unet, in_channels=llm.num_layers * llm.num_heads)))
+
+
+def run_mgm_moe(card: str) -> dict:
+    """Phase 30: the MoE MLP at full width: one bs-4 forward of the cut
+    MGM-Mixtral-8x7B with its exact launches beside the all-plain forward,
+    both timed with CUDA events."""
+    path = "mgm_mixtral_8x7b_4_layers"
+    cfg = mgm_mixtral_cut()
+    params = mgm_params(cfg, MGM_SEED)
+    params["frozen"]["llm"].pop("lm_head")  # the forward never uses it
+    warm, batch = mgm_batches(cfg, BS, MGM_SEQ, 2)
+    plain = registry.plain_config(cfg)
+    ms = {}
+    with torch.no_grad():
+        mgm_model.forward(params, cfg, warm)
+        mgm_model.forward(params, plain, warm)
+        for which, c in (("plain", plain), ("kernel", cfg)):
+            for fn in WRAPPERS.values():
+                fn.launches = 0
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.reset_peak_memory_stats()
+            start.record()
+            out = mgm_model.forward(params, c, batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms[which] = start.elapsed_time(end)
+            ms[which + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if which == "plain":
+                ref = out
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        want = EXPECTED_LAUNCHES[path]
+        log(f"phase 30 {path}: the decoder cut to {MGM_MOE_LAYERS} of 32 "
+            "layers (the whole model is 93 GB in bf16), U-Net in_channels "
+            f"{cfg.base.unet.in_channels}; 8 experts a layer computed "
+            f"densely, the top 2 a token; bs {BS}, S={MGM_SEQ}; launches "
+            f"{launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"{path}: kernel launch counts differ "
+                                 "from the main path")
+        for key, shape in mgm_shapes(cfg, BS, MGM_SEQ).items():
+            if tuple(out[key].shape) != shape or not torch.isfinite(
+                    out[key]).all():
+                raise AssertionError(f"{path} {key}: wrong shape or values")
+        for key in ("hidden", "coarse_logits", "sam_logits"):
+            rel, corr = agreement(out[key], ref[key])
+            log(f"phase 30 {path} {key}: kernel vs plain forward max_rel_err "
+                f"{rel:.3e} corr {corr:.6f} (bound {FORWARD_CORR[key]})")
+            if corr < FORWARD_CORR[key]:
+                raise AssertionError(f"{path} {key}: kernel forward "
+                                     "disagrees with the plain forward")
+    log(f"phase 30 timing {path} ({card}): kernel path {ms['kernel']:.1f} "
+        f"ms/forward, peak {ms['kernel_peak_gb']:.2f} GB; plain path "
+        f"{ms['plain']:.1f} ms/forward, peak {ms['plain_peak_gb']:.2f} GB "
+        f"(bs {BS}, one forward each after one warm-up, CUDA events)")
+    del params, warm, batch, out, ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms}
+
+
+class GemmaWordTokenizer(WordTokenizer):
+    """The word-level stand-in with Gemma's special ids: BOS 2,
+    ``<start_of_turn>`` 106, ``<end_of_turn>`` 107 (the gemma template's
+    stop word), each its own word wherever it stands."""
+
+    BOS = 2
+    SPECIAL = {"<start_of_turn>": 106, "<end_of_turn>": 107}
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        for word in self.SPECIAL:
+            text = text.replace(word, f" {word} ")
+        return super().encode(text, add_special_tokens)
+
+
+def run_mgm_generation(card: str) -> dict:
+    """Phase 31: the grounder API at MGM-Gemma-2B, its LM head the tied
+    embedding: ``answer`` (32 new tokens), ``ground`` on one span and
+    ``visual_cot_v1`` through ``make_grounder('mgm')``, each with exact
+    launches, against the all-plain grounder on the same weights."""
+    base_mem = torch.cuda.memory_allocated()
+    cfg = mgm_configs.mgm_gemma_2b()
+    params = mgm_params(cfg, MGM_GEN_SEED)
+    tokenizer = GemmaWordTokenizer()
+    kernel, plain = (generation.make_grounder(
+        "mgm", c, params, tokenizer, max_new_tokens=MGM_GEN_MAX_NEW)
+        for c in (cfg, registry.plain_config(cfg)))
+    h, w = GEN_IMAGES[0]
+    image = np.random.default_rng(MGM_GEN_SEED).integers(0, 256, (h, w, 3),
+                                                          np.uint8)
+    total = dict.fromkeys(WRAPPERS, 0)
+    L, H = cfg.base.llm.num_layers, cfg.base.llm.num_heads
+    n_img = cfg.base.num_img_tokens
+    warm = kernel.answer(image, GEN_QUESTION, max_new_tokens=2)
+    kernel.ground(warm, [(0, 1)])
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+
+    def check(call, launches):
+        _check_launches(call, launches, total, MGM_GEN_LAUNCHES, 31)
+
+    (out, gen, ev_ms), answer_ms, launches = _counted(
+        lambda: _answer_traced(kernel, image))
+    check("answer", launches)
+    T = len(out["output_ids"])
+    maps, hidden = out["attention_maps"], out["hidden_states"]
+    if not (1 <= T <= MGM_GEN_MAX_NEW
+            and tuple(maps.shape) == (L, H, T, n_img)
+            and tuple(hidden.shape) == (T, cfg.base.llm.hidden_size)
+            and torch.isfinite(maps).all() and torch.isfinite(hidden).all()
+            and 0 <= int(out["output_ids"].min())
+            and int(out["output_ids"].max()) < cfg.base.llm.vocab_size):
+        raise AssertionError("mgm generation answer: wrong shapes or values")
+    log(f"phase 31 generation answer: {T} tokens, "
+        f"{out['output_text'][:60]!r}...; attention maps "
+        f"{tuple(maps.shape)}, hidden {tuple(hidden.shape)}, finite; the "
+        "logits from the tied embedding (no lm_head in the tree: "
+        f"{'lm_head' not in params['frozen']['llm']})")
+    (pout, pgen, plain_ev), plain_ms, _ = _counted(
+        lambda: _answer_traced(plain, image))
+    llm_p = params["frozen"]["llm"]
+    _agree("prefill capture (L, H, S, n_img)", gen["prompt_attn"],
+           pgen["prompt_attn"], FORWARD_CORR["attn"], phase=31)
+    _agree("prompt hidden", gen["prompt_hidden"], pgen["prompt_hidden"],
+           FORWARD_CORR["hidden"], phase=31)
+    _agree("first-step logits (tied head)",
+           llm_decoder.logits(llm_p, cfg.base.llm, gen["last_hidden"]),
+           llm_decoder.logits(llm_p, cfg.base.llm, pgen["last_hidden"]),
+           0.99, phase=31)
+    span = [(0, max(1, T // 2))]
+    (coarse, masks), ground_ms, launches = _counted(
+        lambda: kernel.ground(out, span))
+    check("ground", launches)
+    if (masks.shape != (1, h, w) or masks.dtype != np.uint8
+            or not torch.isfinite(coarse).all()
+            or tuple(coarse.shape[-2:]) != registry.get_coarse_hw(cfg)):
+        raise AssertionError("mgm generation ground: wrong masks or logits")
+    _agree("ground SAM low-res logits (one answer's maps)",
+           kernel.ground_logits(out, span)[1],
+           plain.ground_logits(out, span)[1], FORWARD_CORR["sam_logits"],
+           phase=31)
+    (thought, bbox, final, mask), cot_ms, launches = _counted(
+        lambda: kernel.visual_cot_v1(image, GEN_QUESTION))
+    check("visual_cot_v1", launches)
+    x0, y0, x1, y1 = bbox
+    if not (isinstance(final, str) and 0 <= x0 < x1 <= w
+            and 0 <= y0 < y1 <= h and mask.shape == (h, w)):
+        raise AssertionError("mgm generation visual_cot_v1: bad result")
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    stats = {"answer_ms": answer_ms, "tokens_per_s": T * 1e3 / answer_ms,
+             "generate_ms": ev_ms["generate"], "before_ms": ev_ms["before"],
+             "ground_ms": ground_ms, "cot_v1_ms": cot_ms,
+             "plain_answer_ms": plain_ms, "peak_gb": peak_gb}
+    log(f"phase 31 generation timing ({card}): answer {answer_ms:.1f} ms on "
+        f"the host clock for {T} tokens = {stats['tokens_per_s']:.1f} "
+        f"tokens/s, of it image preparation on the host, tokenisation and "
+        f"both towers {ev_ms['before']:.1f} ms and prefill + decode "
+        f"{ev_ms['generate']:.1f} ms (CUDA events); ground {ground_ms:.1f} "
+        f"ms, visual_cot_v1 {cot_ms:.1f} ms (box {bbox}), peak "
+        f"{peak_gb:.2f} GB; plain path answer {plain_ms:.1f} ms "
+        f"({len(pout['output_ids'])} tokens)")
+    del kernel, plain, params, gen, pgen, out, pout
+    torch.cuda.empty_cache()
+    return {"launches": total, "stats": stats}
+
+
+def run_mgm_files(card: str) -> dict:
+    """Phase 32: MGM files in, scores out.  A full-width gemma_2b model
+    from a seed written as MGM's three checkpoints (the main one with
+    ``model.mm_projector.*`` and ``model.vlm_uni_*``, a CLIP-L HF tower
+    directory, an open_clip ConvNeXt-L ``open_clip_pytorch_model.bin``),
+    a SAM ViT-L ``.pth`` and released-layout heads, loaded back through
+    ``get_loader('mgm')`` and ``restore_trainable`` bit for bit, then both
+    eval CLIs at ``--family mgm --preset gemma_2b`` with phase 25's
+    gates."""
+    manifest = json.loads((FIXTURE / "manifest.json").read_text())
+    cfg = mgm_configs.mgm_gemma_2b()
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        params = mgm_params(cfg, MGM_FILES_SEED)
+        fro = params["frozen"]
+        sam = fro.pop("sam_encoder")
+        t0 = time.perf_counter()
+        paths = checkpoint_writers.mgm_checkpoints(root, fro)
+        paths["sam"] = root / "sam_vit_l.pth"
+        torch.save(checkpoint_writers.sam_encoder_state_dict(
+            sam, dtype=torch.float32), paths["sam"])
+        paths["trained"] = root / "flmm_mgm.pth"
+        torch.save({"state_dict": checkpoint_writers.
+                    released_trained_state_dict(params["trainable"])},
+                   paths["trained"])
+        nbytes = sum(f.stat().st_size for p in paths.values()
+                     for f in (p.iterdir() if p.is_dir() else [p]))
+        log(f"phase 32 files ({card}): wrote MGM-Gemma-2B's main, CLIP-L and "
+            f"ConvNeXt-L checkpoints, SAM ViT-L and the heads "
+            f"({nbytes / 1e9:.3f} GB) in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frozen = registry.get_loader("mgm")(
+            str(paths["checkpoint"]), cfg, str(paths["sam"]),
+            clip_checkpoint=str(paths["clip"]),
+            aux_checkpoint=str(paths["aux"]), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        template = mgm_model.init_trainable(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        trainable = ckpt.restore_trainable(str(paths["trained"]), cfg,
+                                           template)
+        _trees_equal(frozen, {**fro, "sam_encoder": sam})
+        _trees_equal(trainable, params["trainable"])
+        stats["load"] = {"load_s": load_s, "load_gb_per_s":
+                         nbytes / 1e9 / load_s}
+        log(f"phase 32 files ({card}): get_loader('mgm') read the four "
+            f"checkpoints onto the card in {load_s:.2f} s = "
+            f"{stats['load']['load_gb_per_s']:.2f} GB/s; every leaf of the "
+            "frozen and the trained tree equals the written one bit for bit")
+        del params, fro, sam, frozen, trainable, template
+        torch.cuda.empty_cache()
+        common = ["--family", "mgm", "--preset", "gemma_2b",
+                  "--checkpoint", str(paths["checkpoint"]),
+                  "--clip-checkpoint", str(paths["clip"]),
+                  "--aux-checkpoint", str(paths["aux"]),
+                  "--sam-checkpoint", str(paths["sam"]),
+                  "--trained", str(paths["trained"])]
+        cli_stats, total = run_eval_clis(
+            32, common, card, manifest, path="mgm_gemma_2b",
+            forward=mgm_model.forward, tokenizer_cls=GemmaWordTokenizer)
+        stats.update(cli_stats)
+    return {"launches": total, "stats": stats}
+
+
+def run_mgm(card: str) -> dict:
+    """Phases 28-32: the MGM family on the card."""
+    paths = {
+        "mgm_gemma_2b": run_mgm_path(
+            28, "mgm_gemma_2b", mgm_configs.mgm_gemma_2b(), BS, MGM_SEQ,
+            card),
+        "mgm_vicuna_7b_hd": run_mgm_path(
+            29, "mgm_vicuna_7b_hd",
+            mgm_configs.mgm_vicuna_7b_hd(img_start=MGM_HD_START), MGM_HD_BS,
+            MGM_HD_SEQ, card)}
+    moe = run_mgm_moe(card)
+    paths["mgm_mixtral_8x7b_4_layers"] = {"launches": moe["launches"]}
+    gen = run_mgm_generation(card)
+    files = run_mgm_files(card)
+    return {"paths": paths, "moe": moe, "gen": gen, "files": files}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str,
                   family: str = "deepseek_vl", preset: str = "1_3b",
                   bs: int = BS, launches: dict | None = None) -> None:
@@ -3666,12 +4196,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     mistral = run_mistral(card)
     paths.update(mistral["paths"])
+    torch.cuda.empty_cache()
+    mgm = run_mgm(card)
+    paths.update(mgm["paths"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
-             compared, evals, gen, files, hybrid, mistral)),
+             compared, evals, gen, files, hybrid, mistral, mgm["gen"],
+             mgm["files"])),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -3684,7 +4218,9 @@ def main() -> None:
              "generation": gen["launches"][name],
              "files": files["launches"][name],
              "deepseek_vl_7b_bench_train": hybrid["launches"][name],
-             "llava_next_mistral_7b_bench": mistral["launches"][name]},
+             "llava_next_mistral_7b_bench": mistral["launches"][name],
+             "mgm_generation": mgm["gen"]["launches"][name],
+             "mgm_files": mgm["files"]["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

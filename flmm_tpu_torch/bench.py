@@ -12,10 +12,11 @@ and, on the same weights and inputs, for the all-plain path
 (``registry.plain_config``).
 
 Env knobs, with the JAX script's names and defaults:
-  BENCH_FAMILY        deepseek_vl (default) | llava | llava_next | hpt
-                      (mgm is not ported and raises)
+  BENCH_FAMILY        deepseek_vl (default) | llava | llava_next | mgm | hpt
   BENCH_PRESET        family preset (default: the flagship per family;
-                      deepseek_vl's 7b runs the hybrid SAM-B tower)
+                      deepseek_vl's 7b runs the hybrid SAM-B tower, mgm's
+                      vicuna_7b_hd the HD crop grid with its image block
+                      at 128 through the flash capture)
   BENCH_SAM_SIZE      SAM encoder resolution (default 1024; the
                       reduced-resolution deployment schedule)
   BENCH_BS            comma list of batch sizes to try (default "4,8,2,1")
@@ -48,7 +49,11 @@ error only; any other failure ends the run.
 ``llava_next`` batches come from the port's synthetic anyres builder
 (``data.llava_next.synthetic_anyres_batch``, images of 600 x 640 and 900 x
 280 in turn); the JAX script goes through its host data pipeline
-(``data/collate``), which is not ported.
+(``data/collate``), which is not ported.  ``mgm`` batches go through the
+host pipeline as in the JAX script: ``synthetic_samples`` into
+``build_mgm_batch`` (the crops, the aux image and SAM's input of each
+sample), the sequence the longest sample + 8, to a multiple of 128 when the
+decoder captures through the flash kernel.
 """
 
 from __future__ import annotations
@@ -64,8 +69,10 @@ import torch
 
 from flmm_tpu_torch import registry
 from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.data.collate import BatchSpec
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
-from flmm_tpu_torch.data.synthetic import synthetic_batch
+from flmm_tpu_torch.data.processors import ProcessorConfig
+from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
 from flmm_tpu_torch.kernel_bench import card_line, device_of
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
     global_block, sam_flash, sam_flash_experiments, window_block
@@ -202,11 +209,36 @@ def _family_batch(cfg, family: str, batch_size: int, seq_len: int,
     if family in ("deepseek_vl", "llava", "hpt"):
         return synthetic_batch(cfg, batch_size=batch_size, seq_len=seq_len,
                                max_masks=8, text_tokens_per_mask=12)
+    if family == "mgm":
+        return mgm_batch(cfg, batch_size, seq_len)
     # llava_next: anyres tiles (~5x the image tokens); the builder sizes the
     # sequence itself (longest sample + 8, 128-aligned for flash capture)
     sizes = [ANYRES_SIZES[i % len(ANYRES_SIZES)] for i in range(batch_size)]
     return synthetic_anyres_batch(cfg, sizes, prompt_len=prompt_len,
                                   max_masks=8, caption_tokens=12)
+
+
+def mgm_batch(cfg, batch_size: int, seq_len: int, seed: int = 0) -> dict:
+    """The JAX script's MGM batch (bench.py:41-75): seeded samples through
+    the family's batch builder (the JAX script's seed is 0)."""
+    base = cfg.base
+    build = registry.get_batch_builder("mgm",
+                                       **registry.mgm_process_spec(cfg))
+    samples = synthetic_samples(cfg, batch_size, seed=seed, max_masks=8,
+                                caption_tokens=12)
+    S = max(seq_len, max(len(s["input_ids"]) for s in samples) + 8)
+    align = 128 if base.llm.use_flash_capture else None
+    if align:
+        S = -(-S // align) * align
+    spec = BatchSpec(
+        seq_len=S, max_masks=8, text_per_mask=12,
+        coarse_hw=registry.get_coarse_hw(cfg),
+        sam_size=base.sam.encoder.img_size, prompt_size=base.sam.prompt_size,
+        align_image_block=align, expected_img_start=base.img_start,
+        processor=ProcessorConfig(size=base.input_size))
+    batch = build(samples, spec)
+    batch.pop("infos")
+    return batch
 
 
 def _noisy(t: torch.Tensor, g: torch.Generator, std) -> torch.Tensor:

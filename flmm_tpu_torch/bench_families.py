@@ -25,11 +25,10 @@ without ``error`` is its headline and ends the family.
 ``PLAN`` keeps the JAX script's families, tags and order.  Its points were
 picked as "the serving mode that fits one chip" for a chip with 16 GB, where
 a 7B or 8B decoder does not fit in bf16 beside a batch of 2.  One 80 GB card
-holds every ported family in bf16 at the bench's batch sizes, so here each
+holds every family in bf16 at the bench's batch sizes, so here each
 family's first point is ``("bf16", {})`` and the JAX script's points follow
 it in their order.  Those that set ``BENCH_QUANT_LLM=1`` give an ``error``
-row that names the int8 decoder as not ported, and ``mgm``, which has no
-model in the port, gives one that names the family: nothing runs in their
+row that names the int8 decoder as not ported: nothing runs in their
 place.
 
 ``--device`` (default ``cuda``) and ``--seed`` are handed to the children;

@@ -3,7 +3,10 @@
 The port keeps the JAX layouts (linear weights ``(in, out)`` applied as
 ``x @ w``, HWIO conv kernels, stacked ``(L, ...)`` layer weights), so the
 bridge only converts leaves: each array becomes a tensor of the same shape
-and dtype on ``device``.  bf16 arrays (``ml_dtypes.bfloat16`` when they come
+and dtype on ``device``.  That covers the MGM tree as it is: the ConvNeXt
+``aux_tower`` (HWIO kernels, which its forward turns to OIHW), the f32
+``uni_*`` resampler projections and a MoE decoder's ``router`` ``(L, d,
+E)`` and expert stacks ``(L, E, d, f)``.  bf16 arrays (``ml_dtypes.bfloat16`` when they come
 from JAX) go through their bit pattern, since numpy has no bf16.
 """
 

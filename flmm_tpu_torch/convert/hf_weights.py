@@ -7,9 +7,10 @@ linear weights ``(in, out)`` (HF stores ``(out, in)``), HWIO patch kernels,
 per-layer weights stacked on a leading layer axis.  Every leaf goes through
 float32 to the config's dtype, as the JAX converters take it, so both
 packages give the same bits from one checkpoint.  Covers the Llama family
-(Llama / Vicuna / DeepSeek-LLM / Mistral share the layout; the port's
-decoder refuses MoE configs), the CLIP and SigLIP towers and the timm-style
-SigLIP trunk DeepSeek-VL vendors.  ``eva_vit_params`` waits for MGM.
+(Llama / Vicuna / DeepSeek-LLM / Mistral / Gemma share the layout; Mixtral's
+``block_sparse_moe`` experts stack on an expert axis), the CLIP and SigLIP
+towers, the timm-style SigLIP trunk DeepSeek-VL vendors and the EVA-G trunk
+of MGM's alternative tower.
 """
 
 from __future__ import annotations
@@ -63,10 +64,20 @@ def llama_decoder_params(sd: Mapping[str, Any], cfg: DecoderConfig,
         "wk": r.stack(lay + "self_attn.k_proj.weight"),
         "wv": r.stack(lay + "self_attn.v_proj.weight"),
         "wo": r.stack(lay + "self_attn.o_proj.weight"),
-        "w_gate": r.stack(lay + "mlp.gate_proj.weight"),
-        "w_up": r.stack(lay + "mlp.up_proj.weight"),
-        "w_down": r.stack(lay + "mlp.down_proj.weight"),
     }
+    if cfg.num_experts:
+        # Mixtral block_sparse_moe: w1 the gate, w3 up, w2 down
+        moe = lay + "block_sparse_moe."
+        layers["router"] = r.stack(moe + "gate.weight")
+        for key, name in (("w_gate", "w1"), ("w_up", "w3"),
+                          ("w_down", "w2")):
+            layers[key] = torch.stack([torch.stack([
+                r.get(moe.format(i=i) + f"experts.{e}.{name}.weight").T
+                for e in range(cfg.num_experts)]) for i in range(r.L)])
+    else:
+        for key, name in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                          ("w_down", "down_proj")):
+            layers[key] = r.stack(lay + f"mlp.{name}.weight")
     if cfg.attn_bias:
         for name in ("q", "k", "v"):
             layers[f"b{name}"] = r.stack(
@@ -165,3 +176,43 @@ def timm_siglip_vit_params(sd: Mapping[str, Any], cfg: ViTConfig,
         "final_ln_w": r.get("norm.weight"),
         "final_ln_b": r.get("norm.bias"),
     }
+
+
+def eva_vit_params(sd: Mapping[str, Any], cfg: ViTConfig, dtype=None,
+                   device="cpu") -> dict:
+    """The EVA-G trunk (reference mgm/model/multimodal_encoder/
+    eva_encoder.py): fused qkv with a q and a v bias and an implicit zero k
+    bias, class token, absolute position embeddings; the final LayerNorm
+    only when the config applies one (the vendored model drops it)."""
+    r = _Reader(sd, cfg.num_layers, device, dtype or cfg.dtype)
+    blk = "blocks.{i}."
+    bqkv = []
+    for i in range(cfg.num_layers):
+        qb = r.get(f"blocks.{i}.attn.q_bias")
+        bqkv.append(torch.cat([qb, torch.zeros_like(qb),
+                               r.get(f"blocks.{i}.attn.v_bias")]))
+    pos = r.get("pos_embed")
+    params = {
+        "patch_kernel": r.conv("patch_embed.proj.weight"),
+        "patch_bias": r.get("patch_embed.proj.bias"),
+        "cls_token": r.get("cls_token").reshape(-1),
+        "pos_embed": pos[0] if pos.dim() == 3 else pos,
+        "layers": {
+            "ln1_w": r.stack(blk + "norm1.weight", False),
+            "ln1_b": r.stack(blk + "norm1.bias", False),
+            "ln2_w": r.stack(blk + "norm2.weight", False),
+            "ln2_b": r.stack(blk + "norm2.bias", False),
+            "wqkv": r.stack(blk + "attn.qkv.weight"),
+            "bqkv": torch.stack(bqkv),
+            "wo": r.stack(blk + "attn.proj.weight"),
+            "bo": r.stack(blk + "attn.proj.bias", False),
+            "w1": r.stack(blk + "mlp.fc1.weight"),
+            "b1": r.stack(blk + "mlp.fc1.bias", False),
+            "w2": r.stack(blk + "mlp.fc2.weight"),
+            "b2": r.stack(blk + "mlp.fc2.bias", False),
+        },
+    }
+    if cfg.final_norm:
+        params["final_ln_w"] = r.get("norm.weight")
+        params["final_ln_b"] = r.get("norm.bias")
+    return params

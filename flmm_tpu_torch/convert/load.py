@@ -7,8 +7,9 @@ shards (or any ``*.bin``), and ``*.safetensors`` files or shards through
 this module's own reader (bf16 stays bf16; the ``safetensors`` package is
 not needed).  The family loaders build the frozen trees on ``device``;
 ``reference_trained`` converts a released F-LMM checkpoint into the
-trainable tree.  The MGM loaders (``convnext_params``, ``mgm_frozen``) wait
-for the MGM family.
+trainable tree.  MGM assembles its frozen tree from three checkpoints
+(``mgm_frozen``): the main one, the CLIP tower's and the open_clip ConvNeXt
+(``convnext_params``).
 """
 
 from __future__ import annotations
@@ -242,6 +243,91 @@ def hpt_frozen(checkpoint_dir: str, cfg, sam_checkpoint: str | None = None,
         "projector": _seq_linear_layers(load_state_dict(root / "projector"),
                                         device),
     }
+    if sam_checkpoint:
+        frozen["sam_encoder"] = _sam_encoder(sam_checkpoint, cfg, device)
+    return frozen
+
+
+def convnext_params(sd: Mapping[str, Any], cfg, prefix: str = "visual.trunk.",
+                    dtype=None, device="cpu") -> dict:
+    """An open_clip / timm ConvNeXt trunk (MGM's aux tower, reference
+    mgm/model/multimodal_encoder/openclip_encoder.py:29,48-54): ``stem.0``
+    conv, ``stem.1`` LayerNorm, ``stages.{s}.downsample.{0: LN, 1: conv}``
+    for s > 0, ``stages.{s}.blocks.{b}.{conv_dw, norm, mlp.fc1, mlp.fc2,
+    gamma}``; HWIO kernels, ``(in, out)`` linears."""
+    r = hf_weights._Reader(sd, 0, device, dtype or cfg.dtype)
+
+    def get(name):
+        return r.get(prefix + name)
+
+    def conv(name):
+        return r.conv(prefix + name)
+
+    stages = []
+    for s_i, depth in enumerate(cfg.depths):
+        stage = {"blocks": []}
+        if s_i > 0:
+            down = f"stages.{s_i}.downsample."
+            stage["down_ln_w"] = get(down + "0.weight")
+            stage["down_ln_b"] = get(down + "0.bias")
+            stage["down_k"] = conv(down + "1.weight")
+            stage["down_b"] = get(down + "1.bias")
+        for b_i in range(depth):
+            blk = f"stages.{s_i}.blocks.{b_i}."
+            stage["blocks"].append({
+                "dw_k": conv(blk + "conv_dw.weight"),
+                "dw_b": get(blk + "conv_dw.bias"),
+                "ln_w": get(blk + "norm.weight"),
+                "ln_b": get(blk + "norm.bias"),
+                "w1": get(blk + "mlp.fc1.weight").T.contiguous(),
+                "b1": get(blk + "mlp.fc1.bias"),
+                "w2": get(blk + "mlp.fc2.weight").T.contiguous(),
+                "b2": get(blk + "mlp.fc2.bias"),
+                "gamma": get(blk + "gamma"),
+            })
+        stages.append(stage)
+    return {"stem_k": conv("stem.0.weight"), "stem_b": get("stem.0.bias"),
+            "stem_ln_w": get("stem.1.weight"),
+            "stem_ln_b": get("stem.1.bias"), "stages": stages}
+
+
+def _ln_lin_params(sd: Mapping[str, Any], base: str, device="cpu") -> dict:
+    """``nn.Sequential(LayerNorm, Linear)`` -> the f32 ``_ln_lin`` dict (MGM's
+    uni projectors, reference mgm_arch.py:149-154)."""
+    f32 = torch.float32
+    return {"ln_w": leaf(sd[base + ".0.weight"], device, f32),
+            "ln_b": leaf(sd[base + ".0.bias"], device, f32),
+            "w": leaf(sd[base + ".1.weight"], device, f32).T.contiguous(),
+            "b": leaf(sd[base + ".1.bias"], device, f32)}
+
+
+def mgm_frozen(checkpoint_dir: str, cfg, clip_checkpoint: str,
+               aux_checkpoint: str, sam_checkpoint: str | None = None,
+               device="cpu") -> dict:
+    """The MGM frozen tree from its three checkpoints, as the reference
+    builds it (mgm/model/mgm_arch.py:41-49, openclip_encoder.py:29): the
+    main one holds the LLM, ``model.mm_projector.*`` and
+    ``model.vlm_uni_{query,aux,val}_projector.*``; the HF CLIP tower and the
+    open_clip ConvNeXt (``open_clip_pytorch_model.bin``) load from their
+    own."""
+    if not (clip_checkpoint and aux_checkpoint):
+        raise ValueError("mgm_frozen: the CLIP tower's and the ConvNeXt's "
+                         "checkpoints are both required")
+    sd = load_state_dict(checkpoint_dir)
+    base = cfg.base
+    frozen = {
+        "llm": hf_weights.llama_decoder_params(
+            llm_with_head(sd, "model."), base.llm, prefix="", device=device),
+        "vision": hf_weights.clip_vit_params(
+            load_state_dict(clip_checkpoint), base.vision, device=device),
+        "aux_tower": convnext_params(load_state_dict(aux_checkpoint),
+                                     cfg.aux, device=device),
+        "projector": _seq_linear_layers(
+            strip_prefix(sd, "model.mm_projector."), device),
+    }
+    for name in ("query", "aux", "val"):
+        frozen[f"uni_{name}"] = _ln_lin_params(
+            sd, f"model.vlm_uni_{name}_projector", device)
     if sam_checkpoint:
         frozen["sam_encoder"] = _sam_encoder(sam_checkpoint, cfg, device)
     return frozen

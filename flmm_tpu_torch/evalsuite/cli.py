@@ -30,10 +30,9 @@ def parser(description: str, max_masks: int) -> argparse.ArgumentParser:
                    help="SAM input resolution override (the reduced-"
                         "resolution schedule; default: the config's, 1024)")
     p.add_argument("--clip-checkpoint", default=None,
-                   help="CLIP tower checkpoint (mgm only; not ported)")
+                   help="CLIP tower checkpoint (mgm)")
     p.add_argument("--aux-checkpoint", default=None,
-                   help="open_clip ConvNeXt checkpoint (mgm only; not "
-                        "ported)")
+                   help="open_clip ConvNeXt checkpoint (mgm)")
     p.add_argument("--trained", default=None,
                    help="trainable params: a released F-LMM .pth / .bin / "
                         ".safetensors or a step_<n> directory of "
@@ -73,13 +72,10 @@ def parse(p: argparse.ArgumentParser, argv, tokenizer):
     if args.int8_sam:
         raise NotImplementedError(
             "--int8-sam is not ported: ROADMAP queue 1 item 10")
-    if args.clip_checkpoint or args.aux_checkpoint:
-        raise NotImplementedError(
-            "--clip-checkpoint and --aux-checkpoint load MGM's towers, which "
-            "are not ported: ROADMAP queue 1 item 8")
-    if args.family == "mgm":
-        raise NotImplementedError(
-            "the mgm family is not ported: ROADMAP queue 1 item 8")
+    if args.family != "mgm" and (args.clip_checkpoint
+                                 or args.aux_checkpoint):
+        p.error("--clip-checkpoint and --aux-checkpoint load MGM's towers; "
+                f"the {args.family} family reads its tower from --checkpoint")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to evaluate on "
                          "the CPU")
@@ -100,15 +96,22 @@ def setup(args, tokenizer) -> dict:
     hold nothing, e.g. the SAM encoder without ``--sam-checkpoint``; the
     trainable tree from ``--trained``, else random), the batch spec
     ``spec``, the batch builder ``build``, the model module ``model`` and
-    the ``device``."""
+    the ``device``.  MGM's loader also reads ``--clip-checkpoint`` and
+    ``--aux-checkpoint``, and its batch builder takes the config's crop
+    grid and sizes (``registry.mgm_process_spec``)."""
     device = torch.device(args.device)
     cfg, prompt, spec_kwargs = registry.resolve_family_setup(
         args.family, args.preset, tokenizer, template=args.template,
         sam_size=args.sam_size)
     model = registry.get_model(args.family)
     g = torch.Generator(device=device).manual_seed(0)
+    extra, build_kwargs = {}, {}
+    if args.family == "mgm":
+        extra = {"clip_checkpoint": args.clip_checkpoint,
+                 "aux_checkpoint": args.aux_checkpoint}
+        build_kwargs = registry.mgm_process_spec(cfg)
     frozen = registry.get_loader(args.family)(
-        args.checkpoint, cfg, args.sam_checkpoint, device=device)
+        args.checkpoint, cfg, args.sam_checkpoint, device=device, **extra)
     frozen.update(model.init_frozen(cfg, g, device, skip=frozen))
     # also the template restore_trainable reads a step_<n> directory into
     # (12 M parameters at DeepSeek-VL-1.3B)
@@ -119,7 +122,7 @@ def setup(args, tokenizer) -> dict:
     spec = BatchSpec(seq_len=args.seq_len, max_masks=args.max_masks,
                      coarse_hw=registry.get_coarse_hw(cfg), **spec_kwargs)
     return {"cfg": cfg, "prompt": prompt, "params": params, "spec": spec,
-            "build": registry.get_batch_builder(args.family),
+            "build": registry.get_batch_builder(args.family, **build_kwargs),
             "model": model, "device": device}
 
 

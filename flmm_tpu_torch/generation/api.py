@@ -17,9 +17,9 @@ a CPU device), where its params must live: the tower, decoder, U-Net, SAM
 encoder and refiner are the port's modules, so on a CUDA tensor they launch
 the same kernels as the grounding forward.  An answer keeps its attention
 maps and hidden states as tensors on the device; ids, text, masks and
-boxes are host values.  ``MGMGrounder`` waits for the MGM family; a
-hybrid-tower config (DeepSeek-VL-7B) is refused, as the JAX grounder cannot
-run one.
+boxes are host values.  ``MGMGrounder`` serves the MGM family (its two
+towers, the HD crop grid and the stitched maps); a hybrid-tower config
+(DeepSeek-VL-7B) is refused, as the JAX grounder cannot run one.
 """
 
 from __future__ import annotations
@@ -34,11 +34,13 @@ import torch
 from flmm_tpu_torch.data import geometry
 from flmm_tpu_torch.data import tokenization as tok
 from flmm_tpu_torch.data.llava_next import anyres_process, block_layout
+from flmm_tpu_torch.data.mgm import MGMProcessSpec, mgm_process
 from flmm_tpu_torch.data.processors import ProcessorConfig, sam_preprocess, \
     square_pad_preprocess
 from flmm_tpu_torch.evalsuite.runner import sam_logits_to_masks
 from flmm_tpu_torch.generation import decode as dec
 from flmm_tpu_torch.models.frozen import llava_next as mln
+from flmm_tpu_torch.models.frozen import mgm as mgm_model
 from flmm_tpu_torch.models.frozen.grounding import GroundingConfig, _project
 from flmm_tpu_torch.models.llm import decoder as llm
 from flmm_tpu_torch.models.mask_head import refiner as sam_refiner
@@ -46,23 +48,23 @@ from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.registry import FAMILY_IMAGE_TOKENS, FAMILY_SIZE_RULES, \
-    FAMILY_TEMPLATES
+    FAMILY_TEMPLATES, mgm_process_spec
 
 
 def make_grounder(family: str, cfg, params, tokenizer, **kw):
     """Family-correct grounder with the family's registry template and
-    image token: ``AnyresGrounder`` for llava_next, the base ``Grounder``
-    otherwise.  Extra kwargs are filtered to the fields the selected class
-    supports (e.g. ``max_thought_tokens`` only exists on the base CoT
-    surface)."""
-    if family == "mgm":
-        raise NotImplementedError(
-            "make_grounder('mgm'): the MGM grounder is not ported; it waits "
-            "for the MGM family (ROADMAP queue 1 item 8)")
+    image token: ``AnyresGrounder`` for llava_next, ``MGMGrounder`` for mgm,
+    the base ``Grounder`` otherwise.  Extra kwargs are filtered to the
+    fields the selected class supports (e.g. ``max_thought_tokens`` only
+    exists on the base and MGM CoT surface)."""
     template = tok.TEMPLATES[FAMILY_TEMPLATES[family]]
     image_token = FAMILY_IMAGE_TOKENS[family]
     if family == "llava_next":
         cls, cfg_arg = AnyresGrounder, cfg
+    elif family == "mgm":
+        cls, cfg_arg = MGMGrounder, cfg
+        kw.setdefault("processor", ProcessorConfig(
+            size=cfg.base.input_size, size_rule=FAMILY_SIZE_RULES[family]))
     else:
         cls, cfg_arg = Grounder, cfg.base if hasattr(cfg, "base") else cfg
         kw.setdefault("processor", ProcessorConfig(
@@ -256,14 +258,16 @@ class Grounder:
                              f"{len(pixel_list)} images")
         ids = torch.as_tensor(input_ids, device=self.device).long()
         embeds = llm.embed_tokens(fro["llm"], cfg.llm, ids).to(cfg.dtype)
-        feats = self._tower(torch.as_tensor(np.stack(pixel_list),
-                                            device=self.device))
+        feats = self._image_features(pixel_list)
         for i, start in enumerate(starts):
             embeds[start:start + feats.shape[1]] = feats[i].to(cfg.dtype)
         return embeds
 
-    def _tower(self, pixels: torch.Tensor) -> torch.Tensor:
+    def _image_features(self, pixel_list: list[np.ndarray]) -> torch.Tensor:
+        """The images' ``(n, n_img, D)`` features, the tower over them in one
+        batch."""
         cfg, fro = self.cfg, self.params["frozen"]
+        pixels = torch.as_tensor(np.stack(pixel_list), device=self.device)
         feats = vit.forward(fro["vision"], cfg.vision, pixels,
                             select_layer=cfg.vision_select_layer)
         if cfg.vision_drop_cls:
@@ -293,6 +297,10 @@ class Grounder:
         proc = square_pad_preprocess(image, self.processor)
         sam = sam_preprocess(image, self.cfg.sam.encoder.img_size)
         return proc, sam
+
+    def _pixels(self, image: np.ndarray):
+        """The tower's input of one image (no SAM input)."""
+        return square_pad_preprocess(image, self.processor)["pixel_values"]
 
     def _encode_content(self, content: str, suffix: str = "",
                         n_markers: int = 1) -> tuple[np.ndarray, list[int]]:
@@ -349,18 +357,23 @@ class Grounder:
                 **_answer_rows(out, len(tokens)),
                 **_image_extras(image, proc, sam)}
 
+    def _span_maps(self, merged: torch.Tensor) -> torch.Tensor:
+        """The spans' merged rows ``(M, L, H, n_img)`` as ``(M, h, w, C)``
+        attention images."""
+        M, L, H, _ = merged.shape
+        g = self.cfg.clip_shape
+        return merged.reshape(M, L * H, g, g).permute(0, 2, 3, 1)
+
     @torch.no_grad()
     def ground_logits(self, answer_out: dict, positive_spans: list[tuple],
                       max_text: int = 16) -> tuple:
         """Coarse ``(M, hc, wc)`` and SAM low-res ``(M, P, P)`` logits of
         token spans of a generation, as device tensors."""
         cfg, tra = self.cfg, self.params["trainable"]
-        g = cfg.clip_shape
         merged, texts, tvalid = _span_prompts(
             answer_out["attention_maps"], answer_out["hidden_states"],
             positive_spans, cfg.merge, tra["text_proj"], max_text)
-        M, L, H, _ = merged.shape
-        maps = merged.reshape(M, L * H, g, g).permute(0, 2, 3, 1)
+        maps = self._span_maps(merged)
         coarse = unet.forward(tra["unet"], cfg.unet, maps).float()
         return coarse, _refine(self.params, cfg, coarse, answer_out, texts,
                                tvalid)
@@ -438,13 +451,53 @@ class Grounder:
             f"{question}{self.additional_prompt}"
         )
         ids, starts = self._encode_content(content, n_markers=2)
-        px = [square_pad_preprocess(im, self.processor)["pixel_values"]
-              for im in (image, crop)]
-        embeds = self._embed_tokens_with_image(ids, px, starts)
+        embeds = self._embed_tokens_with_image(
+            ids, [self._pixels(im) for im in (image, crop)], starts)
         out = self._generate(embeds, starts[0], self.max_new_tokens,
                              self.stop_ids)
         tokens = _valid_tokens(out)
         return self.tokenizer.decode(tokens[:-1]) if len(tokens) else ""
+
+
+@dataclasses.dataclass
+class MGMGrounder(Grounder):
+    """Grounded conversation for the MGM(-HD) family.  MGM's image block is
+    contiguous in the prompt, so the base prefill / decode capture applies;
+    the image encoding (CLIP crops and the ConvNeXt aux tower through the
+    patch-info mining, the HD crop grid) and the grounding maps (the HD
+    tiles stitched, the global map upsampled beside them) are MGM's.
+    ``cfg`` is the ``MGMConfig``; after construction ``self.cfg`` is its
+    ``base`` and ``self.mgm_cfg`` the whole."""
+
+    mgm_cfg: Any = None  # set in __post_init__ from cfg
+
+    def __post_init__(self):
+        self.mgm_cfg = self.cfg
+        self.cfg = self.cfg.base
+        super().__post_init__()
+        self.spec = MGMProcessSpec(**mgm_process_spec(self.mgm_cfg))
+
+    def _prepare_image(self, image: np.ndarray) -> tuple:
+        proc = mgm_process(image, self.spec)
+        sam = sam_preprocess(image, self.cfg.sam.encoder.img_size)
+        return {"pixel_values": proc, "meta": proc["meta"]}, sam
+
+    def _pixels(self, image: np.ndarray) -> dict:
+        return mgm_process(image, self.spec)
+
+    def _image_features(self, pixel_list: list[dict]) -> torch.Tensor:
+        """Both towers and the patch-info mining over the images' crops and
+        aux pixels, in one batch."""
+        return mgm_model.encode_images(
+            self.params, self.mgm_cfg,
+            *(torch.as_tensor(np.stack([px[k] for px in pixel_list]),
+                              device=self.device) for k in ("crops", "aux")))
+
+    def _span_maps(self, merged: torch.Tensor) -> torch.Tensor:
+        """The spans' rows re-assembled as the forward's maps (the HD tiles
+        stitched, the global map upsampled beside them)."""
+        return mgm_model.assemble_attention(
+            self.mgm_cfg, merged.permute(1, 2, 0, 3)[None])
 
 
 @dataclasses.dataclass

@@ -13,7 +13,12 @@ multiples of 128), each layer runs the flash-capture kernel K5
 (ops/flash_attention.py) instead, and no ``(B, 1, S, S)`` bias or ``S x S``
 probabilities exist.
 
-Not ported yet: int8 weights and MoE MLPs.
+A config with ``num_experts`` runs Mixtral's sparse-MoE MLP as the JAX
+package computes it: every expert densely, each token's output the sum of
+the experts' weighted by a softmax over the router logits at or above its
+k-th largest.
+
+Not ported yet: int8 weights.
 """
 
 from __future__ import annotations
@@ -49,10 +54,6 @@ class DecoderConfig:
     use_flash_capture: bool = False
     dtype: torch.dtype = torch.bfloat16
 
-    def __post_init__(self):
-        if self.num_experts:
-            raise NotImplementedError("MoE decoders are not ported")
-
     @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
@@ -79,6 +80,8 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
                                  device=device) / math.sqrt(fan_in))
         return out
 
+    # MoE: a router (L, d, E) and expert stacks (L, E, d, f), (L, E, f, d)
+    E = (cfg.num_experts,) if cfg.num_experts else ()
     layers = {
         "ln1": norm_init((L, d)),
         "ln2": norm_init((L, d)),
@@ -86,10 +89,12 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator,
         "wk": w((L, d, cfg.kv_dim), d),
         "wv": w((L, d, cfg.kv_dim), d),
         "wo": w((L, cfg.q_dim, d), cfg.q_dim),
-        "w_gate": w((L, d, f), d),
-        "w_up": w((L, d, f), d),
-        "w_down": w((L, f, d), f),
+        "w_gate": w((L, *E, d, f), d),
+        "w_up": w((L, *E, d, f), d),
+        "w_down": w((L, *E, f, d), f),
     }
+    if E:
+        layers["router"] = w((L, d, *E), d)
     params = {
         "embed": w((cfg.vocab_size, d), d),
         "layers": layers,
@@ -159,12 +164,38 @@ def project_qkv(lp: dict, cfg: DecoderConfig, h: torch.Tensor,
     return q, k, v.reshape(B, S, KV, hd)
 
 
+def moe_gates(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Mixtral's router: a softmax over the logits at or above each row's
+    k-th largest (f32).  The threshold keeps every expert tied with the
+    k-th, as the JAX package does; ``torch.topk`` indices would keep k."""
+    thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.softmax(
+        torch.where(logits >= thresh, logits, float("-inf")), dim=-1)
+
+
+def mlp(x2: torch.Tensor, lp: dict, cfg: DecoderConfig) -> torch.Tensor:
+    """The gated MLP of ``x2`` ``(B, S, d)``, or with ``num_experts`` the
+    sparse MoE computed densely: every expert over every token, the outputs
+    summed with the router's gates (zero past the top k)."""
+    if not cfg.num_experts:
+        return (_act(x2 @ lp["w_gate"], cfg.act)
+                * (x2 @ lp["w_up"])) @ lp["w_down"]
+    # the gates in x2's dtype, their weighted sum accumulated in f32 and
+    # rounded once, as the JAX einsum over the expert axis
+    gates = moe_gates((x2 @ lp["router"]).float(),
+                      cfg.num_experts_per_tok).to(x2.dtype).float()
+    out = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
+    for e in range(cfg.num_experts):
+        h = _act(x2 @ lp["w_gate"][e], cfg.act) * (x2 @ lp["w_up"][e])
+        out = out + (h @ lp["w_down"][e]).float() * gates[..., e:e + 1]
+    return out.to(x2.dtype)
+
+
 def mlp_residual(h: torch.Tensor, lp: dict, cfg: DecoderConfig
                  ) -> torch.Tensor:
-    """``h`` plus the gated MLP of its LN2."""
+    """``h`` plus the (gated or MoE) MLP of its LN2."""
     x2 = rms_norm(h, lp["ln2"], cfg.rms_eps, cfg.gemma_norm)
-    return h + (_act(x2 @ lp["w_gate"], cfg.act)
-                * (x2 @ lp["w_up"])) @ lp["w_down"]
+    return h + mlp(x2, lp, cfg)
 
 
 def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,

@@ -10,9 +10,14 @@ import torch
 
 
 def bce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Elementwise BCE with logits in f32, ``max(x, 0) - x t + log1p(e^-|x|)``."""
+    """Elementwise BCE with logits in f32, ``max(x, 0) - x t + log1p(e^-|x|)``.
+    ``max(x, 0)`` is written ``(x + |x|) / 2``: the same values, and at a
+    logit of exactly 0 the derivative ``sigmoid(0) - t``, the reference's
+    (``clamp_min`` would give ``1 - t`` there, and the JAX package's
+    ``maximum`` and ``abs`` give ``-t``: ROADMAP queue 3)."""
     lf, tf = logits.float(), targets.float()
-    return lf.clamp_min(0.0) - lf * tf + torch.log1p(torch.exp(-lf.abs()))
+    return (0.5 * (lf + lf.abs()) - lf * tf
+            + torch.log1p(torch.exp(-lf.abs())))
 
 
 def sigmoid_bce(logits, targets, weights=None) -> torch.Tensor:

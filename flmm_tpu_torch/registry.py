@@ -9,12 +9,13 @@ twin of a config."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 
 from flmm_tpu_torch.models.mask_head.unet import output_hw
 
 # family -> (model module, {preset: "module:factory"}), as in the JAX
-# registry; its mgm family is not ported
+# registry
 FAMILIES = {
     "deepseek_vl": ("flmm_tpu_torch.models.frozen.deepseek_vl", {
         "1_3b": "flmm_tpu_torch.configs.deepseek_vl:deepseek_vl_1_3b",
@@ -31,6 +32,14 @@ FAMILIES = {
         "mistral_7b":
             "flmm_tpu_torch.configs.llava_next:llava_next_mistral_7b",
         "tiny": "flmm_tpu_torch.configs.llava_next:tiny_llava_next",
+    }),
+    "mgm": ("flmm_tpu_torch.models.frozen.mgm", {
+        "gemma_2b": "flmm_tpu_torch.configs.mgm:mgm_gemma_2b",
+        "vicuna_7b": "flmm_tpu_torch.configs.mgm:mgm_vicuna_7b",
+        "vicuna_7b_hd": "flmm_tpu_torch.configs.mgm:mgm_vicuna_7b_hd",
+        "mistral_7b": "flmm_tpu_torch.configs.mgm:mgm_mistral_7b",
+        "mixtral_8x7b": "flmm_tpu_torch.configs.mgm:mgm_mixtral_8x7b",
+        "tiny": "flmm_tpu_torch.configs.mgm:tiny_mgm",
     }),
     "hpt": ("flmm_tpu_torch.models.frozen.grounding", {
         "air": "flmm_tpu_torch.configs.hpt:hpt_air",
@@ -107,20 +116,38 @@ def get_config(family: str, preset: str, **kwargs):
     return getattr(importlib.import_module(mod), attr)(**kwargs)
 
 
-def get_batch_builder(family: str):
+def get_batch_builder(family: str, **spec_kwargs):
     """The family's ``(samples, batch_spec) -> batch`` builder: the standard
-    ``collate.build_batch``; the anyres and MGM builders are not ported."""
+    ``collate.build_batch``, or MGM's ``build_mgm_batch`` with an
+    ``MGMProcessSpec(**spec_kwargs)`` (its defaults: the released
+    single-crop configs'; :func:`mgm_process_spec` gives a config's); the
+    anyres builder over samples is not ported."""
     kind = BATCH_BUILDERS.get(family)
     if kind == "standard":
         from flmm_tpu_torch.data.collate import build_batch
 
         return build_batch
+    if kind == "mgm":
+        from flmm_tpu_torch.data.mgm import MGMProcessSpec, build_mgm_batch
+
+        return functools.partial(build_mgm_batch,
+                                 mgm=MGMProcessSpec(**spec_kwargs))
     if kind is None:
         _family(family)  # raises by name
     raise NotImplementedError(
         f"the {kind} batch builder of family {family!r} is not ported to "
-        "flmm_tpu_torch (ported: the standard build_batch; "
-        "data/llava_next.py has only the synthetic anyres batch)")
+        "flmm_tpu_torch (ported: the standard build_batch and MGM's "
+        "build_mgm_batch; data/llava_next.py has only the synthetic anyres "
+        "batch)")
+
+
+def mgm_process_spec(cfg) -> dict:
+    """The ``get_batch_builder('mgm', ...)`` kwargs an MGM config needs: its
+    crop size, aux size and crop grid.  The JAX eval scripts call the
+    builder with the defaults, which fit the single-crop presets only."""
+    return {"crop_size": cfg.base.input_size,
+            "aux_size": cfg.aux.image_size, "image_grid": cfg.image_grid,
+            "image_global": cfg.image_global}
 
 
 def build_prompt(family: str, tokenizer, n_img: int,
@@ -185,22 +212,26 @@ def resolve_family_setup(family: str, preset: str, tokenizer,
 
 def get_loader(family: str):
     """The frozen-checkpoint loader of a family:
-    ``loader(checkpoint_dir, cfg, sam_checkpoint=None, device="cpu")``."""
+    ``loader(checkpoint_dir, cfg, sam_checkpoint=None, device="cpu")``;
+    MGM's also takes ``clip_checkpoint`` and ``aux_checkpoint``, the CLIP
+    tower's and the open_clip ConvNeXt's."""
     from flmm_tpu_torch.convert import load as load_mod
 
-    if family == "mgm":
-        raise NotImplementedError(
-            "the MGM loaders (convnext_params, mgm_frozen) are not ported: "
-            "ROADMAP queue 1 item 8")
     _family(family)  # raises by name
 
     def llava_next(checkpoint_dir, cfg, sam_checkpoint=None, device="cpu"):
         return load_mod.llava_frozen(checkpoint_dir, cfg, sam_checkpoint,
                                      next_variant=True, device=device)
 
+    def mgm(checkpoint_dir, cfg, sam_checkpoint=None, clip_checkpoint=None,
+            aux_checkpoint=None, device="cpu"):
+        return load_mod.mgm_frozen(checkpoint_dir, cfg, clip_checkpoint,
+                                   aux_checkpoint, sam_checkpoint,
+                                   device=device)
+
     return {"deepseek_vl": load_mod.deepseek_vl_frozen,
             "llava": load_mod.llava_frozen, "llava_next": llava_next,
-            "hpt": load_mod.hpt_frozen}[family]
+            "mgm": mgm, "hpt": load_mod.hpt_frozen}[family]
 
 
 def with_sam_size(cfg, img_size: int):
@@ -228,17 +259,20 @@ def with_sam_size(cfg, img_size: int):
 
 def get_coarse_hw(cfg) -> tuple:
     """Canonical coarse-mask frame of a family config: LLaVA-NeXT's fixed
-    square frame, else the U-Net's upsample rule over the attention grid of
-    a contiguous image block."""
+    square frame, the U-Net's upsample rule over MGM's ``(grid * 24)^2``
+    stitched map, else over the attention grid of a contiguous image
+    block."""
     if hasattr(cfg, "coarse_frame"):  # LlavaNextConfig
         return tuple(cfg.coarse_frame)
+    if hasattr(cfg, "map_hw"):  # MGMConfig
+        return output_hw(cfg.base.unet, cfg.map_hw)
     return output_hw(cfg.unet, (cfg.clip_shape, cfg.clip_shape))
 
 
 def plain_config(cfg):
     """The same model with every kernel gate off: the port's own unfused
     path, which every kernel path is compared with and timed against."""
-    if hasattr(cfg, "base"):  # LlavaNextConfig
+    if hasattr(cfg, "base"):  # LlavaNextConfig, MGMConfig
         return dataclasses.replace(cfg, base=plain_config(cfg.base))
     enc = dataclasses.replace(cfg.sam.encoder, flash_global=False,
                               flash_window=False, window_block_fused=False,

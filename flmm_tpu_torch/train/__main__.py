@@ -92,6 +92,10 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if args.family == "mgm":
+        raise SystemExit("flmm_tpu_torch.train: the synthetic stream of the "
+                         "mgm family (its crops and aux pixels) is not "
+                         "ported; ROADMAP queue 1 item 7")
     cfg = registry.get_config(args.family, args.preset)
     if args.sam_size:
         cfg = registry.with_sam_size(cfg, args.sam_size)

@@ -6,9 +6,13 @@ They are what the loaders of ``flmm_tpu_torch.convert`` (and of
 (``language_model.*`` HF Llama keys, ``vision_model.vision_tower.*`` timm
 SigLIP keys, ``aligner.layers.*``), llava-hf (``language_model.model.*``,
 ``vision_tower.vision_model.*``, ``multi_modal_projector.*``), HPT's
-``llm/``, ``visual_encoder/``, ``projector/`` folders, the official SAM
-``.pth`` (``image_encoder.*``, ``prompt_encoder.*``, ``mask_decoder.*``)
-and a released F-LMM trained checkpoint (``mask_head.*`` mmseg UNetHead,
+``llm/``, ``visual_encoder/``, ``projector/`` folders, MGM's main
+checkpoint (``model.*`` HF Llama / Gemma / Mixtral keys with
+``block_sparse_moe`` experts, ``model.mm_projector.*``,
+``model.vlm_uni_{query,aux,val}_projector.*``) and its open_clip ConvNeXt
+(``visual.trunk.*``), the official SAM ``.pth`` (``image_encoder.*``,
+``prompt_encoder.*``, ``mask_decoder.*``) and a released F-LMM trained
+checkpoint (``mask_head.*`` mmseg UNetHead,
 ``text_proj.*``, ``text_layer_weights``, ``sam.model.prompt_encoder.*``,
 ``sam.model.mask_decoder.*``).  Test fixtures, used by the CPU tests and by
 chip_smoke.py on the card; they import neither JAX nor PIL.
@@ -85,18 +89,29 @@ def _oihw(k: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def llama_state_dict(tree: dict, prefix: str = "model.",
                      head_key: str = "lm_head.weight", dtype=None) -> dict:
-    """Inverse of ``hf_weights.llama_decoder_params``."""
+    """Inverse of ``hf_weights.llama_decoder_params`` (Mixtral's
+    ``block_sparse_moe`` keys when the tree has a router)."""
     lay, sd = tree["layers"], {}
     names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
-             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
-             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
-             "w_down": "mlp.down_proj"}
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj"}
+    moe = "router" in lay
+    if not moe:
+        names.update({"w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+                      "w_down": "mlp.down_proj"})
     for i in range(lay["ln1"].shape[0]):
         p = f"{prefix}layers.{i}."
         sd[p + "input_layernorm.weight"] = _w(lay["ln1"][i], dtype)
         sd[p + "post_attention_layernorm.weight"] = _w(lay["ln2"][i], dtype)
         for key, name in names.items():
             sd[p + name + ".weight"] = _w(lay[key][i].T, dtype)
+        if moe:
+            m = p + "block_sparse_moe."
+            sd[m + "gate.weight"] = _w(lay["router"][i].T, dtype)
+            for key, name in (("w_gate", "w1"), ("w_up", "w3"),
+                              ("w_down", "w2")):
+                for e in range(lay[key].shape[1]):
+                    sd[m + f"experts.{e}.{name}.weight"] = _w(
+                        lay[key][i, e].T, dtype)
         for b in ("bq", "bk", "bv"):
             if b in lay:
                 sd[p + f"self_attn.{b[1]}_proj.bias"] = _w(lay[b][i], dtype)
@@ -224,6 +239,71 @@ def hpt_checkpoint(root, frozen: dict, siglip: bool, dtype=None):
         {"model_type": "siglip_vision_model" if siglip
          else "clip_vision_model"}))
     return root
+
+
+def convnext_state_dict(tree: dict, prefix: str = "visual.trunk.",
+                        dtype=None) -> dict:
+    """Inverse of ``load.convnext_params``: an open_clip ConvNeXt trunk."""
+    sd = {"stem.0.weight": _oihw(tree["stem_k"], dtype),
+          "stem.0.bias": _w(tree["stem_b"], dtype),
+          "stem.1.weight": _w(tree["stem_ln_w"], dtype),
+          "stem.1.bias": _w(tree["stem_ln_b"], dtype)}
+    for s_i, stage in enumerate(tree["stages"]):
+        if s_i > 0:
+            down = f"stages.{s_i}.downsample."
+            sd[down + "0.weight"] = _w(stage["down_ln_w"], dtype)
+            sd[down + "0.bias"] = _w(stage["down_ln_b"], dtype)
+            sd[down + "1.weight"] = _oihw(stage["down_k"], dtype)
+            sd[down + "1.bias"] = _w(stage["down_b"], dtype)
+        for b_i, bp in enumerate(stage["blocks"]):
+            blk = f"stages.{s_i}.blocks.{b_i}."
+            sd[blk + "conv_dw.weight"] = _oihw(bp["dw_k"], dtype)
+            for key, name in (("dw_b", "conv_dw.bias"),
+                              ("ln_w", "norm.weight"), ("ln_b", "norm.bias"),
+                              ("b1", "mlp.fc1.bias"), ("b2", "mlp.fc2.bias"),
+                              ("gamma", "gamma")):
+                sd[blk + name] = _w(bp[key], dtype)
+            sd[blk + "mlp.fc1.weight"] = _w(bp["w1"].T, dtype)
+            sd[blk + "mlp.fc2.weight"] = _w(bp["w2"].T, dtype)
+    return {prefix + k: t for k, t in sd.items()}
+
+
+def mgm_state_dict(frozen: dict, dtype=None) -> dict:
+    """MGM's main checkpoint of a frozen tree: the LLM under ``model.``
+    (``lm_head.weight`` at the top when the tree has one),
+    ``model.mm_projector`` as Sequential(Linear, GELU, Linear) and the
+    three ``model.vlm_uni_*_projector`` Sequential(LayerNorm, Linear)."""
+    sd = llama_state_dict(frozen["llm"], prefix="model.", dtype=dtype)
+    sd.update(linear_layers_state_dict(
+        frozen["projector"], "model.mm_projector.",
+        range(0, 2 * len(frozen["projector"]), 2), dtype))
+    for name in ("query", "aux", "val"):
+        p = frozen[f"uni_{name}"]
+        base = f"model.vlm_uni_{name}_projector."
+        sd[base + "0.weight"] = _w(p["ln_w"], dtype)
+        sd[base + "0.bias"] = _w(p["ln_b"], dtype)
+        sd[base + "1.weight"] = _w(p["w"].T, dtype)
+        sd[base + "1.bias"] = _w(p["b"], dtype)
+    return sd
+
+
+def mgm_checkpoints(root, frozen: dict, dtype=None) -> dict:
+    """MGM's three checkpoints under ``root``: the main one
+    (``mgm/pytorch_model.bin``), the CLIP tower's HF directory
+    (``clip/pytorch_model.bin``) and the open_clip ConvNeXt
+    (``convnext/open_clip_pytorch_model.bin``).  Returns their paths."""
+    root = pathlib.Path(root)
+    paths = {"checkpoint": root / "mgm", "clip": root / "clip",
+             "aux": root / "convnext"}
+    for p in paths.values():
+        p.mkdir(parents=True, exist_ok=True)
+    torch.save(mgm_state_dict(frozen, dtype),
+               paths["checkpoint"] / "pytorch_model.bin")
+    torch.save(hf_tower_state_dict(frozen["vision"], dtype=dtype),
+               paths["clip"] / "pytorch_model.bin")
+    torch.save(convnext_state_dict(frozen["aux_tower"], dtype=dtype),
+               paths["aux"] / "open_clip_pytorch_model.bin")
+    return paths
 
 
 def sam_encoder_state_dict(tree: dict, prefix: str = "image_encoder.",

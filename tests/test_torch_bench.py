@@ -69,7 +69,7 @@ def _flat(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("family", ["deepseek_vl", "llava", "hpt"])
+@pytest.mark.parametrize("family", ["deepseek_vl", "llava", "hpt", "mgm"])
 def test_tiny_build_gives_the_jax_batch_and_forward(family, monkeypatch):
     _set_env(monkeypatch, {"BENCH_FAMILY": family, **TINY_ENV})
     _, jparams, jbatch = jbench.build(2)
@@ -104,6 +104,7 @@ def test_tiny_build_gives_the_jax_batch_and_forward(family, monkeypatch):
     ("llava", 35, 672),         # 35 + 576 + 40 fits
     ("hpt", 128, 1280),         # 1024 image tokens: aligned, 1192 -> 1280
     ("llava_next", 128, 672),   # flash capture: aligned; the builder sizes S
+    ("mgm", 4, 672),            # single crop: eager; the builder sizes S
 ])
 def test_flagship_config_logic_mirrors_bench_py(family, img_start, seq_len):
     """bench.py:168-198 and :230-240 on the JAX registry, spelled out here
@@ -223,15 +224,23 @@ def test_every_global_kernel_name_runs_through_build():
 
 
 def test_mgm_and_the_int8_decoder_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mgm"):
-        bench.resolve_config(bench.Knobs(family="mgm"))
+    """The int8 decoder raises; the mgm family, ported since, resolves (its
+    flagship single-crop preset captures eagerly, the HD preset's 2880-token
+    image block moves to 128 and captures through K5)."""
+    cfg, preset, start = bench.resolve_config(bench.Knobs(family="mgm"))
+    assert (preset, start, cfg.base.img_start) == ("gemma_2b", 4, 4)
+    assert not cfg.base.llm.use_flash_capture
+    cfg, _, start = bench.resolve_config(bench.Knobs(
+        family="mgm", preset="vicuna_7b_hd"))
+    assert (start, cfg.base.img_start) == (35, 128)
+    assert cfg.base.llm.use_flash_capture and cfg.num_crops == 5
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bench.resolve_config(bench.Knobs(quant_llm=True))
     _set_env(monkeypatch, {"BENCH_QUANT_LLM": "1", **TINY_ENV})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bench.main(["--device", "cpu"])
-    _set_env(monkeypatch, {"BENCH_FAMILY": "mgm"})
-    with pytest.raises(NotImplementedError, match="not ported"):
+    _set_env(monkeypatch, {"BENCH_FAMILY": "nope"})
+    with pytest.raises(ValueError, match="BENCH_FAMILY 'nope'"):
         bench.main(["--device", "cpu"])
 
 

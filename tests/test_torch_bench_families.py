@@ -92,7 +92,8 @@ def test_run_one_on_the_cpu_returns_the_benchs_row_with_family_and_mode(
 
 
 @pytest.mark.parametrize("family, extra, words", [
-    ("mgm", {}, ("'mgm'", "not ported")),
+    # the mgm family runs since; its int8 decoder does not
+    ("mgm", dict(bf.INT8), ("BENCH_QUANT_LLM=1", "int8", "not ported")),
     ("llava", dict(bf.INT8), ("BENCH_QUANT_LLM=1", "int8", "not ported")),
 ])
 def test_what_is_not_ported_gives_an_error_row_that_says_so(
@@ -104,6 +105,19 @@ def test_what_is_not_ported_gives_an_error_row_that_says_so(
     assert len(row["error"]) <= 200
     for word in words:
         assert word in row["error"], row
+
+
+def test_mgm_gives_a_bf16_row_on_the_cpu(monkeypatch):
+    """The family the JAX script lists first after DeepSeek-VL runs its
+    bf16 point: ``synthetic_samples`` through the MGM batch builder, the
+    plain path on host clocks."""
+    _set_env(monkeypatch, TINY_ENV)
+    row = bf.run_one("mgm", "bf16", {}, 128, 300, "cpu")
+    assert "error" not in row, row
+    assert (row["family"], row["mode"], row["preset"], row["bs"],
+            row["sam_size"]) == ("mgm", "bf16", "tiny", 2, 128)
+    assert row["value"] > 0 and row["plain"]["value"] > 0
+    assert not any(row["launches"].values())
 
 
 def test_a_child_that_outlives_the_timeout_gives_a_timeout_row(monkeypatch):
@@ -158,12 +172,14 @@ def test_the_first_good_point_ends_a_family_and_out_is_merged(
 
 def test_a_ported_family_without_a_headline_fails_the_run_and_mgm_does_not(
         monkeypatch, tmp_path):
+    """Every family of ``PLAN`` is ported now, mgm too: a family whose
+    points all fail ends the run non-zero, after every row is written."""
     monkeypatch.setattr(bf, "run_one", lambda family, tag, *a: {
         "family": family, "mode": tag, "error": "no"})
     out = tmp_path / "rows.json"
-    results = bf.main(["--families", "mgm", "--out", str(out)])
-    assert [r["mode"] for r in results["rows"]] == ["bf16"]
-    with pytest.raises(SystemExit, match="hpt"):
+    with pytest.raises(SystemExit, match="'mgm'"):
+        bf.main(["--families", "mgm", "--out", str(out)])
+    with pytest.raises(SystemExit, match="'mgm', 'hpt'"):
         bf.main(["--families", "mgm,hpt", "--out", str(out)])
     rows = json.loads(out.read_text())["rows"]
     assert [(r["family"], r["mode"]) for r in rows] == [
@@ -179,7 +195,8 @@ def test_main_on_the_cpu_runs_children_and_stops_at_the_headline(
     assert results == json.loads(out.read_text())
     assert results["sam_size"] == 128
     mgm, llava = results["rows"]
-    assert "not ported" in mgm["error"] and mgm["mode"] == "bf16"
+    assert "error" not in mgm and (mgm["mode"], mgm["preset"]) == (
+        "bf16", "tiny")
     assert (llava["family"], llava["mode"], llava["preset"], llava["bs"]) == (
         "llava", "bf16", "tiny", 2)
     assert "error" not in llava

@@ -259,8 +259,14 @@ def test_hpt_frozen_matches_jax(tmp_path, siglip):
 
 
 def test_get_loader_refuses_mgm_and_unported_families():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        registry.get_loader("mgm")
+    """An unknown family raises by name; mgm, ported since, has its
+    three-checkpoint loader (tests/test_torch_mgm_io.py holds it to
+    JAX's)."""
+    import inspect
+
+    params = inspect.signature(registry.get_loader("mgm")).parameters
+    assert list(params) == ["checkpoint_dir", "cfg", "sam_checkpoint",
+                            "clip_checkpoint", "aux_checkpoint", "device"]
     with pytest.raises(NotImplementedError, match="not ported"):
         registry.get_loader("nope")
 

@@ -34,6 +34,7 @@ from flmm_tpu_torch import registry
 from flmm_tpu_torch.configs import deepseek_vl as tconfigs
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data import collate, processors
+from flmm_tpu_torch.data import mgm as mgm_data
 from flmm_tpu_torch.data.synthetic import synthetic_samples
 from flmm_tpu_torch.evalsuite import metrics, runner
 from flmm_tpu_torch.models.frozen import grounding
@@ -167,11 +168,17 @@ def test_build_batch_refuses_a_sample_whose_image_block_moved(samples):
 def test_get_batch_builder():
     assert registry.get_batch_builder("deepseek_vl") is collate.build_batch
     assert registry.get_batch_builder("hpt") is collate.build_batch
-    for family, kind in (("llava_next", "anyres"), ("mgm", "mgm")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{kind} batch builder of family "
-                                 f"'{family}' is not ported"):
-            registry.get_batch_builder(family)
+    with pytest.raises(NotImplementedError,
+                       match="anyres batch builder of family "
+                             "'llava_next' is not ported"):
+        registry.get_batch_builder("llava_next")
+    # the MGM builder binds its processing spec (defaults: the released
+    # single-crop configs'); tests/test_torch_mgm_io.py holds it to JAX's
+    build = registry.get_batch_builder("mgm", image_grid=2,
+                                       image_global=True)
+    assert build.func is mgm_data.build_mgm_batch
+    assert build.keywords["mgm"] == mgm_data.MGMProcessSpec(
+        crop_size=336, aux_size=768, image_grid=2, image_global=True)
     with pytest.raises(NotImplementedError, match="'nope' is not ported"):
         registry.get_batch_builder("nope")
     assert set(registry.FAMILY_SIZE_RULES) == set(registry.BATCH_BUILDERS)

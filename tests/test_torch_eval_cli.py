@@ -43,6 +43,7 @@ from flmm_tpu.evalsuite import runner as jrunner
 from flmm_tpu_torch import eval_png, eval_refcoco, registry
 from flmm_tpu_torch.configs import deepseek_vl as tds
 from flmm_tpu_torch.convert import load
+from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.evalsuite import cli
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.train.loop import tree_leaves
@@ -281,17 +282,20 @@ def test_eval_png_cli_matches_jax(world, jax_model, recorded):
     assert {"AA", "aAcc@0.5"} <= set(results)
 
 
-def test_cli_refusals(world):
+def test_cli_refusals(world, capsys):
+    """What is not ported raises by its ROADMAP item; MGM's tower flags
+    (the mgm family runs since: test_eval_clis_at_mgm_match_jax) are an
+    argument error for any other family."""
     base = _cli_args(world, world["png"])
     for flags, item in ((["--sharded-eval"], "item 11"),
-                        (["--int8-sam"], "item 10"),
-                        (["--clip-checkpoint", "clip.bin"], "item 8"),
-                        (["--aux-checkpoint", "convnext.bin"], "item 8")):
+                        (["--int8-sam"], "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             eval_png.main(base + flags, tokenizer=world["tokenizer"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eval_refcoco.main(base[:1] + ["mgm"] + base[2:],
-                          tokenizer=world["tokenizer"])
+    for flags in (["--clip-checkpoint", "clip.bin"],
+                  ["--aux-checkpoint", "convnext.bin"]):
+        with pytest.raises(SystemExit):
+            eval_refcoco.main(base + flags, tokenizer=world["tokenizer"])
+        assert "load MGM's towers" in capsys.readouterr().err
     no_tok = [a for a in base if a not in ("--tokenizer",
                                            world["tokenizer_dir"])]
     with pytest.raises(SystemExit):
@@ -327,3 +331,95 @@ def test_setup_draws_only_what_the_checkpoints_lack(world):
             assert got.keys() == want.keys()
             for k, v in want.items():
                 assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+# --- the mgm family ----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mgm_world(world, tmp_path_factory):
+    """MGM's three checkpoints at ``tiny_mgm`` (random frozen tree from the
+    port's seeded init) beside the world's SAM ``.pth`` and trained heads,
+    which fit the single-crop tiny preset (U-Net in_channels 3 x 4)."""
+    from tests import test_torch_mgm
+
+    cfg, _, _ = registry.resolve_family_setup("mgm", "tiny",
+                                              world["tokenizer"])
+    fro = from_jax(test_torch_mgm.seeded_params(cfg, 5)["frozen"])
+    fro.pop("sam_encoder")
+    paths = cw.mgm_checkpoints(tmp_path_factory.mktemp("mgm_cli"), fro)
+    return {k: str(v) for k, v in paths.items()}
+
+
+def _mgm_args(world, mgm_world, root):
+    args = _cli_args(world, root, ["--clip-checkpoint", mgm_world["clip"],
+                                   "--aux-checkpoint", mgm_world["aux"]])
+    args[1], args[3] = "mgm", "tiny"
+    args[5] = mgm_world["checkpoint"]
+    return args
+
+
+@pytest.fixture(scope="module")
+def mgm_jax_model(world, mgm_world):
+    """The JAX scripts' MGM setup (flmm_tpu/registry.get_loader('mgm') with
+    the CLIP and ConvNeXt checkpoints), its batch builder bound to the
+    config's crop grid and sizes as the port's CLI binds it."""
+    t = world["tokenizer"]
+    cfg, rp, spec_kwargs = jregistry.resolve_family_setup("mgm", "tiny", t)
+    params = {
+        "frozen": jax.tree.map(jnp.asarray, jregistry.get_loader("mgm")(
+            mgm_world["checkpoint"], cfg, world["sam"],
+            clip_checkpoint=mgm_world["clip"],
+            aux_checkpoint=mgm_world["aux"])),
+        "trainable": jax.tree.map(jnp.asarray, jload.reference_trained(
+            world["trained"], cfg))}
+    model = jregistry.get_model("mgm")
+    forward = jax.jit(lambda b: model.forward(params, cfg, b)["sam_logits"])
+    spec = JBatchSpec(seq_len=SEQ, max_masks=MASKS,
+                      coarse_hw=jregistry.get_coarse_hw(cfg), **spec_kwargs)
+    return {"rp": rp, "forward": forward, "spec": spec,
+            "build": jregistry.get_batch_builder(
+                "mgm", **registry.mgm_process_spec(cfg))}
+
+
+def test_eval_clis_at_mgm_match_jax(world, mgm_world, mgm_jax_model,
+                                    recorded):
+    """``eval_png`` and ``eval_refcoco`` at ``--family mgm --preset tiny``
+    with ``--clip-checkpoint`` / ``--aux-checkpoint``: the MGM batches
+    (crops, aux pixels) bit for bit, the logits within 1e-3, the scores
+    from the same logits exactly."""
+    t, root = world["tokenizer"], world["png"]
+    results = eval_png.main(_mgm_args(world, mgm_world, root), tokenizer=t)
+    ds = JPNGDataset(
+        json_file=f"{root}/annotations/png_coco_val2017.json",
+        panoptic_json_file=f"{root}/annotations/panoptic_val2017.json",
+        panoptic_png_path=f"{root}/annotations/panoptic_val2017",
+        image_path=f"{root}/val2017", tokenizer=t,
+        prompt_spec=mgm_jax_model["rp"])
+    samples = [ds[i] for i in range(min(len(ds), 100))]
+    logits = _check_batches(recorded, mgm_jax_model, len(samples))
+    want, jbatches = _replay(mgm_jax_model, samples, jmetrics.PNGAccumulator,
+                             jrunner.png_score, logits)
+    _assert_batches_equal([b for b, _ in recorded], jbatches)
+    assert recorded[0][0]["pixel_values"].shape[1:] == (1, 32, 32, 3)
+    assert "aux_pixel_values" in recorded[0][0]
+    assert results == want and results["n"] > 0
+
+    recorded.clear()
+    root = world["refcoco"]
+    results = eval_refcoco.main(_mgm_args(world, mgm_world, root),
+                                tokenizer=t)
+    name, split_file, split = eval_refcoco.SPLITS[0]
+    ds = JRefCocoDataset(ann_file=f"{root}/{name}/instances.json",
+                         split_file=f"{root}/{name}/{split_file}",
+                         image_path=f"{root}/train2014", split=split)
+    samples = [s for i in range(min(len(ds), 100)) for s in
+               jrefcoco_to_sample(ds[i], t, mgm_jax_model["rp"],
+                                  concat=False)]
+    seen = recorded[:-(-len(samples) // BS)]
+    logits = _check_batches(seen, mgm_jax_model, len(samples))
+    want, jbatches = _replay(mgm_jax_model, samples,
+                             jmetrics.RefSegAccumulator,
+                             jrunner.refcoco_score, logits)
+    _assert_batches_equal([b for b, _ in seen], jbatches)
+    assert results[f"{name}/{split}"] == want
+    assert len(results) == len(eval_refcoco.SPLITS)

@@ -45,14 +45,16 @@ IMG_START, N_IMG = 2, 5
 BASE = dict(vocab_size=64, hidden_size=32, num_layers=3, num_heads=4,
             num_kv_heads=4, head_dim=8, intermediate_size=64)
 # decoder variants: multi-head, GQA (the tiny DeepSeek preset's 4 / 2),
-# GQA 4 / 1 with q / k / v biases, and Gemma's embedding scale, (1 + w)
-# norms, tanh-GELU and tied embeddings
+# GQA 4 / 1 with q / k / v biases, Gemma's embedding scale, (1 + w)
+# norms, tanh-GELU and tied embeddings, and Mixtral's MoE MLP (4 experts,
+# the top 2 a token; tests/test_decode.py pins its decode in JAX)
 VARIANTS = {
     "mha": {},
     "gqa": dict(num_kv_heads=2),
     "gqa_bias": dict(num_kv_heads=1, attn_bias=True),
     "gemma": dict(num_kv_heads=1, act="gelu_tanh", embed_scale=True,
                   gemma_norm=True, tie_embeddings=True),
+    "moe": dict(num_kv_heads=2, num_experts=4, num_experts_per_tok=2),
 }
 
 
@@ -184,7 +186,7 @@ def test_prefill_and_decode_match_jax_bf16(variant, masked):
     _close_bf16(tout["hidden"][:n], np.asarray(jout["hidden"])[:n])
 
 
-@pytest.mark.parametrize("variant", ["gqa", "gemma"])
+@pytest.mark.parametrize("variant", ["gqa", "gemma", "moe"])
 def test_stop_token_validity_matches_jax(variant):
     """The stop token itself is valid and every later step is not; on the
     valid prefix the port gives JAX's tokens, captures and hidden states."""
@@ -209,7 +211,18 @@ def test_decode_matches_full_forward(masked):
     """Each decoded token is the argmax of the port's full forward over the
     grown sequence, and the captured rows are that forward's raw
     attention rows."""
-    _, cfg, _, params = _setup("gqa")
+    _decode_vs_full_forward("gqa", masked)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked_pad"])
+def test_moe_decode_matches_full_forward(masked):
+    """The same with Mixtral's MoE MLP, which the decode step reaches
+    through ``mlp_residual`` (tests/test_decode.py pins it in JAX)."""
+    _decode_vs_full_forward("moe", masked)
+
+
+def _decode_vs_full_forward(variant: str, masked: bool) -> None:
+    _, cfg, _, params = _setup(variant)
     rng = np.random.default_rng(3)
     S, T = 12, 5
     prompt = rng.integers(0, BASE["vocab_size"], (S,)).tolist()

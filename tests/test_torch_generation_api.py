@@ -15,6 +15,7 @@ package hands them to ``sam_logits_to_masks``.
 """
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import jax
@@ -336,8 +337,26 @@ def test_make_grounder_drops_unsupported_kwargs():
 
 
 def test_make_grounder_refuses_mgm():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        api.make_grounder("mgm", tds.tiny(), {}, DecodingFakeTokenizer())
+    """Ported since: ``make_grounder('mgm')`` gives an ``MGMGrounder`` over
+    the config's base with Gemma's template, as JAX's does
+    (tests/test_torch_mgm_io.py runs it against JAX's)."""
+    from flmm_tpu.configs import mgm as jmgm_configs
+    from flmm_tpu_torch.configs import mgm as tmgm_configs
+
+    tokenizer = DecodingFakeTokenizer()
+    got = api.make_grounder("mgm", tmgm_configs.tiny_mgm(hd=True), {},
+                            tokenizer, device="cpu", max_new_tokens=3)
+    want = japi.make_grounder("mgm", jmgm_configs.tiny_mgm(hd=True), {},
+                              tokenizer, max_new_tokens=3)
+    assert type(got) is api.MGMGrounder
+    assert type(want).__name__ == "MGMGrounder"
+    assert got.prompt_template == want.prompt_template == \
+        tok.TEMPLATES["gemma"]
+    assert (got.image_token, got.image_token_id, got.stop_ids) == (
+        want.image_token, want.image_token_id, want.stop_ids)
+    assert got.cfg is got.mgm_cfg.base and got.mgm_cfg.num_crops == 5
+    assert dataclasses.astuple(got.spec) == dataclasses.astuple(
+        want._mgm_spec())
 
 
 def test_mask2box_scaled_matches_jax_and_pil_crop():

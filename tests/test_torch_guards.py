@@ -70,7 +70,9 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "            'data.png', 'data.panoptic', 'data.loader',\n"
         "            'convert.hf_weights', 'convert.sam_weights',\n"
         "            'convert.load', 'evalsuite.cli', 'eval_refcoco',\n"
-        "            'eval_png', 'models.vision.sam_tower'):\n"
+        "            'eval_png', 'models.vision.sam_tower',\n"
+        "            'configs.mgm', 'models.vision.convnext',\n"
+        "            'models.frozen.mgm', 'data.mgm', 'data.video'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)

@@ -149,9 +149,13 @@ def test_registry_families():
     hybrid = registry.get_config("deepseek_vl", "7b")
     assert hybrid.hybrid_high.encoder.embed_dim == 768
     assert hybrid.llm.num_layers == 30 and not hybrid.llm.use_flash_capture
-    for family, preset in (("mgm", "tiny"), ("hpt", "pro")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            registry.get_config(family, preset)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        registry.get_config("hpt", "pro")
+    # mgm is ported since: its tiny preset and model module
+    mgm = registry.get_config("mgm", "tiny")
+    assert mgm.aux.out_channels == 120 and mgm.base.llm.gemma_norm
+    assert registry.get_model("mgm").forward.__module__ == \
+        "flmm_tpu_torch.models.frozen.mgm"
 
 
 @pytest.fixture(scope="module")
