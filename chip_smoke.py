@@ -245,6 +245,29 @@ Phases; any failure raises and the script exits non-zero:
     restore_trainable bit for bit; eval_refcoco --family mgm --preset
     gemma_2b --debug and eval_png --family mgm over tests/data with phase
     25's gates (20/4/27/27 a forward).
+33. training on real files: a train layout of tests/data in a temporary
+    directory (tests/train_fixtures.py: RefCOCO/+/g refs rewritten to the
+    train split, the PNG val files as train2017, the narratives listed 4
+    times: 79 samples), and the trainer CLI (python -m
+    flmm_tpu_torch.train) in process over its PNG + RefCOCO/+/g stream
+    with a word-level stand-in tokenizer, 1 warm-up and 3 timed steps a
+    run: (a) DeepSeek-VL-1.3B at SAM-1024, bs 8, S = 704, from phase 25's
+    checkpoints (--checkpoint, --sam-checkpoint; K1/K2/K3/K4 20/4/28/28 a
+    step), 11 steps (8 timed inside epoch 0 and 1 inside epoch 1, step 10,
+    the first of epoch 1, timed apart), the whole run under the
+    deterministic switch of phases 8-10; (b) LLaVA-NeXT-Vicuna-7B, bs 2,
+    S = 3200, the image block at 128 (K5 32 a step); (c) MGM-Gemma-2B, bs
+    4 (20/4/27/27/0); (d) HPT-Air-1.5 on the synthetic stream, bs 4, with
+    phase 11's kernel switches, which the trainer CLI has no flag for, set
+    through a wrapped registry.get_config (K1 20, K7 / K8 / K10 26 / 4 /
+    4; the preset as the CLI gives it has both switches off); each with the exact launches a step, finite losses,
+    every trainable subtree changed, the frozen tree's per-leaf checksums
+    unchanged and the checkpoint the trainer wrote restored bit for bit;
+    (a) also its frozen tree bit for bit the loaders' and its trainable SAM
+    the checkpoint's at the first step, and one step's loss (1%) and
+    gradients (corr >= 0.99 per trainable subtree) against the all-plain
+    step's on the last batch; (e) run (a) with --profile 2, whose trace
+    names the kernels; s/step, img/s, data-wait ms a step and peak memory.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -277,6 +300,7 @@ from flmm_tpu_torch import bench_families, eval_png, eval_refcoco, \
     kernel_bench, registry, schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.configs import mgm as mgm_configs
+from flmm_tpu_torch.convert import load as load_mod
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data import collate, image_io
 from flmm_tpu_torch.data import mgm as mgm_data
@@ -305,6 +329,7 @@ from flmm_tpu_torch.train import __main__ as trainer_cli
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
 from tests import checkpoint_writers
+from tests.train_fixtures import joint_samples, make_train_root
 
 BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
 # LLaVA-NeXT requests: bs 2, the vicuna template's 35 prompt tokens padded
@@ -439,6 +464,16 @@ EXPECTED_LAUNCHES.update({
     "mgm_gemma_2b": _MGM,
     "mgm_vicuna_7b_hd": {**_MGM, "flash_attention_with_merged_capture": 32},
     "mgm_mixtral_8x7b_4_layers": _MGM,
+    # training on real files (phase 33), a step: the frozen forward's
+    # launches (the stack takes no gradient); HPT-Air-1.5 with phase 11's
+    # switches but the preset's image block at 10 (the eager capture)
+    "deepseek_vl_1_3b_train_real": EXPECTED_LAUNCHES["deepseek_vl_1_3b"],
+    "llava_next_vicuna_7b_train_real":
+        EXPECTED_LAUNCHES["llava_next_vicuna_7b"],
+    "mgm_gemma_2b_train_real": _MGM,
+    "hpt_air_1_5_train_synthetic": {
+        "window_block": 20, "plain_flash_attention": 26,
+        "fused_ln_mlp": 4, "global_attn_block": 4},
 })
 WRAPPERS = e2e_bench.WRAPPERS  # every counted wrapper, by name
 for _counts in EXPECTED_LAUNCHES.values():  # kernels not named: 0
@@ -534,6 +569,18 @@ MGM_GEN_LAUNCHES = {
     "ground": _SAM_BS1,
     "visual_cot_v1": {**_SAM_BS1, "fused_ln_qkv": 50,
                       "fused_proj_ln_mlp": 50}}
+# training on real files (phase 33): the trainer CLI over the train layout
+# of tests/data with its PNG narratives listed 4 times (79 samples, 9 bs-8
+# batches an epoch), 1 warm-up and 3 timed steps a run; run (a) takes 11
+# steps, so that its step 10, the first of epoch 1, is timed apart from the
+# 9 after the warm-up inside an epoch; (e) is run (a) again with --profile
+# 2, whose trace must name each kernel of the path by its __global__
+# function: K1 / K3 / K4's GEMM core and row pass, K1 / K2's rel-pos
+# attention core
+TRAIN_REAL_STEPS, TRAIN_REAL_PROFILE = 4, 2
+TRAIN_REAL_A_STEPS, TRAIN_REAL_PNG_REPEAT = 11, 4
+TRAIN_REAL_TRACE_KERNELS = ("gemm_kernel", "ln_rows_kernel",
+                            "relpos_sm90_kernel")
 
 
 def family_launches(global_kernel: str) -> dict:
@@ -812,15 +859,20 @@ def _sdpa(q, k, v, mask=None):
         q, k, v, attn_mask=mask)
 
 
-def hpt_config():
-    """HPT-Air-1.5 with the image block at 128 and the two kernel switches a
-    user sets on top of the preset: the tower's flash attention (K7) and the
-    whole-block global SAM layer (K10 + K8)."""
-    cfg = registry.get_config("hpt", "air_1_5", img_start=HPT_IMG_START)
+def hpt_switches(cfg):
+    """The two kernel switches a user sets on top of an HPT preset: the
+    tower's flash attention (K7) and the whole-block global SAM layer (K10
+    + K8)."""
     return dataclasses.replace(
         cfg, vision=dataclasses.replace(cfg.vision, flash=True),
         sam=dataclasses.replace(cfg.sam, encoder=dataclasses.replace(
             cfg.sam.encoder, global_block_fused=True)))
+
+
+def hpt_config():
+    """HPT-Air-1.5 with the image block at 128 and :func:`hpt_switches`."""
+    return hpt_switches(registry.get_config("hpt", "air_1_5",
+                                            img_start=HPT_IMG_START))
 
 
 def hpt_batches(cfg, n: int, device=None) -> list:
@@ -2079,6 +2131,18 @@ def run_train(g: torch.Generator) -> dict:
     return result
 
 
+def restored_equal(state: dict, opt, work) -> None:
+    """The newest checkpoint under ``work``, restored into a zero state,
+    equals ``state`` leaf for leaf, bit for bit."""
+    template = train_loop.init_state(_zeros_like(state["params"]), opt)
+    restored = ckpt.restore(ckpt.latest(work), template)
+    for (p, a), (_, b) in zip(train_loop.tree_leaves(state),
+                              train_loop.tree_leaves(restored)):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        if not same:
+            raise AssertionError(f"checkpoint round trip changed {p}")
+
+
 def train_phase(path, cfg, opt, state, frozen, batches) -> dict:
     """Phase 8: a warm-up and the timed steps with their launch counts,
     every trainable subtree changed, the frozen tree untouched, and a
@@ -2116,17 +2180,38 @@ def train_phase(path, cfg, opt, state, frozen, batches) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpt.save(pathlib.Path(tmp) / f"step_{state['step']}", state)
-        template = train_loop.init_state(_zeros_like(state["params"]), opt)
-        restored = ckpt.restore(ckpt.latest(tmp), template)
-    for (p, a), (_, b) in zip(train_loop.tree_leaves(state),
-                              train_loop.tree_leaves(restored)):
-        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-        if not same:
-            raise AssertionError(f"checkpoint round trip changed {p}")
+        restored_equal(state, opt, tmp)
     log(f"phase 8 train {path}: checkpoint save / restore round trip of "
         f"step {state['step']} holds")
     return {"ms": ms, "launches": launches, "peak_gb": peak_gb,
             "bs": TRAIN_BS, "n": TRAIN_STEPS, "unit": "step"}
+
+
+def step_against_plain(phase: int, path: str, loss_fn, cfg, trainable,
+                       frozen, batch) -> None:
+    """One step's loss (within ``STEP_LOSS_REL``) and the gradient of each
+    trainable subtree (corr >= ``STEP_GRAD_CORR``) on the kernel path
+    against the all-plain path, from the same state and batch."""
+    plain = registry.plain_config(cfg)
+    (loss_k, _), grads_k = train_loop.value_and_grad(
+        lambda p, b: loss_fn(p, cfg, b), frozen, trainable, batch)
+    (loss_p, _), grads_p = train_loop.value_and_grad(
+        lambda p, b: loss_fn(p, plain, b), frozen, trainable, batch)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(f"phase {phase} {path}: kernel vs plain step loss {float(loss_k):.6f}"
+        f" vs {float(loss_p):.6f}, rel diff {rel:.3e} (bound "
+        f"{STEP_LOSS_REL})")
+    if rel > STEP_LOSS_REL:
+        raise AssertionError("the kernel step's loss disagrees with the "
+                             "plain step's")
+    for sub in SUBTREES:
+        _, corr = agreement(_flat_grads(grads_k, sub),
+                            _flat_grads(grads_p, sub))
+        log(f"phase {phase} {path}: gradient of {sub}: corr {corr:.6f} "
+            f"(bound {STEP_GRAD_CORR})")
+        if corr < STEP_GRAD_CORR:
+            raise AssertionError(f"the kernel step's gradient of {sub} "
+                                 "disagrees with the plain step's")
 
 
 def compare_train_phase(path, cfg, opt, state, frozen, batches) -> dict:
@@ -2136,29 +2221,9 @@ def compare_train_phase(path, cfg, opt, state, frozen, batches) -> dict:
     where coarse logits sit near 0 (the mask downscaler's LayerNorm over 4
     channels of a locally flat dense prompt), so it is compared at the
     state the timed steps leave, not after the repeated-batch phase."""
+    step_against_plain(9, path, grounding.loss_fn, cfg, state["params"],
+                       frozen, batches[1])
     plain = registry.plain_config(cfg)
-    batch = batches[1]
-    (loss_k, _), grads_k = train_loop.value_and_grad(
-        lambda p, b: grounding.loss_fn(p, cfg, b), frozen, state["params"],
-        batch)
-    (loss_p, _), grads_p = train_loop.value_and_grad(
-        lambda p, b: grounding.loss_fn(p, plain, b), frozen, state["params"],
-        batch)
-    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    log(f"phase 9 {path}: kernel vs plain step loss {float(loss_k):.6f} vs "
-        f"{float(loss_p):.6f}, rel diff {rel:.3e} (bound {STEP_LOSS_REL})")
-    if rel > STEP_LOSS_REL:
-        raise AssertionError("the kernel step's loss disagrees with the "
-                             "plain step's")
-    for sub in SUBTREES:
-        _, corr = agreement(_flat_grads(grads_k, sub),
-                            _flat_grads(grads_p, sub))
-        log(f"phase 9 {path}: gradient of {sub}: corr {corr:.6f} (bound "
-            f"{STEP_GRAD_CORR})")
-        if corr < STEP_GRAD_CORR:
-            raise AssertionError(f"the kernel step's gradient of {sub} "
-                                 "disagrees with the plain step's")
-    del grads_k, grads_p
     plain_step = train_loop.make_train_step(
         lambda p, b: grounding.loss_fn(p, plain, b), opt)
     _run_steps(plain_step, state, frozen, batches[:1])
@@ -2839,6 +2904,7 @@ class WordTokenizer:
 
     BOS = 100000
     SPECIAL = {"<｜end▁of▁sentence｜>": 100001, "<image_placeholder>": 100015}
+    VOCAB = 100000  # a word's id is below this unless it is a special word
 
     def encode(self, text: str, add_special_tokens: bool = False) -> list:
         ids = [self.BOS] if add_special_tokens else []
@@ -2849,7 +2915,8 @@ class WordTokenizer:
             elif w in GEN_WORDS:
                 ids.append(1000 + GEN_WORDS.index(w))
             else:
-                ids.append(1000 + zlib.crc32(w.encode()) % 99000)
+                ids.append(1000 + zlib.crc32(w.encode())
+                           % (self.VOCAB - 1000))
         return ids
 
     def decode(self, ids) -> str:
@@ -3262,6 +3329,12 @@ def write_world(root: pathlib.Path, card: str) -> dict:
     del sd
     sd = checkpoint_writers.sam_encoder_state_dict(sam, dtype=torch.float32)
     n_sam = sum(t.numel() for t in sd.values())
+    # the official file also holds the prompt encoder and mask decoder, the
+    # trainer's start for them (phase 33)
+    sd.update(checkpoint_writers.prompt_encoder_state_dict(
+        params["trainable"]["sam"]["prompt"]))
+    sd.update(checkpoint_writers.mask_decoder_state_dict(
+        params["trainable"]["sam"]["decoder"]))
     torch.save(sd, paths["sam"])
     del sd
     torch.save({"state_dict": checkpoint_writers.released_trained_state_dict(
@@ -3271,7 +3344,8 @@ def write_world(root: pathlib.Path, card: str) -> dict:
              for k, p in paths.items()}
     log(f"phase 25 files ({card}): wrote DeepSeek-VL-1.3B ({n_params / 1e9:.3f}"
         f" G parameters, 2 bf16 safetensors shards, {written / 1e9:.3f} GB), "
-        f"SAM ViT-L ({n_sam / 1e9:.3f} G parameters, f32 .pth, "
+        f"SAM ViT-L ({n_sam / 1e9:.3f} G encoder parameters and the prompt "
+        "encoder and mask decoder, f32 .pth, "
         f"{sizes['sam'] / 1e9:.3f} GB) and the trained heads "
         f"({sizes['trained'] / 1e6:.1f} MB) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3445,26 +3519,26 @@ def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
     return stats, total
 
 
-def run_files(card: str) -> dict:
-    """Phase 25: files in, scores out.  The checkpoints written and loaded
-    back bit for bit, the fixture images decoded to PIL's pixels, then
-    ``eval_refcoco`` (8 splits, ``--debug``) and ``eval_png`` at their
-    defaults on the card through the kernels, against the all-plain forward
-    on the same batches, and their own chain fed the ground truth."""
+def run_files(card: str, root: pathlib.Path) -> dict:
+    """Phase 25: files in, scores out.  The checkpoints written under
+    ``root`` and loaded back bit for bit, the fixture images decoded to
+    PIL's pixels, then ``eval_refcoco`` (8 splits, ``--debug``) and
+    ``eval_png`` at their defaults on the card through the kernels, against
+    the all-plain forward on the same batches, and their own chain fed the
+    ground truth.  The checkpoints' ``paths`` are returned for phase 33."""
     manifest = json.loads((FIXTURE / "manifest.json").read_text())
     stats = {"decode": check_decodes(manifest, card)}
-    with tempfile.TemporaryDirectory() as tmp:
-        world = write_world(pathlib.Path(tmp), card)
-        stats["load"] = check_loads(world, card)
-        del world["frozen"], world["trainable"]
-        torch.cuda.empty_cache()
-        paths = world["paths"]
-        common = ["--checkpoint", str(paths["checkpoint"]),
-                  "--sam-checkpoint", str(paths["sam"]),
-                  "--trained", str(paths["trained"])]
-        cli_stats, total = run_eval_clis(25, common, card, manifest)
-        stats.update(cli_stats)
-    return {"launches": total, "stats": stats}
+    world = write_world(root, card)
+    stats["load"] = check_loads(world, card)
+    del world["frozen"], world["trainable"]
+    torch.cuda.empty_cache()
+    paths = world["paths"]
+    common = ["--checkpoint", str(paths["checkpoint"]),
+              "--sam-checkpoint", str(paths["sam"]),
+              "--trained", str(paths["trained"])]
+    cli_stats, total = run_eval_clis(25, common, card, manifest)
+    stats.update(cli_stats)
+    return {"launches": total, "stats": stats, "paths": paths}
 
 
 def stage_split(params: dict, cfg, batch: dict) -> dict:
@@ -3592,7 +3666,7 @@ def _leaf_checksums(tree: dict) -> dict:
     (no int64 copy of a whole 7B leaf): one changed bit of a leaf changes
     its sum."""
     ints = {2: torch.int16, 4: torch.int32}
-    leaves = train_loop.tree_leaves(tree)
+    leaves = list(train_loop.tree_leaves(tree))
     sums = torch.stack([sum(
         c.sum(dtype=torch.int64) for c in t.contiguous().view(
             ints[t.element_size()]).flatten().split(1 << 24))
@@ -4106,6 +4180,222 @@ def run_mgm(card: str) -> dict:
     return {"paths": paths, "moe": moe, "gen": gen, "files": files}
 
 
+class LlamaWordTokenizer(WordTokenizer):
+    """The word-level stand-in inside Vicuna's 32000-word vocabulary: BOS 1,
+    ``</s>`` 2, any other word 1000 up."""
+
+    BOS = 1
+    SPECIAL = {"</s>": 2}
+    VOCAB = 32000
+
+
+def trainer_run(argv: list, tokenizer, work: pathlib.Path,
+                config_wrapper=None, steps: int = TRAIN_REAL_STEPS) -> dict:
+    """``python -m flmm_tpu_torch.train`` in process (``argv`` plus the work
+    directory and ``steps`` steps, each logged), its output on
+    stderr, every launch count at 0 just before and read just after.
+    Recorded: its config and model, the trainable tree before the first
+    step, the frozen tree (and its per-leaf checksums before the first
+    step), the optimizer, the last batch and state, the log rows, peak
+    memory.  ``config_wrapper(get_config)`` stands in for the registry's
+    ``get_config``."""
+    run = {}
+
+    def recording_setup(setup):
+        def wrapped(*args, **kwargs):
+            out = setup(*args, **kwargs)
+            run.update(cfg=out["cfg"], model=out["model"])
+            return out
+        return wrapped
+
+    def recording_step(make):
+        def factory(loss_fn, opt):
+            step = make(loss_fn, opt)
+
+            def recorded(state, frozen, batch):
+                if "before" not in run:
+                    run["before"] = _clone_tree(state["params"])
+                    run["frozen_sums"] = _leaf_checksums(frozen)
+                run.update(opt=opt, frozen=frozen, batch=batch)
+                state, metrics = step(state, frozen, batch)
+                run["state"] = state
+                return state, metrics
+            return recorded
+        return factory
+
+    out = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_wrapped(trainer_cli, "setup", recording_setup))
+        stack.enter_context(_wrapped(train_loop, "make_train_step",
+                                     recording_step))
+        if config_wrapper is not None:
+            stack.enter_context(_wrapped(registry, "get_config",
+                                         config_wrapper))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer_cli.main([*argv, "--work-dir", str(work), "--steps",
+                          str(steps), "--log-interval", "1"],
+                         tokenizer=tokenizer)
+        run["wall_s"] = time.perf_counter() - t0
+    sys.stderr.write(out.getvalue())
+    run["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["rows"] = [json.loads(line) for line in out.getvalue().splitlines()
+                   if line.startswith("{")]
+    return run
+
+
+def check_trainer_run(path: str, run: dict, bs: int, work, card: str,
+                      steps: int = TRAIN_REAL_STEPS,
+                      per_epoch: int | None = None) -> dict:
+    """Phase 33's gates on one trainer run of ``steps`` steps: every step
+    logged with a finite loss, the exact launches a step, every trainable
+    subtree changed, the frozen tree's per-leaf checksums unchanged and none
+    of its leaves needing grad, the checkpoint the trainer wrote restored
+    bit for bit; then s/step, img/s and data-wait ms a step over the steps
+    after the warm-up inside an epoch, and apart from them each step that
+    starts an epoch of ``per_epoch`` batches (its stream builds a new
+    loader, nothing queued)."""
+    rows = run["rows"]
+    log(f"phase 33 train {path}: " + "; ".join(
+        f"step {r['step']} loss {r['loss']:.4f} grad_norm "
+        f"{r['grad_norm']:.4f} {r['sec_per_step']:.3f} s data wait "
+        f"{r['data_wait_ms']:.1f} ms" for r in rows))
+    if [r["step"] for r in rows] != list(range(1, steps + 1)) \
+            or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"{path}: a step is missing or its loss is not "
+                             "finite")
+    want = {k: n * steps for k, n in EXPECTED_LAUNCHES[path].items()}
+    log(f"phase 33 train {path}: launches {run['launches']} (expected "
+        f"{want}, {steps} steps)")
+    if run["launches"] != want:
+        raise AssertionError(f"{path}: kernel launch counts differ from the "
+                             "main path")
+    after = _clone_tree(run["state"]["params"])
+    for sub in SUBTREES:
+        if all(torch.equal(t, run["before"][p]) for p, t in after.items()
+               if p == sub or p.startswith(sub + "/")):
+            raise AssertionError(f"{path}: trainable subtree {sub} did not "
+                                 "change")
+    if _leaf_checksums(run["frozen"]) != run["frozen_sums"] or any(
+            t.requires_grad for _, t in train_loop.tree_leaves(run["frozen"])):
+        raise AssertionError(f"{path}: the steps changed the frozen tree")
+    restored_equal(run["state"], run["opt"], work)
+    log(f"phase 33 train {path}: every trainable subtree {SUBTREES} changed, "
+        f"the frozen tree's {len(run['frozen_sums'])} per-leaf checksums "
+        f"unchanged, the trainer's step_{steps} checkpoint restored bit for "
+        "bit")
+    starts = [r for r in rows[1:]
+              if per_epoch and (r["step"] - 1) % per_epoch == 0]
+    timed = [r for r in rows[1:] if r not in starts]
+    s_step = sum(r["sec_per_step"] for r in timed) / len(timed)
+    wait_ms = sum(r["data_wait_ms"] for r in timed) / len(timed)
+    stats = {"s_per_step": s_step, "img_per_s": bs / s_step,
+             "data_wait_ms": wait_ms, "peak_gb": run["peak_gb"],
+             "wall_s": run["wall_s"], "launches": run["launches"],
+             "epoch_starts": [{k: r[k] for k in ("step", "sec_per_step",
+                                                 "data_wait_ms")}
+                              for r in starts]}
+    log(f"phase 33 timing train {path} ({card}): {s_step:.3f} s/step, "
+        f"{bs / s_step:.2f} img/s, data wait {wait_ms:.1f} ms a step (mean "
+        f"of {len(timed)} steps after one warm-up"
+        f"{', those that start an epoch apart' if per_epoch else ''}, the "
+        f"trainer's own timer), peak {run['peak_gb']:.2f} GB, "
+        f"{run['wall_s']:.1f} s for the CLI in all (bs {bs})" + "".join(
+            f"; step {r['step']}, the first of epoch "
+            f"{(r['step'] - 1) // per_epoch}: {r['sec_per_step']:.3f} s, "
+            f"data wait {r['data_wait_ms']:.1f} ms" for r in starts))
+    return stats
+
+
+def run_train_real(card: str, paths: dict) -> dict:
+    """Phase 33: the trainer on real files, runs (a) to (e)."""
+    stats, total = {}, dict.fromkeys(WRAPPERS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        data = ["--data-root", str(make_train_root(
+            tmp / "coco", png_repeat=TRAIN_REAL_PNG_REPEAT))]
+        samples = joint_samples(TRAIN_REAL_PNG_REPEAT)
+        deepseek = ["--family", "deepseek_vl", "--preset", "1_3b",
+                    "--batch-size", "8", "--seq-len", "704",
+                    "--checkpoint", str(paths["checkpoint"]),
+                    "--sam-checkpoint", str(paths["sam"]), *data]
+        # (a) from phase 25's checkpoints, under phases 8-10's switch
+        path = "deepseek_vl_1_3b_train_real"
+        torch.use_deterministic_algorithms(True)
+        try:
+            run = trainer_run(deepseek, WordTokenizer(), tmp / "a",
+                              steps=TRAIN_REAL_A_STEPS)
+            stats[path] = check_trainer_run(
+                path, run, 8, tmp / "a", card, steps=TRAIN_REAL_A_STEPS,
+                per_epoch=samples // 8)
+            cfg = run["cfg"]
+            ref = registry.get_loader("deepseek_vl")(
+                str(paths["checkpoint"]), cfg, str(paths["sam"]),
+                device="cuda")
+            ref["llm"].pop("lm_head", None)
+            _trees_equal(run["frozen"], ref)
+            del ref
+            sam = load_mod.sam_trainable(str(paths["sam"]), cfg.sam, "cuda")
+            for p, t in train_loop.tree_leaves(sam):
+                if not torch.equal(run["before"]["sam/" + p], t):
+                    raise AssertionError(f"{path}: trainable sam/{p} did not "
+                                         "start from the SAM checkpoint")
+            log(f"phase 33 train {path}: the frozen tree is the loaders' bit "
+                "for bit, the trainable SAM started from the checkpoint's "
+                "prompt encoder and mask decoder")
+            step_against_plain(33, path, run["model"].loss_fn, cfg,
+                               run["state"]["params"], run["frozen"],
+                               run["batch"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        total = {k: total[k] + run["launches"][k] for k in WRAPPERS}
+        del run
+        torch.cuda.empty_cache()
+        # (d): phase 11's switches, which the trainer CLI cannot set, on
+        # through the registry's get_config
+        for path, argv, tokenizer, bs, config_wrapper in (
+                ("llava_next_vicuna_7b_train_real",
+                 ["--family", "llava_next", "--preset", "vicuna_7b",
+                  "--batch-size", "2", "--seq-len", "3200", *data],
+                 LlamaWordTokenizer(), 2, None),
+                ("mgm_gemma_2b_train_real",
+                 ["--family", "mgm", "--preset", "gemma_2b", "--batch-size",
+                  "4", *data], GemmaWordTokenizer(), 4, None),
+                ("hpt_air_1_5_train_synthetic",
+                 ["--family", "hpt", "--preset", "air_1_5", "--synthetic",
+                  "--batch-size", "4"], None, 4,
+                 lambda get: lambda *a, **k: hpt_switches(get(*a, **k)))):
+            run = trainer_run(argv, tokenizer, tmp / path, config_wrapper)
+            stats[path] = check_trainer_run(
+                path, run, bs, tmp / path, card,
+                per_epoch=None if "--synthetic" in argv else samples // bs)
+            total = {k: total[k] + run["launches"][k] for k in WRAPPERS}
+            del run
+            torch.cuda.empty_cache()
+        # (e) run (a) with --profile: its trace names each kernel
+        run = trainer_run([*deepseek, "--profile", str(TRAIN_REAL_PROFILE)],
+                          WordTokenizer(), tmp / "e")
+        want = {k: n * TRAIN_REAL_STEPS for k, n in EXPECTED_LAUNCHES[
+            "deepseek_vl_1_3b_train_real"].items()}
+        trace = (tmp / "e" / "trace" / "trace.json").read_text()
+        found = {k: trace.count(k) for k in TRAIN_REAL_TRACE_KERNELS}
+        log(f"phase 33 train --profile {TRAIN_REAL_PROFILE}: a "
+            f"{len(trace) / 1e6:.1f} MB trace; kernel events by name {found}; "
+            f"launches {run['launches']} (expected {want})")
+        if run["launches"] != want or not all(found.values()):
+            raise AssertionError("the --profile run's launches or trace "
+                                 "miss a kernel of the path")
+        total = {k: total[k] + run["launches"][k] for k in WRAPPERS}
+        del run, trace
+        torch.cuda.empty_cache()
+    return {"launches": total, "stats": stats}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str,
                   family: str = "deepseek_vl", preset: str = "1_3b",
                   bs: int = BS, launches: dict | None = None) -> None:
@@ -4181,7 +4471,9 @@ def main() -> None:
             f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of {what} "
             "after one warm-up)")
     gen = run_generation(card)
-    files = run_files(card)
+    # phase 25's checkpoints stay on disk for phase 33
+    world_dir = tempfile.TemporaryDirectory()
+    files = run_files(card, pathlib.Path(world_dir.name))
     st = files["stats"]
     log(f"phase 25 timing files ({card}): load "
         f"{st['load']['load_gb_per_s']:.2f} GB/s, decode "
@@ -4199,13 +4491,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     mgm = run_mgm(card)
     paths.update(mgm["paths"])
+    torch.cuda.empty_cache()
+    with world_dir:
+        train_real = run_train_real(card, files["paths"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
              compared, evals, gen, files, hybrid, mistral, mgm["gen"],
-             mgm["files"])),
+             mgm["files"], train_real)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -4220,7 +4515,8 @@ def main() -> None:
              "deepseek_vl_7b_bench_train": hybrid["launches"][name],
              "llava_next_mistral_7b_bench": mistral["launches"][name],
              "mgm_generation": mgm["gen"]["launches"][name],
-             "mgm_files": mgm["files"]["launches"][name]},
+             "mgm_files": mgm["files"]["launches"][name],
+             "train_real": train_real["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -222,8 +222,7 @@ def mgm_batch(cfg, batch_size: int, seq_len: int, seed: int = 0) -> dict:
     """The JAX script's MGM batch (bench.py:41-75): seeded samples through
     the family's batch builder (the JAX script's seed is 0)."""
     base = cfg.base
-    build = registry.get_batch_builder("mgm",
-                                       **registry.mgm_process_spec(cfg))
+    build = registry.get_batch_builder("mgm", cfg)
     samples = synthetic_samples(cfg, batch_size, seed=seed, max_masks=8,
                                 caption_tokens=12)
     S = max(seq_len, max(len(s["input_ids"]) for s in samples) + 8)

@@ -4,17 +4,18 @@
 The anyres math is carried over unchanged: best-resolution selection,
 the feature-space unpad, and the index maps of the padded image block
 (``n_img_max = g2 + max_fh * (max_fw + 1)`` slots: base row-major, then the
-fine rows each ending in a newline token, then masked pad slots).  The
-batch builder follows ``build_anyres_batch`` (:192-320) exactly for
-everything derived from the token streams and the image sizes -- the
-128-alignment pad insertion, ``attn_mask`` with the image-block holes,
-``position_ids = max(cumsum(valid) - 1, 0)``, the index maps, ``mask_ids``,
-``text_idx`` and the geometry -- while the pixels (base view and tiles,
-SAM input) and the loss targets are drawn from a seed, since nothing on the
-serving path needs a resized photo.  ``infos`` is not built.
+fine rows each ending in a newline token, then masked pad slots).
 :func:`anyres_process` resizes a real ``(H, W, 3)`` uint8 image into the
-base view and the tiles (the generation path's input), with
-``processors.resample`` in place of PIL's bicubic resize.
+base view and the tiles, with ``processors.resample`` in place of PIL's
+bicubic resize.  :func:`build_anyres_batch` (:192-320) assembles a batch of
+real samples: the 128-alignment pad insertion, ``attn_mask`` with the
+image-block holes, ``position_ids = max(cumsum(valid) - 1, 0)``, the index
+maps, ``mask_ids``, ``text_idx``, the processed pixels, the geometry and the
+ground truth embedded in the coarse and SAM frames.
+:func:`build_synthetic_anyres_batch` shares everything derived from the
+token streams and the image sizes, while its pixels (base view and tiles,
+SAM input) and loss targets are drawn from a seed, since nothing on the
+serving path needs a resized photo; it builds no ``infos``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import math
 import numpy as np
 
 from flmm_tpu_torch.data import geometry
-from flmm_tpu_torch.data.processors import resample
+from flmm_tpu_torch.data.collate import BatchSpec, embed_gt_coarse, \
+    embed_gt_sam
+from flmm_tpu_torch.data.processors import resample, sam_preprocess
 from flmm_tpu_torch.registry import get_coarse_hw
 
 DEFAULT_PINPOINTS = ((336, 672), (672, 336), (672, 672), (1008, 336),
@@ -193,21 +196,6 @@ def block_layout(spec: AnyresSpec, grid: tuple, fine_hw: tuple,
     }
 
 
-@dataclasses.dataclass(frozen=True)
-class BatchSpec:
-    """The fields of flmm_tpu.data.collate.BatchSpec the anyres builder
-    reads."""
-    seq_len: int = 704
-    max_masks: int = 8
-    text_per_mask: int = 16
-    coarse_hw: tuple = (64, 64)
-    sam_size: int = 1024
-    prompt_size: int = 256
-    pad_token_id: int = 0
-    align_image_block: int | None = None
-    expected_img_start: int | None = None
-
-
 def synthetic_anyres_samples(orig_hws, n_img_max: int, img_start: int = 35,
                              max_masks: int = 8, caption_tokens: int = 12,
                              vocab_size: int = 256,
@@ -239,23 +227,13 @@ def synthetic_anyres_samples(orig_hws, n_img_max: int, img_start: int = 35,
     return samples
 
 
-def build_synthetic_anyres_batch(samples: list[dict], spec: BatchSpec,
-                                 anyres: AnyresSpec, seed: int = 0) -> dict:
-    """Static batch for the LLaVA-NeXT model with the schema of
-    ``build_anyres_batch``: input_ids, attn_mask, position_ids, mask_ids,
-    mask_valid, text_idx, text_valid, tiles ``(B, 1+T_max, g, g, 3)``,
-    tile_valid, block_index/block_valid, fine_gather/fine_valid, fine_hw,
-    sam_pixel_values, geom and the loss targets."""
-    rng = np.random.default_rng(seed)
-    B = len(samples)
+def _empty_batch(B: int, spec: BatchSpec, anyres: AnyresSpec) -> dict:
     S, M, T = spec.seq_len, spec.max_masks, spec.text_per_mask
     P = spec.prompt_size
     Hc, Wc = spec.coarse_hw
     g = anyres.tile_size
-    n_max = anyres.n_img_max
     n_fine = anyres.max_fine_hw[0] * anyres.max_fine_hw[1]
-
-    out = {
+    return {
         "input_ids": np.full((B, S), spec.pad_token_id, np.int32),
         "attn_mask": np.zeros((B, S), bool),
         "position_ids": np.zeros((B, S), np.int32),
@@ -265,8 +243,8 @@ def build_synthetic_anyres_batch(samples: list[dict], spec: BatchSpec,
         "text_valid": np.zeros((B, M, T), bool),
         "tiles": np.zeros((B, 1 + anyres.max_tiles, g, g, 3), np.float32),
         "tile_valid": np.zeros((B, 1 + anyres.max_tiles), bool),
-        "block_index": np.zeros((B, n_max), np.int32),
-        "block_valid": np.zeros((B, n_max), bool),
+        "block_index": np.zeros((B, anyres.n_img_max), np.int32),
+        "block_valid": np.zeros((B, anyres.n_img_max), bool),
         "fine_gather": np.zeros((B, n_fine), np.int32),
         "fine_valid": np.zeros((B, n_fine), bool),
         "fine_hw": np.zeros((B, 2), np.float32),
@@ -277,55 +255,141 @@ def build_synthetic_anyres_batch(samples: list[dict], spec: BatchSpec,
         "gt_sam": np.zeros((B, M, P, P), np.float32),
         "sam_weight": np.zeros((B, P, P), np.float32),
     }
+
+
+def _sample_rows(out: dict, b: int, s: dict, spec: BatchSpec,
+                 anyres: AnyresSpec, geo: dict) -> tuple[int, int]:
+    """Row ``b`` of the index maps and of everything the token streams give:
+    input_ids, attn_mask with the image-block holes, position_ids skipping
+    them, mask_ids.  Masked pads inserted before the image block make it
+    ``spec.align_image_block``-aligned for the flash-capture kernel.
+    Returns ``(span_shift, n)``: the pads inserted and the row's length."""
+    layout = block_layout(anyres, geo["grid"], geo["fine_hw"],
+                          geo["fine_pad"])
+    for k in ("block_index", "block_valid", "fine_gather", "fine_valid"):
+        out[k][b] = layout[k]
+    out["fine_hw"][b] = geo["fine_hw"]
+
+    S, M = spec.seq_len, spec.max_masks
+    full_ids, full_mids = s["input_ids"], s["mask_ids"]
+    img_start = s["img_start"]
+    span_shift = 0
+    if spec.align_image_block:
+        a = spec.align_image_block
+        pad_n = (a - img_start % a) % a
+        if pad_n:
+            full_ids = np.concatenate([
+                full_ids[:img_start],
+                np.full((pad_n,), spec.pad_token_id, np.int32),
+                full_ids[img_start:]])
+            full_mids = np.concatenate([
+                full_mids[:img_start], np.full((pad_n,), -1, np.int32),
+                full_mids[img_start:]])
+            span_shift = pad_n
+            img_start += pad_n
+    if (spec.expected_img_start is not None
+            and img_start != spec.expected_img_start):
+        raise ValueError(f"sample img_start {img_start} != config "
+                         f"img_start {spec.expected_img_start}; prompt "
+                         "template/tokenizer drifted from the model config")
+    ids = full_ids[:S]
+    n = len(ids)
+    out["input_ids"][b, :n] = ids
+    valid = np.zeros((S,), bool)
+    valid[:n] = True
+    if span_shift:
+        valid[img_start - span_shift:img_start] = False
+    valid[img_start:img_start + anyres.n_img_max] = layout["block_valid"]
+    out["attn_mask"][b] = valid
+    out["position_ids"][b] = np.maximum(np.cumsum(valid) - 1, 0)
+    mids = full_mids[:S]
+    out["mask_ids"][b, :len(mids)] = np.where(mids >= M, -1, mids)
+    return span_shift, n
+
+
+def _text_row(out: dict, b: int, m: int, span, span_shift: int, n: int,
+              text_per_mask: int) -> bool:
+    """Mask ``m``'s text indices (its span shifted by the alignment pads,
+    cut at the row's length); False where nothing of the span is left."""
+    lo, hi = span[0] + span_shift, min(span[1] + span_shift, n)
+    if hi <= lo:
+        return False
+    out["mask_valid"][b, m] = True
+    kk = min(hi - lo, text_per_mask)
+    out["text_idx"][b, m, :kk] = np.arange(lo, lo + kk)
+    out["text_valid"][b, m, :kk] = True
+    return True
+
+
+def build_anyres_batch(samples: list[dict], spec: BatchSpec,
+                       anyres: AnyresSpec) -> dict:
+    """Samples with ``(H, W, 3)`` uint8 images -> one static LLaVA-NeXT
+    batch: the standard schema (``spec.processor`` and ``spec.hires_size``
+    are not read) with tiles ``(B, 1 + T_max, g, g, 3)`` (the base view,
+    then the best pinpoint's tiles), tile_valid, block_index/block_valid,
+    fine_gather/fine_valid, position_ids, fine_hw, the geometry and
+    ``infos``."""
+    B = len(samples)
+    M, P = spec.max_masks, spec.prompt_size
+    Hc, Wc = spec.coarse_hw
+    out = _empty_batch(B, spec, anyres)
+    metas, sam_hws, infos = [], [], []
+    for b, s in enumerate(samples):
+        proc = anyres_process(s["image"], anyres)
+        n_tiles = proc["tiles"].shape[0]
+        out["tiles"][b, 0] = proc["base"]
+        out["tiles"][b, 1:1 + n_tiles] = proc["tiles"]
+        out["tile_valid"][b, :1 + n_tiles] = True
+        span_shift, n = _sample_rows(out, b, s, spec, anyres, proc)
+
+        meta = geometry.lmm_meta(*proc["orig_hw"], anyres.tile_size)
+        sam = sam_preprocess(s["image"], spec.sam_size)
+        out["sam_pixel_values"][b] = sam["sam_pixel_values"]
+        metas.append(meta)
+        sam_hws.append(sam["sam_input_size"])
+        out["coarse_weight"][b] = geometry.coarse_weight(meta, (Hc, Wc))
+        out["sam_weight"][b] = geometry.sam_weight(
+            sam["sam_input_size"], frame=P, long_side=spec.sam_size)
+
+        for m, (mask, span) in enumerate(zip(s["masks"][:M],
+                                             s["spans"][:M])):
+            if _text_row(out, b, m, span, span_shift, n, spec.text_per_mask):
+                out["gt_coarse"][b, m] = embed_gt_coarse(mask, meta,
+                                                         (Hc, Wc))
+                out["gt_sam"][b, m] = embed_gt_sam(
+                    mask, sam["sam_input_size"], P, spec.sam_size)
+        infos.append({
+            "file_name": s.get("file_name"),
+            "orig_size": s["masks"].shape[-2:],
+            "num_masks": int(out["mask_valid"][b].sum()),
+            "mask_infos": s.get("mask_infos"),
+        })
+    out["geom"] = geometry.batch_geom(metas, (Hc, Wc), sam_hws)
+    out["infos"] = infos
+    return out
+
+
+def build_synthetic_anyres_batch(samples: list[dict], spec: BatchSpec,
+                                 anyres: AnyresSpec, seed: int = 0) -> dict:
+    """Static batch for the LLaVA-NeXT model with the schema of
+    :func:`build_anyres_batch` less ``infos``, from samples that carry an
+    ``orig_hw`` in place of an image: the tiles, the SAM input and the
+    loss targets are drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    M, P = spec.max_masks, spec.prompt_size
+    Hc, Wc = spec.coarse_hw
+    g = anyres.tile_size
+    out = _empty_batch(len(samples), spec, anyres)
     metas, sam_hws = [], []
 
     for b, s in enumerate(samples):
         oh, ow = s["orig_hw"]
         geo = anyres_geometry((oh, ow), anyres)
-        layout = block_layout(anyres, geo["grid"], geo["fine_hw"],
-                              geo["fine_pad"])
         n_tiles = geo["grid"][0] * geo["grid"][1]
         out["tiles"][b, :1 + n_tiles] = rng.standard_normal(
             (1 + n_tiles, g, g, 3)).astype(np.float32) * 0.3
         out["tile_valid"][b, :1 + n_tiles] = True
-        for k in ("block_index", "block_valid", "fine_gather", "fine_valid"):
-            out[k][b] = layout[k]
-        out["fine_hw"][b] = geo["fine_hw"]
-
-        # masked pads before the image block make it 128-aligned for the
-        # flash-capture kernel; position ids skip them
-        full_ids, full_mids = s["input_ids"], s["mask_ids"]
-        img_start = s["img_start"]
-        span_shift = 0
-        if spec.align_image_block:
-            a = spec.align_image_block
-            pad_n = (a - img_start % a) % a
-            if pad_n:
-                full_ids = np.concatenate([
-                    full_ids[:img_start],
-                    np.full((pad_n,), spec.pad_token_id, np.int32),
-                    full_ids[img_start:]])
-                full_mids = np.concatenate([
-                    full_mids[:img_start], np.full((pad_n,), -1, np.int32),
-                    full_mids[img_start:]])
-                span_shift = pad_n
-                img_start += pad_n
-        if (spec.expected_img_start is not None
-                and img_start != spec.expected_img_start):
-            raise ValueError(f"sample img_start {img_start} != config "
-                             f"img_start {spec.expected_img_start}")
-        ids = full_ids[:S]
-        n = len(ids)
-        out["input_ids"][b, :n] = ids
-        valid = np.zeros((S,), bool)
-        valid[:n] = True
-        if span_shift:
-            valid[img_start - span_shift:img_start] = False
-        valid[img_start:img_start + n_max] = layout["block_valid"]
-        out["attn_mask"][b] = valid
-        out["position_ids"][b] = np.maximum(np.cumsum(valid) - 1, 0)
-        mids = full_mids[:S]
-        out["mask_ids"][b, :len(mids)] = np.where(mids >= M, -1, mids)
+        span_shift, n = _sample_rows(out, b, s, spec, anyres, geo)
 
         meta = geometry.lmm_meta(oh, ow, g)
         nh, nw = geometry.sam_input_size(oh, ow, spec.sam_size)
@@ -338,13 +402,9 @@ def build_synthetic_anyres_batch(samples: list[dict], spec: BatchSpec,
             (nh, nw), frame=P, long_side=spec.sam_size)
 
         for m, span in enumerate(s["spans"][:M]):
-            lo, hi = span[0] + span_shift, min(span[1] + span_shift, n)
-            if hi <= lo:
+            if not _text_row(out, b, m, span, span_shift, n,
+                             spec.text_per_mask):
                 continue
-            out["mask_valid"][b, m] = True
-            kk = min(hi - lo, T)
-            out["text_idx"][b, m, :kk] = np.arange(lo, lo + kk)
-            out["text_valid"][b, m, :kk] = True
             y0, x0 = rng.integers(0, Hc // 2), rng.integers(0, Wc // 2)
             out["gt_coarse"][b, m, y0:y0 + Hc // 3, x0:x0 + Wc // 3] = 1.0
             out["gt_coarse"][b, m] *= out["coarse_weight"][b]

@@ -42,7 +42,8 @@ class PrefetchLoader:
       num_workers: sample-fetch threads.
       prefetch: most ready batches queued ahead.
 
-    A worker's exception is raised in the consumer.
+    A worker's exception is raised in the consumer.  The workers stop, and
+    are joined, when the consumer leaves an epoch, at its end or early.
     """
 
     def __init__(self, sample_fn: Callable, collate_fn: Callable,
@@ -55,23 +56,26 @@ class PrefetchLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
 
-    def epoch(self, epoch: int) -> Iterator:
+    def epoch(self, epoch: int, start: int = 0) -> Iterator:
+        """The batches of ``epoch`` from its batch ``start`` on (a resumed
+        run skips the ones it has trained on without building them)."""
         indices = self.sampler.epoch(epoch)
-        n_batches = len(indices) // self.batch_size
-        if n_batches == 0:
+        n_batches = len(indices) // self.batch_size - start
+        if n_batches <= 0:
             return
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         job_q: queue.Queue = queue.Queue()
         for bi in range(n_batches):
-            job_q.put((bi, indices[bi * self.batch_size:
-                                   (bi + 1) * self.batch_size]))
+            lo = (start + bi) * self.batch_size
+            job_q.put((bi, indices[lo:lo + self.batch_size]))
         results: dict = {}
         lock = threading.Lock()
         next_emit = [0]
         error: list = []
+        stop = threading.Event()
 
         def worker():
-            while True:
+            while not stop.is_set():
                 try:
                     bi, idxs = job_q.get_nowait()
                 except queue.Empty:
@@ -93,13 +97,19 @@ class PrefetchLoader:
                    for _ in range(self.num_workers)]
         for t in threads:
             t.start()
-        for _ in range(n_batches):
-            batch = out_q.get()
-            if batch is None:
-                raise error[0]
-            yield batch
-        for t in threads:
-            t.join()
+        try:
+            for _ in range(n_batches):
+                batch = out_q.get()
+                if batch is None:
+                    raise error[0]
+                yield batch
+        finally:  # also when the consumer stops early or a worker failed
+            stop.set()
+            for t in threads:
+                while t.is_alive():
+                    while not out_q.empty():  # a worker may wait to put
+                        out_q.get_nowait()  # (no other thread takes)
+                    t.join(timeout=0.01)
 
     def __call__(self, epochs: int) -> Iterator:
         for e in range(epochs):

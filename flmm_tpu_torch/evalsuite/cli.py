@@ -97,19 +97,19 @@ def setup(args, tokenizer) -> dict:
     trainable tree from ``--trained``, else random), the batch spec
     ``spec``, the batch builder ``build``, the model module ``model`` and
     the ``device``.  MGM's loader also reads ``--clip-checkpoint`` and
-    ``--aux-checkpoint``, and its batch builder takes the config's crop
-    grid and sizes (``registry.mgm_process_spec``)."""
+    ``--aux-checkpoint``; the batch builder takes the config's processing
+    spec (``registry.get_batch_builder``: MGM's crop grid and sizes,
+    LLaVA-NeXT's tiles and pinpoints)."""
     device = torch.device(args.device)
     cfg, prompt, spec_kwargs = registry.resolve_family_setup(
         args.family, args.preset, tokenizer, template=args.template,
         sam_size=args.sam_size)
     model = registry.get_model(args.family)
     g = torch.Generator(device=device).manual_seed(0)
-    extra, build_kwargs = {}, {}
+    extra = {}
     if args.family == "mgm":
         extra = {"clip_checkpoint": args.clip_checkpoint,
                  "aux_checkpoint": args.aux_checkpoint}
-        build_kwargs = registry.mgm_process_spec(cfg)
     frozen = registry.get_loader(args.family)(
         args.checkpoint, cfg, args.sam_checkpoint, device=device, **extra)
     frozen.update(model.init_frozen(cfg, g, device, skip=frozen))
@@ -122,7 +122,7 @@ def setup(args, tokenizer) -> dict:
     spec = BatchSpec(seq_len=args.seq_len, max_masks=args.max_masks,
                      coarse_hw=registry.get_coarse_hw(cfg), **spec_kwargs)
     return {"cfg": cfg, "prompt": prompt, "params": params, "spec": spec,
-            "build": registry.get_batch_builder(args.family, **build_kwargs),
+            "build": registry.get_batch_builder(args.family, cfg),
             "model": model, "device": device}
 
 

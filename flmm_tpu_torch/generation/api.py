@@ -34,7 +34,7 @@ import torch
 from flmm_tpu_torch.data import geometry
 from flmm_tpu_torch.data import tokenization as tok
 from flmm_tpu_torch.data.llava_next import anyres_process, block_layout
-from flmm_tpu_torch.data.mgm import MGMProcessSpec, mgm_process
+from flmm_tpu_torch.data.mgm import mgm_process
 from flmm_tpu_torch.data.processors import ProcessorConfig, sam_preprocess, \
     square_pad_preprocess
 from flmm_tpu_torch.evalsuite.runner import sam_logits_to_masks
@@ -48,7 +48,7 @@ from flmm_tpu_torch.models.mask_head import unet
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
 from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.registry import FAMILY_IMAGE_TOKENS, FAMILY_SIZE_RULES, \
-    FAMILY_TEMPLATES, mgm_process_spec
+    FAMILY_TEMPLATES
 
 
 def make_grounder(family: str, cfg, params, tokenizer, **kw):
@@ -475,7 +475,7 @@ class MGMGrounder(Grounder):
         self.mgm_cfg = self.cfg
         self.cfg = self.cfg.base
         super().__post_init__()
-        self.spec = MGMProcessSpec(**mgm_process_spec(self.mgm_cfg))
+        self.spec = self.mgm_cfg.process_spec()
 
     def _prepare_image(self, image: np.ndarray) -> tuple:
         proc = mgm_process(image, self.spec)

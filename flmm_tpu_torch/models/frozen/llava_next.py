@@ -1,5 +1,5 @@
 """Frozen LLaVA-NeXT (anyres) grounding model
-(flmm_tpu/models/frozen/llava_next.py), the serving forward.
+(flmm_tpu/models/frozen/llava_next.py): the forward and its loss.
 
 The tower runs over the base view and every tile slot; the block gather
 through ``[features | newline | zero]`` by ``block_index`` packs the
@@ -20,6 +20,7 @@ import torch
 
 from flmm_tpu_torch.data.llava_next import AnyresSpec
 from flmm_tpu_torch.models.frozen import grounding
+from flmm_tpu_torch.models.frozen.base import grounding_losses
 from flmm_tpu_torch.models.frozen.grounding import GroundingConfig
 from flmm_tpu_torch.models.llm import decoder as llm
 from flmm_tpu_torch.models.vision import vit
@@ -133,6 +134,17 @@ def forward(params: dict, cfg: LlavaNextConfig, batch: dict) -> dict:
     maps = assemble_frames(cfg, out["attn"], batch)
     return grounding.heads_forward(params, cfg.base, maps, out["hidden"],
                                    batch)
+
+
+def loss_fn(params: dict, cfg: LlavaNextConfig, batch: dict) -> tuple:
+    """``(loss, metrics)`` of the anyres forward on a batch with the loss
+    targets."""
+    out = forward(params, cfg, batch)
+    losses = grounding_losses(
+        out["coarse_logits"], batch["gt_coarse"], batch["coarse_weight"],
+        out["sam_logits"], batch["gt_sam"], batch["sam_weight"],
+        batch["mask_valid"])
+    return losses["loss"], losses
 
 
 def assemble_frames(cfg: LlavaNextConfig, attn: torch.Tensor,

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from flmm_tpu_torch.data.mgm import MGMProcessSpec
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen.base import grounding_losses
 from flmm_tpu_torch.models.frozen.grounding import GroundingConfig, _project
@@ -51,6 +52,13 @@ class MGMConfig:
     def map_hw(self) -> tuple:
         g = self.base.clip_shape * self.image_grid
         return (g, g)
+
+    def process_spec(self) -> MGMProcessSpec:
+        """The host processing of this config's crops and aux image."""
+        return MGMProcessSpec(crop_size=self.base.input_size,
+                              aux_size=self.aux.image_size,
+                              image_grid=self.image_grid,
+                              image_global=self.image_global)
 
 
 def _ln_lin_params(i: int, o: int, generator: torch.Generator,

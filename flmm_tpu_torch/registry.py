@@ -116,38 +116,28 @@ def get_config(family: str, preset: str, **kwargs):
     return getattr(importlib.import_module(mod), attr)(**kwargs)
 
 
-def get_batch_builder(family: str, **spec_kwargs):
-    """The family's ``(samples, batch_spec) -> batch`` builder: the standard
-    ``collate.build_batch``, or MGM's ``build_mgm_batch`` with an
-    ``MGMProcessSpec(**spec_kwargs)`` (its defaults: the released
-    single-crop configs'; :func:`mgm_process_spec` gives a config's); the
-    anyres builder over samples is not ported."""
-    kind = BATCH_BUILDERS.get(family)
+def get_batch_builder(family: str, cfg):
+    """The family's ``(samples, batch_spec) -> batch`` builder, bound to
+    ``cfg``'s processing spec: the standard ``collate.build_batch``,
+    LLaVA-NeXT's ``build_anyres_batch`` with ``cfg.anyres_spec()`` (its
+    tiles and pinpoints) or MGM's ``build_mgm_batch`` with
+    ``cfg.process_spec()`` (its crop grid and sizes).  The JAX registry
+    binds the specs' defaults unless told otherwise, which feed one crop to
+    an HD model."""
+    _family(family)  # raises by name
+    kind = BATCH_BUILDERS[family]
     if kind == "standard":
         from flmm_tpu_torch.data.collate import build_batch
 
         return build_batch
-    if kind == "mgm":
-        from flmm_tpu_torch.data.mgm import MGMProcessSpec, build_mgm_batch
+    if kind == "anyres":
+        from flmm_tpu_torch.data.llava_next import build_anyres_batch
 
-        return functools.partial(build_mgm_batch,
-                                 mgm=MGMProcessSpec(**spec_kwargs))
-    if kind is None:
-        _family(family)  # raises by name
-    raise NotImplementedError(
-        f"the {kind} batch builder of family {family!r} is not ported to "
-        "flmm_tpu_torch (ported: the standard build_batch and MGM's "
-        "build_mgm_batch; data/llava_next.py has only the synthetic anyres "
-        "batch)")
+        return functools.partial(build_anyres_batch,
+                                 anyres=cfg.anyres_spec())
+    from flmm_tpu_torch.data.mgm import build_mgm_batch
 
-
-def mgm_process_spec(cfg) -> dict:
-    """The ``get_batch_builder('mgm', ...)`` kwargs an MGM config needs: its
-    crop size, aux size and crop grid.  The JAX eval scripts call the
-    builder with the defaults, which fit the single-crop presets only."""
-    return {"crop_size": cfg.base.input_size,
-            "aux_size": cfg.aux.image_size, "image_grid": cfg.image_grid,
-            "image_global": cfg.image_global}
+    return functools.partial(build_mgm_batch, mgm=cfg.process_spec())
 
 
 def build_prompt(family: str, tokenizer, n_img: int,

@@ -1,12 +1,16 @@
 """Observability of a training run (flmm_tpu/train/diagnostics.py): a
-rolling step timer, a JSONL metric log and the non-finite gradient guard."""
+rolling step timer, a JSONL metric log, the non-finite gradient guard and a
+profiler trace of some steps."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import pathlib
 import time
 
 import torch
+from torch.profiler import ProfilerActivity
 
 from flmm_tpu_torch.train.loop import Optimizer
 
@@ -23,10 +27,14 @@ class StepTimer:
         now = time.perf_counter()
         dt = now - self._last
         self._last = now
+        self.add(dt)
+        return dt
+
+    def add(self, dt: float) -> None:
+        """Count a duration measured elsewhere."""
         self.times.append(dt)
         if len(self.times) > self.window:
             self.times.pop(0)
-        return dt
 
     @property
     def mean(self) -> float:
@@ -78,3 +86,19 @@ def nonfinite_guard(inner: Optimizer,
                 "inner_state": inner_state}
 
     return Optimizer(init, update)
+
+
+@contextlib.contextmanager
+def profile(logdir, device: torch.device):
+    """Record what runs inside the block with ``torch.profiler`` (host
+    activity, and the card's kernels when ``device`` is one) and write it
+    as a Chrome trace, ``<logdir>/trace.json``, at the block's end (the
+    counterpart of the JAX package's XLA trace for XProf)."""
+    logdir = pathlib.Path(logdir)
+    logdir.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(logdir / "trace.json"))

@@ -34,6 +34,7 @@ from flmm_tpu_torch import registry
 from flmm_tpu_torch.configs import deepseek_vl as tconfigs
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data import collate, processors
+from flmm_tpu_torch.data import llava_next as llava_next_data
 from flmm_tpu_torch.data import mgm as mgm_data
 from flmm_tpu_torch.data.synthetic import synthetic_samples
 from flmm_tpu_torch.evalsuite import metrics, runner
@@ -166,21 +167,26 @@ def test_build_batch_refuses_a_sample_whose_image_block_moved(samples):
 
 
 def test_get_batch_builder():
-    assert registry.get_batch_builder("deepseek_vl") is collate.build_batch
-    assert registry.get_batch_builder("hpt") is collate.build_batch
-    with pytest.raises(NotImplementedError,
-                       match="anyres batch builder of family "
-                             "'llava_next' is not ported"):
-        registry.get_batch_builder("llava_next")
-    # the MGM builder binds its processing spec (defaults: the released
-    # single-crop configs'); tests/test_torch_mgm_io.py holds it to JAX's
-    build = registry.get_batch_builder("mgm", image_grid=2,
-                                       image_global=True)
+    for family in ("deepseek_vl", "hpt"):
+        cfg = registry.get_config(family, "tiny")
+        assert registry.get_batch_builder(family, cfg) is collate.build_batch
+    # the anyres builder binds the config's tiles and pinpoints;
+    # tests/test_torch_llava_next.py holds it to JAX's
+    cfg = registry.get_config("llava_next", "tiny")
+    build = registry.get_batch_builder("llava_next", cfg)
+    assert build.func is llava_next_data.build_anyres_batch
+    assert build.keywords["anyres"] == llava_next_data.AnyresSpec(
+        tile_size=32, patch_size=cfg.base.vision.patch_size,
+        pinpoints=cfg.pinpoints)
+    # the MGM builder binds the config's crop grid and sizes (MGM-HD: 2 x 2
+    # and the global crop); tests/test_torch_mgm_io.py holds it to JAX's
+    cfg = registry.get_config("mgm", "vicuna_7b_hd")
+    build = registry.get_batch_builder("mgm", cfg)
     assert build.func is mgm_data.build_mgm_batch
     assert build.keywords["mgm"] == mgm_data.MGMProcessSpec(
-        crop_size=336, aux_size=768, image_grid=2, image_global=True)
+        crop_size=336, aux_size=1536, image_grid=2, image_global=True)
     with pytest.raises(NotImplementedError, match="'nope' is not ported"):
-        registry.get_batch_builder("nope")
+        registry.get_batch_builder("nope", cfg)
     assert set(registry.FAMILY_SIZE_RULES) == set(registry.BATCH_BUILDERS)
 
 

@@ -169,24 +169,32 @@ def recorded(monkeypatch):
     return seen
 
 
-@pytest.fixture(scope="module")
-def jax_model(world):
-    """The JAX scripts' model setup: config, prompt and spec from the
-    tokenizer, the checkpoints and the released trained ``.pth``."""
+def _jax_setup(world, family, checkpoint, build_kwargs=(), seq=SEQ,
+               trained=None, **loader_kwargs):
+    """The JAX scripts' model setup at ``family``'s tiny preset: config,
+    prompt and spec from the tokenizer, the frozen tree from ``checkpoint``
+    and the world's SAM ``.pth``, the released trained ``.pth`` (the
+    world's unless ``trained``), and the family's builder given
+    ``build_kwargs``."""
     t = world["tokenizer"]
-    cfg, rp, spec_kwargs = jregistry.resolve_family_setup(
-        "deepseek_vl", "tiny", t)
+    cfg, rp, spec_kwargs = jregistry.resolve_family_setup(family, "tiny", t)
     params = {
-        "frozen": jax.tree.map(jnp.asarray, jregistry.get_loader(
-            "deepseek_vl")(world["checkpoint"], cfg, world["sam"])),
+        "frozen": jax.tree.map(jnp.asarray, jregistry.get_loader(family)(
+            checkpoint, cfg, world["sam"], **loader_kwargs)),
         "trainable": jax.tree.map(jnp.asarray, jload.reference_trained(
-            world["trained"], cfg))}
-    model = jregistry.get_model("deepseek_vl")
+            trained or world["trained"], cfg))}
+    model = jregistry.get_model(family)
     forward = jax.jit(lambda b: model.forward(params, cfg, b)["sam_logits"])
-    spec = JBatchSpec(seq_len=SEQ, max_masks=MASKS,
+    spec = JBatchSpec(seq_len=seq, max_masks=MASKS,
                       coarse_hw=jregistry.get_coarse_hw(cfg), **spec_kwargs)
     return {"rp": rp, "forward": forward, "spec": spec,
-            "build": jregistry.get_batch_builder("deepseek_vl")}
+            "build": jregistry.get_batch_builder(family,
+                                                 **dict(build_kwargs))}
+
+
+@pytest.fixture(scope="module")
+def jax_model(world):
+    return _jax_setup(world, "deepseek_vl", world["checkpoint"])
 
 
 def _check_batches(seen, jax_model, n_samples):
@@ -363,22 +371,51 @@ def mgm_jax_model(world, mgm_world):
     """The JAX scripts' MGM setup (flmm_tpu/registry.get_loader('mgm') with
     the CLIP and ConvNeXt checkpoints), its batch builder bound to the
     config's crop grid and sizes as the port's CLI binds it."""
-    t = world["tokenizer"]
-    cfg, rp, spec_kwargs = jregistry.resolve_family_setup("mgm", "tiny", t)
-    params = {
-        "frozen": jax.tree.map(jnp.asarray, jregistry.get_loader("mgm")(
-            mgm_world["checkpoint"], cfg, world["sam"],
-            clip_checkpoint=mgm_world["clip"],
-            aux_checkpoint=mgm_world["aux"])),
-        "trainable": jax.tree.map(jnp.asarray, jload.reference_trained(
-            world["trained"], cfg))}
-    model = jregistry.get_model("mgm")
-    forward = jax.jit(lambda b: model.forward(params, cfg, b)["sam_logits"])
-    spec = JBatchSpec(seq_len=SEQ, max_masks=MASKS,
-                      coarse_hw=jregistry.get_coarse_hw(cfg), **spec_kwargs)
-    return {"rp": rp, "forward": forward, "spec": spec,
-            "build": jregistry.get_batch_builder(
-                "mgm", **registry.mgm_process_spec(cfg))}
+    spec = registry.get_config("mgm", "tiny").process_spec()
+    return _jax_setup(world, "mgm", mgm_world["checkpoint"],
+                      dataclasses.asdict(spec),
+                      clip_checkpoint=mgm_world["clip"],
+                      aux_checkpoint=mgm_world["aux"])
+
+
+def _check_clis(world, args, jmodel, recorded):
+    """``eval_png``, then ``eval_refcoco``'s first split, with the CLI
+    arguments ``args(data_root)`` against the JAX setup ``jmodel``: every
+    batch bit for bit, the logits within 1e-3, the scores from the same
+    logits exactly.  Returns the first batch ``eval_png`` built."""
+    t, root = world["tokenizer"], world["png"]
+    results = eval_png.main(args(root), tokenizer=t)
+    ds = JPNGDataset(
+        json_file=f"{root}/annotations/png_coco_val2017.json",
+        panoptic_json_file=f"{root}/annotations/panoptic_val2017.json",
+        panoptic_png_path=f"{root}/annotations/panoptic_val2017",
+        image_path=f"{root}/val2017", tokenizer=t,
+        prompt_spec=jmodel["rp"])
+    samples = [ds[i] for i in range(min(len(ds), 100))]
+    logits = _check_batches(recorded, jmodel, len(samples))
+    want, jbatches = _replay(jmodel, samples, jmetrics.PNGAccumulator,
+                             jrunner.png_score, logits)
+    _assert_batches_equal([b for b, _ in recorded], jbatches)
+    assert results == want and results["n"] > 0
+    first = recorded[0][0]
+
+    recorded.clear()
+    root = world["refcoco"]
+    results = eval_refcoco.main(args(root), tokenizer=t)
+    name, split_file, split = eval_refcoco.SPLITS[0]
+    ds = JRefCocoDataset(ann_file=f"{root}/{name}/instances.json",
+                         split_file=f"{root}/{name}/{split_file}",
+                         image_path=f"{root}/train2014", split=split)
+    samples = [s for i in range(min(len(ds), 100)) for s in
+               jrefcoco_to_sample(ds[i], t, jmodel["rp"], concat=False)]
+    seen = recorded[:-(-len(samples) // BS)]
+    logits = _check_batches(seen, jmodel, len(samples))
+    want, jbatches = _replay(jmodel, samples, jmetrics.RefSegAccumulator,
+                             jrunner.refcoco_score, logits)
+    _assert_batches_equal([b for b, _ in seen], jbatches)
+    assert results[f"{name}/{split}"] == want
+    assert len(results) == len(eval_refcoco.SPLITS)
+    return first
 
 
 def test_eval_clis_at_mgm_match_jax(world, mgm_world, mgm_jax_model,
@@ -387,39 +424,61 @@ def test_eval_clis_at_mgm_match_jax(world, mgm_world, mgm_jax_model,
     with ``--clip-checkpoint`` / ``--aux-checkpoint``: the MGM batches
     (crops, aux pixels) bit for bit, the logits within 1e-3, the scores
     from the same logits exactly."""
-    t, root = world["tokenizer"], world["png"]
-    results = eval_png.main(_mgm_args(world, mgm_world, root), tokenizer=t)
-    ds = JPNGDataset(
-        json_file=f"{root}/annotations/png_coco_val2017.json",
-        panoptic_json_file=f"{root}/annotations/panoptic_val2017.json",
-        panoptic_png_path=f"{root}/annotations/panoptic_val2017",
-        image_path=f"{root}/val2017", tokenizer=t,
-        prompt_spec=mgm_jax_model["rp"])
-    samples = [ds[i] for i in range(min(len(ds), 100))]
-    logits = _check_batches(recorded, mgm_jax_model, len(samples))
-    want, jbatches = _replay(mgm_jax_model, samples, jmetrics.PNGAccumulator,
-                             jrunner.png_score, logits)
-    _assert_batches_equal([b for b, _ in recorded], jbatches)
-    assert recorded[0][0]["pixel_values"].shape[1:] == (1, 32, 32, 3)
-    assert "aux_pixel_values" in recorded[0][0]
-    assert results == want and results["n"] > 0
+    first = _check_clis(world, lambda root: _mgm_args(world, mgm_world, root),
+                        mgm_jax_model, recorded)
+    assert first["pixel_values"].shape[1:] == (1, 32, 32, 3)
+    assert "aux_pixel_values" in first
 
-    recorded.clear()
-    root = world["refcoco"]
-    results = eval_refcoco.main(_mgm_args(world, mgm_world, root),
-                                tokenizer=t)
-    name, split_file, split = eval_refcoco.SPLITS[0]
-    ds = JRefCocoDataset(ann_file=f"{root}/{name}/instances.json",
-                         split_file=f"{root}/{name}/{split_file}",
-                         image_path=f"{root}/train2014", split=split)
-    samples = [s for i in range(min(len(ds), 100)) for s in
-               jrefcoco_to_sample(ds[i], t, mgm_jax_model["rp"],
-                                  concat=False)]
-    seen = recorded[:-(-len(samples) // BS)]
-    logits = _check_batches(seen, mgm_jax_model, len(samples))
-    want, jbatches = _replay(mgm_jax_model, samples,
-                             jmetrics.RefSegAccumulator,
-                             jrunner.refcoco_score, logits)
-    _assert_batches_equal([b for b, _ in seen], jbatches)
-    assert results[f"{name}/{split}"] == want
-    assert len(results) == len(eval_refcoco.SPLITS)
+
+# --- the llava_next family ---------------------------------------------------
+
+LLAVA_NEXT_SEQ = 192  # the tiny prompt holds 130 tokens, 88 of the image
+
+
+@pytest.fixture(scope="module")
+def llava_next_world(world, tmp_path_factory):
+    """A llava-hf LLaVA-NeXT checkpoint at ``tiny_llava_next`` (the port's
+    init from seed 6, ``image_newline`` too) beside the world's SAM
+    ``.pth`` (the same tiny SAM), and released-layout trained heads of its
+    own (its U-Net reads twice the world's maps)."""
+    from flmm_tpu_torch.models.frozen import llava_next as tmln
+
+    cfg, _, _ = registry.resolve_family_setup("llava_next", "tiny",
+                                              world["tokenizer"])
+    g = torch.Generator().manual_seed(6)
+    params = tmln.init_params(cfg, g, "cpu")
+    root = tmp_path_factory.mktemp("llava_next_cli")
+    torch.save(cw.llava_state_dict(params["frozen"]),
+               root / "pytorch_model.bin")
+    tra = params["trainable"]
+    for leaf in (tra["text_layer_weights"], tra["text_proj"]["b"]):
+        leaf.copy_(torch.randn(leaf.shape, generator=g) * 0.5)
+    torch.save({"state_dict": cw.released_trained_state_dict(tra)},
+               root / "trained.pth")
+    return {"checkpoint": str(root), "trained": str(root / "trained.pth")}
+
+
+def _llava_next_args(world, llava_next_world, root):
+    args = _cli_args(world, root)
+    args[1], args[5] = "llava_next", llava_next_world["checkpoint"]
+    args[args.index("--trained") + 1] = llava_next_world["trained"]
+    args[args.index("--seq-len") + 1] = str(LLAVA_NEXT_SEQ)
+    return args
+
+
+def test_eval_clis_at_llava_next_match_jax(world, llava_next_world,
+                                           recorded):
+    """``eval_png`` and ``eval_refcoco`` at ``--family llava_next --preset
+    tiny``: the anyres batches (tiles, their validity, the image block)
+    bit for bit against the JAX builder given the config's tiles and
+    pinpoints (the JAX scripts bind its defaults, the released 336-px
+    tiles), the logits within 1e-3, the scores exactly."""
+    spec = registry.get_config("llava_next", "tiny").anyres_spec()
+    jmodel = _jax_setup(world, "llava_next", llava_next_world["checkpoint"],
+                        dataclasses.asdict(spec), seq=LLAVA_NEXT_SEQ,
+                        trained=llava_next_world["trained"])
+    first = _check_clis(
+        world, lambda root: _llava_next_args(world, llava_next_world, root),
+        jmodel, recorded)
+    assert first["tiles"].shape[2:] == (32, 32, 3)
+    assert first["tile_valid"].sum() > len(first["tile_valid"])

@@ -7,7 +7,8 @@
   torchvision (the machine with the card has no JAX and no PIL, and
   tests/test_grad_parity.py stubs the last two in ``sys.modules``);
 * chip_smoke.py refuses to run without a card, and without the rest of the
-  repository, and never prints its success line then;
+  repository, and never prints its success line then; so does the trainer
+  without a card unless told ``--device cpu``;
 * the wrappers of the relayout pair (K11), the raw capture (K9), the
   spatial window attention (K12 v10), the global variants v1, v2, v3, v4,
   v6, v7 and v11 and the window variants v1 to v8 (K12) take
@@ -72,7 +73,8 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "            'convert.load', 'evalsuite.cli', 'eval_refcoco',\n"
         "            'eval_png', 'models.vision.sam_tower',\n"
         "            'configs.mgm', 'models.vision.convnext',\n"
-        "            'models.frozen.mgm', 'data.mgm', 'data.video'):\n"
+        "            'models.frozen.mgm', 'data.mgm', 'data.video',\n"
+        "            'train.__main__', 'train.streams'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
@@ -95,7 +97,8 @@ def test_port_sources_never_import_jax():
                 "data/processors.py", "data/collate.py",
                 "evalsuite/metrics.py", "evalsuite/runner.py",
                 "runtime/__init__.py", "data/image_io.py", "data/io.py",
-                "convert/load.py", "eval_refcoco.py", "eval_png.py"):
+                "convert/load.py", "eval_refcoco.py", "eval_png.py",
+                "train/__main__.py", "train/streams.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     # the eval CLIs load ``--tokenizer`` through transformers inside the
     # call, as the JAX scripts do; that one import is the only one allowed
@@ -133,6 +136,27 @@ def test_generation_slice_imports_no_jax_pil_or_hf():
     for f in ("generation/api.py", "generation/decode.py",
               "generation/noun_chunks.py", "data/tokenization.py"):
         assert (REPO / "flmm_tpu_torch" / f).is_file(), f
+
+
+def test_trainer_imports_no_jax_and_needs_a_card():
+    """The trainer and its streams, imported alone in a fresh interpreter,
+    load none of the forbidden modules; on the real-data stream as on the
+    synthetic one it refuses to start without a card unless given
+    ``--device cpu`` (it stops before reading the tokenizer or the data)."""
+    code = (
+        "import sys\n"
+        "import flmm_tpu_torch.train.__main__\n"
+        "import flmm_tpu_torch.train.streams\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    for argv in (["--synthetic"], ["--tokenizer", "no/such/tokenizer",
+                                   "--data-root", "no/such/root"]):
+        proc = _run(["-m", "flmm_tpu_torch.train", *argv])
+        assert proc.returncode != 0
+        assert "no CUDA device" in proc.stderr, proc.stderr
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -313,8 +337,9 @@ def test_no_handler_gives_way_to_another_path():
 
 
 def test_readers_loaders_and_clis_hold_no_fallback_handler():
-    """The host helpers, the readers, the checkpoint loaders and the eval
-    CLIs hold no ``try``: a failed build, decode or load raises.  The only
+    """The host helpers, the readers, the checkpoint loaders, the eval
+    CLIs and the trainer hold no ``try``: a failed build, decode or load
+    raises.  The only
     handlers are ``data/io.py``'s, for a missing fsspec (a remote path then
     raises, ``exists`` says False), and the prefetch loader's, which hands a
     worker's exception to the consumer."""
@@ -323,7 +348,8 @@ def test_readers_loaders_and_clis_hold_no_fallback_handler():
                  "data/refcoco.py", "data/png.py", "data/panoptic.py",
                  "convert/hf_weights.py", "convert/sam_weights.py",
                  "convert/load.py", "evalsuite/cli.py", "eval_refcoco.py",
-                 "eval_png.py", "train/checkpoint.py"):
+                 "eval_png.py", "train/checkpoint.py", "train/streams.py",
+                 "train/__main__.py"):
         assert not re.search(r"^\s*(try|except)\b", (pkg / name).read_text(),
                              re.M), name
     handlers = [h.strip() for h in re.findall(

@@ -1,8 +1,9 @@
 """The port's LLaVA-NeXT anyres slice against the JAX package on the CPU:
 the numpy anyres math, the synthetic batch builder against
 ``flmm_tpu.data.llava_next.build_anyres_batch`` on the same token streams
-and image sizes, the CLIP tower, the packing and frame assembly, and the
-tiny-config forward with the image block at 128.
+and image sizes, ``build_anyres_batch`` over committed images against it,
+the CLIP tower, the packing and frame assembly, the tiny-config forward
+with the image block at 128, and its loss and gradients.
 
 Same weights on both sides: JAX ``init_params(key 0)`` -> numpy ->
 ``flmm_tpu_torch.convert.from_jax``.  Tolerances as tests/test_torch_slice.py:
@@ -17,6 +18,7 @@ and image sizes must be bit-identical.
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import jax
@@ -25,21 +27,27 @@ import pytest
 import torch
 from PIL import Image
 
+from flmm_tpu import registry as jregistry
 from flmm_tpu.configs import llava_next as jax_configs
 from flmm_tpu.data import collate as jcollate
 from flmm_tpu.data import llava_next as jdata
 from flmm_tpu.models.frozen import llava_next as jmodel
 from flmm_tpu.models.vision import vit as jvit
+from flmm_tpu_torch import registry
 from flmm_tpu_torch.configs import llava_next as torch_configs
 from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.data import collate
 from flmm_tpu_torch.data import llava_next as data
 from flmm_tpu_torch.models.frozen import llava_next as model
 from flmm_tpu_torch.models.vision import vit
 from flmm_tpu_torch.ops import flash_attention as fa
 from flmm_tpu_torch.registry import get_coarse_hw
+from flmm_tpu_torch.train import loop
 
+REPO = pathlib.Path(__file__).resolve().parent.parent
 SLICE_TOL = 1e-3
 MODULE_TOL = 1e-4
+LOSS_TOL = 1e-6
 IMG_START = 128
 # (h, w) per sample: a wide and a tall image for the tiny 32-px tiles; a
 # 2x2 and a 3x1 pinpoint grid, both with unpadded fine rows or columns, at
@@ -224,3 +232,112 @@ def test_llava_next_forward_matches_jax(port_forward, jax_forward, key):
     assert tuple(got[key].shape) == want[key].shape
     assert torch.isfinite(got[key]).all()
     _close(got[key], want[key], SLICE_TOL)
+
+
+# --- build_anyres_batch over real images, and the loss --------------------
+
+def _image_samples(tspec, full: bool):
+    """Token streams as ``both_batches``' over two committed COCO images
+    (tests/data) with one rectangle mask a span, as ``(H, W, 3)`` uint8
+    arrays for the port and PIL images of them for the JAX side."""
+    files = sorted((REPO / "tests" / "data" / "refcoco" /
+                    "train2014").glob("*.jpg"))[:2]
+    images = [np.asarray(Image.open(f).convert("RGB")) for f in files]
+    M, T = (8, 12) if full else (3, 4)
+    samples = data.synthetic_anyres_samples(
+        [im.shape[:2] for im in images], tspec.n_img_max,
+        img_start=35 if full else 5, max_masks=M, caption_tokens=T, seed=4)
+    rng = np.random.default_rng(4)
+    for s, im, f in zip(samples, images, files):
+        h, w = im.shape[:2]
+        masks = np.zeros((len(s["spans"]), h, w), np.uint8)
+        for m in masks:
+            y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+            m[y0:y0 + h // 3, x0:x0 + w // 3] = 1
+        s.update(image=im, masks=masks, file_name=f.name,
+                 mask_infos=[{"plural": False, "isthing": True}] * M)
+    jsamples = [{**s, "image": Image.fromarray(s["image"])} for s in samples]
+    return samples, jsamples, M, T
+
+
+@pytest.mark.parametrize("spec", ["tiny", "full"])
+def test_build_anyres_batch_matches_jax(spec):
+    """The port's builder over real pixels, bound through the registry to
+    the config's own anyres spec, against ``flmm_tpu``'s: ints and bools
+    exact, floats within 1e-6 (both resample with PIL's bicubic and
+    bilinear arithmetic), ``infos`` equal."""
+    full = spec == "full"
+    cfg = (torch_configs.llava_next_vicuna_7b(img_start=IMG_START) if full
+           else torch_configs.tiny_llava_next(img_start=IMG_START))
+    tspec, jspec = cfg.anyres_spec(), SPECS[spec][0]()
+    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
+    samples, jsamples, M, T = _image_samples(tspec, full)
+    kw = dict(seq_len=3200 if full else 256, max_masks=M, text_per_mask=T,
+              coarse_hw=get_coarse_hw(cfg),
+              sam_size=cfg.base.sam.encoder.img_size,
+              prompt_size=cfg.base.sam.prompt_size, align_image_block=128,
+              expected_img_start=IMG_START)
+    got = registry.get_batch_builder("llava_next", cfg)(
+        samples, collate.BatchSpec(**kw))
+    want = jregistry.get_batch_builder(
+        "llava_next", tile_size=jspec.tile_size,
+        patch_size=jspec.patch_size, pinpoints=jspec.pinpoints)(
+        jsamples, jcollate.BatchSpec(**kw))
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if key == "infos":
+            for a, b in zip(got[key], w):
+                assert a["file_name"] == b["file_name"]
+                assert a["num_masks"] == b["num_masks"] > 0
+                assert tuple(a["orig_size"]) == tuple(b["orig_size"])
+                assert a["mask_infos"] == b["mask_infos"]
+        elif key == "geom":
+            for k in w:
+                np.testing.assert_allclose(got[key][k], w[k], rtol=0,
+                                           atol=1e-6, err_msg=k)
+        elif w.dtype.kind == "f":
+            assert got[key].dtype == w.dtype, key
+            np.testing.assert_allclose(got[key], w, rtol=0, atol=1e-6,
+                                       err_msg=key)
+        else:
+            assert got[key].dtype == w.dtype, key
+            np.testing.assert_array_equal(got[key], w, err_msg=key)
+    assert got["tile_valid"].sum() > 2 and got["gt_sam"].any()
+    # a sample whose image block does not land at the config's start
+    bad = collate.BatchSpec(**{**kw, "expected_img_start": IMG_START + 1})
+    with pytest.raises(ValueError, match="img_start"):
+        registry.get_batch_builder("llava_next", cfg)(samples[:1], bad)
+
+
+def test_tiny_loss_and_gradients_match_jax(tiny):
+    """``llava_next.loss_fn`` as tests/test_torch_train.py holds the tiny
+    loss (1e-6 relative) and every trainable gradient (1e-3 of the leaf's
+    largest) against ``jax.value_and_grad`` of ``flmm_tpu``'s; the frozen
+    tree gets no gradient."""
+    jcfg, tcfg, jparams, _, batch = tiny
+    tcfg = _with_flash(tcfg, False)
+    vg = jax.jit(jax.value_and_grad(
+        lambda tr, fr, b: jmodel.loss_fn({"frozen": fr, "trainable": tr},
+                                         jcfg, b), has_aux=True))
+    (jloss, jmetrics), jgrads = jax.device_get(vg(
+        jparams["trainable"], jparams["frozen"], _jax_batch(batch)))
+    tp = from_jax(jparams)
+    state = loop.init_state(tp["trainable"],
+                            loop.make_optimizer(loop.OptimConfig()))
+    (loss, metrics), grads = loop.value_and_grad(
+        lambda p, b: registry.get_model("llava_next").loss_fn(p, tcfg, b),
+        tp["frozen"], state["params"], from_jax(batch))
+    assert abs(float(loss) - float(jloss)) <= LOSS_TOL * abs(float(jloss))
+    for key, want in jmetrics.items():
+        np.testing.assert_allclose(metrics[key].numpy(), want,
+                                   rtol=SLICE_TOL, atol=1e-6, err_msg=key)
+    want = dict(loop.tree_leaves(jgrads))
+    assert set(grads) == set(want)
+    scale = max(np.abs(g).max() for g in want.values())
+    for path, ref in want.items():
+        got = (np.zeros_like(ref) if grads[path] is None
+               else grads[path].numpy())
+        err = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-5 * scale)
+        assert err <= SLICE_TOL, (path, err)
+    for path, leaf in loop.tree_leaves(tp["frozen"]):
+        assert not leaf.requires_grad and leaf.grad is None, path

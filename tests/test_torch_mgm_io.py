@@ -2,8 +2,8 @@
 processing (``pad2square``, ``mgm_process``, ``build_mgm_batch``), the video
 path, the checkpoint loaders (``convnext_params``, ``mgm_frozen`` through
 ``registry.get_loader('mgm')``, Mixtral's ``block_sparse_moe`` keys,
-``eva_vit_params``), the trainer's refusal of the family and
-``MGMGrounder`` (answer, ground, visual CoT) at ``tiny_mgm``
+``eva_vit_params``), the trainer's refusal of the family's grounding
+task and ``MGMGrounder`` (answer, ground, visual CoT) at ``tiny_mgm``
 (tests/test_torch_bench.py holds ``bench.build`` at ``BENCH_FAMILY=mgm``).
 
 Images are ``(H, W, 3)`` uint8 arrays on the port's side and
@@ -84,7 +84,7 @@ def _equal_batches(got, want):
 
 
 def _mgm_spec(cfg, mod):
-    return mod.MGMProcessSpec(**registry.mgm_process_spec(cfg))
+    return mod.MGMProcessSpec(**dataclasses.asdict(cfg.process_spec()))
 
 
 # --- host processing -------------------------------------------------------
@@ -123,16 +123,17 @@ def _batch_spec(cfg, mod, proc, **kw):
 
 @pytest.mark.parametrize("hd", [False, True], ids=["single", "hd"])
 def test_build_mgm_batch_matches_jax(hd):
-    """Through ``get_batch_builder('mgm', ...)`` on both sides, one sample's
-    prompt cut by the sequence length."""
+    """Through ``get_batch_builder('mgm', ...)`` on both sides (the port's
+    bound to the config, JAX's given its spec), one sample's prompt cut by
+    the sequence length."""
     cfg, jcfg = tconfigs.tiny_mgm(hd=hd), jconfigs.tiny_mgm(hd=hd)
     samples = synthetic_samples(cfg, n=3, seed=5, max_masks=3,
                                 caption_tokens=5)
     seq = max(len(s["input_ids"]) for s in samples) - 3
-    got = registry.get_batch_builder("mgm", **registry.mgm_process_spec(
-        cfg))(samples, _batch_spec(cfg, collate, processors, seq_len=seq))
+    got = registry.get_batch_builder("mgm", cfg)(
+        samples, _batch_spec(cfg, collate, processors, seq_len=seq))
     want = jregistry.get_batch_builder(
-        "mgm", **registry.mgm_process_spec(cfg))(
+        "mgm", **dataclasses.asdict(cfg.process_spec()))(
         [_pil(s) for s in samples],
         _batch_spec(jcfg, jcollate, jproc, seq_len=seq))
     _equal_batches(got, want)
@@ -306,13 +307,18 @@ def test_mixtral_and_eva_converters_match_jax():
 # --- entry points -------------------------------------------------------------
 
 def test_trainer_refuses_mgm(tmp_path):
+    """The trainer takes the mgm family's random stream
+    (tests/test_torch_train_real.py) and refuses it the derivable
+    grounding task, whose batches have the standard schema only (the JAX
+    script asserts the same)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-m", "flmm_tpu_torch.train", "--family", "mgm",
-         "--preset", "tiny", "--synthetic", "--steps", "1", "--work-dir",
-         str(tmp_path), "--device", "cpu"],
+         "--preset", "tiny", "--synthetic", "--synthetic-task", "grounding",
+         "--steps", "1", "--work-dir", str(tmp_path), "--device", "cpu"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0 and "item 7" in proc.stderr
+    assert proc.returncode != 0 and "grounding takes" in proc.stderr
+    assert not (tmp_path / "step_1").exists()
 
 
 # --- MGMGrounder --------------------------------------------------------------
