@@ -268,6 +268,26 @@ Phases; any failure raises and the script exits non-zero:
     gradients (corr >= 0.99 per trainable subtree) against the all-plain
     step's on the last batch; (e) run (a) with --profile 2, whose trace
     names the kernels; s/step, img/s, data-wait ms a step and peak memory.
+34. the interactive slice on phase 25's files, two tests/data JPEGs
+    decoded by the port's reader: (a) SamPredictor at SAM-1024, set_image
+    (20/4/4/4) then predict with a point, a box and the box with its own
+    low-res logits as the mask prompt (0 launches), the embedding against
+    the all-plain encoder's (corr >= 0.999) and the low-res logits
+    against the all-plain predictor's (>= 0.99), masks at the image's size;
+    (b) AutomaticMaskGenerator at 32 x 32 points, once at pass-all
+    thresholds (the decode's logits on the kernel vs the plain embedding
+    >= 0.99, every record's RLE an image-size mask of its area and box),
+    once at the defaults for the time (encode, one-call decode, host
+    postprocess, peak memory); (c) export_sam_decoder at full width,
+    torch.export's program loaded back against the eager decoder (max
+    |diff| / max |eager| <= 1e-4) and its size; (d) grounded_conversation
+    single shot and --interactive over two turns on a scripted stdin (a
+    stand-in tokenizer whose ids decode to nouns, so that every answer
+    has a phrase to ground), each overlay PNG read back as written,
+    launches per answer 24/24 and per ground 20/4/4/4; (e) visual_cot_inference v1, v2, v3 over a 2-item
+    VisCoT JSON (20/4/52/52 a v1 / v2 item, 24/24 a v3 item), every record
+    complete; (f) infer_png --synthetic --preset 1_3b, two PNGs,
+    20/4/28/28.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -300,6 +320,7 @@ from flmm_tpu_torch import bench_families, eval_png, eval_refcoco, \
     kernel_bench, registry, schedule_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.configs import mgm as mgm_configs
+from flmm_tpu_torch.convert import export, sam_weights
 from flmm_tpu_torch.convert import load as load_mod
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data import collate, image_io
@@ -307,9 +328,11 @@ from flmm_tpu_torch.data import mgm as mgm_data
 from flmm_tpu_torch.data import io as data_io
 from flmm_tpu_torch.data.collate import BatchSpec, build_batch
 from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
-from flmm_tpu_torch.data.processors import ProcessorConfig
+from flmm_tpu_torch.data.processors import ProcessorConfig, sam_preprocess
+from flmm_tpu_torch.data.refcoco import rle_to_mask
 from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
 from flmm_tpu_torch.evalsuite import cli as eval_cli
+from flmm_tpu_torch.demo import grounded_conversation, infer_png
 from flmm_tpu_torch.evalsuite import metrics, runner
 from flmm_tpu_torch.generation import api as generation
 from flmm_tpu_torch.generation.noun_chunks import char_span_to_token_span, \
@@ -319,7 +342,10 @@ from flmm_tpu_torch.models.frozen import llava_next as llava_next_model
 from flmm_tpu_torch.models.frozen import mgm as mgm_model
 from flmm_tpu_torch.models.llm import decoder as llm_decoder
 from flmm_tpu_torch.models.mask_head import unet
+from flmm_tpu_torch.models.sam import amg, predictor
 from flmm_tpu_torch.models.sam import image_encoder as sam_encoder
+from flmm_tpu_torch.models.sam import mask_decoder as sam_decoder
+from flmm_tpu_torch.models.sam import prompt_encoder as sam_prompt
 from flmm_tpu_torch.models.vision import convnext, sam_tower, vit
 from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
@@ -328,6 +354,7 @@ from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.train import __main__ as trainer_cli
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
+from flmm_tpu_torch.visual_cot import visual_cot_inference
 from tests import checkpoint_writers
 from tests.train_fixtures import joint_samples, make_train_root
 
@@ -581,6 +608,22 @@ TRAIN_REAL_STEPS, TRAIN_REAL_PROFILE = 4, 2
 TRAIN_REAL_A_STEPS, TRAIN_REAL_PNG_REPEAT = 11, 4
 TRAIN_REAL_TRACE_KERNELS = ("gemm_kernel", "ln_rows_kernel",
                             "relpos_sm90_kernel")
+# the interactive slice (phase 34): phase 25's files through the SAM
+# predictor, the automatic mask generator (32 x 32 points), the decoder
+# export and the demo / Visual-CoT CLIs; the answers of the CLIs take 32 new
+# tokens, the VisCoT JSON holds 2 items
+INTERACTIVE_IMAGES = ("refcoco/train2014/COCO_train2014_000000000009.jpg",
+                      "png/val2017/000000000285.jpg")
+AMG_POINTS, EXPORT_MAX_TEXT, EXPORT_REL_ERR = 32, 16, 1e-4
+INTERACTIVE_MAX_NEW, INTERACTIVE_SEED = 32, 16
+INTERACTIVE_QUESTIONS = (GEN_QUESTION, "And what is next to it?")
+COT_ITEMS = (
+    {"image": [INTERACTIVE_IMAGES[0]], "conversations": [
+        {"from": "human", "value": "<image>" + GEN_QUESTION},
+        {"from": "gpt", "value": "a cup"}]},
+    {"image": INTERACTIVE_IMAGES[1], "conversations": [
+        {"from": "human", "value": "What is the man holding?"},
+        {"from": "gpt", "value": "a bag"}]})
 
 
 def family_launches(global_kernel: str) -> dict:
@@ -2925,6 +2968,21 @@ class WordTokenizer:
                         for i in ids)
 
 
+class NounTokenizer(WordTokenizer):
+    """The word-level stand-in with every id but the special ones decoding
+    to a noun of ``GEN_WORDS``: a random model's answer repeats one token
+    (phase 25's model answers "on on on ..." through ``WordTokenizer``), and
+    this way it holds a noun phrase for ``grounded_conversation`` to
+    ground."""
+
+    NOUNS = GEN_WORDS[GEN_WORDS.index("dog"):GEN_WORDS.index("bottle") + 1]
+
+    def decode(self, ids) -> str:
+        names = {v: k for k, v in self.SPECIAL.items()}
+        return " ".join(names.get(int(i), self.NOUNS[int(i) % len(self.NOUNS)])
+                        for i in ids)
+
+
 def _counted(fn) -> tuple:
     """``fn()`` with every launch count at 0 just before and read just
     after: ``(result, host ms, launches)``."""
@@ -2939,13 +2997,14 @@ def _counted(fn) -> tuple:
 
 
 def _check_launches(call: str, launches: dict, total: dict,
-                    table: dict = GEN_LAUNCHES, phase: int = 24) -> None:
+                    table: dict = GEN_LAUNCHES, phase: int = 24,
+                    what: str = "generation") -> None:
     want = {name: table[call].get(name, 0) for name in WRAPPERS}
-    log(f"phase {phase} generation {call}: launches "
+    log(f"phase {phase} {what} {call}: launches "
         f"{ {k: v for k, v in launches.items() if v} } (expected "
         f"{ {k: v for k, v in want.items() if v} }, every other kernel 0)")
     if launches != want:
-        raise AssertionError(f"generation {call}: kernel launch counts "
+        raise AssertionError(f"{what} {call}: kernel launch counts "
                              "differ from the path's")
     for name, n in launches.items():
         total[name] += n
@@ -2983,12 +3042,12 @@ def _answer_traced(grounder, image, max_new: int | None = None) -> tuple:
 
 def _agree(label: str, got, want, bound: float,
            pair: str = "the kernel path vs the plain path",
-           phase: int = 24) -> None:
-    rel, corr = agreement(got, want)
-    log(f"phase {phase} generation {label}: {pair} max_rel_err {rel:.3e} corr "
+           phase: int = 24, what: str = "generation") -> None:
+    rel, corr = agreement(torch.as_tensor(got), torch.as_tensor(want))
+    log(f"phase {phase} {what} {label}: {pair} max_rel_err {rel:.3e} corr "
         f"{corr:.6f} (bound {bound})")
     if corr < bound:
-        raise AssertionError(f"generation {label}: {pair} disagree")
+        raise AssertionError(f"{what} {label}: {pair} disagree")
 
 
 def run_generation(card: str) -> dict:
@@ -4396,6 +4455,365 @@ def run_train_real(card: str, paths: dict) -> dict:
     return {"launches": total, "stats": stats}
 
 
+class ScriptedStdin(io.TextIOBase):
+    """Stdin of ``grounded_conversation --interactive``: the next question
+    after a ``user> `` prompt (end of input when none is left) and ``y`` to
+    every ``Ground X?`` prompt; ``out`` is where the prompts are written."""
+
+    def __init__(self, out: io.StringIO, questions):
+        self.out, self.questions = out, list(questions)
+
+    def readline(self, size=-1):
+        if self.out.getvalue().endswith("user> "):
+            return self.questions.pop(0) + "\n" if self.questions else ""
+        return "y\n"
+
+
+def _event_ms(fn) -> tuple:
+    """``fn()`` once between two CUDA events: ``(result, ms)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _expect(label: str, launches: dict, want: dict, total: dict) -> None:
+    """Phase 34's launch check: exactly ``want`` (0 where it names none)."""
+    _check_launches(label, launches, total, {label: want}, 34, "interactive")
+
+
+def _times(table: dict, n: int) -> dict:
+    return {k: v * n for k, v in table.items()}
+
+
+def _sum_launches(*tables) -> dict:
+    out = dict.fromkeys(WRAPPERS, 0)
+    for t in tables:
+        for k, v in t.items():
+            out[k] += v
+    return out
+
+
+def run_sam_tools(card: str, sam_params: dict, images: list,
+                  total: dict, tmp: pathlib.Path) -> dict:
+    """Phase 34 (a)-(c): ``SamPredictor``, ``AutomaticMaskGenerator`` and
+    ``export_sam_decoder`` on SAM ViT-L from phase 25's file."""
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    sam_cfg, plain_cfg = cfg.sam, registry.plain_config(cfg).sam
+    kernel = predictor.SamPredictor(sam_params, sam_cfg, "cuda")
+    plain = predictor.SamPredictor(sam_params, plain_cfg, "cuda")
+    stats = {"set_image_ms": [], "preprocess_ms": [], "predict_ms": []}
+    for i, image in enumerate(images):
+        h, w = image.shape[:2]
+        _, _, launches = _counted(lambda: kernel.set_image(image))
+        _expect(f"(a) set_image {h} x {w}", launches, _SAM_BS1, total)
+        _, ms = _event_ms(lambda: kernel.set_image(image))
+        t0 = time.perf_counter()
+        sam_preprocess(image, sam_cfg.encoder.img_size)
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        stats["set_image_ms"].append(ms)
+        stats["preprocess_ms"].append(prep_ms)
+        log(f"phase 34 interactive (a) set_image {h} x {w} ({card}): "
+            f"{ms:.1f} ms (CUDA events), of which the host's resize and "
+            f"normalisation alone take {prep_ms:.1f} ms")
+        plain.set_image(image)
+        _agree(f"(a) set_image {h} x {w} embedding", kernel.embed,
+               plain.embed, FORWARD_CORR["sam_embedding"],
+               "the kernel encoder vs the plain encoder", 34, "interactive")
+        box = np.array([w * 0.2, h * 0.25, w * 0.7, h * 0.8])
+        prompts = {"point": dict(point_coords=np.array([[w // 2, h // 2]]),
+                                 point_labels=np.array([1])),
+                   "box": dict(box=box, multimask_output=False)}
+        low = None
+        for name in ("point", "box", "box_mask"):
+            kw = (dict(prompts["box"], mask_input=low[:1])
+                  if name == "box_mask" else prompts[name])
+            (masks, iou, low_k), ms, launches = _counted(
+                lambda: kernel.predict(**kw))
+            _expect(f"(a) predict {name}", launches, {}, total)
+            stats["predict_ms"].append(ms)
+            _, _, low_p = plain.predict(**kw)
+            _agree(f"(a) predict {name} low-res logits", low_k, low_p,
+                   FORWARD_CORR["sam_logits"],
+                   "the kernel predictor vs the plain one", 34, "interactive")
+            n = 1 if name != "point" else 3
+            if (masks.shape != (n, h, w) or masks.dtype != bool
+                    or iou.shape != (n,) or low_k.shape != (
+                        n, sam_cfg.prompt_size, sam_cfg.prompt_size)
+                    or not np.isfinite(low_k).all()):
+                raise AssertionError(f"interactive predict {name}: wrong "
+                                     "shapes or values")
+            if name == "box":
+                low = low_k
+            log(f"phase 34 interactive (a) predict {name} on {h} x {w}: "
+                f"masks {masks.shape}, {masks.reshape(n, -1).sum(1)} px, "
+                f"iou {np.round(iou, 4)}, {ms:.2f} ms")
+
+    # (b) the automatic mask generator over the first image
+    image = images[0]
+    h, w = image.shape[:2]
+    gen = amg.AutomaticMaskGenerator(
+        sam_params, sam_cfg, points_per_side=AMG_POINTS,
+        pred_iou_thresh=-10.0, stability_score_thresh=0.0, device="cuda")
+    (embed, input_size), _, launches = _counted(
+        lambda: predictor.encode_image(sam_params, sam_cfg, image, "cuda"))
+    _expect("(b) amg encode", launches, _SAM_BS1, total)
+    pts = gen.grid_points(input_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (low, ious), decode_ms = _event_ms(lambda: gen.decode(embed, pts))
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    plain_embed, _ = predictor.encode_image(sam_params, plain_cfg, image,
+                                            "cuda")
+    plain_low, _ = gen.decode(plain_embed, pts)
+    _agree(f"(b) amg decode logits {tuple(low.shape)}", low, plain_low,
+           FORWARD_CORR["sam_logits"],
+           "on the kernel embedding vs the plain one", 34, "interactive")
+    del plain_low, plain_embed
+    t0 = time.perf_counter()
+    records = gen.postprocess(low.flatten(0, 1), ious.reshape(-1),
+                              input_size, (h, w))
+    pass_all_ms = (time.perf_counter() - t0) * 1e3
+    for r in records:
+        m = rle_to_mask(r["segmentation"])
+        if not (m.shape == (h, w) and int(m.sum()) == r["area"] > 0
+                and amg.mask_box(m).tolist() == r["bbox"]
+                and amg.mask_to_rle(m) == r["segmentation"]):
+            raise AssertionError("interactive amg: a record's mask is not "
+                                 "at the image's size or its RLE does not "
+                                 "decode to it")
+    log(f"phase 34 interactive (b) amg pass-all thresholds on {h} x {w}: "
+        f"{low.shape[0]} prompts, {len(records)} records after NMS, each "
+        f"an ({h}, {w}) mask whose RLE decodes to its area and box; host "
+        f"postprocess of {low.shape[0] * low.shape[1]} masks "
+        f"{pass_all_ms:.1f} ms")
+    del low, ious
+    gen = amg.AutomaticMaskGenerator(sam_params, sam_cfg,
+                                     points_per_side=AMG_POINTS,
+                                     device="cuda")
+    (embed, input_size), encode_ms = _event_ms(
+        lambda: predictor.encode_image(sam_params, sam_cfg, image, "cuda"))
+    (low, ious), decode_ms = _event_ms(lambda: gen.decode(embed, pts))
+    t0 = time.perf_counter()
+    records = gen.postprocess(low.flatten(0, 1), ious.reshape(-1),
+                              input_size, (h, w))
+    post_ms = (time.perf_counter() - t0) * 1e3
+    stats["amg"] = {"encode_ms": encode_ms, "decode_ms": decode_ms,
+                    "postprocess_ms": post_ms, "records": len(records),
+                    "decode_peak_gb": peak_gb,
+                    "pass_all_postprocess_ms": pass_all_ms}
+    log(f"phase 34 interactive (b) amg at the default thresholds ({card}): "
+        f"encode {encode_ms:.1f} ms, decode of {AMG_POINTS ** 2} prompts in "
+        f"one call {decode_ms:.1f} ms (peak {peak_gb:.2f} GB above the "
+        f"embedding), host postprocess {post_ms:.1f} ms, {len(records)} "
+        "records")
+    del low, ious
+
+    # (c) the decoder exported at full width, loaded back, against eager
+    dec_params = {k: sam_params[k] for k in ("prompt", "decoder")}
+    path = tmp / "sam_decoder.pt2"
+    t0 = time.perf_counter()
+    export.export_sam_decoder(dec_params, sam_cfg, path,
+                              max_text=EXPORT_MAX_TEXT)
+    export_s = time.perf_counter() - t0
+    program = export.load_fn(path)
+    g = torch.Generator(device="cuda").manual_seed(INTERACTIVE_SEED)
+    P, d = sam_cfg.prompt_size, sam_cfg.prompt.embed_dim
+    tvalid = torch.zeros((1, EXPORT_MAX_TEXT), dtype=torch.bool,
+                         device="cuda")
+    tvalid[0, :5] = True
+    args = (kernel.embed.float(),
+            torch.tensor([[200.0, 150.0, 700.0, 600.0]], device="cuda"),
+            torch.randn((1, P, P), generator=g, device="cuda"),
+            torch.randn((1, EXPORT_MAX_TEXT, d), generator=g, device="cuda"),
+            tvalid)
+    with torch.no_grad():
+        got = program(dec_params, *args)
+        emb, box, pm, text, tv = args
+        pp = dec_params["prompt"]
+        want = sam_decoder.forward(
+            dec_params["decoder"], sam_cfg.decoder, emb,
+            sam_prompt.dense_pe(pp, sam_cfg.prompt),
+            torch.cat([sam_prompt.embed_boxes(pp, sam_cfg.prompt, box),
+                       text], dim=1),
+            sam_prompt.embed_masks(pp, sam_cfg.prompt, pm[..., None]),
+            sparse_valid=torch.cat([torch.ones((1, 2), dtype=torch.bool,
+                                               device="cuda"), tv], dim=1))
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got, want))
+    size = path.stat().st_size
+    log(f"phase 34 interactive (c) export_sam_decoder: {size / 1e6:.2f} MB "
+        f"artifact, exported in {export_s:.1f} s; the loaded program vs the "
+        f"eager decoder max |diff| / max |eager| {rel:.3e} (bound "
+        f"{EXPORT_REL_ERR}); masks {tuple(got[0].shape)}, iou "
+        f"{tuple(got[1].shape)}")
+    if rel > EXPORT_REL_ERR or tuple(got[0].shape) != (1, 4, P, P):
+        raise AssertionError("interactive export: the exported decoder "
+                             "disagrees with the eager one")
+    stats["export"] = {"bytes": size, "export_s": export_s, "rel_err": rel}
+    return stats
+
+
+def run_interactive(card: str, paths: dict) -> dict:
+    """Phase 34: the interactive slice on phase 25's files: (a)-(c) the SAM
+    tools, (d) grounded_conversation single shot and two interactive turns,
+    (e) visual_cot_inference v1 / v2 / v3, (f) infer_png --synthetic at
+    1_3b, each with its exact launch counts."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    images = [image_io.open_image(str(FIXTURE / n))
+              for n in INTERACTIVE_IMAGES]
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    sd = load_mod.load_state_dict(str(paths["sam"]))
+    sam_params = {
+        "encoder": sam_weights.encoder_params(sd, cfg.sam.encoder,
+                                              device="cuda"),
+        "prompt": sam_weights.prompt_encoder_params(sd, cfg.sam.prompt,
+                                                    device="cuda"),
+        "decoder": sam_weights.mask_decoder_params(sd, cfg.sam.decoder,
+                                                   device="cuda")}
+    del sd
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        stats = run_sam_tools(card, sam_params, images, total, tmp)
+        del sam_params
+        torch.cuda.empty_cache()
+        common = ["--family", "deepseek_vl", "--preset", "1_3b",
+                  "--checkpoint", str(paths["checkpoint"]),
+                  "--sam-checkpoint", str(paths["sam"]),
+                  "--trained", str(paths["trained"])]
+        run = {"answer": 0.0, "answer_n": 0, "ground": 0.0, "ground_n": 0}
+        for v in ("v1", "v2", "v3"):
+            run[f"visual_cot_{v}"], run[f"visual_cot_{v}_n"] = 0.0, 0
+        written = []
+
+        def recording(write):
+            def rec(path, array):
+                write(path, array)
+                written.append((pathlib.Path(path), array))
+            return rec
+
+        def cli(main, argv, questions=None, **kw):
+            out = io.StringIO()
+            with contextlib.ExitStack() as stack:
+                for name in run:
+                    if not name.endswith("_n"):
+                        stack.enter_context(_wrapped(
+                            generation.Grounder, name, _timed(run, name)))
+                stack.enter_context(_wrapped(grounded_conversation,
+                                             "write_png", recording))
+                stack.enter_context(contextlib.redirect_stdout(out))
+                if questions is not None:
+                    stack.enter_context(_wrapped(
+                        sys, "stdin", lambda _: ScriptedStdin(out,
+                                                              questions)))
+                for fn in WRAPPERS.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                main(argv, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log_text = out.getvalue()
+            print(log_text, file=sys.stderr)
+            return log_text, wall, {n: fn.launches
+                                    for n, fn in WRAPPERS.items()}
+
+        # (d) grounded conversation: single shot, then two turns on stdin
+        conv = [*common, "--image", str(FIXTURE / INTERACTIVE_IMAGES[0]),
+                "--max-new-tokens", str(INTERACTIVE_MAX_NEW)]
+        for mode, extra, questions in (
+                ("single shot", ["--text", GEN_QUESTION], None),
+                ("interactive", ["--interactive"], INTERACTIVE_QUESTIONS)):
+            for k in ("answer", "ground"):
+                run[k], run[k + "_n"] = 0.0, 0
+            written.clear()
+            text, wall, launches = cli(
+                grounded_conversation.main,
+                conv + extra + ["--out", str(tmp / "g.png")], questions,
+                tokenizer=NounTokenizer())
+            answers, grounds = text.count("Answer:"), text.count("saved ")
+            _expect(f"(d) grounded_conversation {mode} ({answers} answers, "
+                    f"{grounds} grounds)", launches, _sum_launches(
+                        _times(_TOWER, answers), _times(_SAM_BS1, grounds)),
+                    total)
+            want_answers = 1 if questions is None else len(questions)
+            if (answers != want_answers or run["answer_n"] != answers
+                    or not 1 <= grounds == run["ground_n"] == len(written)):
+                raise AssertionError(f"interactive grounded_conversation "
+                                     f"{mode}: wrong number of turns")
+            for path, array in written:
+                back = image_io.decode_png(path.read_bytes())
+                if not (back.shape == images[0].shape
+                        and np.array_equal(back, array)):
+                    raise AssertionError(f"interactive {path.name}: the PNG "
+                                         "does not read back as written")
+            key = "single" if questions is None else "interactive"
+            stats[f"conversation_{key}"] = {
+                "answers": answers, "grounds": grounds, "wall_s": wall,
+                "answer_ms": run["answer"] * 1e3 / max(answers, 1),
+                "ground_ms": run["ground"] * 1e3 / grounds}
+            log(f"phase 34 interactive (d) grounded_conversation {mode} "
+                f"({card}): {answers} answers of up to "
+                f"{INTERACTIVE_MAX_NEW} tokens, {grounds} grounds, PNGs "
+                f"{[p.name for p, _ in written]} read back equal; answer "
+                f"{stats[f'conversation_{key}']['answer_ms']:.1f} ms, ground "
+                f"{stats[f'conversation_{key}']['ground_ms']:.1f} ms (host "
+                f"clock), {wall:.1f} s with the model load")
+
+        # (e) Visual CoT over a 2-item VisCoT JSON
+        bench = tmp / "bench"
+        bench.mkdir()
+        (bench / "viscot.json").write_text(json.dumps(COT_ITEMS))
+        for v in ("v1", "v2", "v3"):
+            out_dir = tmp / f"cot_{v}"
+            key = f"visual_cot_{v}"
+            run[key], run[key + "_n"] = 0.0, 0
+            _, wall, launches = cli(
+                visual_cot_inference.main,
+                [*common, "--version", v, "--benchmark-dir", str(bench),
+                 "--image-root", str(FIXTURE), "--out", str(out_dir),
+                 "--max-new-tokens", str(INTERACTIVE_MAX_NEW)],
+                tokenizer=WordTokenizer())
+            per_item = _TOWER if v == "v3" else _COT
+            _expect(f"(e) visual_cot {v} ({len(COT_ITEMS)} items)", launches,
+                    _times(per_item, len(COT_ITEMS)), total)
+            records = json.loads((out_dir / "viscot.json").read_text())
+            if not (len(records) == len(COT_ITEMS) and all(
+                    set(r) == {"question", "thought", "bbox", "answer", "gt",
+                               "image"} and len(r["bbox"]) == 4
+                    for r in records)):
+                raise AssertionError(f"interactive visual_cot {v}: bad "
+                                     "records")
+            ms = run[key] * 1e3 / run[key + "_n"]
+            stats[key] = {"ms_per_item": ms, "wall_s": wall}
+            log(f"phase 34 interactive (e) visual_cot {v} ({card}): "
+                f"{ms:.1f} ms an item (host clock), boxes "
+                f"{[r['bbox'] for r in records]}, {wall:.1f} s with the "
+                "model load")
+
+        # (f) infer_png --synthetic at 1_3b: one bs-2 forward
+        out_dir = tmp / "png_vis"
+        _, wall, launches = cli(
+            infer_png.main, ["--synthetic", "--preset", "1_3b", "--out",
+                             str(out_dir)])
+        _expect("(f) infer_png --synthetic 1_3b", launches,
+                EXPECTED_LAUNCHES["deepseek_vl_1_3b"], total)
+        pngs = sorted(out_dir.iterdir())
+        P = cfg.sam.prompt_size
+        if [p.name for p in pngs] != ["synthetic_0.png", "synthetic_1.png"] \
+                or any(image_io.decode_png(p.read_bytes()).shape != (P, P, 3)
+                       for p in pngs):
+            raise AssertionError("interactive infer_png: wrong PNGs")
+        stats["infer_png_s"] = wall
+        log(f"phase 34 interactive (f) infer_png: {[p.name for p in pngs]} "
+            f"({P} x {P}), {wall:.1f} s with the model init")
+    return {"launches": total, "stats": stats}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str,
                   family: str = "deepseek_vl", preset: str = "1_3b",
                   bs: int = BS, launches: dict | None = None) -> None:
@@ -4494,13 +4912,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     with world_dir:
         train_real = run_train_real(card, files["paths"])
+        inter = run_interactive(card, files["paths"])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
              compared, evals, gen, files, hybrid, mistral, mgm["gen"],
-             mgm["files"], train_real)),
+             mgm["files"], train_real, inter)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -4516,7 +4935,8 @@ def main() -> None:
              "llava_next_mistral_7b_bench": mistral["launches"][name],
              "mgm_generation": mgm["gen"]["launches"][name],
              "mgm_files": mgm["files"]["launches"][name],
-             "train_real": train_real["launches"][name]},
+             "train_real": train_real["launches"][name],
+             "interactive": inter["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

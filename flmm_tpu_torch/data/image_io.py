@@ -10,6 +10,9 @@ image_decode.cpp, libjpeg-turbo's default arithmetic); PNG is inflated with
 ``convert("RGB")`` does, grey is replicated, alpha dropped and the palette
 looked up.  Any other kind raises an error that names the file and what it
 lacks.
+
+``write_png`` is the writer the demos save through: 8-bit grey or RGB,
+filter type 0, one ``zlib`` stream.
 """
 
 from __future__ import annotations
@@ -92,3 +95,28 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if kind in ("L", "LA"):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path, array: np.ndarray) -> None:
+    """Write an ``(H, W)`` grey or ``(H, W, 3)`` RGB uint8 array as a PNG
+    file."""
+    a = np.asarray(array)
+    if a.dtype != np.uint8 or not (a.ndim == 2 or (a.ndim == 3
+                                                   and a.shape[2] == 3)):
+        raise ValueError(f"write_png: {path}: an (H, W) or (H, W, 3) uint8 "
+                         f"array, not {a.dtype} {a.shape}")
+    h, w = a.shape[:2]
+    rows = np.ascontiguousarray(a).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if a.ndim == 2 else 2, 0, 0,
+                         0)
+    data = (PNG_MAGIC + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)

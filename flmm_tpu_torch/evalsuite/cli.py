@@ -55,10 +55,22 @@ def parser(description: str, max_masks: int) -> argparse.ArgumentParser:
                    help="data-parallel forward (not ported)")
     p.add_argument("--int8-sam", action="store_true",
                    help="W8A8-quantised SAM encoder (not ported)")
+    add_device_flag(p)
+    return p
+
+
+def add_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) runs the kernels; cpu their plain "
                         "versions")
-    return p
+
+
+def check_device(args) -> None:
+    """Refuse ``--device cuda`` without a card: nothing falls back to the
+    CPU."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to run on the "
+                         "CPU")
 
 
 def parse(p: argparse.ArgumentParser, argv, tokenizer):
@@ -76,9 +88,7 @@ def parse(p: argparse.ArgumentParser, argv, tokenizer):
                                  or args.aux_checkpoint):
         p.error("--clip-checkpoint and --aux-checkpoint load MGM's towers; "
                 f"the {args.family} family reads its tower from --checkpoint")
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device; pass --device cpu to evaluate on "
-                         "the CPU")
+    check_device(args)
     return args
 
 
@@ -105,11 +115,25 @@ def setup(args, tokenizer) -> dict:
         args.family, args.preset, tokenizer, template=args.template,
         sam_size=args.sam_size)
     model = registry.get_model(args.family)
+    params = load_params(args, cfg, model, device)
+    spec = BatchSpec(seq_len=args.seq_len, max_masks=args.max_masks,
+                     coarse_hw=registry.get_coarse_hw(cfg), **spec_kwargs)
+    return {"cfg": cfg, "prompt": prompt, "params": params, "spec": spec,
+            "build": registry.get_batch_builder(args.family, cfg),
+            "model": model, "device": device}
+
+
+def load_params(args, cfg, model, device) -> dict:
+    """``{'frozen', 'trainable'}`` on ``device``: the frozen leaves from
+    ``--checkpoint`` and ``--sam-checkpoint`` (MGM's loader also reads
+    ``--clip-checkpoint`` and ``--aux-checkpoint`` where the parser has
+    them), the trainable tree from ``--trained``; whatever they do not
+    hold drawn from seed 0."""
     g = torch.Generator(device=device).manual_seed(0)
     extra = {}
     if args.family == "mgm":
-        extra = {"clip_checkpoint": args.clip_checkpoint,
-                 "aux_checkpoint": args.aux_checkpoint}
+        extra = {"clip_checkpoint": getattr(args, "clip_checkpoint", None),
+                 "aux_checkpoint": getattr(args, "aux_checkpoint", None)}
     frozen = registry.get_loader(args.family)(
         args.checkpoint, cfg, args.sam_checkpoint, device=device, **extra)
     frozen.update(model.init_frozen(cfg, g, device, skip=frozen))
@@ -118,12 +142,7 @@ def setup(args, tokenizer) -> dict:
     trainable = model.init_trainable(cfg, g, device)
     if args.trained:
         trainable = ckpt.restore_trainable(args.trained, cfg, trainable)
-    params = {"frozen": frozen, "trainable": trainable}
-    spec = BatchSpec(seq_len=args.seq_len, max_masks=args.max_masks,
-                     coarse_hw=registry.get_coarse_hw(cfg), **spec_kwargs)
-    return {"cfg": cfg, "prompt": prompt, "params": params, "spec": spec,
-            "build": registry.get_batch_builder(args.family, cfg),
-            "model": model, "device": device}
+    return {"frozen": frozen, "trainable": trainable}
 
 
 def make_predict(model, params: dict, cfg, device) -> Callable:

@@ -59,14 +59,15 @@ def make_grounder(family: str, cfg, params, tokenizer, **kw):
     exists on the base and MGM CoT surface)."""
     template = tok.TEMPLATES[FAMILY_TEMPLATES[family]]
     image_token = FAMILY_IMAGE_TOKENS[family]
-    if family == "llava_next":
-        cls, cfg_arg = AnyresGrounder, cfg
-    elif family == "mgm":
-        cls, cfg_arg = MGMGrounder, cfg
+    cls = grounder_class(family)
+    if cls is AnyresGrounder:
+        cfg_arg = cfg
+    elif cls is MGMGrounder:
+        cfg_arg = cfg
         kw.setdefault("processor", ProcessorConfig(
             size=cfg.base.input_size, size_rule=FAMILY_SIZE_RULES[family]))
     else:
-        cls, cfg_arg = Grounder, cfg.base if hasattr(cfg, "base") else cfg
+        cfg_arg = cfg.base if hasattr(cfg, "base") else cfg
         kw.setdefault("processor", ProcessorConfig(
             size=cfg_arg.input_size, size_rule=FAMILY_SIZE_RULES[family]))
     fields = {f.name for f in dataclasses.fields(cls)}
@@ -78,6 +79,12 @@ def make_grounder(family: str, cfg, params, tokenizer, **kw):
     kw = {k: v for k, v in kw.items() if k in fields}
     return cls(cfg=cfg_arg, params=params, tokenizer=tokenizer,
                prompt_template=template, image_token=image_token, **kw)
+
+
+def grounder_class(family: str) -> type:
+    """The grounder class ``make_grounder`` builds for a family."""
+    return {"llava_next": AnyresGrounder, "mgm": MGMGrounder}.get(family,
+                                                                   Grounder)
 
 
 def _sentinel_image_token_id(tokenizer, image_token: str) -> int:

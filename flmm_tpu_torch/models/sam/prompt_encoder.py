@@ -1,6 +1,7 @@
 """SAM prompt encoder (flmm_tpu/models/sam/prompt_encoder.py), batched over
-prompts: box corners through the random-Fourier encoding plus learned
-corner embeddings, dense mask prompts through the conv downscaler."""
+prompts: points and box corners through the random-Fourier encoding plus
+learned label and corner embeddings, dense mask prompts through the conv
+downscaler."""
 
 from __future__ import annotations
 
@@ -79,6 +80,27 @@ def embed_boxes(params: dict, cfg: PromptEncoderConfig,
     emb = _pe_encode(params, pts).to(cfg.dtype)
     corner = params["point_embeddings"]
     return emb + torch.stack([corner[2], corner[3]])
+
+
+def embed_points(params: dict, cfg: PromptEncoderConfig,
+                 coords: torch.Tensor, labels: torch.Tensor,
+                 pad: bool) -> torch.Tensor:
+    """``(M, N, 2)`` xy points in input-image pixels and ``(M, N)`` labels
+    -> ``(M, N(+1), D)``.  Labels: 1 positive, 0 negative, -1 padding,
+    which takes ``not_a_point`` (reference ``_embed_points``); ``pad``
+    appends a ``(0, 0)`` point labelled -1, as the reference does when no
+    box follows."""
+    if pad:
+        m = coords.shape[0]
+        coords = torch.cat([coords, coords.new_zeros((m, 1, 2))], dim=1)
+        labels = torch.cat([labels, labels.new_full((m, 1), -1)], dim=1)
+    emb = _pe_encode(params, (coords + 0.5) / cfg.input_image_size).to(
+        cfg.dtype)
+    pe = params["point_embeddings"]
+    lab = labels[..., None]
+    emb = torch.where(lab == -1, params["not_a_point"][0], emb)
+    emb = emb + torch.where(lab == 0, pe[0], 0.0)
+    return emb + torch.where(lab == 1, pe[1], 0.0)
 
 
 def embed_masks(params: dict, cfg: PromptEncoderConfig,

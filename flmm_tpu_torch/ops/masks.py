@@ -36,3 +36,30 @@ def mask_to_box(mask: torch.Tensor) -> torch.Tensor:
     box = torch.stack([x0, y0, x1 + 1, y1 + 1], dim=-1).float()
     full = torch.tensor([0.0, 0.0, w, h], device=mask.device)
     return torch.where(rows.any(dim=-1)[..., None], box, full)
+
+
+def merge_attention(attn: torch.Tensor, mask_ids: torch.Tensor,
+                    num_masks: int, merge: str = "mean") -> torch.Tensor:
+    """Per-token attention ``(..., S, N)`` -> per-mask maps ``(..., M, N)``
+    in f32 over the tokens with ``mask_ids == m`` (``(S,)``): their mean or
+    their max (reference ``apply_merge``).  A mask that matches no token
+    gets a 0 map."""
+    a = attn.float()
+    if merge == "mean":
+        return torch.einsum("...sn,sm->...mn", a,
+                            mean_merge_matrix(mask_ids, num_masks))
+    if merge == "max":
+        onehot = segment_matrix(mask_ids, num_masks) > 0  # (S, M)
+        big_neg = torch.finfo(torch.float32).min
+        masked = torch.where(onehot[:, :, None], a[..., :, None, :], big_neg)
+        out = masked.amax(dim=-3)
+        return torch.where(out <= big_neg / 2, 0.0, out)
+    raise ValueError(f"unknown merge {merge!r}")
+
+
+def merge_text_embeds(hidden: torch.Tensor,
+                      token_index: torch.Tensor) -> torch.Tensor:
+    """The hidden states ``(S, D)`` at each mask's token positions ``(M,
+    T)`` -> ``(M, T, D)`` (padded rows repeat position 0; callers carry the
+    ``(M, T)`` validity)."""
+    return hidden[token_index.long()]

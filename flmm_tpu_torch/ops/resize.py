@@ -1,11 +1,27 @@
-"""Resize primitives with PyTorch's ``align_corners=False`` sampling
-conventions (flmm_tpu/ops/resize.py): bilinear and bicubic resize and the
-affine grid-sample that replaces the reference's crop -> resize -> pad
-chains."""
+"""Resize primitives with PyTorch's sampling conventions
+(flmm_tpu/ops/resize.py): nearest with the legacy asymmetric floor,
+``align_corners=False`` bilinear and bicubic resize and the affine
+grid-sample that replaces the reference's crop -> resize -> pad chains."""
 
 from __future__ import annotations
 
 import torch
+
+
+def resize_nearest_torch(x: torch.Tensor,
+                         out_hw: tuple[int, int]) -> torch.Tensor:
+    """``F.interpolate(mode='nearest')`` over the last two dims: source
+    index ``floor(dst * in / out)``, computed in f32 as the JAX gather
+    does."""
+    h, w = x.shape[-2], x.shape[-1]
+    oh, ow = out_hw
+
+    def src(n_out: int, n_in: int) -> torch.Tensor:
+        pos = torch.arange(n_out, dtype=torch.float32, device=x.device)
+        return torch.floor(pos * torch.tensor(
+            n_in / n_out, dtype=torch.float32)).long()
+
+    return x.index_select(-2, src(oh, h)).index_select(-1, src(ow, w))
 
 
 def _linear_1d(x: torch.Tensor, out_size: int, dim: int,

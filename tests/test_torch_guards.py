@@ -74,7 +74,11 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "            'eval_png', 'models.vision.sam_tower',\n"
         "            'configs.mgm', 'models.vision.convnext',\n"
         "            'models.frozen.mgm', 'data.mgm', 'data.video',\n"
-        "            'train.__main__', 'train.streams'):\n"
+        "            'train.__main__', 'train.streams',\n"
+        "            'models.sam.predictor', 'models.sam.amg',\n"
+        "            'convert.export', 'demo.grounded_conversation',\n"
+        "            'demo.infer_png', 'demo.visualize_ranks',\n"
+        "            'visual_cot.visual_cot_inference'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
@@ -98,7 +102,11 @@ def test_port_sources_never_import_jax():
                 "evalsuite/metrics.py", "evalsuite/runner.py",
                 "runtime/__init__.py", "data/image_io.py", "data/io.py",
                 "convert/load.py", "eval_refcoco.py", "eval_png.py",
-                "train/__main__.py", "train/streams.py"):
+                "train/__main__.py", "train/streams.py",
+                "models/sam/predictor.py", "models/sam/amg.py",
+                "convert/export.py", "demo/grounded_conversation.py",
+                "demo/infer_png.py", "demo/visualize_ranks.py",
+                "visual_cot/visual_cot_inference.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     # the eval CLIs load ``--tokenizer`` through transformers inside the
     # call, as the JAX scripts do; that one import is the only one allowed
@@ -157,6 +165,33 @@ def test_trainer_imports_no_jax_and_needs_a_card():
         proc = _run(["-m", "flmm_tpu_torch.train", *argv])
         assert proc.returncode != 0
         assert "no CUDA device" in proc.stderr, proc.stderr
+
+
+@pytest.mark.parametrize("module, argv", [
+    ("demo.grounded_conversation", ["--checkpoint", "x", "--image", "x",
+                                    "--text", "q", "--tokenizer", "t"]),
+    ("demo.infer_png", ["--synthetic"]),
+    ("visual_cot.visual_cot_inference", [
+        "--checkpoint", "x", "--tokenizer", "t", "--benchmark-dir", "x",
+        "--image-root", "x", "--out", "x"]),
+])
+def test_demo_clis_run_as_modules_and_need_a_card(tmp_path, module, argv):
+    """``python -m`` of each demo CLI stops without a card unless given
+    ``--device cpu``, before it reads a file or a tokenizer."""
+    proc = _run(["-m", "flmm_tpu_torch." + module, *argv], cwd=tmp_path,
+                extra_env={"PYTHONPATH": str(REPO)})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr
+    assert not any(tmp_path.iterdir())
+
+
+def test_visualize_ranks_runs_as_a_module(tmp_path):
+    proc = _run(["-m", "flmm_tpu_torch.demo.visualize_ranks"], cwd=tmp_path,
+                extra_env={"PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[0].split() == ["model", "QA", "rank",
+                                                   "seg", "rank"]
+    assert "MGM-HD-7B" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
