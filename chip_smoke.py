@@ -130,8 +130,9 @@ Phases; any failure raises and the script exits non-zero:
     full width and depth, bs 4, SAM-1024: a bf16 row without error, finite
     logits, the exact launch counts per forward; MGM-Gemma-2B (CLIP-L/336 +
     ConvNeXt-L at 768, the global kernel at its default v8) the same way
-    (K1/K2/K3/K4 20/4/27/27); and the row of what is not ported (the int8
-    decoder), which must say so;
+    (K1/K2/K3/K4 20/4/27/27); and HPT-Air-1.5's int8_llm point
+    (BENCH_QUANT_LLM=1, the W8A8 decoder fabricated leaf by leaf), a row
+    without error that phase 35 sets beside the bf16 one;
 21. build both families in process and compare the forward through each of
     the global kernels v1, v2 and v4 (counts at 0 just before, read just
     after) with the all-plain forward of the same weights;
@@ -244,7 +245,8 @@ Phases; any failure raises and the script exits non-zero:
     released-layout heads, loaded back through get_loader("mgm") and
     restore_trainable bit for bit; eval_refcoco --family mgm --preset
     gemma_2b --debug and eval_png --family mgm over tests/data with phase
-    25's gates (20/4/27/27 a forward).
+    25's gates (20/4/27/27 a forward) but its ground-truth pass, which
+    phase 25 makes for the CLIs' shared chain.
 33. training on real files: a train layout of tests/data in a temporary
     directory (tests/train_fixtures.py: RefCOCO/+/g refs rewritten to the
     train split, the PNG val files as train2017, the narratives listed 4
@@ -288,6 +290,28 @@ Phases; any failure raises and the script exits non-zero:
     VisCoT JSON (20/4/52/52 a v1 / v2 item, 24/24 a v3 item), every record
     complete; (f) infer_png --synthetic --preset 1_3b, two PNGs,
     20/4/28/28.
+35. the int8 slice and the two repairs: (a) on the host, with none of
+    JAX, orbax, tensorstore, zstandard or PIL loaded, the committed Orbax
+    state of the JAX trainer (tests/data/orbax, runtime/zstd_decode.cpp and
+    convert/orbax.py) restored, every leaf the sha256 the fixture script
+    recorded, and every image of another kind (tests/data/kinds:
+    progressive, CMYK, YCCK, 4:1:1 / 4:4:0 / 3 x 1 / 4 x 2 JPEGs,
+    Adam7-interlaced and 16-bit PNGs) decoded to PIL's sha256; then
+    eval_refcoco at the tiny preset on the card with --trained that Orbax
+    directory (its trainable tree the restored one); (b) int8_matmul's
+    int32 product (torch._int_mm) at SAM ViT-L's SAM-1024 bs-4 shapes,
+    Llama-3-8B's at bs 4 x 1280 and a 5-row decode step, equal to the
+    exact product on the CPU, and its output against its plain twin on the
+    card, each beside the bf16 product's time; (c) DeepSeek-VL-1.3B at the
+    bench preset with and without quantize_frozen_sam in one call: mean
+    |sigmoid difference| of the SAM logits under 0.02, launches a forward on
+    the int8 side K6 20, K2 4, K3 / K4 24 (SigLIP), K1 / K10 / K8 0, ms a
+    forward and peak GB both ways; (d) eval_refcoco and eval_png
+    --int8-sam on phase 25's checkpoints (launches 0/4/24/24 and K6 20 a
+    forward, kernel vs all-plain logits), their scores beside phase 25's;
+    (e) bench_torch.py's rows with BENCH_QUANT_LLM=1 beside the bf16 rows
+    at DeepSeek-VL-1.3B and HPT-Air-1.5 (phase 20's int8_llm child), each
+    int8 row launching what its bf16 row does.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -502,6 +526,14 @@ EXPECTED_LAUNCHES.update({
         "window_block": 20, "plain_flash_attention": 26,
         "fused_ln_mlp": 4, "global_attn_block": 4},
 })
+# the int8 SAM encoder (phase 35): every block's gates of K1, K10, K3, K4
+# and K8 closed on the int8 weights, so the 20 window layers take K6 and the
+# 4 global ones K2 between the int8 products; SigLIP's 24 layers K3 / K4
+EXPECTED_LAUNCHES["deepseek_vl_1_3b_int8_sam"] = {
+    "window_block": 0, "sam_global_attention_v8": 4,
+    "fused_ln_qkv": 24, "fused_proj_ln_mlp": 24,
+    "sam_window_attention_v9": 20, "global_attn_block": 0,
+    "fused_ln_mlp": 0}
 WRAPPERS = e2e_bench.WRAPPERS  # every counted wrapper, by name
 for _counts in EXPECTED_LAUNCHES.values():  # kernels not named: 0
     for _name in WRAPPERS:
@@ -575,6 +607,21 @@ HYBRID_STAGE_ITERS = 3  # the first forward of the split is a warm-up
 STAGES = ("sam_b_trunk", "siglip", "projector", "decoder_capture",
           "sam_l_encoder", "heads")
 FIXTURE = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+# the int8 slice (phase 35): what the host checks must find absent; the
+# products at the main path's shapes (label, M, K, N): SAM ViT-L at
+# SAM-1024 bs 4 (64 x 64 tokens an image), HPT-Air-1.5's Llama-3-8B at bs 4
+# x S = 1280, and a decode step's 5 rows; the int8 SAM's bound on the mean
+# |sigmoid difference| of the SAM logits (tests/test_quant.py's for the JAX
+# int8 SAM); timed forwards a way
+HOST_FORBIDDEN = ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "PIL")
+INT8_SHAPES = (
+    ("SAM ViT-L qkv", 16384, 1024, 3072), ("SAM ViT-L proj", 16384, 1024, 1024),
+    ("SAM ViT-L mlp1", 16384, 1024, 4096), ("SAM ViT-L mlp2", 16384, 4096, 1024),
+    ("Llama-3-8B q / o", 5120, 4096, 4096), ("Llama-3-8B k / v", 5120, 4096, 1024),
+    ("Llama-3-8B gate / up", 5120, 4096, 14336),
+    ("Llama-3-8B down", 5120, 14336, 4096),
+    ("Llama-3-8B decode step q", 5, 4096, 4096))
+INT8_SIGMOID_MAX, INT8_ITERS = 0.02, 3
 FILES_GT_MIN = {"cIoU": 85.0, "AA": 0.85}  # AA is a fraction, cIoU percent
 DECODE_REPEATS = 5
 # MGM (phases 28-32): Gemma-2B over CLIP-L/336 and ConvNeXt-L at 768, bs 4,
@@ -2571,7 +2618,8 @@ def _with_env(env: dict, fn):
 def run_family_matrix() -> dict:
     """Phase 20: the family matrix over the two families that had not run on
     a card and the mgm family's flagship, one child process of the bench.py
-    twin per point, and the row of what is not ported (the int8 decoder).  The counts are the children's own (each child
+    twin per point, and HPT-Air-1.5's int8_llm point (the W8A8 decoder).
+    The counts are the children's own (each child
     sets them to 0 after its warm-up forwards and reads them after the timed
     ones); this process launches nothing here."""
     bench_keys = ("BENCH_FAMILY", "BENCH_PRESET", "BENCH_SAM_SIZE", "BENCH_BS",
@@ -2642,15 +2690,20 @@ def run_family_matrix() -> dict:
             rows["mgm"] = row
             for k in WRAPPERS:
                 launches[k] += row["launches"][k] * row["iters"]
-            # what is not ported says so, and nothing runs in its place
+            # the int8_llm point (BENCH_QUANT_LLM=1) of HPT-Air-1.5 gives
+            # its row; phase 35 sets it beside the bf16 row
             quant = bench_families.run_one(
                 "hpt", "int8_llm", dict(bench_families.PLAN["hpt"][-1][1]),
                 1024, FAMILY_TIMEOUT)
             log(f"phase 20 bench_families {json.dumps(quant)}")
-            if not ("BENCH_QUANT_LLM=1" in quant.get("error", "")
-                    and "not ported" in quant["error"]):
-                raise AssertionError("bench_families: the row of what is "
-                                     f"not ported does not say so: {quant}")
+            if "error" in quant or (quant["family"], quant["mode"],
+                                    quant["preset"]) != (
+                                        "hpt", "int8_llm", "air_1_5"):
+                raise AssertionError("bench_families: the int8_llm row of "
+                                     f"HPT-Air-1.5 failed: {quant}")
+            rows["hpt_int8_llm"] = quant
+            for k in WRAPPERS:
+                launches[k] += quant["launches"][k] * quant["iters"]
             kept = [(r["family"], r["mode"]) for r in mgm["rows"]]
             if kept != [("llava", "bf16"), ("hpt", "bf16"), ("mgm", "bf16")]:
                 raise AssertionError(f"bench_families: --out holds {kept}")
@@ -3530,11 +3583,12 @@ def check_cli(label: str, run: dict, want_n: dict, card: str,
 
 def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
                   path: str = "deepseek_vl_1_3b", forward=grounding.forward,
-                  tokenizer_cls=None) -> tuple:
+                  tokenizer_cls=None, gt_pass: bool = True) -> tuple:
     """``eval_refcoco`` (8 splits, ``--debug``) and ``eval_png`` in process
     over the fixture tree with the checkpoint flags ``common``, each run
-    checked (``check_cli``) and run once more with the ground truth as
-    +-8 logits in place of the forward; ``(stats, launches)``."""
+    checked (``check_cli``) and, with ``gt_pass``, run once more with the
+    ground truth as +-8 logits in place of the forward; ``(stats,
+    launches)``, each CLI's results in its stats."""
     stats, total = {}, dict.fromkeys(WRAPPERS, 0)
     narratives = json.loads((FIXTURE / "png" / "annotations" /
                              "png_coco_val2017.json").read_text())
@@ -3553,10 +3607,13 @@ def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
         run["n_samples"] = n_samples
         stats[name] = check_cli(name, run, want_n, card, path, forward,
                                 phase)
+        stats[name]["results"] = run["results"]
         for k in WRAPPERS:
             total[k] += run["launches"][k]
         del run
         torch.cuda.empty_cache()
+        if not gt_pass:
+            continue
 
         def gt_logits(batch):
             """The ground truth as +-8 logits."""
@@ -4215,9 +4272,12 @@ def run_mgm_files(card: str) -> dict:
                   "--aux-checkpoint", str(paths["aux"]),
                   "--sam-checkpoint", str(paths["sam"]),
                   "--trained", str(paths["trained"])]
+        # no second run with the ground truth as logits: phase 25 checks
+        # the CLIs' own chain that way, and the pass took about 45 s here
         cli_stats, total = run_eval_clis(
             32, common, card, manifest, path="mgm_gemma_2b",
-            forward=mgm_model.forward, tokenizer_cls=GemmaWordTokenizer)
+            forward=mgm_model.forward, tokenizer_cls=GemmaWordTokenizer,
+            gt_pass=False)
         stats.update(cli_stats)
     return {"launches": total, "stats": stats}
 
@@ -4814,6 +4874,335 @@ def run_interactive(card: str, paths: dict) -> dict:
     return {"launches": total, "stats": stats}
 
 
+
+class TinyWordTokenizer(WordTokenizer):
+    """The word-level stand-in inside the tiny presets' 256-word
+    vocabulary: BOS 250, the stop word 251, ``<image_placeholder>`` 252,
+    every other word a CRC32 in 10..249."""
+
+    BOS = 250
+    SPECIAL = {"<｜end▁of▁sentence｜>": 251, "<image_placeholder>": 252}
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        ids = [self.BOS] if add_special_tokens else []
+        text = text.replace("<image_placeholder>", " <image_placeholder> ")
+        return ids + [self.SPECIAL.get(w, 10 + zlib.crc32(w.encode()) % 240)
+                      for w in text.split()]
+
+
+def _leaf_sha256(tree: dict, prefix=()) -> dict:
+    """``dotted name -> {shape, dtype, sha256 of the bytes}`` of a tree of
+    CPU tensors (bf16 through its bit pattern)."""
+    if isinstance(tree, dict):
+        items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        a = (tree.view(torch.int16) if tree.dtype == torch.bfloat16
+             else tree).numpy()
+        return {".".join(prefix): {
+            "shape": list(tree.shape),
+            "dtype": str(tree.dtype).replace("torch.", ""),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}}
+    out = {}
+    for k, v in items:
+        out.update(_leaf_sha256(v, prefix + (k,)))
+    return out
+
+
+def quant_host_checks(card: str) -> dict:
+    """Phase 35 (a): the committed Orbax state read with none of JAX,
+    orbax, tensorstore, zstandard or PIL loaded, every leaf the sha256 the
+    fixture script recorded; every image of another kind decoded to PIL's
+    sha256; then eval_refcoco at the tiny preset on the card with
+    ``--trained`` the Orbax directory."""
+    from flmm_tpu_torch.convert import orbax
+
+    manifest = json.loads((FIXTURE / "manifest.json").read_text())
+    state = FIXTURE / manifest["orbax"]["path"]
+
+    def loaded():
+        return sorted(m for m in sys.modules
+                      if m.split(".")[0] in HOST_FORBIDDEN)
+
+    if loaded():
+        raise AssertionError(f"orbax: {loaded()} loaded before the read")
+    cfg = deepseek_vl.tiny()
+    template = grounding.init_trainable(cfg, torch.Generator(), "cpu")
+    t0 = time.perf_counter()
+    raw = orbax.read_params(state, template)
+    read_s = time.perf_counter() - t0
+    if _leaf_sha256(raw) != manifest["orbax"]["leaves"]:
+        raise AssertionError("orbax: the restored leaves differ from the "
+                             "fixture's sha256s")
+    if loaded():
+        raise AssertionError(f"orbax: the read loaded {loaded()}")
+    nbytes = sum(t.numel() * t.element_size() for _, t in
+                 train_loop.tree_leaves(raw))
+    log(f"phase 35 orbax ({card}): {state.relative_to(FIXTURE.parent.parent)}"
+        f" read without {', '.join(HOST_FORBIDDEN)} in sys.modules: "
+        f"{len(manifest['orbax']['leaves'])} leaves ({nbytes / 1e6:.2f} MB, "
+        f"f32 and bf16) equal to the recorded sha256s, in {read_s:.3f} s on "
+        "the host (zstd, CRC-32C, OCDBT, zarr)")
+    times = []
+    for name, want in manifest["kinds"].items():
+        t0 = time.perf_counter()
+        px = image_io.open_image(str(FIXTURE / name))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if (list(px.shape) != want["shape"] or hashlib.sha256(
+                px.tobytes()).hexdigest() != want["sha256"]):
+            raise AssertionError(f"kinds: {name} ({want['kind']}) decodes "
+                                 "to other pixels than PIL's")
+    log(f"phase 35 kinds ({card}): {len(times)} files of other kinds "
+        f"({', '.join(sorted({w['kind'].split(',')[0] for w in manifest['kinds'].values()}))}) "
+        f"decoded to PIL's sha256s, {sum(times) / len(times):.2f} ms a file "
+        "on the host")
+    # eval_refcoco --trained <the Orbax state> at the tiny preset
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        g = torch.Generator(device="cuda").manual_seed(FILES_SEED)
+        params = grounding.init_params(cfg, g, "cuda")
+        fro = params["frozen"]
+        for layer in fro["projector"]:
+            for k in ("w", "b"):
+                layer[k] = layer[k].to(torch.bfloat16).float()
+        sam = fro.pop("sam_encoder")
+        checkpoint_writers.write_shards(
+            root / "tiny", checkpoint_writers.deepseek_vl_state_dict(
+                fro, torch.bfloat16), 1)
+        torch.save(checkpoint_writers.sam_encoder_state_dict(
+            sam, dtype=torch.float32), root / "sam.pth")
+        run = run_cli(eval_refcoco.main, [
+            "--preset", "tiny", "--checkpoint", str(root / "tiny"),
+            "--sam-checkpoint", str(root / "sam.pth"), "--trained",
+            str(state), "--data-root", str(FIXTURE / "refcoco"), "--debug"],
+            tokenizer_cls=TinyWordTokenizer)
+    want_tree = ckpt.restore_trainable(state, cfg, grounding.init_trainable(
+        cfg, torch.Generator(), "cpu"))
+    _trees_equal(run["params"]["trainable"], _to_cuda(want_tree))
+    res = run["results"]
+    counts = manifest["refcoco_expressions"]
+    if (set(res) != set(counts) or any(res[k]["n"] != n for k, n in
+                                       counts.items())
+            or not all(math.isfinite(v) for r in res.values()
+                       for v in r.values())):
+        raise AssertionError(f"eval_refcoco --trained <orbax>: {res}")
+    log(f"phase 35 eval_refcoco --preset tiny --trained "
+        f"{state.relative_to(FIXTURE.parent.parent)} ({card}): "
+        f"{json.dumps(res)}; {len(run['batches'])} forwards on the card, the "
+        "trainable tree the Orbax state's")
+    return {"launches": run["launches"], "orbax_read_s": read_s}
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cuda(v) for v in tree)
+    return tree.cuda()
+
+
+def quant_products(card: str) -> dict:
+    """Phase 35 (b): ``int8_matmul``'s product on the card
+    (``torch._int_mm``) at the main path's shapes against the exact product
+    on the CPU (f64, exact here: every partial sum is an integer far below
+    2**53), and the whole ``int8_matmul`` against its plain twin on the
+    card; ms of the int8 product and of the bf16 product of the same
+    shape."""
+    from flmm_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(35)
+    rows = {}
+    for label, M, K, N in INT8_SHAPES:
+        x = torch.randn((M, K), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
+        w_q, w_s = quant.quantize_weight(w)
+        x_q, _ = quant.quantize_activations(x)
+        y = quant.int8_product(x_q, w_q)
+        exact = quant.int8_product_plain(x_q.cpu(), w_q.cpu())
+        if not torch.equal(y.cpu(), exact):
+            raise AssertionError(f"int8 {label}: the card's int32 product "
+                                 "differs from the exact one")
+        got = quant.int8_matmul(x, w_q, w_s)
+        twin = quant.int8_matmul_plain(x, w_q, w_s)
+        gap = ((got.float() - twin.float()).abs()
+               / torch.finfo(torch.bfloat16).eps
+               / twin.float().abs().clamp_min(1e-30)).max().item()
+        if not torch.equal(got, twin):
+            log(f"phase 35 int8 {label}: int8_matmul differs from its plain "
+                f"twin by at most {gap:.2f} ulp")
+        w_b = w.to(torch.bfloat16)
+        ms = cuda_ms(lambda: quant.int8_product(x_q, w_q))
+        bf16_ms = cuda_ms(lambda: x @ w_b)
+        rows[label] = {"M": M, "K": K, "N": N, "int8_ms": ms,
+                       "bf16_ms": bf16_ms, "equal_to_twin": torch.equal(
+                           got, twin)}
+        log(f"phase 35 int8 {label} ({M} x {K} -> {N}, {card}): int32 product "
+            f"equal to the exact one; int8_matmul "
+            f"{'equal to' if torch.equal(got, twin) else 'within'} its plain "
+            f"twin's output{'' if torch.equal(got, twin) else f' ({gap:.2f} ulp)'}; "
+            f"torch._int_mm {ms:.3f} ms ({2 * M * K * N / ms / 1e9:.1f} "
+            f"TOP/s), the bf16 product {bf16_ms:.3f} ms")
+        del x, w, w_q, x_q, y, exact, got, twin, w_b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _timed_forwards(model, params, cfg, batches, warmup: int = 1) -> dict:
+    """Forwards under no_grad: the first ``warmup`` untimed, then CUDA-event
+    ms a forward, peak GB above what was allocated before, the launches
+    (counts at 0 just before the timed ones) and the last output."""
+    with torch.no_grad():
+        for b in batches[:warmup]:
+            model.forward(params, cfg, b)
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for b in batches[warmup:]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model.forward(params, cfg, b)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    n = len(batches) - warmup
+    return {"ms": sum(ms) / n, "peak_gb": (torch.cuda.max_memory_allocated()
+                                           - base) / 1e9,
+            "launches": {k: fn.launches for k, fn in WRAPPERS.items()},
+            "n": n, "out": out}
+
+
+def quant_sam_forward(card: str) -> dict:
+    """Phase 35 (c): DeepSeek-VL-1.3B at the bench preset (SAM-1024, bs 4,
+    bf16, seeded weights, rel-pos tables randomised), its forward with
+    ``quantize_frozen_sam`` and without, in the same call: the mean |sigmoid
+    difference| of the SAM logits under 0.02, the int8 side's exact
+    launches a forward (K6 20, K2 4, K1 0, K10 0, SigLIP's K3 / K4 24 and
+    none in the SAM encoder), ms a forward and peak GB both ways."""
+    model, cfg, params, batch = e2e_bench.build(BS, e2e_bench.Knobs(),
+                                                "cuda")
+    batches = e2e_bench.distinct_batches(batch, 1 + INT8_ITERS)
+    bf16 = _timed_forwards(model, params, cfg, batches)
+    q_params = grounding.quantize_frozen_sam(params)
+    int8 = _timed_forwards(model, q_params, cfg, batches)
+    want = {k: EXPECTED_LAUNCHES["deepseek_vl_1_3b_int8_sam"][k] * INT8_ITERS
+            for k in WRAPPERS}
+    if int8["launches"] != want:
+        raise AssertionError(f"int8 SAM: launches {int8['launches']}, not "
+                             f"{want}")
+    delta = (torch.sigmoid(int8["out"]["sam_logits"].float())
+             - torch.sigmoid(bf16["out"]["sam_logits"].float())).abs()
+    mean = delta.mean().item()
+    for key in ("sam_logits", "coarse_logits", "iou_pred"):
+        if not torch.isfinite(int8["out"][key]).all():
+            raise AssertionError(f"int8 SAM: non-finite {key}")
+    enc = params["frozen"]["sam_encoder"]["blocks"]
+    q_enc = q_params["frozen"]["sam_encoder"]["blocks"]
+    gb = sum(t.numel() * t.element_size() for bp in enc
+             for _, t in train_loop.tree_leaves(bp)) / 1e9
+    q_gb = sum(t.numel() * t.element_size() for bp in q_enc
+               for _, t in train_loop.tree_leaves(bp)) / 1e9
+    log(f"phase 35 int8 SAM DeepSeek-VL-1.3B SAM-1024 bs {BS} ({card}): "
+        f"mean |sigmoid(sam_logits) int8 - bf16| {mean:.5f} (bound "
+        f"{INT8_SIGMOID_MAX}), max {delta.max().item():.4f}; launches a "
+        f"forward {({k: v // INT8_ITERS for k, v in int8['launches'].items() if v})}; "
+        f"bf16 {bf16['ms']:.1f} ms a forward, peak {bf16['peak_gb']:.2f} GB; "
+        f"int8 SAM {int8['ms']:.1f} ms a forward, peak {int8['peak_gb']:.2f} "
+        f"GB (mean of {INT8_ITERS} forwards after a warm-up, CUDA events); "
+        f"SAM blocks' weights {gb:.3f} GB bf16, {q_gb:.3f} GB int8")
+    if not mean < INT8_SIGMOID_MAX:
+        raise AssertionError(f"int8 SAM: mean sigmoid difference {mean}")
+    del model, params, q_params, batch, batches, bf16["out"], int8["out"]
+    torch.cuda.empty_cache()
+    return {"launches": int8["launches"], "mean_sigmoid_delta": mean,
+            "bf16_ms": bf16["ms"], "int8_ms": int8["ms"],
+            "bf16_peak_gb": bf16["peak_gb"], "int8_peak_gb": int8["peak_gb"]}
+
+
+def quant_bench_rows(card: str, e2e_row: dict | None = None,
+                     hpt_int8_row: dict | None = None) -> dict:
+    """Phase 35 (e): bench_torch.py's rows with BENCH_QUANT_LLM=1 beside
+    the bf16 rows: DeepSeek-VL-1.3B int8 in process beside phase 16's bf16
+    row; HPT-Air-1.5's bf16 row in process beside phase 20's int8_llm row
+    (its child).  A row not given is made here, in process.  Each int8 row
+    launches what its bf16 row does."""
+    device = torch.device("cuda")
+    rows = {}
+    for key, knobs in (("deepseek_vl int8", e2e_bench.Knobs(quant_llm=True)),
+                       ("deepseek_vl bf16", None if e2e_row else
+                        e2e_bench.Knobs()),
+                       ("hpt bf16", e2e_bench.Knobs(family="hpt")),
+                       ("hpt int8", None if hpt_int8_row else
+                        e2e_bench.Knobs(family="hpt", quant_llm=True))):
+        if knobs is not None:
+            rows[key] = e2e_bench.run(BS, E2E_ITERS, knobs, device)
+            torch.cuda.empty_cache()
+    pairs = (("deepseek_vl_1_3b", e2e_row or rows["deepseek_vl bf16"],
+              rows["deepseek_vl int8"]),
+             ("hpt_air_1_5", rows["hpt bf16"],
+              hpt_int8_row or rows["hpt int8"]))
+    for name, bf16, int8 in pairs:
+        if int8["launches"] != bf16["launches"]:
+            raise AssertionError(f"bench {name}: the int8 row launches "
+                                 f"{int8['launches']}, the bf16 row "
+                                 f"{bf16['launches']}")
+        log(f"phase 35 bench_torch {name} bs {bf16['bs']} ({card}): bf16 "
+            f"{bf16['ms_mean']} ms a forward, {bf16['value']} img/s, peak "
+            f"{bf16['peak_gb']} GB; BENCH_QUANT_LLM=1 {int8['ms_mean']} ms a "
+            f"forward, {int8['value']} img/s, peak {int8['peak_gb']} GB (bs "
+            f"{int8['bs']}); plain paths {bf16['plain']['ms_mean']} / "
+            f"{int8['plain']['ms_mean']} ms")
+    log(f"phase 35 bench_torch rows {json.dumps(rows)}")
+    return {"launches": {
+        k: sum(r["launches"][k] * r["iters"] for r in rows.values())
+        for k in WRAPPERS}, "rows": rows}
+
+
+def run_quant(card: str, paths: dict, files: dict, e2e: dict | None = None,
+              families: dict | None = None) -> dict:
+    """Phase 35: the int8 slice and the two repairs.  (a) the Orbax
+    reader and the image kinds on the host, eval_refcoco --trained <Orbax>
+    at tiny on the card; (b) the int8 products; (c) the int8 SAM encoder
+    in the DeepSeek-VL-1.3B forward; (d) eval_refcoco and eval_png
+    --int8-sam on phase 25's checkpoints, their scores beside phase 25's
+    bf16 ones; (e) the BENCH_QUANT_LLM=1 rows beside the bf16 ones (those
+    of phases 16 and 20 when ``e2e`` and ``families`` are given, else made
+    here).  Alone: ``phase_card()``, ``phase_build()``, ``files =
+    run_files(card, root)``, ``run_quant(card, files["paths"], files)``."""
+    t0 = time.perf_counter()
+    host = quant_host_checks(card)
+    products = quant_products(card)
+    forward = quant_sam_forward(card)
+    manifest = json.loads((FIXTURE / "manifest.json").read_text())
+    common = ["--checkpoint", str(paths["checkpoint"]),
+              "--sam-checkpoint", str(paths["sam"]),
+              "--trained", str(paths["trained"]), "--int8-sam"]
+    cli_stats, cli_launches = run_eval_clis(
+        35, common, card, manifest, path="deepseek_vl_1_3b_int8_sam",
+        gt_pass=False)
+    for name in ("eval_refcoco", "eval_png"):
+        log(f"phase 35 {name} --int8-sam ({card}): "
+            f"{json.dumps(cli_stats[name]['results'])}; bf16 (phase 25): "
+            f"{json.dumps(files['stats'][name]['results'])}; "
+            f"{cli_stats[name]['forward_ms']:.1f} ms a batch forward "
+            f"(bf16 {files['stats'][name]['forward_ms']:.1f}), peak "
+            f"{cli_stats[name]['peak_gb']:.2f} GB (bf16 "
+            f"{files['stats'][name]['peak_gb']:.2f})")
+    bench = quant_bench_rows(
+        card, e2e and e2e["rows"]["v8"],
+        families and families["rows"]["hpt_int8_llm"])
+    log(f"phase 35 done in {time.perf_counter() - t0:.1f} s")
+    launches = {k: host["launches"][k] + forward["launches"][k]
+                + cli_launches[k] + bench["launches"][k] for k in WRAPPERS}
+    return {"launches": launches, "products": products, "forward": forward,
+            "clis": cli_stats, "bench": bench["rows"]}
+
+
 def check_e2e_row(phase: int, row: dict, global_kernel: str,
                   family: str = "deepseek_vl", preset: str = "1_3b",
                   bs: int = BS, launches: dict | None = None) -> None:
@@ -4838,6 +5227,11 @@ def check_e2e_row(phase: int, row: dict, global_kernel: str,
 
 
 def main() -> None:
+    start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        log(f"elapsed {time.perf_counter() - start:.1f} s after {what}")
+
     card = phase_card()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -4847,6 +5241,7 @@ def main() -> None:
     g_sweep = torch.Generator(device="cuda").manual_seed(4)
     g_eval = torch.Generator(device="cuda").manual_seed(5)
     kernels = phase_kernels(g, g_hpt, g_bench, g_e2e, g_sweep)
+    stamp("phase 3")
     paths = {"deepseek_vl_1_3b": run_deepseek(g)}
     torch.cuda.empty_cache()
     paths["llava_next_vicuna_7b"] = run_llava_next(g)
@@ -4855,15 +5250,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["hpt_air_1_5"] = run_hpt(g_hpt)
     torch.cuda.empty_cache()
+    stamp("phases 4-12")
     bench = run_kernel_bench(g_bench)
     torch.cuda.empty_cache()
+    stamp("phase 13")
     e2e = run_e2e_bench()
+    stamp("phases 14-16")
     sweep = run_sweep(g_sweep)
     variants = run_window_variants(g_sweep)
     torch.cuda.empty_cache()
+    stamp("phases 17-19")
     families = run_family_matrix()
     compared = compare_families()
+    stamp("phases 20-21")
     evals = run_eval_phase(g_eval, card)
+    stamp("phase 22")
     for family, row in families["rows"].items():
         log(f"phase 23 timing bench_families {family} {row['preset']} "
             f"({card}): kernel path {row['ms_mean']} ms/forward, "
@@ -4889,9 +5290,11 @@ def main() -> None:
             f"{r['plain_peak_gb']:.2f} GB (bs {r['bs']}, mean of {what} "
             "after one warm-up)")
     gen = run_generation(card)
+    stamp("phase 24")
     # phase 25's checkpoints stay on disk for phase 33
     world_dir = tempfile.TemporaryDirectory()
     files = run_files(card, pathlib.Path(world_dir.name))
+    stamp("phase 25")
     st = files["stats"]
     log(f"phase 25 timing files ({card}): load "
         f"{st['load']['load_gb_per_s']:.2f} GB/s, decode "
@@ -4907,19 +5310,25 @@ def main() -> None:
     mistral = run_mistral(card)
     paths.update(mistral["paths"])
     torch.cuda.empty_cache()
+    stamp("phases 26-27")
     mgm = run_mgm(card)
     paths.update(mgm["paths"])
     torch.cuda.empty_cache()
+    stamp("phases 28-32")
     with world_dir:
         train_real = run_train_real(card, files["paths"])
+        stamp("phase 33")
         inter = run_interactive(card, files["paths"])
+        stamp("phase 34")
+        quant = run_quant(card, files["paths"], files, e2e, families)
+        stamp("phase 35")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
              compared, evals, gen, files, hybrid, mistral, mgm["gen"],
-             mgm["files"], train_real, inter)),
+             mgm["files"], train_real, inter, quant)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -4936,7 +5345,8 @@ def main() -> None:
              "mgm_generation": mgm["gen"]["launches"][name],
              "mgm_files": mgm["files"]["launches"][name],
              "train_real": train_real["launches"][name],
-             "interactive": inter["launches"][name]},
+             "interactive": inter["launches"][name],
+             "int8": quant["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

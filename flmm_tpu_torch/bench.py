@@ -26,7 +26,10 @@ Env knobs, with the JAX script's names and defaults:
   BENCH_GLOBAL_BLOCK  1: the whole-block global SAM layer (K10 + K8)
   BENCH_GLOBAL_KERNEL the global attention kernel of the split path: v8
                       (default), v1, v2, v3, v4, v6, v7 or v11
-  BENCH_QUANT_LLM     1 raises: the int8 decoder is not ported (ROADMAP.md)
+  BENCH_QUANT_LLM     1: the W8A8 int8 frozen decoder (ops/quant.py):
+                      deepseek_vl / llava / hpt fabricate the int8 tree
+                      leaf by leaf on the device (``fabricate_int8_llm``),
+                      the other families quantise their resident tree
 ``--device`` (default ``cuda``; without a card the run exits non-zero;
 ``--device cpu`` runs the plain versions on host clocks, for the tests).
 
@@ -74,6 +77,7 @@ from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
 from flmm_tpu_torch.data.processors import ProcessorConfig
 from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
 from flmm_tpu_torch.kernel_bench import card_line, device_of
+from flmm_tpu_torch.models.llm import decoder as llm_decoder
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
     global_block, sam_flash, sam_flash_experiments, window_block
 
@@ -157,10 +161,6 @@ def resolve_config(knobs: Knobs):
     parameter: the preset, its image block moved to a multiple of 128 where
     the decoder captures through the flash kernel or the block holds 1024
     tokens or more, the SAM size and the encoder overrides."""
-    if knobs.quant_llm:
-        raise NotImplementedError(
-            "BENCH_QUANT_LLM=1: the int8 W8A8 decoder is not ported to "
-            "flmm_tpu_torch yet (ROADMAP.md, queue 1, int8)")
     if knobs.family not in FLAGSHIP:
         raise ValueError(f"BENCH_FAMILY {knobs.family!r}: choose from "
                          f"{', '.join(FLAGSHIP)}")
@@ -266,17 +266,73 @@ def randomize_frozen(params: dict, g: torch.Generator) -> None:
             for k, t in tower["neck_hd"].items()}
 
 
+def fabricate_int8_llm(llm_cfg, g: torch.Generator, device) -> dict:
+    """A random int8 decoder tree with the keys, shapes and dtypes
+    ``decoder.quantize_params`` gives (no ``lm_head``), made one leaf at a
+    time on ``device`` (bench.py:85-130): the bf16 tree is never made, so
+    the peak is the int8 tree's size.  Codes uniform in [-127, 127], scales
+    3e-4 (weight-like magnitudes), norms at their identity, embed and biases
+    0.02 * N(0, 1)."""
+    shapes = llm_decoder.init_params(llm_cfg, None, "meta")
+    shapes.pop("lm_head", None)
+    layers = dict(shapes["layers"])
+    for name in llm_decoder.QUANT_NAMES:
+        w = layers.get(name)
+        if w is None or w.dim() != 3:  # absent, or an (L, E, ...) MoE stack
+            continue
+        del layers[name]
+        layers[name + "_q"] = torch.empty(w.shape, dtype=torch.int8,
+                                          device="meta")
+        layers[name + "_s"] = torch.empty((w.shape[0], w.shape[2]),
+                                          device="meta")
+
+    def make(name: str, a: torch.Tensor) -> torch.Tensor:
+        if a.dtype == torch.int8:  # each layer's slice column-major
+            return torch.randint(-127, 128, (*a.shape[:-2], a.shape[-1],
+                                             a.shape[-2]), generator=g,
+                                 dtype=torch.int8,
+                                 device=device).transpose(-1, -2)
+        if name.endswith("_s"):
+            return torch.full(a.shape, 3e-4, device=device)
+        if name.startswith("ln") or name == "final_norm":
+            return (torch.zeros if llm_cfg.gemma_norm else torch.ones)(
+                a.shape, dtype=a.dtype, device=device)
+        return (0.02 * torch.randn(a.shape, generator=g, device=device)).to(
+            a.dtype)
+
+    out = {k: make(k, v) for k, v in shapes.items() if k != "layers"}
+    out["layers"] = {k: make(k, v) for k, v in layers.items()}
+    return out
+
+
 def build(batch_size: int, knobs: Knobs = Knobs(), device="cuda",
           seed: int = 0):
     """``(model, cfg, params, batch)``: the family's model module, the
     resolved config, random parameters from ``seed`` on ``device`` (no
     ``lm_head``: the grounding forward never projects to the vocabulary) and
-    one batch of tensors there."""
+    one batch of tensors there.
+
+    ``knobs.quant_llm`` (bench.py:200-225): deepseek_vl / llava / hpt
+    build the rest of the model around a 1-layer decoder, give
+    ``text_layer_weights`` the real layer count and take the decoder from
+    :func:`fabricate_int8_llm`; the other families quantise the resident
+    tree (``decoder.quantize_params(consume=True)``)."""
     cfg, _, native_start = resolve_config(knobs)
     model = registry.get_model(knobs.family)
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
-    params = model.init_params(cfg, g, device)
+    if knobs.quant_llm and knobs.family in ("deepseek_vl", "llava", "hpt"):
+        small = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, num_layers=1))
+        params = model.init_params(small, g, device)
+        params["trainable"]["text_layer_weights"] = torch.ones(
+            (cfg.llm.num_layers,), device=device)
+        params["frozen"]["llm"] = fabricate_int8_llm(cfg.llm, g, device)
+    else:
+        params = model.init_params(cfg, g, device)
+        if knobs.quant_llm:
+            params["frozen"]["llm"] = llm_decoder.quantize_params(
+                params["frozen"]["llm"], consume=True)
     params["frozen"]["llm"].pop("lm_head", None)
     randomize_frozen(params, g)
     seq_len = resolve_seq_len(cfg, knobs.family, knobs.seq_len)

@@ -27,9 +27,9 @@ picked as "the serving mode that fits one chip" for a chip with 16 GB, where
 a 7B or 8B decoder does not fit in bf16 beside a batch of 2.  One 80 GB card
 holds every family in bf16 at the bench's batch sizes, so here each
 family's first point is ``("bf16", {})`` and the JAX script's points follow
-it in their order.  Those that set ``BENCH_QUANT_LLM=1`` give an ``error``
-row that names the int8 decoder as not ported: nothing runs in their
-place.
+it in their order.  Those that set ``BENCH_QUANT_LLM=1`` (``int8_llm``)
+run the W8A8 int8 decoder; since the bf16 point comes first and ends its
+family on one 80 GB card, they run only when it fails.
 
 ``--device`` (default ``cuda``) and ``--seed`` are handed to the children;
 without a card every child exits non-zero and every row is an ``error``.

@@ -19,6 +19,7 @@ import torch
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
     "int32": torch.int32,
     "bool": torch.bool,
 }

@@ -14,6 +14,7 @@ import torch
 from flmm_tpu_torch import registry
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.collate import BatchSpec
+from flmm_tpu_torch.models.frozen.grounding import quantize_frozen_sam
 from flmm_tpu_torch.train import checkpoint as ckpt
 
 
@@ -35,8 +36,9 @@ def parser(description: str, max_masks: int) -> argparse.ArgumentParser:
                    help="open_clip ConvNeXt checkpoint (mgm)")
     p.add_argument("--trained", default=None,
                    help="trainable params: a released F-LMM .pth / .bin / "
-                        ".safetensors or a step_<n> directory of "
-                        "python -m flmm_tpu_torch.train")
+                        ".safetensors, a step_<n> directory of "
+                        "python -m flmm_tpu_torch.train or an Orbax "
+                        "directory of the JAX trainer")
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer name or directory for "
                         "transformers.AutoTokenizer (required unless a "
@@ -54,7 +56,8 @@ def parser(description: str, max_masks: int) -> argparse.ArgumentParser:
     p.add_argument("--sharded-eval", action="store_true",
                    help="data-parallel forward (not ported)")
     p.add_argument("--int8-sam", action="store_true",
-                   help="W8A8-quantised SAM encoder (not ported)")
+                   help="W8A8-quantised SAM encoder (int8 weights and "
+                        "activations around the attention kernels)")
     add_device_flag(p)
     return p
 
@@ -81,9 +84,6 @@ def parse(p: argparse.ArgumentParser, argv, tokenizer):
     if args.sharded_eval:
         raise NotImplementedError(
             "--sharded-eval is not ported: ROADMAP queue 1 item 11")
-    if args.int8_sam:
-        raise NotImplementedError(
-            "--int8-sam is not ported: ROADMAP queue 1 item 10")
     if args.family != "mgm" and (args.clip_checkpoint
                                  or args.aux_checkpoint):
         p.error("--clip-checkpoint and --aux-checkpoint load MGM's towers; "
@@ -128,7 +128,8 @@ def load_params(args, cfg, model, device) -> dict:
     ``--checkpoint`` and ``--sam-checkpoint`` (MGM's loader also reads
     ``--clip-checkpoint`` and ``--aux-checkpoint`` where the parser has
     them), the trainable tree from ``--trained``; whatever they do not
-    hold drawn from seed 0."""
+    hold drawn from seed 0.  ``--int8-sam`` then quantises the SAM image
+    encoder (``quantize_frozen_sam``, as the JAX scripts do)."""
     g = torch.Generator(device=device).manual_seed(0)
     extra = {}
     if args.family == "mgm":
@@ -142,7 +143,10 @@ def load_params(args, cfg, model, device) -> dict:
     trainable = model.init_trainable(cfg, g, device)
     if args.trained:
         trainable = ckpt.restore_trainable(args.trained, cfg, trainable)
-    return {"frozen": frozen, "trainable": trainable}
+    params = {"frozen": frozen, "trainable": trainable}
+    if getattr(args, "int8_sam", False):
+        params = quantize_frozen_sam(params)
+    return params
 
 
 def make_predict(model, params: dict, cfg, device) -> Callable:

@@ -28,6 +28,7 @@ import torch
 
 from flmm_tpu_torch.models.llm import decoder as llm
 from flmm_tpu_torch.ops._matmul import matmul_f32
+from flmm_tpu_torch.ops.quant import dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +62,8 @@ def _layer_step(lp: dict, cfg: llm.DecoderConfig, h: torch.Tensor,
                              torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)  # (KV, H // KV, P) f32
     out = probs.to(h.dtype) @ vv.permute(1, 0, 2)  # (KV, H // KV, hd)
-    h = llm.mlp_residual(h + out.reshape(1, 1, H * hd) @ lp["wo"], lp, cfg)
+    h = llm.mlp_residual(h + dense(out.reshape(1, 1, H * hd), lp, "wo"), lp,
+                         cfg)
     return h, probs.reshape(H, pos + 1)[:, img_start:img_start + n_img]
 
 

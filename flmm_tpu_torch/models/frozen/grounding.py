@@ -124,6 +124,23 @@ def init_params(cfg: GroundingConfig, generator: torch.Generator,
             "trainable": init_trainable(cfg, generator, device)}
 
 
+def quantize_frozen_llm(params: dict) -> dict:
+    """The parameters with the frozen decoder's projections int8 (W8A8
+    serving, :func:`llm.quantize_params`); ``params`` is left as it is."""
+    return {**params, "frozen": {**params["frozen"], "llm":
+                                 llm.quantize_params(params["frozen"]["llm"])}}
+
+
+def quantize_frozen_sam(params: dict) -> dict:
+    """The parameters with the frozen SAM image encoder's projections int8
+    (W8A8, :func:`sam_encoder.quantize_params`); ``params`` is left as it
+    is.  The encoder dispatches on the quantised keys: no config change."""
+    return {**params, "frozen": {
+        **params["frozen"],
+        "sam_encoder": sam_encoder.quantize_params(
+            params["frozen"]["sam_encoder"])}}
+
+
 def _project(features: torch.Tensor, layers: list) -> torch.Tensor:
     """DeepSeek 'mlp_gelu' aligner (reference projector.py:39-45)."""
     x = features

@@ -18,7 +18,9 @@ package computes it: every expert densely, each token's output the sum of
 the experts' weighted by a softmax over the router logits at or above its
 k-th largest.
 
-Not ported yet: int8 weights.
+With ``<name>_q`` / ``<name>_s`` in place of a projection's weight
+(:func:`quantize_params`), that product takes the W8A8 int8 path of
+ops/quant.py.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ import torch.nn.functional as F
 
 from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.flash_attention import flash_attention_with_merged_capture
+from flmm_tpu_torch.ops.quant import dense, quantize_weight
+
+# the layer projections quantize_params turns to int8 where they are 3-D
+QUANT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +162,7 @@ def project_qkv(lp: dict, cfg: DecoderConfig, h: torch.Tensor,
     B, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(h, lp["ln1"], cfg.rms_eps, cfg.gemma_norm)
-    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    q, k, v = dense(x, lp, "wq"), dense(x, lp, "wk"), dense(x, lp, "wv")
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
@@ -178,8 +184,8 @@ def mlp(x2: torch.Tensor, lp: dict, cfg: DecoderConfig) -> torch.Tensor:
     sparse MoE computed densely: every expert over every token, the outputs
     summed with the router's gates (zero past the top k)."""
     if not cfg.num_experts:
-        return (_act(x2 @ lp["w_gate"], cfg.act)
-                * (x2 @ lp["w_up"])) @ lp["w_down"]
+        return dense(_act(dense(x2, lp, "w_gate"), cfg.act)
+                     * dense(x2, lp, "w_up"), lp, "w_down")
     # the gates in x2's dtype, their weighted sum accumulated in f32 and
     # rounded once, as the JAX einsum over the expert axis
     gates = moe_gates((x2 @ lp["router"]).float(),
@@ -231,7 +237,7 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
             + aux["bias"]
         probs = torch.softmax(logits, dim=-1)  # f32
         out = (probs.to(cfg.dtype) @ v).transpose(1, 2).reshape(B, S, H * hd)
-    h = mlp_residual(h + out @ lp["wo"], lp, cfg)
+    h = mlp_residual(h + dense(out, lp, "wo"), lp, cfg)
 
     # the layer weights' only gradient path (the JAX stop_gradient)
     acc = acc + w_l * h.detach().float()
@@ -341,3 +347,42 @@ def logits(params: dict, cfg: DecoderConfig,
 def embed_tokens(params: dict, cfg: DecoderConfig,
                  ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids]
+
+
+def quantize_params(params: dict, consume: bool = False) -> dict:
+    """Int8-quantise the frozen decoder's layer projections (W8A8).
+
+    Per-(layer, output-channel) symmetric scales over each stacked ``(L, in,
+    out)`` weight (as the jitted JAX function computes them), one layer at
+    a time so the f32 transient is one layer's slice: ``<name>_q`` int8 and
+    ``<name>_s`` f32 ``(L, out)`` replace ``<name>``.  ``embed`` /
+    ``final_norm`` / ``lm_head``, the norms, the biases and the ``(L, E,
+    ...)`` MoE expert stacks stay as they are.
+
+    ``consume=False`` leaves ``params`` and its leaves untouched (the JAX
+    function donates them anyway).  ``consume=True`` pops each weight out
+    of ``params["layers"]`` before it is quantised, so a caller that holds
+    no other reference frees it before the next one; the same (mutated)
+    dict comes back.
+    """
+    layers = params["layers"] if consume else dict(params["layers"])
+    for name in QUANT_NAMES:
+        w = layers.get(name)
+        if w is None or w.dim() != 3:  # absent, or an (L, E, ...) MoE stack
+            continue
+        del layers[name]
+        # each layer's (in, out) slice column-major, as torch._int_mm runs
+        # it fastest (ops/quant.py)
+        q = torch.empty((w.shape[0], w.shape[2], w.shape[1]),
+                        dtype=torch.int8, device=w.device).transpose(1, 2)
+        s = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32,
+                        device=w.device)
+        with torch.no_grad():
+            for i in range(w.shape[0]):
+                q[i], s[i] = quantize_weight(w[i], jitted=True)
+        del w
+        layers[name + "_q"] = q
+        layers[name + "_s"] = s
+    if consume:
+        return params
+    return {**params, "layers": layers}

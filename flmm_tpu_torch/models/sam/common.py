@@ -1,13 +1,16 @@
 """Shared SAM building blocks (flmm_tpu/models/sam/common.py), NHWC.
 
 Linear weights are ``(in, out)`` and applied as ``x @ w``; conv kernels are
-HWIO, as in the JAX parameter tree.
+HWIO, as in the JAX parameter tree.  :func:`mlp_block` takes the int8
+product where the dict carries ``w1_q`` / ``w2_q`` (ops/quant.py).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from flmm_tpu_torch.ops.quant import dense
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -27,14 +30,14 @@ def channel_norm(x, w, b, eps: float = 1e-6):
 
 
 def mlp_block(x: torch.Tensor, p: dict, act: str = "gelu") -> torch.Tensor:
-    h = x @ p["w1"] + p["b1"]
+    h = dense(x, p, "w1") + p["b1"]
     if act == "gelu":
         h = F.gelu(h)
     elif act == "relu":
         h = torch.relu(h)
     else:
         raise ValueError(act)
-    return h @ p["w2"] + p["b2"]
+    return dense(h, p, "w2") + p["b2"]
 
 
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:

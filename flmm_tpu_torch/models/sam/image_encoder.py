@@ -34,7 +34,14 @@ split path: K6 (``v9``) or one of the ported variants ``v1``, ``v2``,
 layer is K1 and the name launches nothing.  Not ported yet: the
 augmented-operand window variants ``v3``, ``v4``, ``v5`` (K12; the spatial
 window attention v10 is ported, but has another contract and no encoder
-setting reaches it) and the int8 encoder.
+setting reaches it).
+
+An encoder from :func:`quantize_params` carries ``<name>_q`` / ``<name>_s``
+in place of ``wqkv``, ``wo``, ``w1`` and ``w2``: its projections take the
+int8 product of ops/quant.py, and every kernel that reads the plain weights
+(K1, K10, K3, K4, K8) closes its gate, as in the JAX encoder.  Such a block
+takes the split path with the int8 products around the attention kernel:
+K6 in the window layers, K2 (or the named variant) in the global ones.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from flmm_tpu_torch.ops.boundary import dewindowize_plain as _dewindowize
 from flmm_tpu_torch.ops.boundary import windowize_plain as _windowize
 from flmm_tpu_torch.ops.fused_block import fused_ln_mlp, fused_ln_qkv, \
     fused_proj_ln_mlp
+from flmm_tpu_torch.ops.quant import dense, quantize_weight
 from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8, \
     sam_window_attention_v9
 
@@ -179,7 +187,7 @@ def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
     per image at a time."""
     B, H, W, C = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
-    qkv = x.reshape(B, H * W, C) @ bp["wqkv"] + bp["bqkv"]
+    qkv = dense(x.reshape(B, H * W, C), bp, "wqkv") + bp["bqkv"]
     q, k, v = (t.reshape(B, H * W, nh, hd) for t in qkv.split(C, dim=-1))
     scale = 1.0 / math.sqrt(hd)
     rh = bp["rel_pos_h"].float()[rel_pos_coords(H, x.device)]  # (H, H, hd)
@@ -210,7 +218,7 @@ def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
             attend(q_grid[:, r0:r0 + rows_per_chunk],
                    rh[r0:r0 + rows_per_chunk])
             for r0 in range(0, H, rows_per_chunk)], dim=1)
-    return (out @ bp["wo"] + bp["bo"]).reshape(B, H, W, C)
+    return (dense(out, bp, "wo") + bp["bo"]).reshape(B, H, W, C)
 
 
 def _flash_global_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
@@ -276,20 +284,21 @@ def _flash_block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig,
     version."""
     B, H, W, C = x.shape
     mlp = bp["mlp"]
-    fused = cfg.fused_mlp and C % 128 == 0 and mlp["w1"].shape[1] % 512 == 0
+    fused = (cfg.fused_mlp and not quantized(bp) and C % 128 == 0
+             and mlp["w1"].shape[1] % 512 == 0)
     if fused:
         qkv = fused_ln_qkv(x, bp["ln1_w"], bp["ln1_b"], bp["wqkv"],
                            bp["bqkv"], eps=cfg.ln_eps)
     else:
         y = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)
-        qkv = y.reshape(B, H * W, C) @ bp["wqkv"] + bp["bqkv"]
+        qkv = dense(y.reshape(B, H * W, C), bp, "wqkv") + bp["bqkv"]
     core = _flash_window_core if windowed else _flash_global_core
     attn = core(qkv.reshape(B, H, W, 3 * C), bp, cfg)
     if fused:
         return fused_proj_ln_mlp(
             x, attn, bp["wo"], bp["bo"], bp["ln2_w"], bp["ln2_b"],
             mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], eps=cfg.ln_eps)
-    x = x + (attn.reshape(B, H * W, C) @ bp["wo"]
+    x = x + (dense(attn.reshape(B, H * W, C), bp, "wo")
              + bp["bo"]).reshape(B, H, W, C)
     return x + mlp_block(layer_norm(x, bp["ln2_w"], bp["ln2_b"],
                                     cfg.ln_eps), mlp)
@@ -300,12 +309,18 @@ def _ln_mlp_residual(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
     the shapes tile, else plain."""
     B, H, W, C = x.shape
     mlp = bp["mlp"]
-    if (cfg.fused_mlp and x.is_cuda and (B * H * W) % 256 == 0
+    if (cfg.fused_mlp and x.is_cuda and "w1" in mlp and (B * H * W) % 256 == 0
             and C % 128 == 0 and mlp["w1"].shape[1] % 512 == 0):
         return fused_ln_mlp(x, bp["ln2_w"], bp["ln2_b"], mlp["w1"], mlp["b1"],
                             mlp["w2"], mlp["b2"], eps=cfg.ln_eps)
     y = layer_norm(x, bp["ln2_w"], bp["ln2_b"], cfg.ln_eps)
     return x + mlp_block(y, mlp)
+
+
+def quantized(bp: dict) -> bool:
+    """Whether a block carries int8 weights (no ``wqkv`` or no ``w1``):
+    the gates of K1, K10, K3, K4 and K8 test for the plain weights."""
+    return "wqkv" not in bp or "w1" not in bp["mlp"]
 
 
 def flash_gate(cfg: SamEncoderConfig, H: int, W: int, windowed: bool) -> bool:
@@ -396,7 +411,7 @@ def forward(params: dict, cfg: SamEncoderConfig,
     xw = geom = valid = None
     for i, bp in enumerate(params["blocks"]):
         windowed = i not in cfg.global_attn_indexes
-        if use_wb and windowed:
+        if use_wb and windowed and not quantized(bp):
             if xw is None:
                 xw, geom = _windowize(x, ws)
                 xw = xw.contiguous()
@@ -407,7 +422,7 @@ def forward(params: dict, cfg: SamEncoderConfig,
                 x = _dewindowize(xw, geom, ws)
                 xw = None
             if (cfg.global_block_fused and use_wb and not windowed
-                    and x.shape[1] == x.shape[2]
+                    and not quantized(bp) and x.shape[1] == x.shape[2]
                     and (x.shape[1] * x.shape[2]) % 256 == 0):
                 x = _global_block_fused(x, bp, cfg)
             else:
@@ -419,3 +434,28 @@ def forward(params: dict, cfg: SamEncoderConfig,
     x = conv2d(x, params["neck1_kernel"], padding=1)
     x = channel_norm(x, params["neck1_ln_w"], params["neck1_ln_b"], cfg.ln_eps)
     return x
+
+
+def quantize_params(params: dict) -> dict:
+    """Int8-quantise every per-token projection of a (frozen) encoder:
+    ``wqkv``, ``wo`` and the MLP's ``w1`` / ``w2`` become ``<name>_q`` int8
+    and ``<name>_s`` f32 per-output-channel scales.  The attention cores,
+    the convolutions and everything else stay in their dtype.  ``params``
+    is left as it is."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    blocks = []
+    with torch.no_grad():
+        for bp in params["blocks"]:
+            nb = {k: v for k, v in bp.items()
+                  if k not in ("wqkv", "wo", "mlp")}
+            for name in ("wqkv", "wo"):
+                nb[name + "_q"], nb[name + "_s"] = quantize_weight(bp[name])
+            mlp = {k: v for k, v in bp["mlp"].items()
+                   if k not in ("w1", "w2")}
+            for name in ("w1", "w2"):
+                mlp[name + "_q"], mlp[name + "_s"] = quantize_weight(
+                    bp["mlp"][name])
+            nb["mlp"] = mlp
+            blocks.append(nb)
+    out["blocks"] = blocks
+    return out

@@ -1,9 +1,11 @@
 """Native host helpers of the data pipeline (flmm_tpu/runtime/__init__.py):
-the mask ops of ``maskops.cpp`` (this package's own copy) and the image
-decoding of ``image_decode.cpp`` (a baseline JPEG decoder with
-libjpeg-turbo's arithmetic, the PNG row filters).
+the mask ops of ``maskops.cpp`` (this package's own copy), the image
+decoding of ``image_decode.cpp`` (a JPEG decoder with libjpeg-turbo's
+arithmetic, the PNG row filters) and the Zstandard decompressor and
+checksums of ``zstd_decode.cpp`` (for the JAX trainer's Orbax checkpoints,
+convert/orbax.py).
 
-Both sources are compiled at first use with ``g++`` into one shared library,
+The sources are compiled at first use with ``g++`` into one shared library,
 cached under ``build/`` at the root of the checkout by a digest of the
 sources and flags, and loaded with ``ctypes``.  Nothing is built at import
 time.  Unlike the JAX package, nothing falls back to numpy or PIL: without a
@@ -23,7 +25,7 @@ import subprocess
 
 import numpy as np
 
-SOURCES = ("maskops.cpp", "image_decode.cpp")
+SOURCES = ("maskops.cpp", "image_decode.cpp", "zstd_decode.cpp")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 HERE = pathlib.Path(__file__).resolve().parent
 BUILD = HERE.parents[1] / "build" / "flmm_tpu_torch" / "host"
@@ -38,6 +40,12 @@ _SIGNATURES = {
     "flmm_jpeg_info": ((_P, _L, _P, ctypes.c_char_p, _I), _I),
     "flmm_jpeg_decode": ((_P, _L, _P, ctypes.c_char_p, _I), _I),
     "flmm_png_unfilter": ((_P, _I, _I, _I, _P, ctypes.c_char_p, _I), _I),
+    "flmm_zstd_decompress": ((_P, _L, ctypes.POINTER(ctypes.c_void_p),
+                              ctypes.POINTER(ctypes.c_int64),
+                              ctypes.c_char_p, _I), _I),
+    "flmm_zstd_free": ((_P,), None),
+    "flmm_crc32c": ((_P, _L), ctypes.c_uint32),
+    "flmm_xxh64": ((_P, _L, ctypes.c_uint64), ctypes.c_uint64),
 }
 
 
@@ -53,7 +61,7 @@ def lib() -> ctypes.CDLL:
         if cxx is None:
             raise RuntimeError(
                 "g++ not found: the host helpers (mask ops, JPEG and PNG "
-                "decoding) cannot be built, and nothing replaces them")
+                "decoding, zstd) cannot be built, and nothing replaces them")
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
@@ -158,3 +166,33 @@ def png_unfilter(raw: np.ndarray, rows: int, rowbytes: int, bpp: int,
     _check(lib().flmm_png_unfilter(_c(raw), rows, rowbytes, max(bpp, 1),
                                    _c(out), err, 256), err, what)
     return out
+
+
+def _buffer(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if len(data) else np.zeros(1,
+                                                                   np.uint8)
+
+
+def zstd_decompress(data: bytes, what: str = "zstd data") -> bytes:
+    """Every zstd frame in ``data`` decoded and concatenated (skippable
+    frames skipped); ``what`` names the source in errors."""
+    library = lib()
+    buf = _buffer(data)
+    out, n = ctypes.c_void_p(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(256)
+    code = library.flmm_zstd_decompress(_c(buf), len(data), ctypes.byref(out),
+                                        ctypes.byref(n), err, 256)
+    _check(code, err, what)
+    data = ctypes.string_at(out.value, n.value)
+    library.flmm_zstd_free(out)
+    return data
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli) of ``data``."""
+    return int(lib().flmm_crc32c(_c(_buffer(data)), len(data)))
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64 of ``data``."""
+    return int(lib().flmm_xxh64(_c(_buffer(data)), len(data), seed))

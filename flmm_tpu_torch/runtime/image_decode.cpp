@@ -1,25 +1,38 @@
-// Image decoding for the host data pipeline, without PIL: a baseline JPEG
-// decoder that gives libjpeg-turbo's default pixels (the ones PIL returns)
-// and the PNG row filters.
+// Image decoding for the host data pipeline, without PIL: a JPEG decoder
+// that gives libjpeg-turbo's default pixels (the ones PIL returns) and the
+// PNG row filters.
 //
-// JPEG: sequential Huffman coding (SOF0 / SOF1), 8-bit samples, 1 or 3
-// components, every component's sampling ratio to the largest one 1x1, 2x1,
-// 1x2 or 2x2, interleaved or single-component scans, restart markers.  The
-// arithmetic is libjpeg-turbo's default decode:
+// JPEG: sequential (SOF0 / SOF1) and progressive (SOF2) Huffman coding,
+// 8-bit samples, 1, 3 or 4 components, every integral sampling ratio
+// libjpeg-turbo takes (factors 1 to 4, at most 10 blocks an MCU),
+// interleaved or single-component scans, restart markers.  Progressive
+// scans: DC first and refinement, AC first and refinement with end-of-band
+// runs, as jdphuff.c decodes them, into one coefficient buffer that is
+// dequantized (with each component's table as latched at its first scan)
+// and transformed once the file ends.  The arithmetic is libjpeg-turbo's
+// default decode:
 //   * the ISLOW inverse DCT (jidctint.c, 13-bit constants, 2 pass-1 bits),
 //     its result clamped to 0..255 as the SIMD build clamps it;
 //   * "fancy" triangular upsampling (jdsample.c h2v1 / h1v2 / h2v2 with
 //     their rounding biases and edge columns; the rows above the first and
 //     below the last real row repeat that row, as jdmainct.c's context
-//     pointers do), and plain replication where jdsample.c takes it (a
-//     component at most 2 samples wide);
+//     pointers do), and plain replication where jdsample.c takes it (h2v1
+//     and h2v2 for a component at most 2 samples wide, and int_upsample
+//     for every other integral ratio, e.g. 4:1:1, 3 x 1 or 4 x 2);
 //   * the fixed-point YCbCr -> RGB tables of jdcolor.c (16 fraction bits).
-// The colour space follows jdapimin.c: a JFIF marker means YCbCr, an Adobe
-// marker's transform flag 0 means RGB, else component ids 'R' 'G' 'B' mean
-// RGB, else YCbCr.  Progressive, lossless, arithmetic-coded, 12-bit and
-// 4-component (CMYK / YCCK) files are refused with an error that names the
-// feature.  When the entropy-coded data ends early the missing bits read as
-// zeros, as libjpeg reads them.
+// The colour space follows jdapimin.c: three components are YCbCr after a
+// JFIF marker, RGB after an Adobe marker with transform flag 0, else RGB
+// when the component ids are 'R' 'G' 'B', else YCbCr; four components are
+// YCCK after an Adobe marker with a transform flag other than 0 (converted
+// to CMYK by jdcolor.c's ycck_cmyk_convert), else CMYK.  Four-component
+// pixels then take PIL's path: its "CMYK;I" raw mode (every sample
+// inverted, the Adobe convention PIL always assumes) and Convert.c's
+// cmyk2rgb.  Lossless, hierarchical, arithmetic-coded and 12-bit files are
+// refused with an error that names the kind, and so is a progressive file
+// whose scans leave any of the coefficients 1-9 of a component short of
+// full precision, for which libjpeg would smooth the blocks (jdcoefct.c
+// decompress_smooth_data).  When the entropy-coded data ends early the
+// missing bits read as zeros, as libjpeg reads them.
 //
 // PNG: the five row filters of the PNG specification (None, Sub, Up,
 // Average, Paeth) undone in place; inflating is left to zlib in Python.
@@ -108,6 +121,13 @@ struct Component {
   int bw = 0, bh = 0;  // blocks a row and block rows of the plane
   int dc_pred = 0;
   std::vector<uint8_t> plane;  // bw*8 x bh*8 samples
+  // progressive: the coefficients of every block (natural order), the
+  // quantization table latched at the component's first scan, and the
+  // successive-approximation bit of each coefficient (-1: not yet sent)
+  std::vector<int16_t> coef;
+  bool latched = false;
+  int32_t qlatch[64];
+  int coef_bits[64];
 };
 
 class BitReader {
@@ -347,10 +367,10 @@ struct Jpeg {
   int64_t n;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int restart_interval = 0;
-  bool jfif = false, adobe = false;
+  bool jfif = false, adobe = false, progressive = false;
   int adobe_transform = -1;
   bool have_frame = false;
-  Component comp[3];
+  Component comp[4];
   int32_t qt[4][64];  // natural order
   bool qt_present[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -368,6 +388,11 @@ struct Jpeg {
   void tables_dht(int64_t p, int len);
   int64_t scan(int64_t p, int len);
   void decode_block(BitReader& br, Component& c, int bx, int by);
+  void prog_block(BitReader& br, Component& c, int bx, int by, int ss,
+                  int se, int ah, int al, int& eobrun);
+  void finish_progressive();
+  void cmyk_to_rgb(const std::vector<std::vector<uint8_t>>& full,
+                   uint8_t* out, int64_t npix) const;
   void to_rgb(uint8_t* out);
 };
 
@@ -375,7 +400,7 @@ void Jpeg::frame(int64_t p, int len, int marker) {
   if (have_frame) fail("corrupt data: a second frame header");
   switch (marker) {
     case 0xC0: case 0xC1: break;
-    case 0xC2: fail("progressive JPEG is not supported");
+    case 0xC2: progressive = true; break;
     case 0xC3: fail("lossless JPEG is not supported");
     case 0xC5: case 0xC6: case 0xC7:
       fail("hierarchical (differential) JPEG is not supported");
@@ -390,8 +415,7 @@ void Jpeg::frame(int64_t p, int len, int marker) {
   ncomp = d[p + 5];
   if (height == 0) fail("JPEG with a DNL-defined height is not supported");
   if (width == 0) fail("corrupt data: image width 0");
-  if (ncomp == 4) fail("4-component (CMYK / YCCK) JPEG is not supported");
-  if (ncomp != 1 && ncomp != 3)
+  if (ncomp != 1 && ncomp != 3 && ncomp != 4)
     fail(std::to_string(ncomp) + "-component JPEG is not supported");
   if (len < 6 + 3 * ncomp) fail("corrupt data: short frame header");
   for (int i = 0; i < ncomp; ++i) {
@@ -407,16 +431,23 @@ void Jpeg::frame(int64_t p, int len, int marker) {
   }
   int mcux = (width + 8 * hmax - 1) / (8 * hmax);
   int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+  int blocks = 0;
   for (int i = 0; i < ncomp; ++i) {
     Component& c = comp[i];
-    int rh = hmax / c.h, rv = vmax / c.v;
-    if (hmax % c.h || vmax % c.v || rh > 2 || rv > 2)
+    // jdsample.c takes integral ratios only (JERR_FRACT_SAMPLE_NOTIMPL)
+    if (hmax % c.h || vmax % c.v)
       fail("JPEG sampling factors " + std::to_string(c.h) + "x" +
            std::to_string(c.v) + " of " + std::to_string(hmax) + "x" +
            std::to_string(vmax) + " are not supported");
     c.bw = mcux * c.h;
     c.bh = mcuy * c.v;
+    blocks += c.h * c.v;
+    for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
   }
+  // jdinput.c per_scan_setup: at most 10 blocks in an interleaved MCU
+  if (ncomp > 1 && blocks > 10)
+    fail("corrupt data: " + std::to_string(blocks) +
+         " blocks in an MCU (JPEG allows 10)");
   have_frame = true;
 }
 
@@ -485,7 +516,17 @@ int64_t Jpeg::scan(int64_t p, int len) {
   int ns = d[p];
   if (ns < 1 || ns > ncomp || len < 4 + 2 * ns)
     fail("corrupt data: bad scan header");
-  Component* sc[3];
+  int ss = d[p + 1 + 2 * ns], se = d[p + 2 + 2 * ns];
+  int ah = d[p + 3 + 2 * ns] >> 4, al = d[p + 3 + 2 * ns] & 15;
+  if (progressive) {
+    // jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION checks
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) fail("corrupt data: bad progressive scan parameters");
+  } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+    fail("corrupt data: spectral selection in a sequential scan");
+  }
+  Component* sc[4];
   for (int i = 0; i < ns; ++i) {
     int cid = d[p + 1 + 2 * i];
     int tables = d[p + 2 + 2 * i];
@@ -495,21 +536,31 @@ int64_t Jpeg::scan(int64_t p, int len) {
     if (!sc[i]) fail("corrupt data: scan names an unknown component");
     sc[i]->td = tables >> 4;
     sc[i]->ta = tables & 15;
-    if (sc[i]->td > 3 || sc[i]->ta > 3 || !dc[sc[i]->td].present ||
-        !ac[sc[i]->ta].present)
+    // the tables the scan decodes with: both in a sequential scan, the DC
+    // table in a first DC scan, the AC table in an AC scan
+    const bool need_dc = !progressive || (ss == 0 && ah == 0);
+    const bool need_ac = !progressive || ss != 0;
+    if (sc[i]->td > 3 || sc[i]->ta > 3 ||
+        (need_dc && !dc[sc[i]->td].present) ||
+        (need_ac && !ac[sc[i]->ta].present))
       fail("corrupt data: scan uses a missing Huffman table");
-    if (dc[sc[i]->td].bad || ac[sc[i]->ta].bad)
+    if ((need_dc && dc[sc[i]->td].bad) || (need_ac && ac[sc[i]->ta].bad))
       fail("corrupt data: bad Huffman table");
     if (!qt_present[sc[i]->tq])
       fail("corrupt data: component uses a missing quantization table");
     sc[i]->dc_pred = 0;
     if (sc[i]->plane.empty())
       sc[i]->plane.assign((size_t)sc[i]->bw * 8 * sc[i]->bh * 8, 0);
+    if (!sc[i]->latched) {  // jdinput.c latch_quant_tables
+      std::memcpy(sc[i]->qlatch, qt[sc[i]->tq], sizeof(sc[i]->qlatch));
+      sc[i]->latched = true;
+    }
+    if (progressive) {
+      if (sc[i]->coef.empty())
+        sc[i]->coef.assign((size_t)sc[i]->bw * sc[i]->bh * 64, 0);
+      for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
+    }
   }
-  int ss = d[p + 1 + 2 * ns], se = d[p + 2 + 2 * ns];
-  int ahal = d[p + 3 + 2 * ns];
-  if (ss != 0 || se != 63 || ahal != 0)
-    fail("corrupt data: spectral selection in a sequential scan");
   BitReader br(d, n, p + len);
   // MCUs of the scan: interleaved, or one block each in a single-component
   // scan over that component's own blocks
@@ -525,26 +576,137 @@ int64_t Jpeg::scan(int64_t p, int len) {
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
   }
   int64_t total = (int64_t)mcux * mcuy;
-  int next_rst = 0;
+  int next_rst = 0, eobrun = 0;
+  auto block = [&](Component& c, int bx, int by) {
+    if (progressive)
+      prog_block(br, c, bx, by, ss, se, ah, al, eobrun);
+    else
+      decode_block(br, c, bx, by);
+  };
   for (int64_t m = 0; m < total; ++m) {
     if (restart_interval && m > 0 && m % restart_interval == 0) {
       br.restart(next_rst);
       next_rst = (next_rst + 1) & 7;
       for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+      eobrun = 0;
     }
     int mx = (int)(m % mcux), my = (int)(m / mcux);
     if (ns == 1) {
-      decode_block(br, *sc[0], mx, my);
+      block(*sc[0], mx, my);
     } else {
       for (int i = 0; i < ns; ++i) {
         Component& c = *sc[i];
         for (int v = 0; v < c.v; ++v)
-          for (int h = 0; h < c.h; ++h)
-            decode_block(br, c, mx * c.h + h, my * c.v + v);
+          for (int h = 0; h < c.h; ++h) block(c, mx * c.h + h, my * c.v + v);
       }
     }
   }
   return br.end_of_scan();
+}
+
+// one block of a progressive scan (jdphuff.c decode_mcu_DC_first,
+// decode_mcu_DC_refine, decode_mcu_AC_first, decode_mcu_AC_refine)
+void Jpeg::prog_block(BitReader& br, Component& c, int bx, int by, int ss,
+                      int se, int ah, int al, int& eobrun) {
+  int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+  if (ss == 0) {
+    if (ah == 0) {
+      int s = br.decode(dc[c.td]);
+      if (s > 11) fail("corrupt data: bad DC coefficient size");
+      int diff = s ? extend(br.bits(s), s) : 0;
+      c.dc_pred += diff;
+      blk[0] = (int16_t)(c.dc_pred * (1 << al));
+    } else if (br.bits(1)) {
+      blk[0] = (int16_t)(blk[0] | (1 << al));
+    }
+    return;
+  }
+  const Huffman& ha = ac[c.ta];
+  if (ah == 0) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kZigzag[k]] = (int16_t)(extend(br.bits(s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.bits(r);
+        --eobrun;
+        break;
+      }
+    }
+    return;
+  }
+  const int p1 = 1 << al, m1 = -(1 << al);
+  int k = ss;
+  auto refine = [&](int16_t& coef) {
+    if (br.bits(1) && (coef & p1) == 0)
+      coef = (int16_t)(coef + (coef >= 0 ? p1 : m1));
+  };
+  if (eobrun == 0) {
+    for (; k <= se; ++k) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        // a newly nonzero coefficient is +-1 at this bit (libjpeg warns
+        // on another size and goes on)
+        s = br.bits(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun = 1 << r;
+        if (r) eobrun += br.bits(r);
+        break;
+      }
+      // step over r zero coefficients, refining the nonzero ones passed
+      do {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef != 0) {
+          refine(coef);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) blk[kZigzag[k]] = (int16_t)s;
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= se; ++k) {
+      int16_t& coef = blk[kZigzag[k]];
+      if (coef != 0) refine(coef);
+    }
+    --eobrun;
+  }
+}
+
+// after the last scan of a progressive file: each block dequantized with
+// its component's latched table and transformed
+void Jpeg::finish_progressive() {
+  for (int i = 0; i < ncomp; ++i) {
+    Component& c = comp[i];
+    if (c.coef.empty()) continue;
+    // jdcoefct.c smoothing_ok: coefficients 1-9 not all at full precision
+    // switch on block smoothing, which is not ported
+    for (int k = 1; k <= 9; ++k)
+      if (c.coef_bits[0] >= 0 && c.coef_bits[k] != 0)
+        fail("progressive JPEG whose scans leave coefficients incomplete "
+             "(libjpeg's block smoothing) is not supported");
+    const int stride = c.bw * 8;
+    int32_t deq[64];
+    for (int by = 0; by < c.bh; ++by)
+      for (int bx = 0; bx < c.bw; ++bx) {
+        const int16_t* blk = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+        for (int k = 0; k < 64; ++k) deq[k] = blk[k] * c.qlatch[k];
+        idct_islow(deq, c.plane.data() + (int64_t)by * 8 * stride + bx * 8,
+                   stride);
+      }
+  }
 }
 
 void Jpeg::parse(bool headers_only) {
@@ -556,12 +718,16 @@ void Jpeg::parse(bool headers_only) {
     while (p < n && d[p] != 0xFF) ++p;
     while (p < n && d[p] == 0xFF) ++p;
     if (p >= n) {
-      if (scanned) return;  // a missing EOI: what was decoded stands
+      if (scanned) {  // a missing EOI: what was decoded stands
+        if (progressive) finish_progressive();
+        return;
+      }
       fail("corrupt data: no image data");
     }
     int marker = d[p++];
     if (marker == 0xD9) {
       if (!scanned) fail("corrupt data: no image data");
+      if (progressive) finish_progressive();
       return;
     }
     if (marker >= 0xD0 && marker <= 0xD7) continue;  // a stray RST
@@ -601,6 +767,61 @@ void Jpeg::parse(bool headers_only) {
   }
 }
 
+// jdcolor.c build_ycc_rgb_table: Cr_r, Cb_b, Cr_g and Cb_g (the last with
+// the rounding half folded in)
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int SCALEBITS = 16;
+    const int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+    auto fix = [](double x) { return (int64_t)(x * (1L << 16) + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+      cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+    }
+  }
+};
+
+inline uint8_t lim8(int v) {
+  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// four components: YCCK -> CMYK (jdcolor.c ycck_cmyk_convert) where the
+// Adobe marker says so, then PIL's "CMYK;I" raw mode (inverted) and its
+// Convert.c cmyk2rgb, MULDIV255 included
+void Jpeg::cmyk_to_rgb(const std::vector<std::vector<uint8_t>>& full,
+                       uint8_t* out, int64_t npix) const {
+  const bool ycck = adobe && adobe_transform != 0;
+  static const YccTables t;
+  const uint8_t* c0 = full[0].data();
+  const uint8_t* c1 = full[1].data();
+  const uint8_t* c2 = full[2].data();
+  const uint8_t* c3 = full[3].data();
+  auto muldiv255 = [](int a, int b) {
+    int tmp = a * b + 128;
+    return ((tmp >> 8) + tmp) >> 8;
+  };
+  for (int64_t i = 0; i < npix; ++i) {
+    int c = c0[i], m = c1[i], y = c2[i];
+    if (ycck) {
+      int yy = c0[i], cb = c1[i], cr = c2[i];
+      c = lim8(255 - (yy + t.cr_r[cr]));
+      m = lim8(255 - (yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+      y = lim8(255 - (yy + t.cb_b[cb]));
+    }
+    // inverted on the way in ("CMYK;I"), then cmyk2rgb
+    const int ci = 255 - c, mi = 255 - m, yi = 255 - y, ki = 255 - c3[i];
+    const int nk = 255 - ki;
+    out[3 * i] = lim8(nk - muldiv255(ci, nk));
+    out[3 * i + 1] = lim8(nk - muldiv255(mi, nk));
+    out[3 * i + 2] = lim8(nk - muldiv255(yi, nk));
+  }
+}
+
 void Jpeg::to_rgb(uint8_t* out) {
   const int W = width, H = height;
   // each component upsampled to W x H
@@ -618,16 +839,19 @@ void Jpeg::to_rgb(uint8_t* out) {
       r = std::max(0, std::min(r, ch - 1));
       return c.plane.data() + (int64_t)r * stride;
     };
-    std::vector<uint8_t> line((size_t)2 * stride + 2);
+    std::vector<uint8_t> line((size_t)rh * stride + 2);
     std::vector<int> colsum((size_t)stride + 1);
-    // jdsample.c takes the fancy h2v1 / h2v2 methods only for components
-    // wider than 2 samples; narrower ones replicate each sample
-    const bool box = rh == 2 && cw <= 2;
+    // jdsample.c's choice: the fancy h2v1 / h2v2 methods for components
+    // wider than 2 samples, h1v2 always, plain replication for every
+    // other ratio (h2v1 / h2v2 at most 2 wide, and int_upsample)
+    const bool fancy = (rh == 1 && rv == 1) || (rh == 1 && rv == 2) ||
+                       ((rh == 2 && rv <= 2) && cw > 2);
     for (int y = 0; y < H; ++y) {
       uint8_t* o = line.data();
-      if (box) {
-        const uint8_t* in = row(rv == 2 ? y >> 1 : y);
-        for (int x = 0; x < cw; ++x) o[2 * x] = o[2 * x + 1] = in[x];
+      if (!fancy) {
+        const uint8_t* in = row(y / rv);
+        for (int x = 0; x < cw; ++x)
+          for (int k = 0; k < rh; ++k) o[rh * x + k] = in[x];
       } else if (rv == 1) {
         const uint8_t* in = row(y);
         if (rh == 1) {
@@ -679,6 +903,10 @@ void Jpeg::to_rgb(uint8_t* out) {
     }
   }
   const int64_t npix = (int64_t)W * H;
+  if (ncomp == 4) {
+    cmyk_to_rgb(full, out, npix);
+    return;
+  }
   if (ncomp == 1) {
     const uint8_t* g = full[0].data();
     for (int64_t i = 0; i < npix; ++i)
@@ -704,25 +932,12 @@ void Jpeg::to_rgb(uint8_t* out) {
     }
     return;
   }
-  // jdcolor.c build_ycc_rgb_table
-  const int SCALEBITS = 16;
-  const int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
-  auto fix = [](double x) { return (int64_t)(x * (1L << 16) + 0.5); };
-  int cr_r[256], cb_b[256];
-  int64_t cr_g[256], cb_g[256];
-  for (int i = 0; i < 256; ++i) {
-    int64_t x = i - 128;
-    cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
-    cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
-    cr_g[i] = -fix(0.71414) * x;
-    cb_g[i] = -fix(0.34414) * x + ONE_HALF;
-  }
-  auto lim = [](int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); };
+  static const YccTables t;
   for (int64_t i = 0; i < npix; ++i) {
     int y = c0[i], cb = c1[i], cr = c2[i];
-    out[3 * i] = lim(y + cr_r[cr]);
-    out[3 * i + 1] = lim(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-    out[3 * i + 2] = lim(y + cb_b[cb]);
+    out[3 * i] = lim8(y + t.cr_r[cr]);
+    out[3 * i + 1] = lim8(y + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+    out[3 * i + 2] = lim8(y + t.cb_b[cb]);
   }
 }
 

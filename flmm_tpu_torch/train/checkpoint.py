@@ -4,8 +4,8 @@ schedule's position), step and guard counters -- as ``step_<n>/state.pt``
 under the work directory, in the port's own format (``torch.save``).  The
 frozen weights are re-made at load time, as the reference re-reads them
 from the upstream checkpoints.  ``restore_trainable`` also takes a released
-F-LMM checkpoint.  Reading the JAX package's Orbax directories is not
-ported: it needs orbax / tensorstore, which import JAX."""
+F-LMM checkpoint and the JAX trainer's Orbax directories (read by
+convert/orbax.py, without orbax, tensorstore or JAX)."""
 
 from __future__ import annotations
 
@@ -71,10 +71,11 @@ def restore_trainable(path: str | pathlib.Path, cfg, trainable: dict) -> dict:
     A torch-file suffix (``.pth`` / ``.bin`` / ``.pt`` / ``.safetensors``)
     is a released F-LMM checkpoint, converted by
     :func:`flmm_tpu_torch.convert.load.reference_trained` onto the device
-    of ``trainable``'s leaves.  A directory is one of
-    the port's own ``step_<n>`` checkpoints: its trained params are read
-    into the tensors of ``trainable``.  An Orbax directory written by the
-    JAX trainer is refused."""
+    of ``trainable``'s leaves.  A directory that the JAX trainer's Orbax
+    checkpointer wrote has its ``params`` read by
+    :func:`flmm_tpu_torch.convert.orbax.read_params`; any other directory
+    is one of the port's own ``step_<n>`` checkpoints.  Either way the
+    trained params are read into the tensors of ``trainable``."""
     p = pathlib.Path(path)
     if str(path).endswith((".pth", ".bin", ".pt", ".safetensors")):
         from flmm_tpu_torch.convert import load as conv
@@ -82,12 +83,11 @@ def restore_trainable(path: str | pathlib.Path, cfg, trainable: dict) -> dict:
 
         device = next(t for _, t in tree_leaves(trainable)).device
         return conv.reference_trained(str(path), cfg, device=device)
-    if (p / "_METADATA").exists() or (p / "_CHECKPOINT_METADATA").exists():
-        raise NotImplementedError(
-            f"{p} is an Orbax checkpoint of the JAX trainer; reading it needs "
-            "orbax and tensorstore, which import JAX (ROADMAP queue 1: the "
-            "Orbax reader).  Pass a released F-LMM .pth / .bin / "
-            ".safetensors or a step_<n> directory of the port's trainer")
+    from flmm_tpu_torch.convert import orbax
+
+    if orbax.is_orbax_dir(p) and not (p / STATE_FILE).exists():
+        return _load_into(trainable, orbax.read_params(p, trainable),
+                          "/params")
     loaded = torch.load(p / STATE_FILE, map_location="cpu",
                         weights_only=True)
     return _load_into(trainable, loaded["params"], "/params")

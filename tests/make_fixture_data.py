@@ -15,10 +15,25 @@
   ``png_coco_val2017.json`` (16 narratives of singular and plural
   phrases over thing and stuff segments, every narrative with at least
   one mask);
+* ``tests/data/kinds/``: one small file of each JPEG and PNG kind beyond
+  the datasets' own: progressive JPEGs (4:2:0, 4:4:4 with restart markers,
+  grey, CMYK), a baseline CMYK JPEG (all written by PIL), YCCK and the
+  4:1:1, 4:4:0, 3 x 1 and 4 x 2 samplings (hand-built by
+  ``tests/image_writers.py``, as PIL cannot write them), a 16-bit grey PNG
+  (PIL), 16-bit grey + alpha, RGB and RGBA PNGs and Adam7-interlaced PNGs
+  (hand-built);
+* ``tests/data/orbax/step_0/``: the tiny DeepSeek-VL preset's trainable tree
+  (the JAX init at seed 0; leaves of 4096 elements or more in bf16, the
+  rest f32, which keeps the directory near 0.5 MB) with a step counter,
+  written by ``flmm_tpu.train.checkpoint.save`` (OCDBT, zstd, zarr v2 as
+  orbax writes them; many leaves above the 1024-byte inline limit);
 * ``tests/data/manifest.json``: for every image file, the shape and the
   sha256 of the pixels PIL decodes (``Image.open(f).convert("RGB")``), which
-  the PIL-free decoder must reproduce, and the number of expressions a
-  RefCOCO split has and of masks the PNG narratives have.
+  the PIL-free decoder must reproduce (the dataset images under ``images``,
+  the kinds under ``kinds`` with what each is); the number of expressions a
+  RefCOCO split has and of masks the PNG narratives have; and under
+  ``orbax`` the state's directory, preset and, for every trainable leaf,
+  its shape, dtype and the sha256 of its bytes.
 
 The images are gradients, edges and noise (not flat colour), so the JPEG
 decoder's IDCT, upsampling and colour conversion all show in the pixels.
@@ -242,17 +257,138 @@ def make_png(root: pathlib.Path) -> int:
     return n_masks
 
 
+def _ycc(img: np.ndarray) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.fromarray(img).convert("YCbCr"))
+
+
+def make_kinds(root: pathlib.Path) -> dict:
+    """The files of ``tests/data/kinds/``; ``name -> what it is``."""
+    from PIL import Image
+
+    from tests import image_writers as iw
+
+    root.mkdir(parents=True, exist_ok=True)
+    rgb = synthetic_image(75, 101, 40)
+    cmyk = np.concatenate([rgb, rgb[..., :1] // 3], -1)
+    small = rgb[:33, :47]  # the PNGs: 16-bit noise does not compress
+    kinds = {}
+
+    def pil_jpeg(name, img, mode, what, **opts):
+        Image.fromarray(img, mode).save(root / name, "JPEG", **opts)
+        kinds[name] = what
+
+    def raw(name, data, what):
+        (root / name).write_bytes(data)
+        kinds[name] = what
+
+    pil_jpeg("progressive_420.jpg", rgb, "RGB", "progressive JPEG, 4:2:0",
+             progressive=True, quality=80, subsampling=2)
+    pil_jpeg("progressive_444_rst.jpg", rgb, "RGB",
+             "progressive JPEG, 4:4:4, a restart marker every MCU row",
+             progressive=True, quality=90, subsampling=0,
+             restart_marker_rows=1)
+    pil_jpeg("progressive_grey.jpg", rgb[..., 1], "L",
+             "progressive JPEG, grey", progressive=True, quality=75)
+    pil_jpeg("progressive_cmyk.jpg", cmyk, "CMYK",
+             "progressive JPEG, CMYK (Adobe transform 0)", progressive=True,
+             quality=85)
+    pil_jpeg("cmyk.jpg", cmyk, "CMYK", "baseline JPEG, CMYK (Adobe "
+             "transform 0)", quality=85)
+    raw("ycck.jpg", iw.encode_jpeg(cmyk, [(2, 2), (1, 1), (1, 1), (2, 2)],
+                                   85, jfif=False, adobe_transform=2),
+        "baseline JPEG, YCCK (Adobe transform 2), 2x2 Y and K")
+    for name, sampling, what in (
+            ("sampling_411.jpg", (4, 1), "4:1:1 (Y 4x1)"),
+            ("sampling_440.jpg", (1, 2), "4:4:0 (Y 1x2)"),
+            ("sampling_3x1.jpg", (3, 1), "Y 3x1"),
+            ("sampling_4x2.jpg", (4, 2), "Y 4x2")):
+        raw(name, iw.encode_jpeg(_ycc(rgb), [sampling, (1, 1), (1, 1)], 85,
+                                 restart_interval=3),
+            f"baseline JPEG, {what}, restart interval 3")
+    rng = np.random.default_rng(41)
+    rgb = small
+    grey16 = (rgb[..., 0].astype(np.uint16) * 257
+              + rng.integers(0, 257, rgb.shape[:2])).astype(np.uint16)
+    grey16[:8] //= 300  # values below 256 too: PIL's clip shows both sides
+    Image.fromarray(grey16, "I;16").save(root / "grey16.png")
+    kinds["grey16.png"] = "16-bit grey PNG (PIL's I;16)"
+    rgb16 = rgb.astype(np.uint16) * 257 + rng.integers(0, 257, rgb.shape)
+    alpha16 = rng.integers(0, 65536, rgb.shape[:2] + (1,))
+    raw("grey_alpha16.png", iw.encode_png(np.concatenate(
+        [grey16[..., None], alpha16], -1), 4, 16), "16-bit grey + alpha PNG")
+    raw("rgb16.png", iw.encode_png(rgb16, 2, 16), "16-bit RGB PNG")
+    raw("rgba16_adam7.png", iw.encode_png(np.concatenate(
+        [rgb16, alpha16], -1), 6, 16, interlace=True),
+        "16-bit RGBA PNG, Adam7-interlaced")
+    raw("rgb8_adam7.png", iw.encode_png(rgb, 2, 8, interlace=True),
+        "8-bit RGB PNG, Adam7-interlaced")
+    raw("grey16_adam7.png", iw.encode_png(grey16, 0, 16, interlace=True),
+        "16-bit grey PNG, Adam7-interlaced")
+    palette = rng.integers(0, 256, (16, 3))
+    raw("palette4_adam7.png", iw.encode_png(
+        rng.integers(0, 16, rgb.shape[:2]), 3, 4, palette, interlace=True),
+        "4-bit palette PNG, Adam7-interlaced")
+    raw("grey2_adam7.png", iw.encode_png(
+        rng.integers(0, 4, rgb.shape[:2]), 0, 2, interlace=True),
+        "2-bit grey PNG, Adam7-interlaced")
+    return kinds
+
+
+def make_orbax(root: pathlib.Path) -> dict:
+    """The tiny preset's trainable tree and a step counter, through the JAX
+    package's own checkpoint writer; the manifest's ``orbax`` entry."""
+    import shutil
+
+    import jax
+
+    from flmm_tpu.configs.deepseek_vl import tiny
+    from flmm_tpu.models.frozen import grounding
+    from flmm_tpu.train import checkpoint
+
+    cfg = tiny()
+    trainable = jax.device_get(jax.jit(
+        lambda k: grounding.init_params(cfg, k))(jax.random.key(0))[
+            "trainable"])
+    trainable = jax.tree.map(
+        lambda a: a.astype(jax.numpy.bfloat16) if a.size >= 4096 else a,
+        trainable)
+    if root.exists():
+        shutil.rmtree(root)
+    root.parent.mkdir(parents=True, exist_ok=True)
+    checkpoint.save(root, {"step": np.zeros((), np.int32),
+                           "params": trainable})
+    leaves = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(trainable)[0]:
+        name = ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path)
+        a = np.asarray(leaf)
+        leaves[name] = {"shape": list(a.shape), "dtype": str(a.dtype),
+                        "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return {"path": str(root.relative_to(DATA)), "preset": "tiny",
+            "seed": 0, "leaves": leaves}
+
+
 def main() -> None:
     counts = make_refcoco(DATA / "refcoco")
     n_masks = make_png(DATA / "png")
+    kinds = make_kinds(DATA / "kinds")
     files = sorted(p for p in DATA.rglob("*")
-                   if p.suffix in (".jpg", ".png"))
+                   if p.suffix in (".jpg", ".png")
+                   and p.parent.name != "kinds")
     manifest = {"images": {}, "refcoco_expressions": counts,
-                "png_masks": n_masks}
+                "png_masks": n_masks, "kinds": {}}
     for p in files:
         shape, digest = decoded_sha256(p)
         manifest["images"][str(p.relative_to(DATA))] = {
             "shape": shape, "sha256": digest}
+    for name, what in sorted(kinds.items()):
+        p = DATA / "kinds" / name
+        shape, digest = decoded_sha256(p)
+        manifest["kinds"][str(p.relative_to(DATA))] = {
+            "shape": shape, "sha256": digest, "kind": what}
+    manifest["orbax"] = make_orbax(DATA / "orbax" / "step_0")
     (DATA / "manifest.json").write_text(json.dumps(manifest, indent=1)
                                         + "\n")
     total = sum(p.stat().st_size for p in DATA.rglob("*") if p.is_file())

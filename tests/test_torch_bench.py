@@ -28,6 +28,7 @@ import bench as jbench
 from flmm_tpu import registry as jregistry
 from flmm_tpu_torch import bench, registry
 from flmm_tpu_torch.convert.from_jax import from_jax
+from flmm_tpu_torch.models.llm import decoder
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SLICE_TOL = 1e-3
@@ -223,10 +224,12 @@ def test_every_global_kernel_name_runs_through_build():
         bench.resolve_config(bench.Knobs(global_kernel="v5"))
 
 
-def test_mgm_and_the_int8_decoder_raise(monkeypatch):
-    """The int8 decoder raises; the mgm family, ported since, resolves (its
+def test_mgm_and_the_int8_decoder_raise(monkeypatch, capsys):
+    """Neither raises since they were ported: the mgm family resolves (its
     flagship single-crop preset captures eagerly, the HD preset's 2880-token
-    image block moves to 128 and captures through K5)."""
+    image block moves to 128 and captures through K5), and
+    ``BENCH_QUANT_LLM=1`` gives a row at the tiny size; an unknown family
+    still raises."""
     cfg, preset, start = bench.resolve_config(bench.Knobs(family="mgm"))
     assert (preset, start, cfg.base.img_start) == ("gemma_2b", 4, 4)
     assert not cfg.base.llm.use_flash_capture
@@ -234,14 +237,52 @@ def test_mgm_and_the_int8_decoder_raise(monkeypatch):
         family="mgm", preset="vicuna_7b_hd"))
     assert (start, cfg.base.img_start) == (35, 128)
     assert cfg.base.llm.use_flash_capture and cfg.num_crops == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bench.resolve_config(bench.Knobs(quant_llm=True))
-    _set_env(monkeypatch, {"BENCH_QUANT_LLM": "1", **TINY_ENV})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bench.main(["--device", "cpu"])
+    assert bench.resolve_config(bench.Knobs(quant_llm=True))[1] == "1_3b"
+    _set_env(monkeypatch, {"BENCH_QUANT_LLM": "1", "BENCH_BS": "2",
+                           "BENCH_ITERS": "1", **TINY_ENV})
+    row = bench.main(["--device", "cpu"])
+    assert list(row) == ROW_KEYS and row["value"] > 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == row
     _set_env(monkeypatch, {"BENCH_FAMILY": "nope"})
     with pytest.raises(ValueError, match="BENCH_FAMILY 'nope'"):
         bench.main(["--device", "cpu"])
+
+
+def _signature(tree, path=""):
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _signature(tree[k],
+                                                            f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [s for i, t in enumerate(tree)
+                for s in _signature(t, f"{path}/{i}")]
+    return [(path, tuple(tree.shape), tree.dtype)]
+
+
+@pytest.mark.parametrize("family", ["deepseek_vl", "hpt", "llava_next"])
+def test_int8_decoder_tree_is_the_one_quantize_params_gives(family):
+    """``BENCH_QUANT_LLM=1``: the fabricated decoder (deepseek_vl / llava /
+    hpt) has the keys, shapes and dtypes of ``decoder.quantize_params`` on
+    the family's bf16 tree, without ``lm_head``; other families quantise
+    their own tree (llava_next here), which then holds int8 projections;
+    the rest of the model is what the bf16 build gives, with
+    ``text_layer_weights`` over every decoder layer."""
+    knobs = bench.Knobs(family=family, preset="tiny", sam_size=128,
+                        seq_len=112)
+    _, cfg, plain, _ = bench.build(2, knobs, "cpu")
+    _, _, quant, batch = bench.build(2, dataclasses.replace(
+        knobs, quant_llm=True), "cpu")
+    want = decoder.quantize_params(plain["frozen"]["llm"])
+    assert _signature(quant["frozen"]["llm"]) == _signature(want)
+    assert "lm_head" not in quant["frozen"]["llm"]
+    assert quant["frozen"]["llm"]["layers"]["wq_q"].dtype == torch.int8
+    rest = {k: v for k, v in quant["frozen"].items() if k != "llm"}
+    assert _signature(rest) == _signature(
+        {k: v for k, v in plain["frozen"].items() if k != "llm"})
+    assert _signature(quant["trainable"]) == _signature(plain["trainable"])
+    with torch.no_grad():
+        out = registry.get_model(family).forward(quant, cfg, batch)
+    assert all(torch.isfinite(out[k]).all() for k in ("sam_logits",
+                                                      "coarse_logits"))
 
 
 def test_only_out_of_memory_falls_through_to_the_next_batch_size(

@@ -291,12 +291,12 @@ def test_eval_png_cli_matches_jax(world, jax_model, recorded):
 
 
 def test_cli_refusals(world, capsys):
-    """What is not ported raises by its ROADMAP item; MGM's tower flags
-    (the mgm family runs since: test_eval_clis_at_mgm_match_jax) are an
-    argument error for any other family."""
+    """What is not ported raises by its ROADMAP item (``--int8-sam`` runs
+    since: test_int8_sam_clis_match_jax); MGM's tower flags (the mgm family
+    runs since: test_eval_clis_at_mgm_match_jax) are an argument error for
+    any other family."""
     base = _cli_args(world, world["png"])
-    for flags, item in ((["--sharded-eval"], "item 11"),
-                        (["--int8-sam"], "item 10")):
+    for flags, item in ((["--sharded-eval"], "item 11"),):
         with pytest.raises(NotImplementedError, match=item):
             eval_png.main(base + flags, tokenizer=world["tokenizer"])
     for flags in (["--clip-checkpoint", "clip.bin"],
@@ -309,6 +309,80 @@ def test_cli_refusals(world, capsys):
     with pytest.raises(SystemExit):
         eval_png.main(no_tok)
 
+
+
+@pytest.fixture(scope="module")
+def jax_int8_model(world):
+    """The JAX scripts' setup with ``--int8-sam``: ``quantize_frozen_sam``
+    of the loaded tree (scripts/eval_refcoco.py:112-114)."""
+    from flmm_tpu.models.frozen.grounding import quantize_frozen_sam
+
+    m = _jax_setup(world, "deepseek_vl", world["checkpoint"])
+    t = world["tokenizer"]
+    cfg, _, _ = jregistry.resolve_family_setup("deepseek_vl", "tiny", t)
+    params = {
+        "frozen": jax.tree.map(jnp.asarray, jregistry.get_loader(
+            "deepseek_vl")(world["checkpoint"], cfg, world["sam"])),
+        "trainable": jax.tree.map(jnp.asarray, jload.reference_trained(
+            world["trained"], cfg))}
+    params = quantize_frozen_sam(params)
+    model = jregistry.get_model("deepseek_vl")
+    m["forward"] = jax.jit(
+        lambda b: model.forward(params, cfg, b)["sam_logits"])
+    return m
+
+
+@pytest.mark.parametrize("cli_main, root", [(eval_refcoco.main, "refcoco"),
+                                            (eval_png.main, "png")],
+                         ids=["eval_refcoco", "eval_png"])
+def test_int8_sam_clis_match_jax(world, jax_int8_model, recorded, cli_main,
+                                 root):
+    """``--int8-sam``: the port's CLI forwards an int8 SAM encoder, and
+    its logits stay within 1e-3 of the JAX script's chain on the same
+    batches."""
+    cli_main(_cli_args(world, world[root], ["--int8-sam"]),
+             tokenizer=world["tokenizer"])
+    assert recorded
+    for batch, logits in recorded:
+        want = jax.device_get(jax_int8_model["forward"](
+            jax.tree.map(jnp.asarray, batch)))
+        np.testing.assert_allclose(logits, want, rtol=0, atol=LOGIT_TOL)
+
+
+def test_int8_sam_setup_quantises_the_encoder_only(world):
+    args = cli.parse(cli.parser("t", 4), _cli_args(world, world["png"],
+                                                   ["--int8-sam"]),
+                     world["tokenizer"])
+    params = cli.setup(args, world["tokenizer"])["params"]
+    blocks = params["frozen"]["sam_encoder"]["blocks"]
+    assert all("wqkv_q" in bp and "w1_q" in bp["mlp"] for bp in blocks)
+    assert all(bp["wqkv_q"].dtype == torch.int8 for bp in blocks)
+    assert "wq" in params["frozen"]["llm"]["layers"]
+
+
+def test_trained_orbax_dir_matches_the_jax_script(world, jax_model, recorded,
+                                                 tmp_path):
+    """``--trained <an Orbax directory>``: the JAX trainer's state of the
+    world's trained tree, written by ``flmm_tpu.train.checkpoint.save``;
+    the port's CLI reads it without orbax and its logits stay within 1e-3
+    of the JAX script's chain."""
+    from flmm_tpu.train import checkpoint as jckpt
+    from flmm_tpu.train import loop as jloop
+
+    t = world["tokenizer"]
+    cfg, _, _ = jregistry.resolve_family_setup("deepseek_vl", "tiny", t)
+    tra = jax.tree.map(jnp.asarray, jload.reference_trained(
+        world["trained"], cfg))
+    state = jloop.init_state(tra, jloop.make_optimizer(jloop.OptimConfig()))
+    jckpt.save(tmp_path / "step_2", state)
+    args = _cli_args(world, world["png"])
+    args[args.index("--trained") + 1] = str(tmp_path / "step_2")
+    eval_png.main(args, tokenizer=t)
+    assert recorded
+    for batch, logits in recorded:
+        want = jax.device_get(jax_model["forward"](
+            jax.tree.map(jnp.asarray, batch)))
+        np.testing.assert_allclose(logits, want, rtol=0, atol=LOGIT_TOL)
 
 
 def test_setup_draws_only_what_the_checkpoints_lack(world):

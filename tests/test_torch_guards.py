@@ -36,7 +36,8 @@ from flmm_tpu_torch.ops import sam_flash_experiments as sfx
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flmm_tpu", "PIL", "transformers",
-             "torchvision", "safetensors", "orbax")
+             "torchvision", "safetensors", "orbax", "tensorstore",
+             "zstandard")
 
 
 def _run(code_or_args, cwd=REPO, extra_env=None, timeout=300):
@@ -78,7 +79,8 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "            'models.sam.predictor', 'models.sam.amg',\n"
         "            'convert.export', 'demo.grounded_conversation',\n"
         "            'demo.infer_png', 'demo.visualize_ranks',\n"
-        "            'visual_cot.visual_cot_inference'):\n"
+        "            'visual_cot.visual_cot_inference',\n"
+        "            'convert.orbax', 'ops.quant'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
@@ -91,7 +93,7 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
 def test_port_sources_never_import_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flmm_tpu|PIL|transformers|"
-        r"torchvision|safetensors|orbax)\b", re.M)
+        r"torchvision|safetensors|orbax|tensorstore|zstandard)\b", re.M)
     files = sorted((REPO / "flmm_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 20
@@ -106,7 +108,8 @@ def test_port_sources_never_import_jax():
                 "models/sam/predictor.py", "models/sam/amg.py",
                 "convert/export.py", "demo/grounded_conversation.py",
                 "demo/infer_png.py", "demo/visualize_ranks.py",
-                "visual_cot/visual_cot_inference.py"):
+                "visual_cot/visual_cot_inference.py", "convert/orbax.py",
+                "ops/quant.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     # the eval CLIs load ``--tokenizer`` through transformers inside the
     # call, as the JAX scripts do; that one import is the only one allowed
@@ -144,6 +147,43 @@ def test_generation_slice_imports_no_jax_pil_or_hf():
     for f in ("generation/api.py", "generation/decode.py",
               "generation/noun_chunks.py", "data/tokenization.py"):
         assert (REPO / "flmm_tpu_torch" / f).is_file(), f
+
+
+def test_orbax_restore_int8_sam_and_quant_bench_load_nothing_forbidden():
+    """In a fresh interpreter: ``restore_trainable`` on the committed Orbax
+    state (zstd, OCDBT, zarr), the eval CLI's setup with ``--int8-sam`` and
+    ``BENCH_QUANT_LLM=1`` through the bench's build, at the tiny size on
+    the CPU, load none of the forbidden modules (orbax, tensorstore,
+    zstandard, JAX, PIL ...)."""
+    code = (
+        "import json, os, pathlib, sys, types\n"
+        "import torch\n"
+        "from flmm_tpu_torch import bench\n"
+        "from flmm_tpu_torch.configs import deepseek_vl as c\n"
+        "from flmm_tpu_torch.models.frozen import grounding as g\n"
+        "from flmm_tpu_torch.train import checkpoint as ck\n"
+        "from flmm_tpu_torch.evalsuite import cli\n"
+        "m = json.loads(pathlib.Path('tests/data/manifest.json')"
+        ".read_text())['orbax']\n"
+        "t = g.init_trainable(c.tiny(), torch.Generator(), 'cpu')\n"
+        "ck.restore_trainable('tests/data/' + m['path'], c.tiny(), t)\n"
+        "tok = types.SimpleNamespace()\n"
+        "args = types.SimpleNamespace(family='deepseek_vl', preset='tiny',\n"
+        "    int8_sam=True)\n"
+        "p = {'frozen': g.init_frozen(c.tiny(), torch.Generator(), 'cpu'),\n"
+        "     'trainable': t}\n"
+        "q = cli.quantize_frozen_sam(p)\n"
+        "assert 'wqkv_q' in q['frozen']['sam_encoder']['blocks'][0]\n"
+        "k = bench.Knobs(preset='tiny', sam_size=128, seq_len=112,\n"
+        "    quant_llm=True)\n"
+        "_, _, params, _ = bench.build(2, k, 'cpu')\n"
+        "assert params['frozen']['llm']['layers']['wq_q'].dtype == "
+        "torch.int8\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_trainer_imports_no_jax_and_needs_a_card():
@@ -384,7 +424,7 @@ def test_readers_loaders_and_clis_hold_no_fallback_handler():
                  "convert/hf_weights.py", "convert/sam_weights.py",
                  "convert/load.py", "evalsuite/cli.py", "eval_refcoco.py",
                  "eval_png.py", "train/checkpoint.py", "train/streams.py",
-                 "train/__main__.py"):
+                 "train/__main__.py", "convert/orbax.py"):
         assert not re.search(r"^\s*(try|except)\b", (pkg / name).read_text(),
                              re.M), name
     handlers = [h.strip() for h in re.findall(
