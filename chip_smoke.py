@@ -212,7 +212,7 @@ Phases; any failure raises and the script exits non-zero:
     norm, gelu_tanh, the scaled embedding, the tied head; CLIP-L/336 read
     at layer -2; ConvNeXt-L at 768 with its layer scales at 0.1; the
     patch-info mining resampler; SAM ViT-L at 1024), random weights from a
-    seed: serve 3 bs-4 requests of synthetic samples through
+    seed: serve 2 bs-4 requests of synthetic samples through
     build_mgm_batch (S = 704, the eager capture): shapes, finite values,
     K1/K2/K3/K4/K5 20/4/27/27/0 a forward; beside the all-plain forward
     (image embeddings, i.e. the CLIP features plus the mined tokens through
@@ -220,7 +220,7 @@ Phases; any failure raises and the script exits non-zero:
     logits >= 0.99); the device ms of each stage (CLIP tower, ConvNeXt,
     resampler + projector, decoder capture, SAM ViT-L, heads) on both paths
     and peak memory;
-29. MGM-Vicuna-7B-HD with the image block at 128: 3 bs-2 requests at S =
+29. MGM-Vicuna-7B-HD with the image block at 128: 2 bs-2 requests at S =
     3200, each image a 2 x 2 crop grid plus the global crop (2880 image
     tokens, the 5 crops in one tower batch) and ConvNeXt-L at 1536, the
     maps stitched to 48 x 48 beside the upsampled global map: the same
@@ -312,6 +312,20 @@ Phases; any failure raises and the script exits non-zero:
     (e) bench_torch.py's rows with BENCH_QUANT_LLM=1 beside the bf16 rows
     at DeepSeek-VL-1.3B and HPT-Air-1.5 (phase 20's int8_llm child), each
     int8 row launching what its bf16 row does.
+36. the parallel slice: (a) eval_refcoco (its first split) and eval_png
+    with --sharded-eval over phase 25's files, a group of one on nccl:
+    results equal to phase 25's, 20/4/28/28 a forward; (b) the trainer
+    with --multihost under a one-rank torchrun environment set in process
+    (DeepSeek-VL-1.3B at SAM-448, bs 8, 3 steps, deterministic): every
+    logged metric and the written state bit for bit those of the same
+    steps without it; (c) two ranks spawned on the card (nccl with a card
+    a rank, else gloo with both on cuda:0), DeepSeek-VL-1.3B at full
+    width, bs 4, S = 672, against the one-rank forward: tp = 2 (capture
+    and hidden corr >= 0.999, SAM and next-token logits >= 0.99;
+    launches a forward K3 48, K4 24, K6 20, K2 4), fsdp = 2 bit for bit
+    (20/4/28/28), the 2-stage GPipe capture of 2 microbatches (capture
+    and hidden >= 0.999); each rank's ms a forward (CUDA events), peak GB
+    and launches, the launches the kernels line's "parallel" entry.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -375,6 +389,10 @@ from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops import boundary, flash_attention, fused_block, \
     global_block, masks, sam_flash, sam_flash_experiments, window_block
 from flmm_tpu_torch.ops._matmul import matmul_f32
+from flmm_tpu_torch.ops import masks as mask_ops
+from flmm_tpu_torch.parallel import frozen as shard
+from flmm_tpu_torch.parallel import mesh as mesh_lib
+from flmm_tpu_torch.parallel import pipeline as pipe
 from flmm_tpu_torch.train import __main__ as trainer_cli
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
@@ -624,12 +642,29 @@ INT8_SHAPES = (
 INT8_SIGMOID_MAX, INT8_ITERS = 0.02, 3
 FILES_GT_MIN = {"cIoU": 85.0, "AA": 0.85}  # AA is a fraction, cIoU percent
 DECODE_REPEATS = 5
+# phase 36: the parallel slice.  (c) two ranks on the one card at
+# DeepSeek-VL-1.3B full width, bs 4, S = 672, each mode one forward, timed
+# and checked after the one-rank reference has warmed the kernels; the
+# launches a forward of each mode: tp keeps
+# K3 (LN1 + the local qkv columns) and K6 / K2 on the local SAM heads, and
+# the tower's K3 / K4; fsdp splits only the decoder (no kernel at this
+# eager capture); the pipeline runs the decoder alone
+PAR_BS, PAR_SEQ, PAR_SEED, PAR_RANKS = 4, 672, 16, 2
+PAR_MODES = ("tp", "fsdp", "pipeline")
+PAR_LAUNCHES = {
+    "tp": {"fused_ln_qkv": 48, "fused_proj_ln_mlp": 24,
+           "sam_window_attention_v9": 20, "sam_global_attention_v8": 4},
+    "fsdp": EXPECTED_LAUNCHES["deepseek_vl_1_3b"],
+    "pipeline": {}}
+PAR_CORR = {"attn": 0.999, "hidden": 0.999, "sam_logits": 0.99,
+            "lm_logits": 0.99}
+PAR_TRAIN_STEPS = 3
 # MGM (phases 28-32): Gemma-2B over CLIP-L/336 and ConvNeXt-L at 768, bs 4,
 # the image block at 4 (S = 704 holds the longest prompt); Vicuna-7B HD at
 # bs 2, the image block of 5 x 576 at 128, S = 3200 (ConvNeXt-L at 1536);
 # the Mixtral-8x7B decoder cut to 4 layers; the grounder and files in,
 # scores out at Gemma-2B
-MGM_SEED, MGM_REQUESTS, MGM_SEQ = 13, 3, 704
+MGM_SEED, MGM_REQUESTS, MGM_SEQ = 13, 2, 704
 MGM_HD_START, MGM_HD_BS, MGM_HD_SEQ = 128, 2, 3200
 MGM_MOE_LAYERS = 4
 MGM_GEN_SEED, MGM_GEN_MAX_NEW, MGM_FILES_SEED = 14, 32, 15
@@ -1281,7 +1316,7 @@ def mgm_shape_checks(check, g: torch.Generator) -> None:
     the LLaVA paths': CLIP-L/336 rows of 4 x 577 (Gemma-2B, bs 4) and 2 x
     5 x 577 (HD, bs 2, the 5 crops in one batch), SAM ViT-L at 1024."""
     cfg = mgm_configs.mgm_vicuna_7b_hd(img_start=MGM_HD_START)
-    batch = e2e_bench.mgm_batch(cfg, MGM_HD_BS, MGM_HD_SEQ)
+    batch = e2e_bench.samples_batch(cfg, "mgm", MGM_HD_BS, MGM_HD_SEQ)
     valid = batch["attn_mask"]
     n = valid.sum(1, keepdims=True)
     if valid.shape[1] != MGM_HD_SEQ or not (
@@ -3938,7 +3973,8 @@ def mgm_batches(cfg, bs: int, seq: int, n: int = MGM_REQUESTS + 1) -> list:
     """The warm-up batch and ``n - 1`` distinct requests of an MGM phase:
     the samples of seeds 0 .. n - 1 through ``build_mgm_batch`` as the
     bench.py twin builds them, on the card."""
-    return [from_jax(e2e_bench.mgm_batch(cfg, bs, seq, seed=seed), "cuda")
+    return [from_jax(e2e_bench.samples_batch(cfg, "mgm", bs, seq,
+                                             seed=seed), "cuda")
             for seed in range(n)]
 
 
@@ -4008,8 +4044,9 @@ def mgm_stage_split(params: dict, cfg, batch: dict) -> dict:
 
 def run_mgm_path(phase: int, path: str, cfg, bs: int, seq: int,
                  card: str) -> dict:
-    """One MGM serving path at full width: 3 requests beside the all-plain
-    forward, the stage split of both paths, times and peak memory."""
+    """One MGM serving path at full width: MGM_REQUESTS requests beside the
+    all-plain forward, the stage split of both paths, times and peak
+    memory."""
     params = mgm_params(cfg, MGM_SEED)
     params["frozen"]["llm"].pop("lm_head", None)  # the forward never uses it
     batches = mgm_batches(cfg, bs, seq)
@@ -4283,19 +4320,26 @@ def run_mgm_files(card: str) -> dict:
 
 
 def run_mgm(card: str) -> dict:
-    """Phases 28-32: the MGM family on the card."""
+    """Phases 28-32: the MGM family on the card, each phase's seconds
+    logged."""
+    def timed(phase: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {phase} done in {time.perf_counter() - t0:.1f} s")
+        return out
+
     paths = {
-        "mgm_gemma_2b": run_mgm_path(
-            28, "mgm_gemma_2b", mgm_configs.mgm_gemma_2b(), BS, MGM_SEQ,
-            card),
-        "mgm_vicuna_7b_hd": run_mgm_path(
-            29, "mgm_vicuna_7b_hd",
+        "mgm_gemma_2b": timed(
+            "28", run_mgm_path, 28, "mgm_gemma_2b",
+            mgm_configs.mgm_gemma_2b(), BS, MGM_SEQ, card),
+        "mgm_vicuna_7b_hd": timed(
+            "29", run_mgm_path, 29, "mgm_vicuna_7b_hd",
             mgm_configs.mgm_vicuna_7b_hd(img_start=MGM_HD_START), MGM_HD_BS,
             MGM_HD_SEQ, card)}
-    moe = run_mgm_moe(card)
+    moe = timed("30", run_mgm_moe, card)
     paths["mgm_mixtral_8x7b_4_layers"] = {"launches": moe["launches"]}
-    gen = run_mgm_generation(card)
-    files = run_mgm_files(card)
+    gen = timed("31", run_mgm_generation, card)
+    files = timed("32", run_mgm_files, card)
     return {"paths": paths, "moe": moe, "gen": gen, "files": files}
 
 
@@ -5226,6 +5270,310 @@ def check_e2e_row(phase: int, row: dict, global_kernel: str,
             raise AssertionError(f"{what}: bad time in {r}")
 
 
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def _zero_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def run_sharded_clis(card: str, files: dict, common: list) -> dict:
+    """Phase 36 (a): eval_refcoco (its first split) and eval_png with
+    --sharded-eval in process, a group of one on nccl; the results equal
+    phase 25's host path for the same split, the launches those of its
+    forwards."""
+    manifest = json.loads((FIXTURE / "manifest.json").read_text())
+    narratives = json.loads((FIXTURE / "png" / "annotations" /
+                             "png_coco_val2017.json").read_text())
+    name, _, split = eval_refcoco.SPLITS[0]
+    key = f"{name}/{split}"
+    runs = {
+        "eval_refcoco": (eval_refcoco.main, "refcoco", key,
+                         manifest["refcoco_expressions"][key]),
+        "eval_png": (eval_png.main, "png", None, len(narratives))}
+    total, stats = dict.fromkeys(WRAPPERS, 0), {}
+    per_forward = EXPECTED_LAUNCHES["deepseek_vl_1_3b"]
+    for label, (main_fn, root, res_key, n_samples) in runs.items():
+        argv = common + ["--data-root", str(FIXTURE / root), "--debug",
+                         "--sharded-eval"]
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_wrapped(eval_refcoco, "SPLITS",
+                                         lambda splits: splits[:1]))
+            stack.enter_context(contextlib.redirect_stdout(sys.stderr))
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = main_fn(argv, tokenizer=WordTokenizer())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        want = files["stats"][label]["results"]
+        got, want = (got[res_key], want[res_key]) if res_key else (got, want)
+        batches = -(-n_samples // 8)
+        want_l = {k: per_forward.get(k, 0) * batches for k in WRAPPERS}
+        log(f"phase 36 {label} --sharded-eval ({card}): {json.dumps(got)} "
+            f"in {wall:.1f} s with the model setup; phase 25's host path "
+            f"{json.dumps(want)}; launches "
+            f"{({k: n for k, n in launches.items() if n})} ({batches} "
+            "forwards)")
+        if got != want:
+            raise AssertionError(f"{label}: --sharded-eval gives other "
+                                 "results than the host path")
+        if launches != want_l:
+            raise AssertionError(f"{label}: launches differ from {want_l}")
+        if torch.distributed.is_initialized():
+            raise AssertionError(f"{label}: the CLI left its group open")
+        stats[label] = {"wall_s": wall, "results": got}
+        for k in WRAPPERS:
+            total[k] += launches[k]
+    return {"launches": total, "stats": stats}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_multihost_trainer(card: str) -> dict:
+    """Phase 36 (b): the trainer with --multihost under a one-rank torchrun
+    environment set in process (nccl, a store on localhost), against the
+    same 3 steps without it: DeepSeek-VL-1.3B at SAM-448, bs 8, under the
+    deterministic switch of phases 8-10; the logged metrics and the
+    written state bit for bit."""
+    argv = ["--family", "deepseek_vl", "--preset", "1_3b", "--synthetic",
+            "--sam-size", str(TRAIN_SAM), "--batch-size", str(TRAIN_BS),
+            "--steps", str(PAR_TRAIN_STEPS), "--log-interval", "1"]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, extra in (("one", []), ("multihost", ["--multihost"])):
+                out = io.StringIO()
+                saved = {k: os.environ.get(k) for k in env}
+                if extra:
+                    os.environ.update(env)
+                try:
+                    with contextlib.redirect_stdout(out):
+                        _zero_launches()
+                        t0 = time.perf_counter()
+                        trainer_cli.main(argv + extra + [
+                            "--work-dir", f"{tmp}/{label}"])
+                        wall = time.perf_counter() - t0
+                finally:
+                    for k, v in saved.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+                sys.stderr.write(out.getvalue())
+                rows = [json.loads(x) for x in out.getvalue().splitlines()
+                        if x.startswith("{")]
+                state = torch.load(pathlib.Path(tmp) / label /
+                                   f"step_{PAR_TRAIN_STEPS}" / ckpt.STATE_FILE,
+                                   map_location="cpu", weights_only=False)
+                runs[label] = {"rows": rows, "state": state, "wall": wall,
+                               "launches": _launch_counts()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    one, mh = runs["one"], runs["multihost"]
+    keys = [k for k in one["rows"][0] if k not in (
+        "sec_per_step", "imgs_per_sec", "data_wait_ms", "wall")]
+    log(f"phase 36 trainer --multihost ({card}): losses "
+        f"{[r['loss'] for r in mh['rows']]} vs {[r['loss'] for r in one['rows']]}"
+        f" without it; {mh['wall']:.1f} s vs {one['wall']:.1f} s for the CLI; "
+        f"launches {({k: n for k, n in mh['launches'].items() if n})}")
+    if [{k: r[k] for k in keys} for r in mh["rows"]] != \
+            [{k: r[k] for k in keys} for r in one["rows"]] \
+            or len(one["rows"]) != PAR_TRAIN_STEPS:
+        raise AssertionError("--multihost: the logged metrics differ")
+    leaves = list(zip(train_loop.tree_leaves(one["state"]),
+                      train_loop.tree_leaves(mh["state"])))
+    for (path, a), (_, b) in leaves:
+        if not torch.equal(torch.as_tensor(a), torch.as_tensor(b)):
+            raise AssertionError(f"--multihost: state leaf {path} differs")
+    want = {k: n * PAR_TRAIN_STEPS for k, n in
+            EXPECTED_LAUNCHES["deepseek_vl_1_3b_train_sam448"].items()}
+    for label in runs:
+        if runs[label]["launches"] != {k: want.get(k, 0) for k in WRAPPERS}:
+            raise AssertionError(f"{label}: launches differ from {want}")
+    log(f"phase 36 trainer --multihost: {len(leaves)} state leaves bit for "
+        f"bit equal, {len(keys)} metrics of each step equal")
+    return {"launches": mh["launches"]}
+
+
+def _grounding_parts(params, cfg, batch) -> dict:
+    """The forward in its stages: the capture, the hidden sum and the SAM
+    logits; and next-token logits (of the final norm of the hidden sum's
+    last 8 rows) through ``lm_head``."""
+    emb = grounding.image_embeddings(params["frozen"], cfg, batch)
+    attn, hidden = grounding.decoder_capture(params, cfg, batch, emb)
+    out = grounding.heads_forward(params, cfg, attn, hidden, batch)
+    llm = params["frozen"]["llm"]
+    last = llm_decoder.rms_norm(hidden[:, -8:].to(cfg.dtype),
+                                llm["final_norm"], cfg.llm.rms_eps, False)
+    return {"attn": attn, "hidden": hidden, "sam_logits": out["sam_logits"],
+            "lm_logits": llm_decoder.logits(llm, cfg.llm, last)}
+
+
+def _decoder_inputs(params, cfg, batch) -> tuple:
+    """``forward_capture``'s arguments as ``decoder_capture`` makes them."""
+    fro, tra = params["frozen"], params["trainable"]
+    emb = grounding.image_embeddings(fro, cfg, batch)
+    ids = batch["input_ids"]
+    embeds = llm_decoder.embed_tokens(fro["llm"], cfg.llm, ids).to(cfg.dtype)
+    embeds[:, cfg.img_start:cfg.img_start + cfg.num_img_tokens] = emb
+    kw = dict(merge_matrix=mask_ops.mean_merge_matrix(
+        batch["mask_ids"], batch["mask_valid"].shape[1]), merge=cfg.merge,
+        layer_weights=torch.softmax(tra["text_layer_weights"], dim=0))
+    return (fro["llm"], cfg.llm, embeds, batch["attn_mask"], cfg.img_start,
+            cfg.num_img_tokens), kw
+
+
+def _decoder_parts(args: tuple, kw: dict, mesh=None) -> dict:
+    """The decoder alone; through the pipeline over ``mesh`` (its stages'
+    captures gathered) when given."""
+    if mesh is None:
+        out = llm_decoder.forward_capture(*args, **kw)
+    else:
+        out = pipe.pipeline_forward_capture(*args, mesh=mesh,
+                                            n_microbatches=2, **kw)
+        out["attn"] = pipe.gather_attn(out["attn"], mesh)
+    return {"attn": out["attn"], "hidden": out["hidden"]}
+
+
+def _parallel_rank(rank: int, world: int, store: str, results) -> None:
+    """Phase 36 (c), one rank: a 1 x 2 mesh on nccl when the machine has a
+    card a rank, else gloo with both ranks on cuda:0."""
+    import torch.distributed as dist
+
+    nccl = torch.cuda.device_count() >= world
+    device = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl" if nccl else "gloo",
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        results.put((rank, _parallel_checks(rank, device)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_checks(rank: int, device: torch.device) -> dict:
+    cfg = deepseek_vl.deepseek_vl_1_3b()
+    g = torch.Generator(device=device).manual_seed(PAR_SEED)
+    params = grounding.init_params(cfg, g, device)
+    randomize_rel_pos(params, g)
+    batch = from_jax(synthetic_batch(
+        cfg, batch_size=PAR_BS, seq_len=PAR_SEQ, max_masks=8,
+        text_tokens_per_mask=12), device)
+    mesh = mesh_lib.make_mesh(1, PAR_RANKS, device.type)
+    report = {"backend": torch.distributed.get_backend()}
+    with torch.no_grad():
+        ref = _grounding_parts(params, cfg, batch)
+        dec_args, dec_kw = _decoder_inputs(params, cfg, batch)
+        ref_dec = _decoder_parts(dec_args, dec_kw)
+        for mode in PAR_MODES:
+            if mode == "pipeline":
+                run = lambda: _decoder_parts(dec_args, dec_kw, mesh)  # noqa
+                want = ref_dec
+            else:
+                sharded = {**params, "frozen": shard.shard_frozen(
+                    params["frozen"], mesh, mode)}
+                run = lambda: _grounding_parts(sharded, cfg, batch)  # noqa
+                want = ref
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            _zero_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = run()  # timed and checked
+            end.record()
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            agree = {k: agreement(got[k], want[k]) for k in got}
+            if mode == "fsdp":  # lm_head's columns: another GEMM shape
+                for k in ("attn", "hidden", "sam_logits"):
+                    if not torch.equal(got[k], want[k]):
+                        raise AssertionError(f"rank {rank} fsdp {k}: not "
+                                             "bit for bit the one-rank "
+                                             "forward")
+            for k, (_, corr) in agree.items():
+                if corr < PAR_CORR[k]:
+                    raise AssertionError(f"rank {rank} {mode} {k}: corr "
+                                         f"{corr:.6f} < {PAR_CORR[k]}")
+            want_l = {k: PAR_LAUNCHES[mode].get(k, 0) for k in WRAPPERS}
+            if launches != want_l:
+                raise AssertionError(f"rank {rank} {mode}: launches "
+                                     f"{launches} != {want_l}")
+            report[mode] = {
+                "ms": start.elapsed_time(end), "peak_gb":
+                torch.cuda.max_memory_allocated(device) / 1e9,
+                "launches": launches, "agree": agree}
+            del got, run
+    return report
+
+
+def run_parallel_ranks(card: str) -> dict:
+    """Phase 36 (c): two ranks spawned on the card, each with its own
+    checks (tp = 2 against the one-rank forward by correlation, fsdp = 2
+    bit for bit, the 2-stage pipeline of 2 microbatches by correlation);
+    a rank that fails fails the run.  Their launch counts come back."""
+    import torch.multiprocessing as tmp_mp
+
+    ctx = tmp_mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp_mp.start_processes(
+            _parallel_rank, args=(PAR_RANKS, os.path.join(tmp, "store"),
+                                  results),
+            nprocs=PAR_RANKS, start_method="spawn")
+    wall = time.perf_counter() - t0
+    reports = dict(results.get() for _ in range(PAR_RANKS))
+    total = dict.fromkeys(WRAPPERS, 0)
+    for rank, rep in sorted(reports.items()):
+        for mode in PAR_MODES:
+            r = rep[mode]
+            log(f"phase 36 rank {rank} {mode} ({card}, {rep['backend']}, "
+                f"{PAR_RANKS} ranks sharing the card): {r['ms']:.1f} ms a "
+                "forward (CUDA events, the mode's first forward, its "
+                "kernels warmed by the one-rank reference), peak "
+                f"{r['peak_gb']:.2f} GB, launches "
+                f"{({k: n for k, n in r['launches'].items() if n})}; vs the "
+                "one-rank forward " + ", ".join(
+                    f"{k} max_rel_err {e:.3e} corr {c:.6f}"
+                    for k, (e, c) in r["agree"].items()))
+            for k in WRAPPERS:
+                total[k] += r["launches"][k]
+    log(f"phase 36 two ranks: {wall:.1f} s with the spawn and imports")
+    return {"launches": total, "reports": reports}
+
+
+def run_parallel(card: str, files: dict) -> dict:
+    """Phase 36: the parallel slice, (a) to (c)."""
+    paths = files["paths"]
+    common = ["--checkpoint", str(paths["checkpoint"]),
+              "--sam-checkpoint", str(paths["sam"]),
+              "--trained", str(paths["trained"])]
+    parts = [run_sharded_clis(card, files, common),
+             run_multihost_trainer(card)]
+    torch.cuda.empty_cache()
+    parts.append(run_parallel_ranks(card))
+    return {"launches": {k: sum(p["launches"][k] for p in parts)
+                         for k in WRAPPERS},
+            "parts": parts}
+
+
 def main() -> None:
     start = time.perf_counter()
 
@@ -5322,13 +5670,15 @@ def main() -> None:
         stamp("phase 34")
         quant = run_quant(card, files["paths"], files, e2e, families)
         stamp("phase 35")
+        par = run_parallel(card, files)
+        stamp("phase 36")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
              compared, evals, gen, files, hybrid, mistral, mgm["gen"],
-             mgm["files"], train_real, inter, quant)),
+             mgm["files"], train_real, inter, quant, par)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -5346,7 +5696,8 @@ def main() -> None:
              "mgm_files": mgm["files"]["launches"][name],
              "train_real": train_real["launches"][name],
              "interactive": inter["launches"][name],
-             "int8": quant["launches"][name]},
+             "int8": quant["launches"][name],
+             "parallel": par["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

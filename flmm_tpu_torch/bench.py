@@ -49,14 +49,12 @@ path), ``family``, ``preset``, ``sam_size``, ``global_kernel``, ``launches``
 and power limit).  The batch-size sweep falls through on an out-of-memory
 error only; any other failure ends the run.
 
-``llava_next`` batches come from the port's synthetic anyres builder
-(``data.llava_next.synthetic_anyres_batch``, images of 600 x 640 and 900 x
-280 in turn); the JAX script goes through its host data pipeline
-(``data/collate``), which is not ported.  ``mgm`` batches go through the
-host pipeline as in the JAX script: ``synthetic_samples`` into
-``build_mgm_batch`` (the crops, the aux image and SAM's input of each
-sample), the sequence the longest sample + 8, to a multiple of 128 when the
-decoder captures through the flash kernel.
+``llava_next`` and ``mgm`` batches go through the host pipeline as in the
+JAX script: ``synthetic_samples`` (seed 0, 8 masks, 12 caption tokens) into
+the family's batch builder (``registry.get_batch_builder``: LLaVA-NeXT's
+anyres tiles, MGM's crops, the aux image and SAM's input of each sample),
+the sequence the longest sample + 8, to a multiple of 128 when the decoder
+captures through the flash kernel.
 """
 
 from __future__ import annotations
@@ -73,7 +71,6 @@ import torch
 from flmm_tpu_torch import registry
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.collate import BatchSpec
-from flmm_tpu_torch.data.llava_next import synthetic_anyres_batch
 from flmm_tpu_torch.data.processors import ProcessorConfig
 from flmm_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
 from flmm_tpu_torch.kernel_bench import card_line, device_of
@@ -89,7 +86,6 @@ FLAGSHIP = {
     "hpt": "air_1_5",
 }
 WARMUP = 2
-ANYRES_SIZES = ((600, 640), (900, 280))  # (h, w): a 2x2 and a 3x1 tile grid
 REL_POS_STD = 0.05
 HD_ALPHA = 0.5
 # every wrapper that counts its kernel launches, by name
@@ -202,27 +198,22 @@ def resolve_seq_len(cfg, family: str, seq_len: int) -> int:
     return seq_len
 
 
-def _family_batch(cfg, family: str, batch_size: int, seq_len: int,
-                  prompt_len: int) -> dict:
+def _family_batch(cfg, family: str, batch_size: int, seq_len: int) -> dict:
     """Schema-exact synthetic batch (numpy) at the family's real geometry:
-    8 masks of 12 text tokens."""
+    8 masks of 12 text tokens (bench.py's ``_family_batch``)."""
     if family in ("deepseek_vl", "llava", "hpt"):
         return synthetic_batch(cfg, batch_size=batch_size, seq_len=seq_len,
                                max_masks=8, text_tokens_per_mask=12)
-    if family == "mgm":
-        return mgm_batch(cfg, batch_size, seq_len)
-    # llava_next: anyres tiles (~5x the image tokens); the builder sizes the
-    # sequence itself (longest sample + 8, 128-aligned for flash capture)
-    sizes = [ANYRES_SIZES[i % len(ANYRES_SIZES)] for i in range(batch_size)]
-    return synthetic_anyres_batch(cfg, sizes, prompt_len=prompt_len,
-                                  max_masks=8, caption_tokens=12)
+    return samples_batch(cfg, family, batch_size, seq_len)
 
 
-def mgm_batch(cfg, batch_size: int, seq_len: int, seed: int = 0) -> dict:
-    """The JAX script's MGM batch (bench.py:41-75): seeded samples through
-    the family's batch builder (the JAX script's seed is 0)."""
-    base = cfg.base
-    build = registry.get_batch_builder("mgm", cfg)
+def samples_batch(cfg, family: str, batch_size: int, seq_len: int,
+                  seed: int = 0) -> dict:
+    """The JAX script's LLaVA-NeXT / MGM batch (bench.py:41-80): seeded
+    samples through the family's batch builder (the JAX script's seed is
+    0), the sequence at least the longest sample + 8."""
+    base = _base(cfg)
+    build = registry.get_batch_builder(family, cfg)
     samples = synthetic_samples(cfg, batch_size, seed=seed, max_masks=8,
                                 caption_tokens=12)
     S = max(seq_len, max(len(s["input_ids"]) for s in samples) + 8)
@@ -317,7 +308,7 @@ def build(batch_size: int, knobs: Knobs = Knobs(), device="cuda",
     ``text_layer_weights`` the real layer count and take the decoder from
     :func:`fabricate_int8_llm`; the other families quantise the resident
     tree (``decoder.quantize_params(consume=True)``)."""
-    cfg, _, native_start = resolve_config(knobs)
+    cfg = resolve_config(knobs)[0]
     model = registry.get_model(knobs.family)
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -336,8 +327,8 @@ def build(batch_size: int, knobs: Knobs = Knobs(), device="cuda",
     params["frozen"]["llm"].pop("lm_head", None)
     randomize_frozen(params, g)
     seq_len = resolve_seq_len(cfg, knobs.family, knobs.seq_len)
-    batch = from_jax(_family_batch(cfg, knobs.family, batch_size, seq_len,
-                                   native_start), device)
+    batch = from_jax(_family_batch(cfg, knobs.family, batch_size, seq_len),
+                     device)
     return model, cfg, params, batch
 
 

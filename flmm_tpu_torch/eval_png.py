@@ -16,17 +16,19 @@ import pathlib
 from flmm_tpu_torch.data.png import PNGDataset
 from flmm_tpu_torch.evalsuite import cli
 from flmm_tpu_torch.evalsuite.metrics import PNGAccumulator
-from flmm_tpu_torch.evalsuite.runner import png_score, run_eval
+from flmm_tpu_torch.evalsuite.runner import png_score
 
 
 def main(argv=None, tokenizer=None) -> dict:
     """Run the evaluation; ``tokenizer`` replaces ``--tokenizer``'s
     AutoTokenizer.  Returns the results."""
     args = cli.parse(cli.parser(__doc__, max_masks=16), argv, tokenizer)
-    tokenizer = cli.load_tokenizer(args, tokenizer)
+    with cli.ranks(args):
+        return _evaluate(args, cli.load_tokenizer(args, tokenizer))
+
+
+def _evaluate(args, tokenizer) -> dict:
     s = cli.setup(args, tokenizer)
-    predict = cli.make_predict(s["model"], s["params"], s["cfg"],
-                               s["device"])
     root = pathlib.Path(args.data_root)
     ds = PNGDataset(
         json_file=str(root / "annotations/png_coco_val2017.json"),
@@ -35,11 +37,10 @@ def main(argv=None, tokenizer=None) -> dict:
         image_path=str(root / "val2017"),
         tokenizer=tokenizer, prompt_spec=s["prompt"])
     n = min(len(ds), 100) if args.debug else len(ds)
-    results = run_eval(
-        (ds[i] for i in range(n)), predict, s["spec"], args.batch_size,
-        PNGAccumulator, png_score, seq_len_buckets=cli.seq_buckets(args),
-        batch_builder=s["build"]).results()
-    print(json.dumps(results, indent=2))
+    results = cli.evaluator(args, s)((ds[i] for i in range(n)),
+                                     PNGAccumulator, png_score)
+    if cli.prints():
+        print(json.dumps(results, indent=2))
     return results
 
 

@@ -19,7 +19,7 @@ import pathlib
 from flmm_tpu_torch.data.refcoco import RefCocoDataset, refcoco_to_sample
 from flmm_tpu_torch.evalsuite import cli
 from flmm_tpu_torch.evalsuite.metrics import RefSegAccumulator
-from flmm_tpu_torch.evalsuite.runner import refcoco_score, run_eval
+from flmm_tpu_torch.evalsuite.runner import refcoco_score
 
 SPLITS = [
     ("refcoco", "refs(unc).p", "val"),
@@ -41,10 +41,13 @@ def main(argv=None, tokenizer=None) -> dict:
     p.add_argument("--concat", action="store_true",
                    help="one pass per image instead of per expression")
     args = cli.parse(p, argv, tokenizer)
-    tokenizer = cli.load_tokenizer(args, tokenizer)
+    with cli.ranks(args):
+        return _evaluate(args, cli.load_tokenizer(args, tokenizer))
+
+
+def _evaluate(args, tokenizer) -> dict:
     s = cli.setup(args, tokenizer)
-    predict = cli.make_predict(s["model"], s["params"], s["cfg"],
-                               s["device"])
+    evaluate = cli.evaluator(args, s)
     results = {}
     root = pathlib.Path(args.data_root)
     for name, split_file, split in SPLITS:
@@ -62,13 +65,11 @@ def main(argv=None, tokenizer=None) -> dict:
                     max_expressions=args.max_masks if args.concat else None)
 
         key = f"{name}/{split}"
-        results[key] = run_eval(
-            samples(), predict, s["spec"], args.batch_size,
-            RefSegAccumulator, refcoco_score,
-            seq_len_buckets=cli.seq_buckets(args),
-            batch_builder=s["build"]).results()
-        print(json.dumps({key: results[key]}), flush=True)
-    print(json.dumps(results, indent=2))
+        results[key] = evaluate(samples(), RefSegAccumulator, refcoco_score)
+        if cli.prints():
+            print(json.dumps({key: results[key]}), flush=True)
+    if cli.prints():
+        print(json.dumps(results, indent=2))
     return results
 
 

@@ -1,20 +1,28 @@
 """What ``python -m flmm_tpu_torch.eval_refcoco`` and ``eval_png`` share
 (scripts/eval_refcoco.py, scripts/eval_png.py): their common flags, the
 model setup (config and prompt from the tokenizer, the frozen checkpoints,
-``--trained``, a seeded random init of what they do not supply) and the forward that maps a numpy batch to SAM
-low-res logits on the device."""
+``--trained``, a seeded random init of what they do not supply), the forward
+that maps a numpy batch to SAM low-res logits on the device, and the loop
+each split runs: on one device, or with ``--sharded-eval`` data-parallel
+over the ranks of a process group (torchrun's, or a group of one), every
+rank computing the results and rank 0 printing them."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from flmm_tpu_torch import registry
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.collate import BatchSpec
+from flmm_tpu_torch.evalsuite.runner import run_eval
+from flmm_tpu_torch.evalsuite.sharded import run_eval_sharded
 from flmm_tpu_torch.models.frozen.grounding import quantize_frozen_sam
+from flmm_tpu_torch.parallel import mesh as mesh_lib
 from flmm_tpu_torch.train import checkpoint as ckpt
 
 
@@ -54,7 +62,8 @@ def parser(description: str, max_masks: int) -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true",
                    help="first 100 samples")
     p.add_argument("--sharded-eval", action="store_true",
-                   help="data-parallel forward (not ported)")
+                   help="data-parallel forward over the ranks (run under "
+                        "torchrun; alone, a group of one)")
     p.add_argument("--int8-sam", action="store_true",
                    help="W8A8-quantised SAM encoder (int8 weights and "
                         "activations around the attention kernels)")
@@ -81,9 +90,6 @@ def parse(p: argparse.ArgumentParser, argv, tokenizer):
     args = p.parse_args(argv)
     if tokenizer is None and args.tokenizer is None:
         p.error("--tokenizer is required")
-    if args.sharded_eval:
-        raise NotImplementedError(
-            "--sharded-eval is not ported: ROADMAP queue 1 item 11")
     if args.family != "mgm" and (args.clip_checkpoint
                                  or args.aux_checkpoint):
         p.error("--clip-checkpoint and --aux-checkpoint load MGM's towers; "
@@ -162,3 +168,49 @@ def make_predict(model, params: dict, cfg, device) -> Callable:
 
 def seq_buckets(args) -> tuple | None:
     return tuple(args.seq_buckets) if args.seq_buckets else None
+
+
+@contextlib.contextmanager
+def ranks(args):
+    """With ``--sharded-eval``, the process group of the run and
+    ``args.device`` this rank's device; else nothing."""
+    if not args.sharded_eval:
+        yield
+        return
+    with mesh_lib.process_group(args.device) as device:
+        args.device = str(device)
+        yield
+
+
+def prints() -> bool:
+    """Whether this process prints the results (rank 0, or no group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def evaluator(args, s: dict) -> Callable:
+    """``(samples, accumulator_factory, score_fn) -> results``: the host
+    loop over this device's forward, or with ``--sharded-eval``
+    :func:`run_eval_sharded` over a data axis of the largest size that
+    divides the batch and fits the world (scripts/eval_refcoco.py:155-158;
+    a rank beyond it runs the host loop, whose results are the same)."""
+    model, params, cfg = s["model"], s["params"], s["cfg"]
+    if args.sharded_eval:
+        mesh = mesh_lib.make_mesh(mesh_lib.pick_n_data(args.batch_size), 1,
+                                  s["device"].type)
+        if mesh.get_coordinate() is not None:
+            def sharded(samples, accumulator_factory, score_fn):
+                return run_eval_sharded(
+                    samples, params, lambda p, b: model.forward(p, cfg, b),
+                    s["spec"], args.batch_size, mesh,
+                    batch_builder=s["build"],
+                    accumulator_factory=accumulator_factory,
+                    score_fn=score_fn, device=s["device"])
+            return sharded
+    predict = make_predict(model, params, cfg, s["device"])
+
+    def host(samples, accumulator_factory, score_fn):
+        return run_eval(samples, predict, s["spec"], args.batch_size,
+                        accumulator_factory, score_fn,
+                        seq_len_buckets=seq_buckets(args),
+                        batch_builder=s["build"]).results()
+    return host

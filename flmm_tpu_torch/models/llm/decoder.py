@@ -34,6 +34,8 @@ import torch.nn.functional as F
 from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.flash_attention import flash_attention_with_merged_capture
 from flmm_tpu_torch.ops.quant import dense, quantize_weight
+from flmm_tpu_torch.parallel import frozen as shard
+from flmm_tpu_torch.parallel.mesh import all_gather_cat, all_reduce
 
 # the layer projections quantize_params turns to int8 where they are 3-D
 QUANT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -179,40 +181,52 @@ def moe_gates(logits: torch.Tensor, k: int) -> torch.Tensor:
         torch.where(logits >= thresh, logits, float("-inf")), dim=-1)
 
 
-def mlp(x2: torch.Tensor, lp: dict, cfg: DecoderConfig) -> torch.Tensor:
+def mlp(x2: torch.Tensor, lp: dict, cfg: DecoderConfig,
+        tp=None) -> torch.Tensor:
     """The gated MLP of ``x2`` ``(B, S, d)``, or with ``num_experts`` the
     sparse MoE computed densely: every expert over every token, the outputs
-    summed with the router's gates (zero past the top k)."""
+    summed with the router's gates (zero past the top k).  ``tp``: the
+    model axis of a tensor-parallel layer (this rank's FFN columns, or its
+    block of the experts), whose partial sums are summed over it."""
     if not cfg.num_experts:
-        return dense(_act(dense(x2, lp, "w_gate"), cfg.act)
-                     * dense(x2, lp, "w_up"), lp, "w_down")
+        h = _act(dense(x2, lp, "w_gate"), cfg.act) * dense(x2, lp, "w_up")
+        if tp is not None:
+            return shard.row_product(h, lp["w_down"], tp, x2.dtype)
+        return dense(h, lp, "w_down")
     # the gates in x2's dtype, their weighted sum accumulated in f32 and
     # rounded once, as the JAX einsum over the expert axis
     gates = moe_gates((x2 @ lp["router"]).float(),
                       cfg.num_experts_per_tok).to(x2.dtype).float()
+    n_local = lp["w_gate"].shape[0]
+    first = 0 if tp is None else tp.index * n_local
     out = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
-    for e in range(cfg.num_experts):
-        h = _act(x2 @ lp["w_gate"][e], cfg.act) * (x2 @ lp["w_up"][e])
-        out = out + (h @ lp["w_down"][e]).float() * gates[..., e:e + 1]
+    for i in range(n_local):
+        e = first + i
+        h = _act(x2 @ lp["w_gate"][i], cfg.act) * (x2 @ lp["w_up"][i])
+        out = out + (h @ lp["w_down"][i]).float() * gates[..., e:e + 1]
+    if tp is not None:
+        all_reduce(out, tp.group)
     return out.to(x2.dtype)
 
 
-def mlp_residual(h: torch.Tensor, lp: dict, cfg: DecoderConfig
-                 ) -> torch.Tensor:
+def mlp_residual(h: torch.Tensor, lp: dict, cfg: DecoderConfig,
+                 tp=None) -> torch.Tensor:
     """``h`` plus the (gated or MoE) MLP of its LN2."""
     x2 = rms_norm(h, lp["ln2"], cfg.rms_eps, cfg.gemma_norm)
-    return h + mlp(x2, lp, cfg)
+    return h + mlp(x2, lp, cfg, tp)
 
 
 def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
                cfg: DecoderConfig, img_start: int, n_img: int, merge: str,
-               flash_ok: bool = False, kv: tuple | None = None):
+               flash_ok: bool = False, kv: tuple | None = None, tp=None):
     """One decoder layer with fused attention capture; returns
     ``(h, acc, side)`` where ``side`` is the merged ``(B, H, M, n_img)``
     capture, or the raw ``(B, H, S, n_img)`` one without a merge matrix.
     ``flash_ok`` routes attention and the (mean) capture through K5.
     ``kv``: this layer's ``(B, S_tot, KV, hd)`` key and value caches, whose
-    first ``S`` rows take its keys and values (the generation prefill)."""
+    first ``S`` rows take its keys and values (the generation prefill).
+    ``tp``: the model axis of a tensor-parallel layer; ``cfg`` and ``lp``
+    are then this rank's heads and columns (parallel/frozen.py)."""
     B, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -237,7 +251,9 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
             + aux["bias"]
         probs = torch.softmax(logits, dim=-1)  # f32
         out = (probs.to(cfg.dtype) @ v).transpose(1, 2).reshape(B, S, H * hd)
-    h = mlp_residual(h + dense(out, lp, "wo"), lp, cfg)
+    proj = (dense(out, lp, "wo") if tp is None
+            else shard.row_product(out, lp["wo"], tp, h.dtype))
+    h = mlp_residual(h + proj, lp, cfg, tp)
 
     # the layer weights' only gradient path (the JAX stop_gradient)
     acc = acc + w_l * h.detach().float()
@@ -307,10 +323,16 @@ def forward_capture(params: dict, cfg: DecoderConfig,
     matrix), ``hidden`` (``(B, S, D)`` f32 layer-weighted sum) and
     ``last_hidden`` (post final norm).  ``kv_cache``: ``(k, v)`` caches
     ``(L, B, S_tot, KV, hd)`` whose first ``S`` rows of each layer take its
-    keys and values.
+    keys and values.  ``params`` may be a tp or fsdp shard
+    (parallel/frozen.py): the capture comes back whole on every rank.
     """
     B, S, D = inputs_embeds.shape
     L = cfg.num_layers
+    tp = shard.tp_axis(params)
+    if tp is not None:
+        if kv_cache is not None:
+            raise NotImplementedError("a KV cache under tensor parallelism")
+        cfg = shard.local_decoder_config(cfg, tp)
     flash_ok = flash_capture_ok(cfg, merge_matrix, merge, S, img_start, n_img)
     h = inputs_embeds.to(cfg.dtype)
     if cfg.embed_scale:
@@ -322,31 +344,34 @@ def forward_capture(params: dict, cfg: DecoderConfig,
                                     device=h.device)
     acc = torch.zeros((B, S, D), dtype=torch.float32, device=h.device)
     sides = []
-    for i in range(L):
-        lp = {k: v[i] for k, v in params["layers"].items()}
+    for i, lp in enumerate(shard.decoder_layers(params, L)):
         w_l = layer_weights[i] if i < L - 1 else 0.0
         kv = None if kv_cache is None else (kv_cache[0][i], kv_cache[1][i])
         h, acc, side = layer_step(lp, w_l, h, acc, aux, cfg, img_start,
-                                  n_img, merge, flash_ok, kv)
+                                  n_img, merge, flash_ok, kv, tp)
         sides.append(side)
     last_hidden = rms_norm(h, params["final_norm"], cfg.rms_eps,
                            cfg.gemma_norm)
     hidden = acc + layer_weights[L - 1] * last_hidden.detach().float()
-    return {"attn": torch.stack(sides, dim=1), "hidden": hidden,
-            "last_hidden": last_hidden}
+    attn = torch.stack(sides, dim=1)
+    if tp is not None:  # the heads in rank order
+        attn = all_gather_cat(attn, 2, tp)
+    return {"attn": attn, "hidden": hidden, "last_hidden": last_hidden}
 
 
 def logits(params: dict, cfg: DecoderConfig,
            last_hidden: torch.Tensor) -> torch.Tensor:
     """Next-token logits of post-final-norm states: the tied embedding's
     transpose, else ``lm_head``."""
+    if shard.sharding_of(params) is not None:
+        return shard.head_logits(params, cfg, last_hidden)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return last_hidden @ head
 
 
 def embed_tokens(params: dict, cfg: DecoderConfig,
                  ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][ids]
+    return shard.embed_lookup(params, ids)
 
 
 def quantize_params(params: dict, consume: bool = False) -> dict:

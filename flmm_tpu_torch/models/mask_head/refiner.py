@@ -19,6 +19,7 @@ from flmm_tpu_torch.models.sam import prompt_encoder as sam_prompt
 from flmm_tpu_torch.models.sam.image_encoder import SamEncoderConfig
 from flmm_tpu_torch.models.sam.mask_decoder import MaskDecoderConfig
 from flmm_tpu_torch.models.sam.prompt_encoder import PromptEncoderConfig
+from flmm_tpu_torch.ops.losses import mask_iou
 from flmm_tpu_torch.ops.masks import mask_to_box
 from flmm_tpu_torch.ops.resize import affine_grid_sample
 
@@ -37,10 +38,6 @@ class SamRefinerConfig:
     multimask_output: bool = False
     box_frame: int = 256
     prompt_size: int = 256
-
-    def __post_init__(self):
-        if self.multimask_output:
-            raise NotImplementedError("multimask selection is not ported")
 
 
 def refine(params: dict, cfg: SamRefinerConfig,
@@ -116,9 +113,22 @@ def refine(params: dict, cfg: SamRefinerConfig,
     masks, iou_pred = sam_decoder.forward(
         params["decoder"], cfg.decoder, image_embedding, image_pe, sparse,
         dense, sparse_valid=sparse_valid)
+    if cfg.multimask_output:
+        # of the three candidates, the one whose binarised mask best
+        # overlaps the binarised coarse prompt (reference
+        # mask_refiner.py:114-118); the first of equal IoUs
+        cand = masks[:, 1:]
+        target = (prompt_masks > 0.0).float()[:, None].expand_as(cand)
+        ious = mask_iou((cand > 0).float().flatten(0, 1),
+                        target.flatten(0, 1)).reshape(M, -1)
+        best = ious.argmax(dim=1)
+        rows = torch.arange(M, device=dev)
+        low_res, iou_sel = cand[rows, best], iou_pred[rows, best + 1]
+    else:
+        low_res, iou_sel = masks[:, 0], iou_pred[:, 0]
     return {
-        "low_res_logits": masks[:, 0].float(),
-        "iou_pred": iou_pred[:, 0],
+        "low_res_logits": low_res.float(),
+        "iou_pred": iou_sel,
         "prompt_masks": prompt_masks,
         "boxes": boxes,
     }

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from flmm_tpu_torch.ops.quant import dense
+from flmm_tpu_torch.parallel import frozen as shard
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -29,7 +30,11 @@ def channel_norm(x, w, b, eps: float = 1e-6):
     return layer_norm(x, w, b, eps)
 
 
-def mlp_block(x: torch.Tensor, p: dict, act: str = "gelu") -> torch.Tensor:
+def mlp_block(x: torch.Tensor, p: dict, act: str = "gelu",
+              tp=None) -> torch.Tensor:
+    """Two-layer MLP; under tp (``p`` holds this rank's columns of ``w1``
+    and rows of ``w2``) the second product is summed over the model axis
+    before the replicated ``b2`` is added."""
     h = dense(x, p, "w1") + p["b1"]
     if act == "gelu":
         h = F.gelu(h)
@@ -37,6 +42,8 @@ def mlp_block(x: torch.Tensor, p: dict, act: str = "gelu") -> torch.Tensor:
         h = torch.relu(h)
     else:
         raise ValueError(act)
+    if tp is not None:
+        return shard.row_product(h, p["w2"], tp, h.dtype) + p["b2"]
     return dense(h, p, "w2") + p["b2"]
 
 

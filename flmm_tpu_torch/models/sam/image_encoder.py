@@ -63,6 +63,7 @@ from flmm_tpu_torch.ops.fused_block import fused_ln_mlp, fused_ln_qkv, \
 from flmm_tpu_torch.ops.quant import dense, quantize_weight
 from flmm_tpu_torch.ops.sam_flash import rel_pos_coords, sam_global_attention_v8, \
     sam_window_attention_v9
+from flmm_tpu_torch.parallel import frozen as shard
 
 
 # global_kernel -> wrapper: every name of the JAX package (its v1 is the
@@ -180,18 +181,44 @@ def init_params(cfg: SamEncoderConfig, generator: torch.Generator,
     }
 
 
-def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
+def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, tp=None):
     """Plain windowless attention over ``(B', H', W', C)`` with decomposed
-    rel-pos bias; for the 64x64 global grid the scores are chunked over
-    query rows (image_encoder.py:176-188) so at most ~2M rows x keys exist
-    per image at a time."""
+    rel-pos bias: the qkv product, :func:`_attention_core`, the
+    out-projection (:func:`_out_proj`)."""
     B, H, W, C = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
     qkv = dense(x.reshape(B, H * W, C), bp, "wqkv") + bp["bqkv"]
-    q, k, v = (t.reshape(B, H * W, nh, hd) for t in qkv.split(C, dim=-1))
+    out = _attention_core(qkv.reshape(B, H, W, -1), bp, _local(cfg, tp))
+    return _out_proj(out, bp, tp).reshape(B, H, W, C)
+
+
+def _local(cfg: SamEncoderConfig, tp) -> SamEncoderConfig:
+    """The config of the heads a block holds: all of them, or under tp
+    this rank's (parallel/frozen.py cut ``bp`` to them)."""
+    return cfg if tp is None else shard.local_sam_config(cfg, tp)
+
+
+def _out_proj(attn: torch.Tensor, bp: dict, tp) -> torch.Tensor:
+    """The attention's out-projection ``(B, N, C') -> (B, N, C)``; under tp
+    a row product summed over the model axis, the replicated bias added
+    once after the sum."""
+    if tp is None:
+        return dense(attn, bp, "wo") + bp["bo"]
+    return shard.row_product(attn, bp["wo"], tp, attn.dtype) + bp["bo"]
+
+
+def _attention_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
+    """The attention of ``cfg.num_heads`` heads over a ``(B, H, W, 3C)``
+    qkv grid: ``(B, H*W, C)``.  For the 64x64 global grid the scores are
+    chunked over query rows (image_encoder.py:176-188) so at most ~2M rows
+    x keys exist per image at a time."""
+    B, H, W, C3 = qkv.shape
+    C = C3 // 3
+    nh, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = (t.reshape(B, H * W, nh, hd)
+               for t in qkv.reshape(B, H * W, C3).split(C, dim=-1))
     scale = 1.0 / math.sqrt(hd)
-    rh = bp["rel_pos_h"].float()[rel_pos_coords(H, x.device)]  # (H, H, hd)
-    rw = bp["rel_pos_w"].float()[rel_pos_coords(W, x.device)]
+    rh = bp["rel_pos_h"].float()[rel_pos_coords(H, qkv.device)]  # (H, H, hd)
+    rw = bp["rel_pos_w"].float()[rel_pos_coords(W, qkv.device)]
     kt = k.permute(0, 2, 3, 1)  # (B, nh, hd, HW)
     vh = v.transpose(1, 2)  # (B, nh, HW, hd)
 
@@ -206,7 +233,7 @@ def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
         logits = logits.reshape(B, nh, hq, W, H, W)
         logits = logits + bias_h[..., :, None] + bias_w[..., None, :]
         logits = logits.reshape(B, nh, hq * W, H * W)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        probs = torch.softmax(logits, dim=-1).to(qkv.dtype)
         return (probs @ vh).transpose(1, 2).reshape(B, hq * W, C)
 
     q_grid = q.reshape(B, H, W, nh, hd)
@@ -218,7 +245,7 @@ def _attention(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
             attend(q_grid[:, r0:r0 + rows_per_chunk],
                    rh[r0:r0 + rows_per_chunk])
             for r0 in range(0, H, rows_per_chunk)], dim=1)
-    return (dense(out, bp, "wo") + bp["bo"]).reshape(B, H, W, C)
+    return out
 
 
 def _flash_global_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
@@ -277,15 +304,19 @@ def _flash_window_core(qkv: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
 
 
 def _flash_block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig,
-                 windowed: bool):
+                 windowed: bool, tp=None):
     """One block through the attention kernel (K6 windowed, K2 global),
-    with K3 before and K4 after it when the fused-MLP gate holds.  The CUDA
-    gate is the caller's; on CPU tensors every wrapper takes its plain
-    version."""
+    with K3 before and K4 after it when the fused-MLP gate holds.  Under tp
+    (``bp`` holds this rank's heads and MLP columns) K3 and the attention
+    kernel run on the local heads, and the out-projection and the MLP's
+    second product are row products summed before the residual: K4 fuses
+    that residual add and is not used.  The CUDA gate is the caller's; on
+    CPU tensors every wrapper takes its plain version."""
     B, H, W, C = x.shape
     mlp = bp["mlp"]
     fused = (cfg.fused_mlp and not quantized(bp) and C % 128 == 0
-             and mlp["w1"].shape[1] % 512 == 0)
+             and mlp["w1"].shape[1] * (1 if tp is None else tp.size)
+             % 512 == 0)
     if fused:
         qkv = fused_ln_qkv(x, bp["ln1_w"], bp["ln1_b"], bp["wqkv"],
                            bp["bqkv"], eps=cfg.ln_eps)
@@ -293,15 +324,14 @@ def _flash_block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig,
         y = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)
         qkv = dense(y.reshape(B, H * W, C), bp, "wqkv") + bp["bqkv"]
     core = _flash_window_core if windowed else _flash_global_core
-    attn = core(qkv.reshape(B, H, W, 3 * C), bp, cfg)
-    if fused:
+    attn = core(qkv.reshape(B, H, W, -1), bp, _local(cfg, tp))
+    if fused and tp is None:
         return fused_proj_ln_mlp(
             x, attn, bp["wo"], bp["bo"], bp["ln2_w"], bp["ln2_b"],
             mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], eps=cfg.ln_eps)
-    x = x + (dense(attn.reshape(B, H * W, C), bp, "wo")
-             + bp["bo"]).reshape(B, H, W, C)
+    x = x + _out_proj(attn.reshape(B, H * W, -1), bp, tp).reshape(B, H, W, C)
     return x + mlp_block(layer_norm(x, bp["ln2_w"], bp["ln2_b"],
-                                    cfg.ln_eps), mlp)
+                                    cfg.ln_eps), mlp, tp=tp)
 
 
 def _ln_mlp_residual(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
@@ -335,22 +365,27 @@ def flash_gate(cfg: SamEncoderConfig, H: int, W: int, windowed: bool) -> bool:
             and ((H * W) % 128 == 0 or cfg.global_kernel == "v8"))
 
 
-def _block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, windowed: bool):
+def _block(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig, windowed: bool,
+           tp=None):
+    """One block: :func:`_flash_block` where its gate holds on a CUDA
+    tensor, else plain; under tp (``bp`` cut to this rank's heads and MLP
+    columns) the projections after the attention and the MLP are row
+    products summed over the model axis."""
     B, H, W, C = x.shape
     if flash_gate(cfg, H, W, windowed) and x.is_cuda:
-        return _flash_block(x, bp, cfg, windowed)
+        return _flash_block(x, bp, cfg, windowed, tp)
     shortcut = x
     x = layer_norm(x, bp["ln1_w"], bp["ln1_b"], cfg.ln_eps)
     if windowed:
         xw, geom = _windowize(x, cfg.window_size)
         ws = cfg.window_size
-        xw = _attention(xw.reshape(-1, ws, ws, C), bp, cfg)
+        xw = _attention(xw.reshape(-1, ws, ws, C), bp, cfg, tp)
         x = _dewindowize(xw.reshape(-1, ws * ws, C), geom, ws)
     else:
-        x = _attention(x, bp, cfg)
+        x = _attention(x, bp, cfg, tp)
     x = shortcut + x
     y = layer_norm(x, bp["ln2_w"], bp["ln2_b"], cfg.ln_eps)
-    return x + mlp_block(y, bp["mlp"])
+    return x + mlp_block(y, bp["mlp"], tp=tp)
 
 
 def _window_valid_tokens(geom: tuple, ws: int, device):
@@ -406,8 +441,9 @@ def forward(params: dict, cfg: SamEncoderConfig,
     x = x + params["pos_embed"].to(x.dtype)
     ws = cfg.window_size
     n_win_img = -(-x.shape[1] // ws) * -(-x.shape[2] // ws)
+    tp = shard.tp_axis(params)
     use_wb = (cfg.window_block_fused and n_win_img >= 25 and x.is_cuda
-              and cfg.embed_dim % 128 == 0)
+              and cfg.embed_dim % 128 == 0 and tp is None)
     xw = geom = valid = None
     for i, bp in enumerate(params["blocks"]):
         windowed = i not in cfg.global_attn_indexes
@@ -426,7 +462,7 @@ def forward(params: dict, cfg: SamEncoderConfig,
                     and (x.shape[1] * x.shape[2]) % 256 == 0):
                 x = _global_block_fused(x, bp, cfg)
             else:
-                x = _block(x, bp, cfg, windowed=windowed)
+                x = _block(x, bp, cfg, windowed=windowed, tp=tp)
     if xw is not None:
         x = _dewindowize(xw, geom, ws)
     x = conv2d(x, params["neck0_kernel"])

@@ -27,8 +27,18 @@ encoder and mask decoder) is trained and checkpointed
 checkpoint at the step it holds, and both streams start there, so a
 resumed run repeats the uninterrupted one.  ``--profile N`` writes a
 ``torch.profiler`` Chrome trace of steps 3 .. N + 2 to
-``<work-dir>/trace/``.  Not ported: model parallelism (``--n-model``) and
-multi-host runs (``--multihost``).
+``<work-dir>/trace/``.
+
+``--multihost`` runs one process a GPU under torchrun (data parallel over
+the mesh's ``"data"`` axis: the largest size that divides ``--batch-size``
+and fits the world, scripts/train.py:305-309); ``--n-model N`` also splits
+the frozen decoder and SAM encoder over ``N`` ranks a replica (heads and
+FFN columns, parallel/frozen.py).  Every rank builds the same global batch
+and takes its rows; the trainable tree stays replicated, rank 0 broadcasts
+it after init or restore, and rank 0 alone logs and writes checkpoints::
+
+    torchrun --nproc-per-node 8 -m flmm_tpu_torch.train --multihost \
+        --n-model 2 --family deepseek_vl --preset 1_3b --synthetic
 """
 
 from __future__ import annotations
@@ -40,12 +50,15 @@ import pathlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from flmm_tpu_torch import registry
 from flmm_tpu_torch.convert import load as load_mod
 from flmm_tpu_torch.convert.from_jax import from_jax
 from flmm_tpu_torch.data.collate import BatchSpec
 from flmm_tpu_torch.evalsuite.cli import load_tokenizer
+from flmm_tpu_torch.parallel import frozen as shard
+from flmm_tpu_torch.parallel import mesh as mesh_lib
 from flmm_tpu_torch.train import checkpoint as ckpt
 from flmm_tpu_torch.train import loop as train_loop
 from flmm_tpu_torch.train import streams
@@ -105,7 +118,8 @@ def parse_args(argv=None, tokenizer=None):
     p.add_argument("--save-steps", type=int, default=500)
     p.add_argument("--log-interval", type=int, default=10)
     p.add_argument("--n-model", type=int, default=1,
-                   help="model-parallel axis size (not ported)")
+                   help="model-parallel axis size: ranks a replica (with "
+                        "--multihost)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="a torch.profiler trace of N steps (from step 3) "
@@ -115,13 +129,16 @@ def parse_args(argv=None, tokenizer=None):
     p.add_argument("--metrics-file", default=None,
                    help="JSONL metric log (default <work-dir>/metrics.jsonl)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host runs (not ported)")
+                   help="one process a GPU under torchrun, data parallel")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a card")
     args = p.parse_args(argv)
-    if args.n_model != 1 or args.multihost:
-        p.error("--n-model and --multihost are not ported: ROADMAP queue 1 "
-                "item 11")
+    if args.multihost and not mesh_lib.launched_by_torchrun():
+        p.error("--multihost runs under torchrun: RANK, WORLD_SIZE and "
+                "LOCAL_RANK are not set")
+    if args.n_model > 1 and not args.multihost:
+        p.error(f"--n-model {args.n_model} needs {args.n_model} ranks; a "
+                "run without --multihost is a world of 1")
     if args.family != "mgm" and (args.clip_checkpoint or args.aux_checkpoint):
         p.error("--clip-checkpoint and --aux-checkpoint load MGM's towers; "
                 f"the {args.family} family reads its tower from --checkpoint")
@@ -188,8 +205,49 @@ def main(argv=None, tokenizer=None) -> None:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if not args.multihost:
+        return train(args, device, tokenizer)
+    with mesh_lib.process_group(args.device) as rank_device:
+        return train(args, rank_device, tokenizer)
+
+
+def broadcast_state(state: dict) -> None:
+    """Every rank's state made rank 0's, in place: the tensors broadcast,
+    the counts (step, optimizer count) sent as objects."""
+    leaves = list(train_loop.tree_leaves(state))
+    with torch.no_grad():
+        for _, t in leaves:
+            if isinstance(t, torch.Tensor):
+                dist.broadcast(t, 0)
+    counts = [t for _, t in leaves if not isinstance(t, torch.Tensor)]
+    dist.broadcast_object_list(counts, 0)
+    it = iter(counts)
+
+    def put(tree):
+        for k in (tree if isinstance(tree, dict) else range(len(tree))):
+            if isinstance(tree[k], (dict, list)):
+                put(tree[k])
+            elif not isinstance(tree[k], torch.Tensor):
+                tree[k] = next(it)
+    put(state)
+
+
+def train(args, device: torch.device, tokenizer=None) -> None:
+    """The training run on ``device``; with ``--multihost`` this rank's
+    part of it."""
     run = setup(args, device, tokenizer)
     cfg, model, params = run["cfg"], run["model"], run["params"]
+    mesh = None
+    if args.multihost:
+        if dist.get_world_size() < args.n_model:
+            raise SystemExit(f"flmm_tpu_torch.train: --n-model "
+                             f"{args.n_model} needs {args.n_model} ranks; "
+                             f"the world has {dist.get_world_size()}")
+        n_data = mesh_lib.pick_n_data(args.batch_size, args.n_model)
+        mesh = mesh_lib.make_mesh(n_data, args.n_model, device.type)
+        if args.n_model > 1 and mesh.get_coordinate() is not None:
+            params["frozen"] = shard.shard_frozen(params["frozen"], mesh)
+    lead = not args.multihost or dist.get_rank() == 0
 
     joint = None
     if not args.synthetic:
@@ -205,21 +263,29 @@ def main(argv=None, tokenizer=None) -> None:
     state = train_loop.init_state(params["trainable"], opt)
     workdir = pathlib.Path(args.work_dir)
     workdir.mkdir(parents=True, exist_ok=True)
-    if args.resume:
+    if args.resume and lead:
         latest = ckpt.latest(workdir)
         if latest is not None:
             state = ckpt.restore(latest, state)
             print(f"resumed from {latest} at step {state['step']}")
+    if args.multihost:
+        broadcast_state(state)
+        if mesh.get_coordinate() is None:
+            print(f"rank {dist.get_rank()}: outside the {n_data} x "
+                  f"{args.n_model} mesh, idle", flush=True)
+            return
 
     start = state["step"]
     stream = (joint.batches(start, steps) if joint else
               streams.synthetic_stream(args.family, cfg, args.synthetic_task,
                                        args.batch_size, start, steps))
-    step_fn = train_loop.make_train_step(
-        lambda p, b: model.loss_fn(p, cfg, b), opt)
+    loss_fn = lambda p, b: model.loss_fn(p, cfg, b)  # noqa: E731
+    step_fn = (train_loop.make_sharded_train_step(loss_fn, opt, mesh)
+               if mesh is not None else
+               train_loop.make_train_step(loss_fn, opt))
     mlog = MetricLogger(
         path=args.metrics_file or str(workdir / "metrics.jsonl"),
-        interval=args.log_interval)
+        interval=args.log_interval) if lead else None
     timer = StepTimer(window=args.log_interval)
     waits = StepTimer(window=args.log_interval)  # a step waiting for data
     with contextlib.ExitStack() as profiling:
@@ -228,18 +294,19 @@ def main(argv=None, tokenizer=None) -> None:
         for n, batch in enumerate(stream):  # n: steps of this run
             waits.add(time.perf_counter() - t_wait)
             i = start + n
-            if args.profile and n == PROFILE_FROM:
+            if args.profile and n == PROFILE_FROM and lead:
                 profiling.enter_context(profile(workdir / "trace", device))
             state, metrics = step_fn(state, params["frozen"],
                                      from_jax(batch, device))
             if device.type == "cuda":
                 torch.cuda.synchronize()  # the timer measures device work
             timer.tick()
-            if args.profile and n == PROFILE_FROM + args.profile - 1:
+            if args.profile and n == PROFILE_FROM + args.profile - 1 \
+                    and lead:
                 profiling.close()
                 print(f"profile: wrote a trace to {workdir / 'trace'}",
                       flush=True)
-            if (i + 1) % args.log_interval == 0:
+            if (i + 1) % args.log_interval == 0 and lead:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["sec_per_step"] = timer.mean
                 m["imgs_per_sec"] = args.batch_size / max(timer.mean, 1e-9)
@@ -248,11 +315,12 @@ def main(argv=None, tokenizer=None) -> None:
                 m["step"] = i + 1
                 m["wall"] = time.time() - t0
                 print(json.dumps(m), flush=True)
-            if (i + 1) % args.save_steps == 0 or i + 1 == steps:
+            if ((i + 1) % args.save_steps == 0 or i + 1 == steps) and lead:
                 ckpt.save(workdir / f"step_{i + 1}", state)
                 print(f"saved step_{i + 1}", flush=True)
             t_wait = time.perf_counter()
-    mlog.close()
+    if lead:
+        mlog.close()
 
 
 if __name__ == "__main__":

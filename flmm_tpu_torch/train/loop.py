@@ -13,6 +13,17 @@ reference: it is neither updated nor weight-decayed.
 
 Parameters and moments are updated in place (no second copy of the
 trainable tree); the functions still return the state they were given.
+
+:func:`make_sharded_train_step` is the data-parallel step over a mesh's
+``"data"`` axis (flmm_tpu/train/loop.py:117-145, where XLA partitions one
+jitted step): each rank runs its rows of the global batch and the
+gradients are summed over the axis.  The loss is the global batch's, as
+one device computes it: ``grounding_losses`` divides every term by the
+batch's valid mask count, so each rank scales its terms by its count over
+the global count (summed first), and the sum over the ranks of the scaled
+terms is the global loss, its gradient the sum of theirs.  DDP's mean of
+per-rank losses would be another number whenever the shards hold different
+mask counts.
 """
 
 from __future__ import annotations
@@ -23,6 +34,8 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from flmm_tpu_torch.parallel import mesh as mesh_lib
 
 FROZEN_LEAVES = ("pe_gaussian",)
 
@@ -171,6 +184,52 @@ def make_train_step(loss_fn: Callable, opt: Optimizer) -> Callable:
         state["opt_state"] = opt.update(grads, state["opt_state"],
                                         state["params"])
         state["step"] += 1
+        metrics["grad_norm"] = global_norm(grads)
+        return state, metrics
+
+    return step
+
+
+def _sum_over(grads: dict, axis) -> dict:
+    """The gradients summed over the axis (one f32 buffer); None stays."""
+    have = [(p, g) for p, g in grads.items() if g is not None]
+    if axis.size == 1 or not have:
+        return grads
+    flat = torch.cat([g.float().reshape(-1) for _, g in have])
+    mesh_lib.all_reduce(flat, axis.group)
+    out = dict(grads)
+    for (p, g), part in zip(have, flat.split([g.numel() for _, g in have])):
+        out[p] = part.reshape(g.shape).to(g.dtype)
+    return out
+
+
+def make_sharded_train_step(loss_fn: Callable, opt: Optimizer,
+                            mesh) -> Callable:
+    """:func:`make_train_step` over the global batch split on the mesh's
+    ``"data"`` axis: ``step(state, frozen, batch)`` with the whole batch on
+    every rank (each takes its rows) and the trainable state replicated;
+    the metrics, ``grad_norm`` among them, are the global batch's, and the
+    clipping and a non-finite guard read the summed gradients.
+    ``loss_fn`` must normalise by the batch's valid masks, as
+    ``grounding_losses`` does."""
+    axis = mesh_lib.axis_of(mesh, "data")
+
+    def step(state: dict, frozen, batch) -> tuple[dict, dict]:
+        rows = mesh_lib.shard_rows(batch, axis)
+        count = rows["mask_valid"].float().sum()
+        total = mesh_lib.all_reduce(count.clone(), axis.group)
+        scale = count / total.clamp_min(1.0)
+        loss, metrics = loss_fn({"frozen": frozen,
+                                 "trainable": state["params"]}, rows)
+        grads = _sum_over(gradients(loss * scale, state["params"]), axis)
+        names = list(metrics)
+        terms = mesh_lib.all_reduce(torch.stack(
+            [metrics[k].detach().float() for k in names]) * scale,
+            axis.group)
+        state["opt_state"] = opt.update(grads, state["opt_state"],
+                                        state["params"])
+        state["step"] += 1
+        metrics = dict(zip(names, terms))
         metrics["grad_norm"] = global_norm(grads)
         return state, metrics
 

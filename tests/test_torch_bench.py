@@ -204,10 +204,23 @@ def test_distinct_inputs_per_forward():
     assert batches[0]["input_ids"] is batch["input_ids"]
 
 
-def test_llava_next_builds_through_the_anyres_batch():
-    knobs = bench.Knobs(family="llava_next", preset="tiny", sam_size=128)
+def test_llava_next_builds_through_the_anyres_batch(monkeypatch):
+    """The LLaVA-NeXT row's batch is root bench.py's bit for bit: seeded
+    samples through the anyres builder, S the longest sample + 8 (rounded
+    to 128 where the decoder captures through the flash kernel)."""
+    _set_env(monkeypatch, {"BENCH_FAMILY": "llava_next", **TINY_ENV})
+    knobs = bench.Knobs.from_env()
     model, cfg, params, batch = bench.build(2, knobs, "cpu")
-    assert "tiles" in batch and "pixel_values" not in batch
+    jcfg = jregistry.get_config("llava_next", "tiny")
+    _assert_same_fields(jcfg, cfg)
+    want = dict(_flat(jbench._family_batch(
+        jcfg, "llava_next", 2, bench.resolve_seq_len(cfg, "llava_next", 112))))
+    got = dict(_flat(batch))
+    assert sorted(got) == sorted(want) and "/tiles" in got
+    for key, value in want.items():
+        assert got[key].dtype == from_jax(np.asarray(value)).dtype, key
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(value),
+                                      err_msg=key)
     batches = bench.distinct_batches(batch, 1)
     assert torch.allclose(batches[0]["tiles"], batch["tiles"] + 0.001)
     with torch.no_grad():

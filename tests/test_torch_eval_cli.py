@@ -291,14 +291,16 @@ def test_eval_png_cli_matches_jax(world, jax_model, recorded):
 
 
 def test_cli_refusals(world, capsys):
-    """What is not ported raises by its ROADMAP item (``--int8-sam`` runs
-    since: test_int8_sam_clis_match_jax); MGM's tower flags (the mgm family
-    runs since: test_eval_clis_at_mgm_match_jax) are an argument error for
-    any other family."""
+    """``--sharded-eval`` runs (in a group of one on the CPU, gloo) and
+    gives the host path's results; MGM's tower flags (the mgm family runs
+    since: test_eval_clis_at_mgm_match_jax) are an argument error for any
+    other family."""
     base = _cli_args(world, world["png"])
-    for flags, item in ((["--sharded-eval"], "item 11"),):
-        with pytest.raises(NotImplementedError, match=item):
-            eval_png.main(base + flags, tokenizer=world["tokenizer"])
+    host = eval_png.main(base, tokenizer=world["tokenizer"])
+    sharded = eval_png.main(base + ["--sharded-eval"],
+                            tokenizer=world["tokenizer"])
+    assert sharded == host and host["n"] > 0
+    assert not torch.distributed.is_initialized()
     for flags in (["--clip-checkpoint", "clip.bin"],
                   ["--aux-checkpoint", "convnext.bin"]):
         with pytest.raises(SystemExit):

@@ -1,8 +1,9 @@
 """Guards of the port's boundaries, each in a fresh interpreter:
 
 * importing every flmm_tpu_torch module (the anyres data module, the
-  eval loop's host modules and the generation slice, which read images,
-  included) and chip_smoke
+  eval loop's host modules, the generation slice, which read images, and
+  the parallel slice, parallel/* and evalsuite/sharded.py, included) and
+  chip_smoke
   pulls in neither JAX nor the JAX package nor PIL, transformers or
   torchvision (the machine with the card has no JAX and no PIL, and
   tests/test_grad_parity.py stubs the last two in ``sys.modules``);
@@ -80,7 +81,9 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "            'convert.export', 'demo.grounded_conversation',\n"
         "            'demo.infer_png', 'demo.visualize_ranks',\n"
         "            'visual_cot.visual_cot_inference',\n"
-        "            'convert.orbax', 'ops.quant'):\n"
+        "            'convert.orbax', 'ops.quant', 'parallel.mesh',\n"
+        "            'parallel.frozen', 'parallel.pipeline',\n"
+        "            'evalsuite.sharded'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)
@@ -109,7 +112,8 @@ def test_port_sources_never_import_jax():
                 "convert/export.py", "demo/grounded_conversation.py",
                 "demo/infer_png.py", "demo/visualize_ranks.py",
                 "visual_cot/visual_cot_inference.py", "convert/orbax.py",
-                "ops/quant.py"):
+                "ops/quant.py", "parallel/mesh.py", "parallel/frozen.py",
+                "parallel/pipeline.py", "evalsuite/sharded.py"):
         assert REPO / "flmm_tpu_torch" / new in files
     # the eval CLIs load ``--tokenizer`` through transformers inside the
     # call, as the JAX scripts do; that one import is the only one allowed

@@ -164,7 +164,7 @@ def tiny(request):
     jcfg, tcfg = jconfigs.tiny_mgm(**kw), tconfigs.tiny_mgm(**kw)
     params = seeded_params(tcfg)
     # built as for the gate open: S a multiple of 128 for HD
-    batch = bench.mgm_batch(_flash(tcfg, hd), 2, 0)
+    batch = bench.samples_batch(_flash(tcfg, hd), "mgm", 2, 0)
     assert (batch["input_ids"].shape[1] % 128 == 0) == hd
     return jcfg, tcfg, params, batch
 

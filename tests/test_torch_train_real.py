@@ -28,6 +28,7 @@ import json
 import math
 import pathlib
 import shutil
+import socket
 import sys
 import threading
 
@@ -330,18 +331,53 @@ def test_trainer_runs_each_family_on_cpu(family, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, words", [
-    (["--synthetic", "--n-model", "2"], "item 11"),
-    (["--synthetic", "--multihost"], "item 11"),
+    (["--synthetic", "--n-model", "2"], "a world of 1"),
+    (["--synthetic", "--multihost"], "runs under torchrun"),
     (["--synthetic", "--clip-checkpoint", "c.bin"], "MGM's towers"),
     (["--synthetic", "--sam-checkpoint", "s.pth"], "with --checkpoint"),
     (["--synthetic", "--family", "mgm", "--synthetic-task", "grounding"],
      "grounding takes"),
     ([], "needs --tokenizer"),
 ])
-def test_trainer_refusals(flags, words, capsys):
+def test_trainer_refusals(flags, words, capsys, monkeypatch):
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
     with pytest.raises(SystemExit):
         trainer.main(["--device", "cpu", *flags])
     assert words in capsys.readouterr().err
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_trainer_multihost_in_a_group_of_one(tmp_path, capsys, monkeypatch):
+    """``--multihost`` under a one-rank torchrun environment (gloo on the
+    CPU, a store on localhost) trains as the run without it: the logged
+    losses and the checkpoint bit for bit."""
+    argv = ["--preset", "tiny", "--synthetic", "--steps", "2",
+            "--batch-size", "2", "--device", "cpu", "--log-interval", "1"]
+    trainer.main(argv + ["--work-dir", str(tmp_path / "one")])
+    want = capsys.readouterr().out
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("LOCAL_RANK", "0"), ("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", str(_free_port()))):
+        monkeypatch.setenv(key, value)
+    trainer.main(argv + ["--multihost", "--work-dir", str(tmp_path / "mh")])
+    got = capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
+
+    def losses(out):
+        return [json.loads(x)["loss"] for x in out.splitlines()
+                if x.startswith("{")]
+    assert losses(got) == losses(want) and len(losses(want)) == 2
+    a, b = (torch.load(tmp_path / run / "step_2" / ckpt.STATE_FILE,
+                       weights_only=False) for run in ("one", "mh"))
+    for (path, x), (_, y) in zip(loop.tree_leaves(a),
+                                 loop.tree_leaves(b)):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y)), path
 
 
 def test_prefetch_loader_stops_its_workers():
