@@ -151,7 +151,7 @@ Phases; any failure raises and the script exits non-zero:
 24. run the generation path (flmm_tpu_torch.generation.api, the grounder
     API) at DeepSeek-VL-1.3B with lm_head at full width and depth, random
     weights from a seed and a word-level stand-in tokenizer, through
-    make_grounder("deepseek_vl"): answer (64 new tokens with the per-step
+    make_grounder("deepseek_vl"): answer (32 new tokens with the per-step
     capture) on a 480 x 640 image, ground on two token spans of the answer
     and on a noun chunk's span where the chunker finds one, visual_cot_v1
     on that image and visual_cot_v2 on a 333 x 500 one, each call with the
@@ -170,7 +170,7 @@ Phases; any failure raises and the script exits non-zero:
     from CUDA events the first token's ms (answer with one new token), split
     into what comes before _generate (the host's image preparation,
     tokenisation, the tower) and _generate (prefill and the first step), and
-    decode ms a token (the 64-token _generate less that), tokens/s,
+    decode ms a token (the 32-token _generate less that), tokens/s,
     ground and CoT ms on the host clock, the device's busy share of one
     answer (profiler) and peak memory;
 25. files in, scores out: decode every image of the committed fixture tree
@@ -324,8 +324,25 @@ Phases; any failure raises and the script exits non-zero:
     and hidden corr >= 0.999, SAM and next-token logits >= 0.99;
     launches a forward K3 48, K4 24, K6 20, K2 4), fsdp = 2 bit for bit
     (20/4/28/28), the 2-stage GPipe capture of 2 microbatches (capture
-    and hidden >= 0.999); each rank's ms a forward (CUDA events), peak GB
-    and launches, the launches the kernels line's "parallel" entry.
+    and hidden >= 0.999), and the sequence split over the two ranks
+    (forward_capture's seq_axis, the decoder alone): at S = 672 eager (0
+    launches) and at the image block at 128, S = 768, with K5 on each
+    rank's 384 query rows (24 launches a rank), capture, hidden and
+    last_hidden corr >= 0.999 against the one-rank decoder; each rank's ms
+    a forward (CUDA events), peak GB and launches, the launches the
+    kernels line's "parallel" entry.  Phase 3 holds K5 on one rank's rows
+    (q_offset) at the sp shape (B = 4, H = 16, S = 768, rows 384-767) and
+    at LLaVA-NeXT's (B = 2, H = 32, S = 3200, rows 1664-3199).
+37. the three measurement scripts through their entry points:
+    fused_piece_bench whole (K3 / K4 / K8 at the bs-8 ViT-L rows, each
+    within 2e-2 of its plain piece, 12 launches each: 2 warm-up + 10 timed
+    calls), train_overlap_bench at DeepSeek-VL-1.3B bs 4, 3 steps, 4
+    workers (20/4/28/28 a step over its 8 steps; every time positive),
+    python -m flmm_tpu_torch.sam_size_accuracy_proxy at SAM sizes 1.0 and
+    0.5 of the tiny twin, one seed, one process a size, both at once: at
+    each size the last steps' mean loss below the first steps' and their
+    aiou above; the scripts' JSON lines logged, the launches the kernels
+    line's "measure_scripts" entry.
 
 The last line of standard output is one JSON object with the device; the
 line before it is the card's name and power limit, and the one before that
@@ -355,7 +372,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from flmm_tpu_torch import bench as e2e_bench
 from flmm_tpu_torch import bench_families, eval_png, eval_refcoco, \
-    kernel_bench, registry, schedule_bench
+    fused_piece_bench, kernel_bench, registry, schedule_bench, \
+    train_overlap_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.configs import mgm as mgm_configs
 from flmm_tpu_torch.convert import export, sam_weights
@@ -589,11 +607,11 @@ EVAL_BUCKETS = (608, 640, 704)
 EVAL_WINDOWS = NEW_WINDOWS + ("v9",)
 EVAL_GT_MIN = 85.0  # cIoU and mIoU of the ground truth as +-8 logits
 # the generation path (phase 24): DeepSeek-VL-1.3B with lm_head through the
-# grounder API; two images of different aspect, (h, w); answers of up to 64
-# new tokens.  Per call: the SigLIP tower at bs 1 (answer, the CoT's
+# grounder API; two images of different aspect, (h, w); answers of up to 32
+# new tokens (64 before PR 22).  Per call: the SigLIP tower at bs 1 (answer, the CoT's
 # thought), at bs 2 (the CoT's two-image round) and the SAM ViT-L encoder
 # at bs 1 (ground); the decoder's prefill and decode are plain
-GEN_SEED, GEN_MAX_NEW = 9, 64
+GEN_SEED, GEN_MAX_NEW = 9, 32
 GEN_IMAGES = ((480, 640), (333, 500))
 GEN_QUESTION = ("What is on the wooden table in this picture, and what "
                 "colour is the small cup next to it?")
@@ -650,15 +668,29 @@ DECODE_REPEATS = 5
 # the tower's K3 / K4; fsdp splits only the decoder (no kernel at this
 # eager capture); the pipeline runs the decoder alone
 PAR_BS, PAR_SEQ, PAR_SEED, PAR_RANKS = 4, 672, 16, 2
-PAR_MODES = ("tp", "fsdp", "pipeline")
+PAR_MODES = ("tp", "fsdp", "pipeline", "sp", "sp_aligned")
 PAR_LAUNCHES = {
     "tp": {"fused_ln_qkv": 48, "fused_proj_ln_mlp": 24,
            "sam_window_attention_v9": 20, "sam_global_attention_v8": 4},
     "fsdp": EXPECTED_LAUNCHES["deepseek_vl_1_3b"],
-    "pipeline": {}}
-PAR_CORR = {"attn": 0.999, "hidden": 0.999, "sam_logits": 0.99,
-            "lm_logits": 0.99}
+    "pipeline": {}, "sp": {},
+    "sp_aligned": {"flash_attention_with_merged_capture": 24}}
+PAR_CORR = {"attn": 0.999, "hidden": 0.999, "last_hidden": 0.999,
+            "sam_logits": 0.99, "lm_logits": 0.99}
 PAR_TRAIN_STEPS = 3
+# the sequence split (phase 36 (c) mode sp): the decoder alone over the
+# "model" axis of the 1 x 2 mesh, at the phase's S = 672 (eager capture)
+# and at DeepSeek-VL-1.3B with the image block at 128, S = 768 (K5 on each
+# rank's 384 rows, 24 launches a rank); phase 3 also holds K5 at
+# LLaVA-NeXT's rows 1664-3199, a 128-row boundary of S = 3200
+SP_ALIGNED_START, SP_ALIGNED_SEQ, SP_ANYRES_FIRST_ROW = 128, 768, 1664
+# phase 37: the measurement scripts at small sizes; the proxy's step budget
+# and tail were chosen on the CPU (PERF.md section 7): the JAX script's
+# heads learn by 200 steps, the port's by 120 (its weights are drawn on the
+# host, so the card follows the CPU's trajectory)
+MEASURE_OVERLAP = dict(preset="1_3b", batch_size=4, steps=3, workers=4)
+MEASURE_PROXY_STEPS, MEASURE_PROXY_TAIL = 120, 24
+MEASURE_PROXY_SIZES, MEASURE_PROXY_TIMEOUT = (1.0, 0.5), 600
 # MGM (phases 28-32): Gemma-2B over CLIP-L/336 and ConvNeXt-L at 768, bs 4,
 # the image block at 4 (S = 704 holds the longest prompt); Vicuna-7B HD at
 # bs 2, the image block of 5 x 576 at 128, S = 3200 (ConvNeXt-L at 1536);
@@ -692,12 +724,12 @@ TRAIN_REAL_TRACE_KERNELS = ("gemm_kernel", "ln_rows_kernel",
                             "relpos_sm90_kernel")
 # the interactive slice (phase 34): phase 25's files through the SAM
 # predictor, the automatic mask generator (32 x 32 points), the decoder
-# export and the demo / Visual-CoT CLIs; the answers of the CLIs take 32 new
+# export and the demo / Visual-CoT CLIs; the answers of the CLIs take 16 new
 # tokens, the VisCoT JSON holds 2 items
 INTERACTIVE_IMAGES = ("refcoco/train2014/COCO_train2014_000000000009.jpg",
                       "png/val2017/000000000285.jpg")
 AMG_POINTS, EXPORT_MAX_TEXT, EXPORT_REL_ERR = 32, 16, 1e-4
-INTERACTIVE_MAX_NEW, INTERACTIVE_SEED = 32, 16
+INTERACTIVE_MAX_NEW, INTERACTIVE_SEED = 16, 16
 INTERACTIVE_QUESTIONS = (GEN_QUESTION, "And what is next to it?")
 COT_ITEMS = (
     {"image": [INTERACTIVE_IMAGES[0]], "conversations": [
@@ -803,7 +835,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 5) -> float:
+def cuda_ms(fn, iters: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls after
     one warm-up, from CUDA events.  A sleep kernel (about 25-30 ms) runs
     ahead of the start event, so the host has enqueued the calls before the
@@ -849,12 +881,13 @@ def kernel_split_ms(fn, iters: int = 5) -> dict:
 
 
 def capture_passes(entry: dict, name: str, label: str, fn, q, k, v,
-                   merged: bool) -> None:
+                   merged: bool, causal_sdpa: bool = True) -> None:
     """Beside a K5 / K9 check: the merged output bit for bit across two
     runs (K5), each pass's device ms, and F.scaled_dot_product_attention
     with is_causal on the same q, k, v and every key valid, a yardstick for
     pass 1 alone (not the row's library call: no PyTorch call computes the
-    capture, and the port never calls it)."""
+    capture, and the port never calls it); ``causal_sdpa=False`` for the
+    rows of a sequence split, whose diagonal is_causal does not place."""
     if merged:
         first, second = fn()[1], fn()[1]
         torch.cuda.synchronize()
@@ -863,16 +896,19 @@ def capture_passes(entry: dict, name: str, label: str, fn, q, k, v,
                                  "differs between two runs on one input")
         del first, second
     entry["pass_ms"] = kernel_split_ms(fn)
-    gqa = k.shape[1] != q.shape[1]
-    entry["sdpa_causal_ms"] = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=gqa))
+    yardstick = ""
+    if causal_sdpa:
+        gqa = k.shape[1] != q.shape[1]
+        entry["sdpa_causal_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=gqa))
+        yardstick = ("; sdpa causal (pass 1 yardstick, every key valid) "
+                     f"{entry['sdpa_causal_ms']:.4f} ms")
     log(f"phase 3 {name} [{label}]: "
         + ("merged capture bit for bit equal across two runs; "
            if merged else "") + "passes " + ", ".join(
             f"{n} {ms:.4f} ms" for n, ms in entry["pass_ms"].items())
-        + f"; sdpa causal (pass 1 yardstick, every key valid) "
-        f"{entry['sdpa_causal_ms']:.4f} ms")
+        + yardstick)
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -1013,25 +1049,29 @@ def hpt_batches(cfg, n: int, device=None) -> list:
 
 
 def check_capture(check, gen: torch.Generator, label: str, batch: dict,
-                  H: int, KV: int, img_start: int, n_img: int) -> None:
+                  H: int, KV: int, img_start: int, n_img: int,
+                  first_row: int = 0) -> None:
     """K5 at one decoder layer of a serving path that captures through it,
     with the path's key holes and merge matrix (``batch``, numpy); q, k, v
-    as (B, H, S, hd) views of the decoder's (B, S, H, hd) projections."""
+    as (B, H, S, hd) views of the decoder's (B, S, H, hd) projections.
+    ``first_row``: q holds only the rows ``[first_row, S)`` of one rank of
+    a sequence split (``q_offset``), against all S keys."""
     valid = torch.from_numpy(batch["attn_mask"]).cuda()
     mm = masks.mean_merge_matrix(
-        torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)
+        torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)[:, first_row:]
     B, S = valid.shape
     hd = 128
-    q = _randn(gen, (B, S, H, hd)).transpose(1, 2)
+    q = _randn(gen, (B, S - first_row, H, hd)).transpose(1, 2)
     k, v = (_randn(gen, (B, S, KV, hd)).transpose(1, 2) for _ in range(2))
     # what this batch needs: 4 * hd FLOP per visible (query, key) pair
     # and head, and the merge of its text rows' image-block
     # probabilities, 2 * M * n_img FLOP per row and head
-    pairs = int(valid.cumsum(1).sum())
+    pairs = int(valid.cumsum(1)[:, first_row:].sum())
     text_rows = int((mm != 0).any(dim=-1).sum())
     label = (f"{label}: B={B}, H={H}, KV={KV}, S={S}, n_img={n_img}, "
-             f"M={MASKS}")
-    args = (q, k, v, valid, mm, img_start, n_img)
+             f"M={MASKS}" + (f", rows {first_row}-{S - 1}" if first_row
+                             else ""))
+    args = (q, k, v, valid, mm, img_start, n_img, first_row)
     entry = check("flash_attention_with_merged_capture", label,
                   flash_attention.flash_attention_with_merged_capture,
                   flash_attention.flash_attention_with_merged_capture_plain,
@@ -1041,7 +1081,7 @@ def check_capture(check, gen: torch.Generator, label: str, batch: dict,
     capture_passes(
         entry, "flash_attention_with_merged_capture", label,
         lambda: flash_attention.flash_attention_with_merged_capture(
-            *args), q, k, v, merged=True)
+            *args), q, k, v, merged=True, causal_sdpa=not first_row)
 
 
 def make_check(results: dict):
@@ -1236,6 +1276,16 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
         32, 32, ANYRES_IMG_START, 2928)
     check_capture(check, g_hpt, "HPT-Air-1.5",
                   hpt_batches(hpt_config(), 1)[0], 32, 8, HPT_IMG_START, 1024)
+    # K5 on one rank's query rows of a sequence split (q_offset): the sp
+    # shape of phase 36 (c) and LLaVA-NeXT's at a 128-row boundary
+    check_capture(check, g, "sp DeepSeek-VL-1.3B aligned", synthetic_batch(
+        deepseek_vl.deepseek_vl_1_3b(img_start=SP_ALIGNED_START),
+        batch_size=BS, seq_len=SP_ALIGNED_SEQ, max_masks=MASKS,
+        text_tokens_per_mask=TEXT, seed=0), 16, 16, SP_ALIGNED_START, 576,
+        first_row=SP_ALIGNED_SEQ // PAR_RANKS)
+    check_capture(check, g, "sp LLaVA-NeXT", anyres_batches(
+        llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START))[0],
+        32, 32, ANYRES_IMG_START, 2928, first_row=SP_ANYRES_FIRST_ROW)
 
     # K2 over the SAM-448 grid: 8 images x 16 heads, side 28 (S = 784)
     hd = 64
@@ -3166,7 +3216,7 @@ def run_generation(card: str) -> dict:
     del warm
     torch.cuda.reset_peak_memory_stats()
 
-    # answer: 64 new tokens with the per-step capture, then the 1-token
+    # answer: 32 new tokens with the per-step capture, then the 1-token
     # request (its _generate: the prefill and the first step); decode ms a
     # token is the difference of the two _generate spans over the other steps
     (out, gen, ev_ms), answer_ms, launches = _counted(
@@ -5445,7 +5495,7 @@ def _decoder_parts(args: tuple, kw: dict, mesh=None) -> dict:
         out = pipe.pipeline_forward_capture(*args, mesh=mesh,
                                             n_microbatches=2, **kw)
         out["attn"] = pipe.gather_attn(out["attn"], mesh)
-    return {"attn": out["attn"], "hidden": out["hidden"]}
+    return {k: out[k] for k in ("attn", "hidden", "last_hidden")}
 
 
 def _parallel_rank(rank: int, world: int, store: str, results) -> None:
@@ -5476,15 +5526,29 @@ def _parallel_checks(rank: int, device: torch.device) -> dict:
         cfg, batch_size=PAR_BS, seq_len=PAR_SEQ, max_masks=8,
         text_tokens_per_mask=12), device)
     mesh = mesh_lib.make_mesh(1, PAR_RANKS, device.type)
+    seq = {"seq_axis": mesh_lib.axis_of(mesh, "model")}
     report = {"backend": torch.distributed.get_backend()}
     with torch.no_grad():
         ref = _grounding_parts(params, cfg, batch)
         dec_args, dec_kw = _decoder_inputs(params, cfg, batch)
         ref_dec = _decoder_parts(dec_args, dec_kw)
+        # the sequence split where K5 runs: the image block at 128, S = 768
+        cfg_a = deepseek_vl.deepseek_vl_1_3b(img_start=SP_ALIGNED_START)
+        al_args, al_kw = _decoder_inputs(params, cfg_a, from_jax(
+            synthetic_batch(cfg_a, batch_size=PAR_BS, seq_len=SP_ALIGNED_SEQ,
+                            max_masks=8, text_tokens_per_mask=12), device))
+        ref_al = _decoder_parts(al_args, al_kw)
         for mode in PAR_MODES:
             if mode == "pipeline":
                 run = lambda: _decoder_parts(dec_args, dec_kw, mesh)  # noqa
                 want = ref_dec
+            elif mode == "sp":
+                run = lambda: _decoder_parts(  # noqa
+                    dec_args, {**dec_kw, **seq})
+                want = ref_dec
+            elif mode == "sp_aligned":
+                run = lambda: _decoder_parts(al_args, {**al_kw, **seq})  # noqa
+                want = ref_al
             else:
                 sharded = {**params, "frozen": shard.shard_frozen(
                     params["frozen"], mesh, mode)}
@@ -5572,6 +5636,93 @@ def run_parallel(card: str, files: dict) -> dict:
     return {"launches": {k: sum(p["launches"][k] for p in parts)
                          for k in WRAPPERS},
             "parts": parts}
+
+
+def run_measure_scripts(card: str) -> dict:
+    """Phase 37: the three measurement scripts through their ``main``, the
+    JSON lines they print logged as they come; their gates and launches."""
+    _zero_launches()
+    rows = fused_piece_bench.main([])
+    fused = {"fused_ln_qkv": "ln_qkv_fused",
+             "fused_proj_ln_mlp": "proj_ln_mlp_fused",
+             "fused_ln_mlp": "ln_mlp_fused"}
+    calls = kernel_bench.WARMUP + 10
+    for name, op in fused.items():
+        row = next(r for r in rows if r["op"] == op)
+        if row["vs_plain"] > KERNEL_REL_ERR or row["launches"] != calls:
+            raise AssertionError(f"fused_piece_bench {op}: {row}")
+    launches = _launch_counts()
+    want = {k: calls if k in fused else 0 for k in WRAPPERS}
+    if launches != want:
+        raise AssertionError(f"fused_piece_bench: launches {launches}")
+    log(f"phase 37 fused_piece_bench ({card}): " + "; ".join(
+        f"{r['op']} {r['ms']:.4f} ms" for r in rows))
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    ov = MEASURE_OVERLAP
+    overlap = train_overlap_bench.main([
+        "--preset", ov["preset"], "--batch-size", str(ov["batch_size"]),
+        "--steps", str(ov["steps"]), "--workers", str(ov["workers"])])
+    wall = time.perf_counter() - t0
+    steps = 2 * (ov["steps"] + 1)  # (a) and (c), each after a warm step
+    per_step = EXPECTED_LAUNCHES["deepseek_vl_1_3b_train_real"]
+    want = {k: per_step[k] * steps for k in WRAPPERS}
+    got = _launch_counts()
+    if got != want:
+        raise AssertionError(f"train_overlap_bench: launches {got} != "
+                             f"{want}")
+    if not all(math.isfinite(v) and v > 0 for k, v in overlap.items()
+               if k.endswith("_s") and k != "data_wait_s") \
+            or not 0 <= overlap["data_wait_s"] <= overlap["overlapped_step_s"]:
+        raise AssertionError(f"train_overlap_bench: {overlap}")
+    for k in WRAPPERS:
+        launches[k] += got[k]
+    log(f"phase 37 train_overlap_bench ({card}): device step "
+        f"{overlap['device_step_s']:.4f} s, host batch "
+        f"{overlap['host_batch_gen_s']:.4f} s, overlapped step "
+        f"{overlap['overlapped_step_s']:.4f} s (data wait "
+        f"{overlap['data_wait_s']:.4f} s of it), overlap factor "
+        f"{overlap['overlap_factor']:.3f}; {wall:.1f} s with the set-up")
+
+    # the proxy, one `python -m` process a SAM size, both at once: its tiny
+    # steps are host-bound (~15k launches of PyTorch ops a step), so a fresh
+    # interpreter a size runs them on cores of their own
+    t0 = time.perf_counter()
+    cmds = [[sys.executable, "-m", "flmm_tpu_torch.sam_size_accuracy_proxy",
+             "--steps", str(MEASURE_PROXY_STEPS), "--tail",
+             str(MEASURE_PROXY_TAIL), "--seeds", "1", "--sizes", str(frac)]
+            for frac in MEASURE_PROXY_SIZES]
+    with contextlib.ExitStack() as stack:
+        procs = [stack.enter_context(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, text=True,
+            cwd=pathlib.Path(__file__).resolve().parent)) for cmd in cmds]
+        for p in procs:  # none outlives a failure (a no-op after exit)
+            stack.callback(p.kill)
+        outs = [p.communicate(timeout=MEASURE_PROXY_TIMEOUT)[0]
+                for p in procs]
+    wall = time.perf_counter() - t0
+    curve = {}
+    for cmd, p, out in zip(cmds, procs, outs):
+        for line in out.splitlines():
+            log(line)
+        if p.returncode:
+            raise AssertionError(f"{' '.join(cmd[1:])}: exit {p.returncode}")
+        curve.update(json.loads(out.splitlines()[-1])["curve"])
+    for frac, r in curve.items():
+        m = r["mean"]
+        if not (m["loss"] < m["head_loss"] and m["aiou"] > m["head_aiou"]):
+            raise AssertionError(f"sam_size_accuracy_proxy at {frac}: the "
+                                 f"heads did not learn: {m}")
+        log(f"phase 37 sam_size_accuracy_proxy SAM {r['sam_size']} "
+            f"({card}): loss {m['head_loss']} -> {m['loss']}, aiou "
+            f"{m['head_aiou']} -> {m['aiou']}, sam_aiou {m['sam_aiou']} "
+            f"(the first and the last {MEASURE_PROXY_TAIL} of "
+            f"{MEASURE_PROXY_STEPS} steps)")
+    log(f"phase 37 sam_size_accuracy_proxy: {wall:.1f} s for the "
+        f"{len(cmds)} processes")
+    return {"launches": launches, "fused": rows, "overlap": overlap,
+            "proxy": curve}
 
 
 def main() -> None:
@@ -5672,13 +5823,15 @@ def main() -> None:
         stamp("phase 35")
         par = run_parallel(card, files)
         stamp("phase 36")
+    measure = run_measure_scripts(card)
+    stamp("phase 37")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in (
              *paths.values(), bench, e2e, sweep, variants, families,
              compared, evals, gen, files, hybrid, mistral, mgm["gen"],
-             mgm["files"], train_real, inter, quant, par)),
+             mgm["files"], train_real, inter, quant, par, measure)),
          "launches_by_path": {
              **{p: r["launches"][name] for p, r in paths.items()},
              "kernel_bench": bench["launches"][name],
@@ -5697,7 +5850,8 @@ def main() -> None:
              "train_real": train_real["launches"][name],
              "interactive": inter["launches"][name],
              "int8": quant["launches"][name],
-             "parallel": par["launches"][name]},
+             "parallel": par["launches"][name],
+             "measure_scripts": measure["launches"][name]},
          **kernels[name]} for name in WRAPPERS]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

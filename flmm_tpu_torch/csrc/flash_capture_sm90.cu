@@ -76,10 +76,18 @@
 // scores; scores, softmax, accumulation and lse in f32; p rounded to bf16
 // for P V; the row sum of the unrounded p divides at the end.
 //
+// Query rows of one rank (K5 under sequence sharding): q may hold the Sq
+// rows [q_off, q_off + Sq) of the S keys, both multiples of 128.  Every
+// causal compare is by global row (local row + q_off); q, out, lse, mm and
+// the flags are addressed by local row; k, v and key_valid cover all S.
+// Pass 1 walks the key tiles up to each local tile's global diagonal,
+// pass 2a the local query blocks that see its keys, and its merged capture
+// is this rank's share of the sum over rows.  K9 takes Sq = S, q_off = 0.
+//
 // Layout: element (b, h, t, d) of q is at b * q_b + h * q_h + t * q_t + d
 // (likewise k, v with their own strides and head h / (H / KV), and out);
-// key_valid is (B, S) bytes, mm is (B, S, M) f32, lse is (B * H, S) f32
-// scratch, flags (B, S / 64) bytes of scratch and merged (B, H, M, n_img)
+// key_valid is (B, S) bytes, mm is (B, Sq, M) f32, lse is (B * H, Sq) f32
+// scratch, flags (B, Sq / 64) bytes of scratch and merged (B, H, M, n_img)
 // f32.  Strides are multiples of 8 elements, bases 16-byte aligned.
 #include "sm90.cuh"
 
@@ -128,7 +136,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const unsigned char* __restrict__ key_valid, int H,
-                      int rep, int S, float alpha, bf16* __restrict__ out,
+                      int rep, int S, int Sq, int q_off, float alpha,
+                      bf16* __restrict__ out,
                       long long o_b, long long o_h, long long o_t,
                       float* __restrict__ lse) {
   extern __shared__ unsigned char smem_raw[];
@@ -138,9 +147,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = full + P1_STAGES;
   uint64_t* qbar = empty + P1_STAGES;
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK;  // longest rows first
+  // the local rows, longest first; q0 + q_off is the global one
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int KT = q0 / 128 + 1;  // key tiles; the last is the diagonal one
+  const int KT = (q0 + q_off) / 128 + 1;  // key tiles; the last is diagonal
 
   if (tid == 0) {
     for (int s = 0; s < P1_STAGES; ++s) {
@@ -193,10 +203,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   sm90::setmaxnreg_inc<232>();
 
-  // This thread's two rows (accumulator rows lane / 4 and lane / 4 + 8 of
-  // its warp's 16) and its column pair (lane % 4) * 2 of every 8.
+  // This thread's two local rows (accumulator rows lane / 4 and lane / 4 + 8
+  // of its warp's 16), their global rows and its column pair (lane % 4) * 2
+  // of every 8.
   const int warp = (tid % 128) / 32, c2 = (lane % 4) * 2;
   const int t0 = q0 + wg * 64 + warp * 16 + lane / 4, t1 = t0 + 8;
+  const int g0 = t0 + q_off, g1 = t1 + q_off;
   const unsigned char* Qw = smem + wg * TILE;
 
   float o[64];  // O's columns 0-63, then 64-127
@@ -252,8 +264,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < 2; ++e) {
           const int key = t * 128 + 8 * j + c2 + e;
           const bool valid = (pair >> (8 * e)) & 0xff;
-          if (!valid || (on_diag && key > t0)) sc[4 * j + e] = -CUDART_INF_F;
-          if (!valid || (on_diag && key > t1))
+          if (!valid || (on_diag && key > g0)) sc[4 * j + e] = -CUDART_INF_F;
+          if (!valid || (on_diag && key > g1))
             sc[4 * j + 2 + e] = -CUDART_INF_F;
         }
       }
@@ -361,12 +373,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         pack2(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
   if (lane % 4 == 0) {  // -inf for a row that saw no key
-    lse[(long long)bh * S + t0] = m0 + log2f(L0);
-    lse[(long long)bh * S + t1] = m1 + log2f(L1);
+    lse[(long long)bh * Sq + t0] = m0 + log2f(L0);
+    lse[(long long)bh * Sq + t1] = m1 + log2f(L1);
   }
 }
 
-// flags[b, i] = 1 where one of the 64 merge rows of query block i is not 0.
+// flags[b, i] = 1 where one of the 64 merge rows of local query block i is
+// not 0; S is the local row count.
 __global__ void __launch_bounds__(64)
 merge_flags_kernel(const float* __restrict__ mm, int M, int S,
                    unsigned char* __restrict__ flags) {
@@ -416,7 +429,7 @@ template <int NT>  // the masks padded to NT * 8: 8, 16 or 32
 __global__ void __launch_bounds__(128)
 merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k, int H,
-                           int rep, int S,
+                           int rep, int S, int Sq, int q_off,
                            const unsigned char* __restrict__ key_valid,
                            const unsigned char* __restrict__ flags,
                            float alpha, const float* __restrict__ lse,
@@ -426,7 +439,7 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  const MergedSmem L{MP, ((S / 64) * 2 + 15) / 16 * 16};
+  const MergedSmem L{MP, ((Sq / 64) * 2 + 15) / 16 * 16};
   uint64_t* kbar = reinterpret_cast<uint64_t*>(smem + L.bars());
   uint64_t* full = kbar + 1;
   int16_t* list = reinterpret_cast<int16_t*>(smem + L.list());
@@ -436,7 +449,8 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int c2 = (lane % 4) * 2;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int key0 = img_start + blockIdx.x * 64;  // the block's first key
-  const int nqb = S / 64;
+  const int nqb = Sq / 64;  // local query blocks; block i is global i + qb0
+  const int qb0 = q_off / 64;
 
   if (tid == 0) {
     sm90::mbar_init(kbar, 1);
@@ -451,11 +465,11 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       sm90::tma_load_4d(smem + x * BOX, &map_k, kbar, 64 * x, key0, h / rep,
                         b);
   }
-  // warp 0: the query blocks that see the block's keys (key0 % 64 == 0)
-  // and merge into a mask, in order
+  // warp 0: the local query blocks that see the block's keys (key0 % 64 ==
+  // 0) and merge into a mask, in order
   if (warp == 0) {
     int n = 0;
-    for (int base = key0 / 64; base < nqb; base += 32) {
+    for (int base = max(0, key0 / 64 - qb0); base < nqb; base += 32) {
       const int i = base + lane;
       const bool f = i < nqb && flags[(long long)b * nqb + i];
       const unsigned ballot = __ballot_sync(0xffffffffu, f);
@@ -483,8 +497,8 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int k0 = key0 + warp * 16 + lane / 4, k1 = k0 + 8;
   const bool ok0 = key_valid[(long long)b * S + k0] != 0;
   const bool ok1 = key_valid[(long long)b * S + k1] != 0;
-  const float* lse_bh = lse + (long long)bh * S;
-  const float* mm_b = mm + (long long)b * S * M;
+  const float* lse_bh = lse + (long long)bh * Sq;
+  const float* mm_b = mm + (long long)b * Sq * M;
   float acc[NT * 4];
 #pragma unroll
   for (int i = 0; i < NT * 4; ++i) acc[i] = 0.f;
@@ -519,14 +533,15 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     sm90::mbar_wait(&full[st], (it >> 1) & 1);
 
-    // S^T = K Q^T (keys x queries), then p^T from the saved lse.  A row
+    // S^T = K Q^T (keys x queries), then p^T from the saved lse, the causal
+    // compare against the global row qi.  A row
     // without a visible key has lse = -inf and every key masked
     scores64(sc, smem, smem + L.q(st));
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int ql = 8 * j + c2 + e, qi = q0 + ql;
+        const int ql = 8 * j + c2 + e, qi = q0 + ql + q_off;
         const float l = ls[ql];
         sc[4 * j + e] = ok0 && k0 <= qi
             ? sm90::ex2(fmaf(sc[4 * j + e], alpha, -l)) : 0.f;
@@ -723,7 +738,7 @@ struct Operands {
   const void *q, *k, *v;
   const unsigned char* valid;
   long long qs[3], ks[3], vs[3], os[3];
-  int B, H, KV, S, img_start, n_img;
+  int B, H, KV, S, Sq, q_off, img_start, n_img;
   bf16* out;
   float* lse;
   cudaStream_t st;
@@ -739,13 +754,16 @@ int flash_forward(Operands& a, int head_dim) {
   const int n_img_pad = (a.n_img + BLOCK - 1) / BLOCK * BLOCK;
   if (head_dim != HD || a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.H % a.KV ||
       a.S <= 0 || a.S % BLOCK || a.img_start < 0 || a.img_start % BLOCK ||
-      a.n_img <= 0 || a.img_start + n_img_pad > a.S || a.B * a.H > 65535 ||
+      a.n_img <= 0 || a.img_start + n_img_pad > a.S || a.Sq <= 0 ||
+      a.Sq % BLOCK || a.q_off < 0 || a.q_off % BLOCK ||
+      a.q_off + a.Sq > a.S || a.B * a.H > 65535 ||
       (long long)a.B * a.H * a.S > (1ll << 31) - 1 || a.os[0] % 2 ||
       a.os[1] % 2 || a.os[2] % 2 ||
       reinterpret_cast<uintptr_t>(a.valid) % 16)
     return (int)cudaErrorInvalidValue;
+  // q holds Sq rows, k and v all S: the maps' row extents differ
   int e = make_heads_map(&a.map_q, a.q, a.qs[0], a.qs[1], a.qs[2], a.H,
-                         a.B * a.H, a.S, HD);
+                         a.B * a.H, a.Sq, HD);
   if (!e)
     e = make_heads_map(&a.map_k128, a.k, a.ks[0], a.ks[1], a.ks[2], a.KV,
                        a.B * a.KV, a.S, HD, 128);
@@ -761,10 +779,10 @@ int flash_forward(Operands& a, int head_dim) {
       flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       P1_SMEM);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_sm90_kernel<<<dim3(a.S / BLOCK, a.B * a.H), P1_THREADS, P1_SMEM,
-                          a.st>>>(a.map_q, a.map_k128, a.map_v128, a.valid,
-                                  a.H, a.H / a.KV, a.S, a.alpha(), a.out,
-                                  a.os[0], a.os[1], a.os[2], a.lse);
+  flash_fwd_sm90_kernel<<<dim3(a.Sq / BLOCK, a.B * a.H), P1_THREADS,
+                          P1_SMEM, a.st>>>(
+      a.map_q, a.map_k128, a.map_v128, a.valid, a.H, a.H / a.KV, a.S, a.Sq,
+      a.q_off, a.alpha(), a.out, a.os[0], a.os[1], a.os[2], a.lse);
   return (int)cudaGetLastError();
 }
 
@@ -772,14 +790,15 @@ template <int NT>
 int launch_merged(const Operands& a, const unsigned char* flags,
                   const float* mm, int M, float* merged) {
   auto kernel = merged_capture_sm90_kernel<NT>;
-  const int smem = MergedSmem{NT * 8, ((a.S / 64) * 2 + 15) / 16 * 16}.size();
+  const int smem =
+      MergedSmem{NT * 8, ((a.Sq / 64) * 2 + 15) / 16 * 16}.size();
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3((a.n_img + 63) / 64, a.B * a.H), 128, smem, a.st>>>(
-      a.map_q, a.map_k, a.H, a.H / a.KV, a.S, a.valid, flags, a.alpha(),
-      a.lse, mm, M, a.img_start, a.n_img, merged);
+      a.map_q, a.map_k, a.H, a.H / a.KV, a.S, a.Sq, a.q_off, a.valid, flags,
+      a.alpha(), a.lse, mm, M, a.img_start, a.n_img, merged);
   return (int)cudaGetLastError();
 }
 
@@ -798,12 +817,13 @@ int launch_raw(const Operands& a, const CUtensorMap& map_p, float* probs) {
 Operands operands(const void* q, long long q_b, long long q_h, long long q_t,
                   const void* k, long long k_b, long long k_h, long long k_t,
                   const void* v, long long v_b, long long v_h, long long v_t,
-                  int B, int H, int KV, int S, const void* key_valid,
-                  int img_start, int n_img, void* out, long long o_b,
-                  long long o_h, long long o_t, void* lse, void* stream) {
+                  int B, int H, int KV, int S, int Sq, int q_off,
+                  const void* key_valid, int img_start, int n_img, void* out,
+                  long long o_b, long long o_h, long long o_t, void* lse,
+                  void* stream) {
   return Operands{q, k, v, (const unsigned char*)key_valid, {q_b, q_h, q_t},
                   {k_b, k_h, k_t}, {v_b, v_h, v_t}, {o_b, o_h, o_t}, B, H, KV,
-                  S, img_start, n_img, (bf16*)out, (float*)lse,
+                  S, Sq, q_off, img_start, n_img, (bf16*)out, (float*)lse,
                   (cudaStream_t)stream, {}, {}, {}, {}};
 }
 
@@ -812,18 +832,18 @@ Operands operands(const void* q, long long q_b, long long q_h, long long q_t,
 extern "C" int flmm_flash_capture(
     const void* q, long long q_b, long long q_h, long long q_t, const void* k,
     long long k_b, long long k_h, long long k_t, const void* v, long long v_b,
-    long long v_h, long long v_t, int B, int H, int KV, int S, int head_dim,
-    const void* key_valid, const void* mm, int M, int img_start, int n_img,
-    void* out, long long o_b, long long o_h, long long o_t, void* lse,
-    void* flags, void* merged, void* stream) {
+    long long v_h, long long v_t, int B, int H, int KV, int S, int Sq,
+    int q_off, int head_dim, const void* key_valid, const void* mm, int M,
+    int img_start, int n_img, void* out, long long o_b, long long o_h,
+    long long o_t, void* lse, void* flags, void* merged, void* stream) {
   if (M <= 0 || M > MAX_M) return (int)cudaErrorInvalidValue;
   Operands a = operands(q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t,
-                        B, H, KV, S, key_valid, img_start, n_img, out, o_b,
-                        o_h, o_t, lse, stream);
+                        B, H, KV, S, Sq, q_off, key_valid, img_start, n_img,
+                        out, o_b, o_h, o_t, lse, stream);
   int e = flash_forward(a, head_dim);
   if (e) return e;
-  merge_flags_kernel<<<dim3(S / 64, B), 64, 0, a.st>>>(
-      (const float*)mm, M, S, (unsigned char*)flags);
+  merge_flags_kernel<<<dim3(Sq / 64, B), 64, 0, a.st>>>(
+      (const float*)mm, M, Sq, (unsigned char*)flags);
   e = (int)cudaGetLastError();
   if (e) return e;
   const unsigned char* f = (const unsigned char*)flags;
@@ -840,8 +860,8 @@ extern "C" int flmm_flash_capture_raw(
     const void* key_valid, int img_start, int n_img, void* out, long long o_b,
     long long o_h, long long o_t, void* lse, void* probs, void* stream) {
   Operands a = operands(q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t,
-                        B, H, KV, S, key_valid, img_start, n_img, out, o_b,
-                        o_h, o_t, lse, stream);
+                        B, H, KV, S, S, 0, key_valid, img_start, n_img, out,
+                        o_b, o_h, o_t, lse, stream);
   const int e = flash_forward(a, head_dim);
   if (e) return e;
   CUtensorMap map_p = {};

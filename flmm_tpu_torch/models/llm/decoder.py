@@ -21,6 +21,10 @@ k-th largest.
 With ``<name>_q`` / ``<name>_s`` in place of a projection's weight
 (:func:`quantize_params`), that product takes the W8A8 int8 path of
 ops/quant.py.
+
+``forward_capture(..., seq_axis=...)`` splits the sequence over a mesh axis
+(parallel/sequence.py): each rank runs its own rows, the keys and values
+are gathered, and K5 runs on the rank's query rows.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.flash_attention import flash_attention_with_merged_capture
 from flmm_tpu_torch.ops.quant import dense, quantize_weight
 from flmm_tpu_torch.parallel import frozen as shard
+from flmm_tpu_torch.parallel import sequence
 from flmm_tpu_torch.parallel.mesh import all_gather_cat, all_reduce
 
 # the layer projections quantize_params turns to int8 where they are 3-D
@@ -218,7 +223,8 @@ def mlp_residual(h: torch.Tensor, lp: dict, cfg: DecoderConfig,
 
 def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
                cfg: DecoderConfig, img_start: int, n_img: int, merge: str,
-               flash_ok: bool = False, kv: tuple | None = None, tp=None):
+               flash_ok: bool = False, kv: tuple | None = None, tp=None,
+               seq: sequence.RowShard | None = None):
     """One decoder layer with fused attention capture; returns
     ``(h, acc, side)`` where ``side`` is the merged ``(B, H, M, n_img)``
     capture, or the raw ``(B, H, S, n_img)`` one without a merge matrix.
@@ -226,7 +232,12 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
     ``kv``: this layer's ``(B, S_tot, KV, hd)`` key and value caches, whose
     first ``S`` rows take its keys and values (the generation prefill).
     ``tp``: the model axis of a tensor-parallel layer; ``cfg`` and ``lp``
-    are then this rank's heads and columns (parallel/frozen.py)."""
+    are then this rank's heads and columns (parallel/frozen.py).
+    ``seq``: this rank's rows of a sequence split (``h``, ``acc`` and
+    ``aux`` hold those rows, ``aux["valid"]`` all keys); the keys and
+    values are gathered after RoPE, and ``side`` is this rank's part,
+    which ``sequence.finish_capture`` completes: the merged partial sum,
+    the masked maximum without the empty mask's 0, or the raw rows."""
     B, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -236,11 +247,14 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
     if kv is not None:
         kv[0][:, :S] = k
         kv[1][:, :S] = v
+    if seq is not None:
+        k, v = sequence.gather_rows(k, 1, seq), sequence.gather_rows(v, 1, seq)
     if flash_ok:
         # K5 reads the kv head h // (H // KV) itself: no repeated k / v
         out4, side = flash_attention_with_merged_capture(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            aux["valid"], merge_matrix, img_start, n_img)
+            aux["valid"], merge_matrix, img_start, n_img,
+            q_offset=0 if seq is None else seq.start)
         out = out4.transpose(1, 2).reshape(B, S, H * hd).to(cfg.dtype)
     else:
         if KV != H:
@@ -270,7 +284,8 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
         masked = torch.where(member[:, None, :, :, None],
                              img_probs[:, :, :, None, :], big_neg)
         side = masked.amax(dim=2)
-        side = torch.where(side <= big_neg / 2, 0.0, side)
+        if seq is None:  # else after the ranks' maxima are reduced
+            side = torch.where(side <= big_neg / 2, 0.0, side)
     else:
         raise ValueError(merge)
     return h, acc, side
@@ -279,24 +294,28 @@ def layer_step(lp: dict, w_l, h: torch.Tensor, acc: torch.Tensor, aux: dict,
 def capture_aux(cfg: DecoderConfig, attention_mask: torch.Tensor,
                 position_ids: torch.Tensor | None, seq_len: int,
                 merge_matrix: torch.Tensor | None,
-                with_bias: bool = True) -> dict:
+                with_bias: bool = True, rows: slice | None = None) -> dict:
     """RoPE tables, the ``(B, S)`` bool key validity and (``with_bias``) the
     ``(B, 1, S, S)`` f32 causal + padding bias (finfo min where masked) the
-    layers consume; the flash path needs no bias."""
+    layers consume; the flash path needs no bias.  ``rows``: the query
+    rows of a sequence split, whose RoPE tables (at their global
+    positions), bias rows and merge-matrix rows are kept; the key validity
+    stays whole."""
     device = attention_mask.device
-    positions = (torch.arange(seq_len, device=device)[None]
-                 if position_ids is None else position_ids)
+    rows = slice(0, seq_len) if rows is None else rows
+    positions = (torch.arange(rows.start, rows.stop, device=device)[None]
+                 if position_ids is None else position_ids[:, rows])
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     valid = attention_mask.bool()
     aux = {"cos": cos, "sin": sin, "valid": valid}
     if with_bias:
-        causal = torch.ones((seq_len, seq_len), dtype=torch.bool,
-                            device=device).tril()
+        q_pos = torch.arange(rows.start, rows.stop, device=device)
+        causal = q_pos[:, None] >= torch.arange(seq_len, device=device)[None]
         allow = causal[None] & valid[:, None, :]
         aux["bias"] = torch.where(allow, 0.0,
                                   torch.finfo(torch.float32).min)[:, None]
     if merge_matrix is not None:
-        aux["merge_matrix"] = merge_matrix
+        aux["merge_matrix"] = merge_matrix[:, rows]
     return aux
 
 
@@ -316,7 +335,8 @@ def forward_capture(params: dict, cfg: DecoderConfig,
                     merge: str = "mean",
                     layer_weights: torch.Tensor | None = None,
                     position_ids: torch.Tensor | None = None,
-                    kv_cache: tuple | None = None) -> dict:
+                    kv_cache: tuple | None = None,
+                    seq_axis=None) -> dict:
     """Run the frozen decoder, capturing merged text->image attention.
 
     Returns ``attn`` (``(B, L, H, M, n_img)`` merged, or raw without a merge
@@ -325,6 +345,9 @@ def forward_capture(params: dict, cfg: DecoderConfig,
     ``(L, B, S_tot, KV, hd)`` whose first ``S`` rows of each layer take its
     keys and values.  ``params`` may be a tp or fsdp shard
     (parallel/frozen.py): the capture comes back whole on every rank.
+    ``seq_axis``: a mesh axis (``mesh.axis_of``) that splits the sequence
+    (parallel/sequence.py): every rank passes the whole inputs, runs its
+    rows and gets the whole outputs back.
     """
     B, S, D = inputs_embeds.shape
     L = cfg.num_layers
@@ -334,21 +357,39 @@ def forward_capture(params: dict, cfg: DecoderConfig,
             raise NotImplementedError("a KV cache under tensor parallelism")
         cfg = shard.local_decoder_config(cfg, tp)
     flash_ok = flash_capture_ok(cfg, merge_matrix, merge, S, img_start, n_img)
-    h = inputs_embeds.to(cfg.dtype)
+    seq = None
+    if seq_axis is not None:
+        if tp is not None:
+            raise NotImplementedError(
+                f"sequence sharding over {seq_axis.size} ranks of a tensor-"
+                f"parallel tree (heads split over {tp.size})")
+        if kv_cache is not None:
+            raise NotImplementedError(
+                f"a KV cache under sequence sharding (S = {S} over "
+                f"{seq_axis.size} ranks)")
+        seq = sequence.split_rows(S, seq_axis)
+        if flash_ok and seq.chunk % 128:  # S is a multiple of 128 there
+            raise ValueError(
+                f"K5 under sequence sharding needs 128-row chunks: S = {S} "
+                f"over {seq_axis.size} ranks gives chunks of {seq.chunk} "
+                f"(rank {seq_axis.index}: rows {seq.start}-{seq.stop - 1})")
+    rows = slice(0, S) if seq is None else seq.rows
+    h = inputs_embeds[:, rows].to(cfg.dtype)
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
     aux = capture_aux(cfg, attention_mask, position_ids, S, merge_matrix,
-                      with_bias=not flash_ok)
+                      with_bias=not flash_ok, rows=rows)
     if layer_weights is None:
         layer_weights = torch.zeros((L,), dtype=torch.float32,
                                     device=h.device)
-    acc = torch.zeros((B, S, D), dtype=torch.float32, device=h.device)
+    acc = torch.zeros((B, h.shape[1], D), dtype=torch.float32,
+                      device=h.device)
     sides = []
     for i, lp in enumerate(shard.decoder_layers(params, L)):
         w_l = layer_weights[i] if i < L - 1 else 0.0
         kv = None if kv_cache is None else (kv_cache[0][i], kv_cache[1][i])
         h, acc, side = layer_step(lp, w_l, h, acc, aux, cfg, img_start,
-                                  n_img, merge, flash_ok, kv, tp)
+                                  n_img, merge, flash_ok, kv, tp, seq)
         sides.append(side)
     last_hidden = rms_norm(h, params["final_norm"], cfg.rms_eps,
                            cfg.gemma_norm)
@@ -356,6 +397,11 @@ def forward_capture(params: dict, cfg: DecoderConfig,
     attn = torch.stack(sides, dim=1)
     if tp is not None:  # the heads in rank order
         attn = all_gather_cat(attn, 2, tp)
+    if seq is not None:
+        form = "raw" if merge_matrix is None else merge
+        attn = sequence.finish_capture(attn, form, seq)
+        hidden = sequence.gather_rows(hidden, 1, seq)
+        last_hidden = sequence.gather_rows(last_hidden, 1, seq)
     return {"attn": attn, "hidden": hidden, "last_hidden": last_hidden}
 
 

@@ -52,12 +52,12 @@ _SIGNATURES = {
     # head_dim, scale, out, o_b, o_h, o_t, stream
     "flmm_plain_flash": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I,
                          _I, _I, _I, _F, _P, _L, _L, _L, _P),
-    # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S,
-    # head_dim, key_valid, mm, M, img_start, n_img, out, o_b, o_h, o_t, lse,
-    # flags, merged, stream
+    # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S, Sq,
+    # q_off, head_dim, key_valid, mm, M, img_start, n_img, out, o_b, o_h,
+    # o_t, lse, flags, merged, stream
     "flmm_flash_capture": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
-                           _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _L,
-                           _L, _L, _P, _P, _P, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                           _P, _L, _L, _L, _P, _P, _P, _P),
     # q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t, B, H, KV, S,
     # head_dim, key_valid, img_start, n_img, out, o_b, o_h, o_t, lse, probs,
     # stream

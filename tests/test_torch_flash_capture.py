@@ -6,6 +6,9 @@ seeded numpy generator.
 
 The CUDA kernel (csrc/flash_capture_sm90.cu) runs only on the card, where
 chip_smoke.py holds it to this plain version at the LLaVA-NeXT shapes.
+Under sequence sharding K5 takes one rank's query rows (``q_offset``): the
+plain twin's row blocks, outputs concatenated and captures summed, are
+held to the Pallas kernel on the whole sequence.
 
 Tolerances: the Pallas kernel rounds the merge matrix and the probability
 rows to bf16 before its merged product (flash_attention.py:171-176), so the
@@ -83,6 +86,58 @@ def test_plain_matches_pallas_interpret(kv_heads):
                                atol=OUT_ATOL)
     # rows that see no key give 0, not a uniform average (the kernels' guard)
     assert not out[1, :, :3].any()
+
+
+@pytest.mark.parametrize("split", [128, 256])
+def test_plain_halves_with_q_offset_match_pallas_interpret(split):
+    """K5's plain twin on the query rows ``[0, split)`` and ``[split, S)``
+    (``q_offset`` 0 and ``split``, all keys on both): the outputs
+    concatenated and the captures summed, against the Pallas kernel on the
+    whole S, and against the plain twin's own whole at 1e-6."""
+    rng = np.random.default_rng(split)
+    H, hd, kv_heads = 2, 32, 1
+    q = rng.standard_normal((B, H, S, hd)).astype(np.float32) * 0.3
+    k = rng.standard_normal((B, kv_heads, S, hd)).astype(np.float32) * 0.3
+    v = rng.standard_normal((B, kv_heads, S, hd)).astype(np.float32) * 0.3
+    valid = _key_valid(rng)
+    ids = _mask_ids()
+    ids[0, 120:140] = 2  # a mask across the split at 128
+    mm = np.array(jax.vmap(lambda i: jmasks.mean_merge_matrix(i, M))(
+        jnp.asarray(ids)))
+    want_out, want_merged = jfa.flash_attention_with_merged_capture(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, H, 1)),
+        jnp.asarray(np.repeat(v, H, 1)), jnp.asarray(valid),
+        jnp.asarray(mm), IMG_START, N_IMG, interpret=True)
+    kt, vt, valid_t = map(torch.from_numpy, (k, v, valid))
+    outs, merged = [], 0
+    for lo, hi in ((0, split), (split, S)):
+        o, m = fa.flash_attention_with_merged_capture(
+            torch.from_numpy(q[:, :, lo:hi]), kt, vt, valid_t,
+            torch.from_numpy(mm[:, lo:hi]), IMG_START, N_IMG, q_offset=lo)
+        assert tuple(o.shape) == (B, H, hi - lo, hd)
+        outs.append(o)
+        merged = merged + m
+    out = torch.cat(outs, dim=2)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(want_merged),
+                               atol=MERGED_ATOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                               atol=OUT_ATOL)
+    whole_out, whole_merged = fa.flash_attention_with_merged_capture_plain(
+        *map(torch.from_numpy, (q, k, v, valid, mm)), IMG_START, N_IMG)
+    torch.testing.assert_close(out, whole_out, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(merged, whole_merged, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("q_offset, S_loc", [(64, 128), (128, 192),
+                                             (256, 256)],
+                         ids=["offset", "rows", "past"])
+def test_wrapper_refuses_unaligned_query_rows(q_offset, S_loc):
+    k = torch.zeros((1, 2, S, 16))
+    q = torch.zeros((1, 2, S_loc, 16))
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_with_merged_capture(
+            q, k, k, torch.ones((1, S), dtype=torch.bool),
+            torch.zeros((1, S_loc, 2)), IMG_START, N_IMG, q_offset=q_offset)
 
 
 @pytest.mark.parametrize("S_, img_start, n_img", [

@@ -20,6 +20,9 @@ mode, on the CPU.
   rel err of 1e-4 (what chip_smoke.py asks of the kernel), and with the
   skip against the walk over every query block bit for bit (a skipped block
   adds exact zeros).
+- One rank's query rows (``q_off``, sequence sharding): pass 1 on each
+  rank's rows gives the whole walk's rows bit for bit, pass 2a's local
+  flags are the whole's sliced and the ranks' captures sum to the whole's.
 - Pass 2b: per 64-row block the key tiles at or below its diagonal (a
   prefix), the rest zeros without a product, columns past n_img neither
   written nor read; against the JAX raw-capture kernel at 2e-5 on the valid
@@ -82,18 +85,19 @@ def _heads(t):
     return t.repeat_interleave(H // t.shape[1], dim=1).float()
 
 
-def pass1(q, k, v, valid):
-    """(out f32, lse (B, H, S) base 2) as the kernel's tile walk gives
-    them."""
+def pass1(q, k, v, valid, q_off=0):
+    """(out f32, lse (B, H, S_q) base 2) as the kernel's tile walk gives
+    them; q holds the rows ``[q_off, q_off + S_q)``, k and v all keys."""
     S = q.shape[2]
     kf, vf = _heads(k), _heads(v)
     out = torch.zeros(B, H, S, HD)
     lse = torch.empty(B, H, S)
     for q0 in range(0, S, 128):
-        KT = q0 // 128 + 1  # the last key tile is the diagonal one
+        # the last key tile is the one on the block's global diagonal
+        KT = (q0 + q_off) // 128 + 1
         for wg in range(2):
             r0 = q0 + 64 * wg
-            rows = torch.arange(r0, r0 + 64)
+            rows = torch.arange(r0, r0 + 64) + q_off  # global, for causality
             qt = q[:, :, r0:r0 + 64].float()
             m = torch.full((B, H, 64), NEG)
             ell = torch.zeros(B, H, 64)
@@ -130,8 +134,10 @@ def _split(x):
     return hi, (x - hi).bfloat16().float()
 
 
-def pass2a(q, k, lse, valid, mm, n_img, skip=True):
-    """merged (B, H, M, n_img) f32 as the capture pass accumulates it."""
+def pass2a(q, k, lse, valid, mm, n_img, skip=True, q_off=0):
+    """merged (B, H, M, n_img) f32 as the capture pass accumulates it; q,
+    lse and mm hold the rows ``[q_off, q_off + S_q)`` (local query block i
+    is global block i + q_off / 64), the sum over those rows only."""
     S, M = q.shape[2], mm.shape[-1]
     kf = _heads(k)
     flags = merge_flags(mm)
@@ -140,13 +146,15 @@ def pass2a(q, k, lse, valid, mm, n_img, skip=True):
         for kb in range(-(-n_img // 64)):
             key0 = IMG_START + 64 * kb
             keys = torch.arange(key0, key0 + 64)
-            order = [i for i in range(key0 // 64, S // 64)
+            order = [i for i in range(max(0, key0 // 64 - q_off // 64),
+                                      S // 64)
                      if flags[b, i] or not skip]
             acc = torch.zeros(H, 64, M)
             for i in order:
                 qi = torch.arange(64 * i, 64 * i + 64)
                 st = kf[b, :, keys] @ q[b, :, qi].float().transpose(-1, -2)
-                ok = valid[b, keys][:, None] & (keys[:, None] <= qi[None, :])
+                ok = valid[b, keys][:, None] & (
+                    keys[:, None] <= qi[None, :] + q_off)
                 pt = torch.where(ok, torch.exp2(st * ALPHA
                                                 - lse[b, :, None, qi]), 0.0)
                 phi, plo = _split(pt)
@@ -233,6 +241,38 @@ def test_pass2a_skip_and_fixed_order_match_pallas_interpret(S, n_img, M):
     _, plain = fa.flash_attention_with_merged_capture_plain(
         q.float(), k.float(), v.float(), valid, mm, IMG_START, n_img)
     rel = (merged - plain).abs().max() / plain.abs().max()
+    assert rel <= MERGED_REL, rel.item()
+
+
+@pytest.mark.parametrize("S, split", [(256, 128), (384, 128), (384, 256)])
+def test_tile_walk_over_one_ranks_query_rows(S, split):
+    """Sequence sharding: each rank's rows ``[lo, hi)`` at ``q_off = lo``.
+    Pass 1 walks ``(q0 + q_off) / 128 + 1`` key tiles a local block and
+    gives each rank's rows of the whole walk bit for bit; pass 2a flags the
+    ``(hi - lo) / 64`` local blocks (the whole's flags, sliced) and the
+    ranks' merged captures sum to the whole's at 1e-4 (another order of
+    the same f32 sums), and to the plain twin's halves."""
+    n_img, M = 100, 8
+    q, k, v, valid, mm = _inputs(S + split, S, M)
+    out, lse = pass1(q, k, v, valid)
+    merged = pass2a(q, k, lse, valid, mm, n_img)
+    total = torch.zeros_like(merged)
+    plain = torch.zeros_like(merged)
+    for lo, hi in ((0, split), (split, S)):
+        o, ls = pass1(q[:, :, lo:hi], k, v, valid, q_off=lo)
+        assert torch.equal(o, out[:, :, lo:hi])
+        assert torch.equal(ls, lse[:, :, lo:hi])
+        flags = merge_flags(mm[:, lo:hi])
+        assert flags.shape == (B, (hi - lo) // 64)
+        assert torch.equal(flags, merge_flags(mm)[:, lo // 64:hi // 64])
+        total += pass2a(q[:, :, lo:hi], k, ls, valid, mm[:, lo:hi], n_img,
+                        q_off=lo)
+        plain += fa.flash_attention_with_merged_capture_plain(
+            q[:, :, lo:hi].float(), k.float(), v.float(), valid,
+            mm[:, lo:hi], IMG_START, n_img, q_offset=lo)[1]
+    rel = (total - merged).abs().max() / merged.abs().max()
+    assert rel <= MERGED_REL, rel.item()
+    rel = (total - plain).abs().max() / plain.abs().max()
     assert rel <= MERGED_REL, rel.item()
 
 

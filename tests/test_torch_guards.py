@@ -83,7 +83,9 @@ def test_port_and_chip_smoke_import_no_jax_pil_or_hf():
         "            'visual_cot.visual_cot_inference',\n"
         "            'convert.orbax', 'ops.quant', 'parallel.mesh',\n"
         "            'parallel.frozen', 'parallel.pipeline',\n"
-        "            'evalsuite.sharded'):\n"
+        "            'evalsuite.sharded', 'parallel.sequence',\n"
+        "            'train_overlap_bench', 'sam_size_accuracy_proxy',\n"
+        "            'fused_piece_bench'):\n"
         "    assert 'flmm_tpu_torch.' + new in names\n"
         "print(len(names), bad)\n")
     proc = _run(code)

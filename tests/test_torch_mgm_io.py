@@ -51,6 +51,7 @@ from flmm_tpu_torch.models.vision import vit
 from tests import checkpoint_writers as cw
 from tests.test_data import IMAGE_TOKEN_ID
 from tests.test_generation_api import DecodingFakeTokenizer
+from tests.test_torch_generation_api import assert_masks_pinned
 from tests.test_torch_convert import JDT, _jax, assert_trees_equal
 from tests.test_torch_mgm import seeded_params
 
@@ -343,6 +344,7 @@ def _low_res(records):
                 records.setdefault(_side, []).append(
                     np.array(low_res) if _side == "jax"
                     else low_res.cpu().numpy())
+                records.setdefault(_side + "_call", []).append((a, kw))
                 return _fn(low_res, *a, **kw)
             mp.setattr(mod, "sam_logits_to_masks", rec)
         yield
@@ -416,7 +418,7 @@ def test_mgm_grounder_ground_matches_jax(grounders):
     np.testing.assert_allclose(records["port"][0], records["jax"][0],
                                atol=LOGIT_TOL, rtol=LOGIT_TOL)
     assert gm.shape == (2, 60, 90) and gm.dtype == wm.dtype == np.uint8
-    np.testing.assert_array_equal(gm, wm)
+    assert_masks_pinned(gm, wm, records)
 
 
 @pytest.mark.parametrize("version", ["v1", "v2"])
@@ -431,4 +433,4 @@ def test_mgm_grounder_visual_cot_matches_jax(grounders, version):
     assert (thought, tuple(bbox), final) == (jthought, tuple(jbbox), jfinal)
     np.testing.assert_allclose(records["port"][0], records["jax"][0],
                                atol=LOGIT_TOL, rtol=LOGIT_TOL)
-    np.testing.assert_array_equal(mask, jmask)
+    assert_masks_pinned(mask, jmask, records)

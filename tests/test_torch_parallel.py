@@ -25,7 +25,16 @@ marked slow, so this module is their tier-1 pin:
     1e-3 of the JAX forward, and the port's one-rank forward bit for bit;
 (vi) the GPipe capture against the JAX ``pipeline_forward_capture`` at
     tests/test_pipeline.py's setups, dense and MoE: atol 2e-5;
-(vii) the refiner's multimask selection against the JAX refiner: 1e-4.
+(vii) the refiner's multimask selection against the JAX refiner: 1e-4;
+(viii) the sequence-sharded decoder (``forward_capture(seq_axis=...)``,
+    the 2 x 2 mesh's ``"model"`` axis splitting the rows) at
+    ``dryrun_multichip``'s 4-layer twin, batch seed 4, S = 99 (50 + 49
+    rows), and at an aligned S = 256 with the image block at 128 and the
+    flash gate open (K5's plain twin on rows 128-255 at ``q_offset`` 128),
+    in the mean, max and raw forms: 1e-3 of the JAX ``forward_capture``
+    under ``with_sharding_constraint(h, P('data', 'model', None))`` and
+    1e-5 of the port's one-rank forward; the refusals (a tp tree, a KV
+    cache, K5 on chunks that are not 128-row multiples).
 
 The weights come from the port's seeded init (the JAX init compiles for
 ~35 s here).  The module fixture hands every rank task to the pool and
@@ -62,6 +71,9 @@ TREE_TOL = 1e-3
 FORWARD_TOL = 1e-3
 PIPELINE_ATOL = 2e-5
 REFINER_TOL = 1e-4
+SEQ_ONE_RANK_TOL = 1e-5
+SEQ_FORMS = ["mean", "max", "raw"]
+SEQ_CASES = ["dryrun", "aligned"]
 KEYS = ("coarse_logits", "sam_logits", "iou_pred", "hidden")
 FORWARD_CASES = [("dense", "tp"), ("moe", "tp"), ("layers4", "fsdp")]
 PIPELINE_FIELDS = dict(vocab_size=64, hidden_size=32, num_layers=4,
@@ -242,6 +254,69 @@ def _jax_pipeline(fields, params, x):
         _jnp(params), x["embeds"], x["mask"], x.get("mm"), x["w"]))
 
 
+def _sequence_case(case: str) -> dict:
+    """The 4-layer twin's decoder (the port's seeded init) and its inputs:
+    ``dryrun`` the dryrun's batch (seed 4, S = 99, image block at 3),
+    ``aligned`` S = 256 with the image block at 128, key holes and masks
+    on both ranks' rows (one across the split at 128)."""
+    from flmm_tpu.data.synthetic import synthetic_batch
+    from flmm_tpu.ops.masks import mean_merge_matrix
+
+    cfg = _jax_cfg("layers4")
+    params = _params("layers4", 5)["frozen"]["llm"]
+    fields = {f.name: getattr(cfg.llm, f.name)
+              for f in dataclasses.fields(cfg.llm) if f.name != "dtype"}
+    if case == "dryrun":
+        batch = synthetic_batch(cfg, batch_size=2, seed=4)
+        ids, mask = batch["input_ids"], batch["attn_mask"]
+        mask_ids, img_start = batch["mask_ids"], cfg.img_start
+        fields["use_flash_capture"] = False
+    else:
+        rng = np.random.default_rng(6)
+        S, img_start = 256, 128
+        ids = rng.integers(0, cfg.llm.vocab_size, (2, S))
+        mask = np.ones((2, S), bool)
+        mask[0, 200:206] = mask[1, 240:] = mask[1, 150:152] = False
+        mask_ids = np.full((2, S), -1, np.int32)
+        mask_ids[:, 10:15] = 0  # before the image: captures nothing
+        mask_ids[:, 120:136] = 1  # across the split
+        mask_ids[0, 196:230] = mask_ids[1, 200:212] = 2
+        fields["use_flash_capture"] = True
+    mm = np.stack([np.asarray(mean_merge_matrix(jnp.asarray(row), 3))
+                   for row in mask_ids]).astype(np.float32)
+    w = np.random.default_rng(7).normal(size=(4,)).astype(np.float32)
+    inputs = {"embeds": params["embed"][ids], "mask": mask,
+              "mm_mean": mm, "mm_max": mm}
+    return dict(params=params, inputs=inputs, fields=fields,
+                img_start=int(img_start), n_img=cfg.num_img_tokens,
+                layer_weights=np.exp(w) / np.exp(w).sum(), forms=SEQ_FORMS)
+
+
+def _jax_sequence(params, inputs, fields, img_start, n_img, layer_weights,
+                  forms):
+    """The JAX ``forward_capture`` under ``dryrun_multichip``'s sequence
+    constraint on a 2 x 2 mesh, the XLA capture (gate closed)."""
+    from jax.sharding import PartitionSpec as P
+
+    from flmm_tpu.models.llm import decoder as jdecoder
+
+    cfg = jdecoder.DecoderConfig(**{**fields, "use_flash_capture": False},
+                                 dtype=jnp.float32)
+    mesh = jmesh.make_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
+
+    def fwd(p, x, w):
+        return {form: jdecoder.forward_capture(
+            p, cfg, x["embeds"], x["mask"], img_start=img_start, n_img=n_img,
+            merge_matrix=None if form == "raw" else x[f"mm_{form}"],
+            merge="mean" if form == "raw" else form, layer_weights=w,
+            shard_constraint=lambda h: jax.lax.with_sharding_constraint(
+                h, P("data", "model", None))) for form in forms}
+
+    with mesh:
+        return jax.device_get(jax.jit(fwd)(_jnp(params), _jnp(inputs),
+                                           jnp.asarray(layer_weights)))
+
+
 def _reference_process():
     """A JAX reference process compiles without LLVM's optimisations:
     about a third less CPU for the same HLO, which fixes the numbers."""
@@ -282,10 +357,18 @@ def jobs():
                                  cfg_fields=fields, n_microbatches=n))
                  for n in n_mbs],
                 refs.submit(_jax_pipeline, fields, pp, x))
+        for case in SEQ_CASES:
+            args = _sequence_case(case)
+            out[f"seq_{case}"] = (pool.submit("sequence_forward", **args),
+                                  refs.submit(_jax_sequence, **args))
         case = _refiner_case()
         out["refiner"] = (case, refs.submit(_jax_refine, *case))
 
+        done = {}  # a name's results, for the tests that read it again
+
         def read(name):
+            if name in done:
+                return done[name]
             ticket, ref = out[name]
             want = ref and ref.result()
             if name == "specs":  # the ranks take the traced shape trees
@@ -295,6 +378,7 @@ def jobs():
             else:
                 got = pool.collect(ticket) if isinstance(ticket, int) \
                     else ticket
+            done[name] = got, want
             return got, want
         yield read
     finally:
@@ -466,3 +550,68 @@ def test_refiner_multimask_matches_jax(jobs):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    atol=REFINER_TOL, rtol=REFINER_TOL,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("form", SEQ_FORMS)
+@pytest.mark.parametrize("case", SEQ_CASES)
+def test_sequence_sharded_forward_matches_jax(jobs, case, form):
+    """Each model rank returns the whole outputs of its data rows: equal
+    on both, 1e-5 of the one-rank forward, 1e-3 of the JAX forward under
+    the sequence constraint."""
+    got, want = jobs(f"seq_{case}")
+    want = want[form]
+    for key in ("attn", "hidden", "last_hidden"):
+        for rank in got:
+            np.testing.assert_allclose(
+                rank[form]["sharded"][key], rank[form]["one_rank"][key],
+                atol=SEQ_ONE_RANK_TOL, rtol=SEQ_ONE_RANK_TOL, err_msg=key)
+        for d in (0, 2):  # data rank d // 2: model ranks d and d + 1
+            np.testing.assert_array_equal(got[d][form]["sharded"][key],
+                                          got[d + 1][form]["sharded"][key])
+        whole = np.concatenate([got[0][form]["sharded"][key],
+                                got[2][form]["sharded"][key]])
+        assert whole.shape == want[key].shape, key
+        np.testing.assert_allclose(whole, np.asarray(want[key]),
+                                   atol=FORWARD_TOL, rtol=FORWARD_TOL,
+                                   err_msg=key)
+    if form == "max":  # a mask with no row: 0, as the one-rank forward
+        assert (got[0][form]["sharded"]["attn"] >= 0).all()
+    # K5 (its plain twin) on each model rank's rows in the aligned case,
+    # for the mean form only; none at S = 99
+    offsets = [rank["k5_offsets"] for rank in got]
+    if case == "aligned":
+        # the sharded forward's 4 layers, then the one-rank forward's
+        assert offsets == [[0] * 8, [128] * 4 + [0] * 4] * 2
+    else:
+        assert offsets == [[]] * 4
+
+
+@pytest.mark.parametrize("what", ["tp", "kv_cache", "unaligned_k5"])
+def test_sequence_sharding_refuses(what):
+    """Refused before any collective: a tp tree, a KV cache, K5 on chunks
+    that are not multiples of 128 rows (S = 384 over 2 ranks: 192)."""
+    from flmm_tpu_torch.configs.deepseek_vl import tiny
+    from flmm_tpu_torch.parallel.frozen import ShardedTree
+    from flmm_tpu_torch.parallel.mesh import Axis
+
+    S = 384 if what == "unaligned_k5" else 256
+    cfg = dataclasses.replace(tiny(img_start=128).llm, num_layers=1,
+                              use_flash_capture=True)
+    params = tdecoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    x = torch.zeros((1, S, cfg.hidden_size))
+    mask = torch.ones((1, S), dtype=torch.bool)
+    kw = dict(img_start=128, n_img=64, seq_axis=Axis(None, 2, 0),
+              merge_matrix=torch.ones((1, S, 2)) / S)
+    if what == "tp":
+        params = ShardedTree(params, "tp", Axis(None, 2, 0), {})
+        kw["merge_matrix"] = None
+        match = "tensor-parallel"
+    elif what == "kv_cache":
+        kw["kv_cache"] = (torch.zeros((1, 1, S, cfg.num_kv_heads,
+                                       cfg.head_dim)),) * 2
+        match = "KV cache"
+    else:
+        match = "chunks of 192"
+    with pytest.raises((ValueError, NotImplementedError), match=match):
+        tdecoder.forward_capture(params, cfg, x, mask, **kw)

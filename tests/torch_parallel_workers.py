@@ -310,3 +310,47 @@ def pipeline(params: dict, inputs: dict, cfg_fields: dict,
         merge_matrix=x.get("mm"), layer_weights=x["w"])
     out["attn"] = pp.gather_attn(out["attn"], mesh)
     return {k: v.numpy() for k, v in out.items()}
+
+
+def sequence_forward(params: dict, inputs: dict, fields: dict, img_start: int,
+                     n_img: int, layer_weights, forms: list) -> dict:
+    """``decoder.forward_capture`` over the 2 x 2 mesh with the
+    ``"model"`` axis splitting the sequence, each data rank on its rows of
+    the batch (``inputs``: embeds, mask and the merge matrices), in each
+    capture form (``"mean"``, ``"max"``, ``"raw"``); beside it the one-rank
+    forward of the same rows, and the ``q_offset`` of every K5 call."""
+    import torch
+
+    from flmm_tpu_torch.convert.from_jax import from_jax
+    from flmm_tpu_torch.models.llm import decoder
+    from flmm_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = decoder.DecoderConfig(**fields, dtype=torch.float32)
+    mesh = _mesh(2, 2)
+    params = from_jax(params)
+    x = mesh_lib.shard_rows(from_jax(inputs),
+                            mesh_lib.axis_of(mesh, "data"))
+    seq = mesh_lib.axis_of(mesh, "model")
+    # the query offsets K5 (its plain twin on the CPU) is called with
+    offsets = []
+    k5 = decoder.flash_attention_with_merged_capture
+
+    def record(*a, **kw):
+        offsets.append(kw.get("q_offset", 0))
+        return k5(*a, **kw)
+
+    decoder.flash_attention_with_merged_capture = record
+    out = {"k5_offsets": offsets}
+    for form in forms:
+        kw = dict(img_start=img_start, n_img=n_img,
+                  merge_matrix=None if form == "raw" else x[f"mm_{form}"],
+                  merge="mean" if form == "raw" else form,
+                  layer_weights=torch.from_numpy(layer_weights))
+        with torch.no_grad():
+            got = decoder.forward_capture(params, cfg, x["embeds"], x["mask"],
+                                          seq_axis=seq, **kw)
+            one = decoder.forward_capture(params, cfg, x["embeds"], x["mask"],
+                                          **kw)
+        out[form] = {"sharded": _numpy(got), "one_rank": _numpy(one)}
+    decoder.flash_attention_with_merged_capture = k5
+    return out
