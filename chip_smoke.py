@@ -59,7 +59,10 @@ Phases; any failure raises and the script exits non-zero:
    path's shapes; K5 at the DeepSeek-VL-7B aligned decoder layer (B = 4,
    32 heads, S = 768, the image block of 576 at 128) and at the MGM-HD
    decoder layer (B = 2, 32 heads of 128, S = 3200, the image block of 2880
-   at 128, no key holes).
+   at 128, no key holes); K5 above the 32 masks one block of its merged
+   pass takes (chunks of 32), the masks over the caption rows densely: at
+   the LLaVA-NeXT shape with 40 and 64 masks, at the HPT shape and on
+   LLaVA-NeXT's rows 1664-3199 with 40.
    Each kernel's time
    stands beside its bound (the larger of its operations over the card's
    peak bf16 rate and its operand bytes over the peak memory rate) and,
@@ -194,7 +197,7 @@ Phases; any failure raises and the script exits non-zero:
     heads; SigLIP-L/384 beside SAM-B at 1024 through the split projector;
     SAM ViT-L at 1024), random weights from a seed with non-zero rel-pos
     tables in both SAM trunks, hd_alpha 0.5 and a neck_hd apart from the
-    encoder neck: serve 4 bs-4 requests eagerly (img_start 5, S=672;
+    encoder neck: serve 2 bs-4 requests eagerly (img_start 5, S=672;
     K1/K2/K3/K4/K5 20/4/28/28/0 a forward; the SAM-B trunk runs plain) and
     aligned (img_start 128, S=768; K5 30), each beside the all-plain
     forward (image embeddings, maps, SAM embedding, hidden corr >= 0.999,
@@ -258,7 +261,8 @@ Phases; any failure raises and the script exits non-zero:
     step), 11 steps (8 timed inside epoch 0 and 1 inside epoch 1, step 10,
     the first of epoch 1, timed apart), the whole run under the
     deterministic switch of phases 8-10; (b) LLaVA-NeXT-Vicuna-7B, bs 2,
-    S = 3200, the image block at 128 (K5 32 a step); (c) MGM-Gemma-2B, bs
+    S = 3200, the image block at 128, --max-masks 40 (K5 32 a step, 40
+    masks wide); (c) MGM-Gemma-2B, bs
     4 (20/4/27/27/0); (d) HPT-Air-1.5 on the synthetic stream, bs 4, with
     phase 11's kernel switches, which the trainer CLI has no flag for, set
     through a wrapped registry.get_config (K1 20, K7 / K8 / K10 26 / 4 /
@@ -352,6 +356,7 @@ holds the per-kernel results.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import io
@@ -419,6 +424,9 @@ from tests import checkpoint_writers
 from tests.train_fixtures import joint_samples, make_train_root
 
 BS, SEQ, MASKS, TEXT = 4, 672, 8, 12
+# K5 above the 32 masks one block of its merged pass takes (phase 3) and
+# the LLaVA-NeXT trainer's --max-masks (phase 33 (b))
+WIDE_MASKS = (40, 64)
 # LLaVA-NeXT requests: bs 2, the vicuna template's 35 prompt tokens padded
 # to an image block at 128, (h, w) of the two images: 2x2 and 3x1 grids
 ANYRES_BS, ANYRES_IMG_START, ANYRES_PROMPT = 2, 128, 35
@@ -591,11 +599,12 @@ SWEEP_LAUNCHES = EXPECTED_LAUNCHES["deepseek_vl_1_3b_train_sam448"]
 # the window-variant encoder (phase 19): SAM ViT-L at 768, bs 4
 VARIANT_SAM = 768
 # the family matrix (phases 20-21): (family, the caller's environment, preset,
-# image tokens of the tower with its class token); children time 2 forwards
+# image tokens of the tower with its class token); each child, the
+# int8_llm child too, times 1 forward a path after the bench's 2 warm-ups
 FAMILY_POINTS = (
     ("llava", {"BENCH_GLOBAL_KERNEL": "v1"}, "1_5_7b", 577),
     ("hpt", {"BENCH_PRESET": "air", "BENCH_GLOBAL_KERNEL": "v4"}, "air", 785))
-FAMILY_ITERS, FAMILY_TIMEOUT = 2, 600
+FAMILY_ITERS, FAMILY_TIMEOUT = 1, 600
 NEW_GLOBALS = ("v1", "v2", "v4")
 # the eval loop (phase 22): the eval scripts' defaults at DeepSeek-VL-1.3B,
 # SAM-1024, over the synthetic sample stream; prompts are 583 tokens and 6
@@ -632,11 +641,11 @@ GEN_WORDS = (
 # tree (tests/data, made by tests/make_fixture_data.py), the eval CLIs at
 # their defaults on the card
 FILES_SEED = 11
-# DeepSeek-VL-7B (phase 26): 4 requests at bs 4 after a warm-up, eager (the
+# DeepSeek-VL-7B (phase 26): 2 requests at bs 4 after a warm-up, eager (the
 # raw prompt layout, S = 672) and aligned (the image block at 128, S = 768,
 # K5 in the 30 decoder layers); the trainer's steps at SAM-448, bs 8; then
 # (phase 27) LLaVA-NeXT over Mistral-7B at phase 6's bs 2
-HYBRID_SEED, HYBRID_REQUESTS = 12, 4
+HYBRID_SEED, HYBRID_REQUESTS = 12, 2
 HYBRID_ALIGNED_START, HYBRID_ALIGNED_SEQ = 128, 768
 HYBRID_TRAIN_STEPS = 3
 HYBRID_STAGE_ITERS = 3  # the first forward of the split is a warm-up
@@ -1048,17 +1057,38 @@ def hpt_batches(cfg, n: int, device=None) -> list:
     return out
 
 
+def dense_mask_ids(batch: dict, n_masks: int, text_start: int) -> np.ndarray:
+    """``n_masks`` masks over the valid rows from ``text_start`` on (the
+    caption after the image block), in runs of consecutive rows, each
+    mask at least one row: a dense narrative's spans."""
+    ids = np.full(batch["mask_ids"].shape, -1, np.int32)
+    for b, valid in enumerate(batch["attn_mask"]):
+        rows = np.flatnonzero(valid[text_start:]) + text_start
+        if len(rows) < n_masks:
+            raise AssertionError(f"{len(rows)} caption rows for {n_masks} "
+                                 "masks")
+        ids[b, rows] = np.arange(len(rows)) * n_masks // len(rows)
+    return ids
+
+
 def check_capture(check, gen: torch.Generator, label: str, batch: dict,
                   H: int, KV: int, img_start: int, n_img: int,
-                  first_row: int = 0) -> None:
+                  first_row: int = 0, n_masks: int = MASKS) -> None:
     """K5 at one decoder layer of a serving path that captures through it,
     with the path's key holes and merge matrix (``batch``, numpy); q, k, v
     as (B, H, S, hd) views of the decoder's (B, S, H, hd) projections.
     ``first_row``: q holds only the rows ``[first_row, S)`` of one rank of
-    a sequence split (``q_offset``), against all S keys."""
+    a sequence split (``q_offset``), against all S keys.  At ``n_masks``
+    other than the batch's ``MASKS``, the masks cover the caption rows
+    densely (``dense_mask_ids``), every column of the merge matrix in
+    use."""
     valid = torch.from_numpy(batch["attn_mask"]).cuda()
-    mm = masks.mean_merge_matrix(
-        torch.from_numpy(batch["mask_ids"]).cuda(), MASKS)[:, first_row:]
+    ids = (batch["mask_ids"] if n_masks == MASKS else
+           dense_mask_ids(batch, n_masks, img_start + n_img))
+    mm = masks.mean_merge_matrix(torch.from_numpy(ids).cuda(),
+                                 n_masks)[:, first_row:]
+    if n_masks != MASKS and not bool((mm != 0).any(dim=1).all()):
+        raise AssertionError(f"{label}: a mask without a caption row")
     B, S = valid.shape
     hd = 128
     q = _randn(gen, (B, S - first_row, H, hd)).transpose(1, 2)
@@ -1069,15 +1099,15 @@ def check_capture(check, gen: torch.Generator, label: str, batch: dict,
     pairs = int(valid.cumsum(1)[:, first_row:].sum())
     text_rows = int((mm != 0).any(dim=-1).sum())
     label = (f"{label}: B={B}, H={H}, KV={KV}, S={S}, n_img={n_img}, "
-             f"M={MASKS}" + (f", rows {first_row}-{S - 1}" if first_row
-                             else ""))
+             f"M={n_masks}" + (f", rows {first_row}-{S - 1}" if first_row
+                               else ""))
     args = (q, k, v, valid, mm, img_start, n_img, first_row)
     entry = check("flash_attention_with_merged_capture", label,
                   flash_attention.flash_attention_with_merged_capture,
                   flash_attention.flash_attention_with_merged_capture_plain,
                   args, rel_bounds=(KERNEL_REL_ERR, MERGED_REL_ERR),
                   flop=4 * H * hd * pairs
-                  + 2 * H * MASKS * n_img * text_rows)
+                  + 2 * H * n_masks * n_img * text_rows)
     capture_passes(
         entry, "flash_attention_with_merged_capture", label,
         lambda: flash_attention.flash_attention_with_merged_capture(
@@ -1271,11 +1301,13 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
           + 4 * NW * nh * T * T * hd)
 
     # K5: one decoder layer of each serving path that captures through it
-    check_capture(check, g, "LLaVA-NeXT", anyres_batches(
-        llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START))[0],
-        32, 32, ANYRES_IMG_START, 2928)
-    check_capture(check, g_hpt, "HPT-Air-1.5",
-                  hpt_batches(hpt_config(), 1)[0], 32, 8, HPT_IMG_START, 1024)
+    anyres = anyres_batches(
+        llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START))[0]
+    hpt = hpt_batches(hpt_config(), 1)[0]
+    check_capture(check, g, "LLaVA-NeXT", anyres, 32, 32, ANYRES_IMG_START,
+                  2928)
+    check_capture(check, g_hpt, "HPT-Air-1.5", hpt, 32, 8, HPT_IMG_START,
+                  1024)
     # K5 on one rank's query rows of a sequence split (q_offset): the sp
     # shape of phase 36 (c) and LLaVA-NeXT's at a 128-row boundary
     check_capture(check, g, "sp DeepSeek-VL-1.3B aligned", synthetic_batch(
@@ -1283,9 +1315,19 @@ def phase_kernels(g: torch.Generator, g_hpt: torch.Generator,
         batch_size=BS, seq_len=SP_ALIGNED_SEQ, max_masks=MASKS,
         text_tokens_per_mask=TEXT, seed=0), 16, 16, SP_ALIGNED_START, 576,
         first_row=SP_ALIGNED_SEQ // PAR_RANKS)
-    check_capture(check, g, "sp LLaVA-NeXT", anyres_batches(
-        llava_next.llava_next_vicuna_7b(img_start=ANYRES_IMG_START))[0],
-        32, 32, ANYRES_IMG_START, 2928, first_row=SP_ANYRES_FIRST_ROW)
+    check_capture(check, g, "sp LLaVA-NeXT", anyres, 32, 32,
+                  ANYRES_IMG_START, 2928, first_row=SP_ANYRES_FIRST_ROW)
+    # K5 above 32 masks (chunks of 32 in the merged pass), drawn from their
+    # own generator so that the rows above keep their inputs
+    g_masks = torch.Generator(device="cuda").manual_seed(17)
+    for n_masks in WIDE_MASKS:
+        check_capture(check, g_masks, "LLaVA-NeXT", anyres, 32, 32,
+                      ANYRES_IMG_START, 2928, n_masks=n_masks)
+    check_capture(check, g_masks, "HPT-Air-1.5", hpt, 32, 8, HPT_IMG_START,
+                  1024, n_masks=WIDE_MASKS[0])
+    check_capture(check, g_masks, "sp LLaVA-NeXT", anyres, 32, 32,
+                  ANYRES_IMG_START, 2928, first_row=SP_ANYRES_FIRST_ROW,
+                  n_masks=WIDE_MASKS[0])
 
     # K2 over the SAM-448 grid: 8 images x 16 heads, side 28 (S = 784)
     hd = 64
@@ -2778,7 +2820,8 @@ def run_family_matrix() -> dict:
             # the int8_llm point (BENCH_QUANT_LLM=1) of HPT-Air-1.5 gives
             # its row; phase 35 sets it beside the bf16 row
             quant = bench_families.run_one(
-                "hpt", "int8_llm", dict(bench_families.PLAN["hpt"][-1][1]),
+                "hpt", "int8_llm", {**bench_families.PLAN["hpt"][-1][1],
+                                    "BENCH_ITERS": str(FAMILY_ITERS)},
                 1024, FAMILY_TIMEOUT)
             log(f"phase 20 bench_families {json.dumps(quant)}")
             if "error" in quant or (quant["family"], quant["mode"],
@@ -2888,23 +2931,31 @@ def device_busy_ms(prof) -> tuple[float, float]:
     return busy / 1e3, (hi - spans[0][0]) / 1e3
 
 
-def eval_loop(params, cfg, samples, acc, score, predict=None) -> dict:
+def eval_loop(params, cfg, samples, acc, score, predict=None,
+              builds: dict | None = None) -> dict:
     """``run_eval`` over ``samples`` with every launch count at 0 just
     before and read just after; the forward's SAM logits of each batch are
-    kept.  ``predict`` replaces the forward.  Returns the results, the
+    kept.  ``predict`` replaces the forward; with ``builds`` the batch
+    builds go through ``replaying(builds)``.  Returns the results, the
     logits, the launches, the buckets used and the times: the loop's wall
     time, the forwards' device time (CUDA events, after the batch's copy to
     the card) and their wall time (the copy included), the batch builder's
     host time."""
     run = {"logits": [], "forward_ms": [], "forward_s": 0.0, "build_s": 0.0,
-           "seq": []}
+           "seq": [], "replayed": 0}
 
-    def build(batch_samples, spec):
+    def timed_build(batch_samples, spec):
         t0 = time.perf_counter()
         batch = build_batch(batch_samples, spec)
         run["build_s"] += time.perf_counter() - t0
-        run["seq"].append(spec.seq_len)
         return batch
+
+    replayed = (timed_build if builds is None
+                else replaying(builds, run)(timed_build))
+
+    def build(batch_samples, spec):
+        run["seq"].append(spec.seq_len)
+        return replayed(batch_samples, spec)
 
     def forward(batch):
         t0 = time.perf_counter()
@@ -2984,8 +3035,11 @@ def run_eval_phase(g: torch.Generator, card: str) -> dict:
     del warm
 
     torch.cuda.reset_peak_memory_stats()
+    # the all-plain and the ground-truth pass replay the first pass's
+    # batches; the PNG pass, whose busy share is read, builds its own
+    builds = {}
     ref = eval_loop(params, cfg, samples, metrics.RefSegAccumulator,
-                    runner.refcoco_score)
+                    runner.refcoco_score, builds=builds)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _check_eval("refcoco SAM-1024", ref, n_masks,
                 EXPECTED_LAUNCHES["deepseek_vl_1_3b"])
@@ -3001,7 +3055,8 @@ def run_eval_phase(g: torch.Generator, card: str) -> dict:
         for k in WRAPPERS:
             launches[k] += run["launches"][k]
     plain = eval_loop(params, registry.plain_config(cfg), samples,
-                      metrics.RefSegAccumulator, runner.refcoco_score)
+                      metrics.RefSegAccumulator, runner.refcoco_score,
+                      builds=builds)
     _check_eval("refcoco SAM-1024 all-plain forward", plain, n_masks, {})
     _logits_agree("SAM-1024 kernel vs plain forward", ref["logits"],
                   plain["logits"])
@@ -3013,12 +3068,12 @@ def run_eval_phase(g: torch.Generator, card: str) -> dict:
         return torch.where(gt > 0.5, 8.0, -8.0)
 
     gt = eval_loop(params, cfg, samples, metrics.RefSegAccumulator,
-                   runner.refcoco_score, predict=gt_logits)
+                   runner.refcoco_score, predict=gt_logits, builds=builds)
     _check_eval("refcoco SAM-1024 ground truth as logits", gt, n_masks, {})
     if not min(gt["results"]["cIoU"], gt["results"]["mIoU"]) > EVAL_GT_MIN:
         raise AssertionError("eval: the ground truth as logits scores "
                              f"{gt['results']}, not above {EVAL_GT_MIN}")
-    del params, gt
+    del params, gt, builds
     torch.cuda.empty_cache()
 
     batches = len(ref["forward_ms"])
@@ -3053,14 +3108,14 @@ def run_eval_phase(g: torch.Generator, card: str) -> dict:
     short = [s for s in samples
              if len(s["input_ids"]) <= EVAL_BUCKETS[0]][:EVAL_BS]
     n_short = sum(min(len(s["spans"]), EVAL_MASKS) for s in short)
-    runs = {}
+    runs, builds = {}, {}
     for name in EVAL_WINDOWS:
         cfg_n = dataclasses.replace(cfg, sam=dataclasses.replace(
             cfg.sam, encoder=dataclasses.replace(cfg.sam.encoder,
                                                  window_kernel=name)))
         runs[name] = eval_loop(params, cfg_n, short,
                                metrics.RefSegAccumulator,
-                               runner.refcoco_score)
+                               runner.refcoco_score, builds=builds)
         _check_eval(f"refcoco SAM-{VARIANT_SAM} window_kernel={name}",
                     runs[name], n_short,
                     {**SWEEP_LAUNCHES, "sam_window_attention_v9": 0,
@@ -3440,16 +3495,71 @@ def _timed(run: dict, key: str):
     return wrap
 
 
-def run_cli(main, argv: list, replace=None, tokenizer_cls=None) -> dict:
+def _digest(obj, h) -> None:
+    """Feed ``obj`` (arrays, containers, scalars, dataclasses by repr) into
+    the hash ``h``."""
+    if isinstance(obj, np.ndarray):
+        h.update(f"{obj.dtype}{obj.shape}".encode())
+        h.update(np.ascontiguousarray(obj).data)
+    elif isinstance(obj, dict):
+        h.update(f"dict{len(obj)}".encode())
+        for k in sorted(obj, key=repr):
+            h.update(repr(k).encode())
+            _digest(obj[k], h)
+    elif isinstance(obj, (list, tuple)):
+        h.update(f"{type(obj).__name__}{len(obj)}".encode())
+        for x in obj:
+            _digest(x, h)
+    else:
+        h.update(repr(obj).encode())
+
+
+def _copied(batch: dict) -> dict:
+    return {k: v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v)
+            for k, v in batch.items()}
+
+
+def replaying(builds: dict, run: dict):
+    """A wrapper of a batch builder that keeps each batch it builds in
+    ``builds`` under a digest of its inputs (the first pass pays the digest,
+    a few ms a batch) and gives a copy of the kept batch for inputs seen
+    before, counting those in ``run['replayed']``.
+    A builder is a deterministic function of its samples and spec, so a
+    later pass over the same samples (a ground-truth pass, the --int8-sam
+    CLIs over phase 25's files, phase 22's plain pass) reads the first
+    pass's batches instead of building them again."""
+    def wrap(build):
+        def replayed(*args, **kwargs):
+            h = hashlib.sha256()
+            _digest((args, kwargs), h)
+            key = h.hexdigest()
+            if key in builds:
+                run["replayed"] += 1
+                return _copied(builds[key])
+            batch = build(*args, **kwargs)
+            builds[key] = dict(batch)  # the loop pops from its own dict
+            return batch
+        return replayed
+    return wrap
+
+
+def run_cli(main, argv: list, replace=None, tokenizer_cls=None,
+            builds: dict | None = None) -> dict:
     """One eval CLI's ``main`` in process with the word-level tokenizer, its
     output on stderr, every launch count at 0 just before and read just
     after.  Its forwards are recorded (batch, SAM logits, CUDA-event ms,
     host seconds) and timed against its reads, decodes, batch builds and
-    model setup.  ``replace(batch)`` stands in for the forward."""
-    run = {"batches": [], "logits": [], "forward_ms": [], "forward_s": 0.0}
+    model setup.  ``replace(batch)`` stands in for the forward; with
+    ``builds``, the batch builds go through ``replaying(builds)``."""
+    run = {"batches": [], "logits": [], "forward_ms": [], "forward_s": 0.0,
+           "replayed": 0}
     for key in ("read", "decode", "build", "setup"):
         run[key] = 0.0
         run[key + "_n"] = 0
+
+    def builder(build):
+        timed = _timed(run, "build")(build)
+        return timed if builds is None else replaying(builds, run)(timed)
 
     def recording(make):
         def factory(model, params, cfg, device):
@@ -3477,10 +3587,8 @@ def run_cli(main, argv: list, replace=None, tokenizer_cls=None) -> dict:
                                      _timed(run, "read")))
         stack.enter_context(_wrapped(image_io, "decode_image",
                                      _timed(run, "decode")))
-        stack.enter_context(_wrapped(collate, "build_batch",
-                                     _timed(run, "build")))
-        stack.enter_context(_wrapped(mgm_data, "build_mgm_batch",
-                                     _timed(run, "build")))
+        stack.enter_context(_wrapped(collate, "build_batch", builder))
+        stack.enter_context(_wrapped(mgm_data, "build_mgm_batch", builder))
         stack.enter_context(_wrapped(eval_cli, "setup",
                                      _timed(run, "setup")))
         stack.enter_context(_wrapped(eval_cli, "make_predict", recording))
@@ -3661,19 +3769,25 @@ def check_cli(label: str, run: dict, want_n: dict, card: str,
         f"{stats['host_ms']:.1f} ms a batch, of it image decode "
         f"{stats['decode_ms']:.1f} ms ({run['decode_n']} images), file reads "
         f"{stats['read_ms']:.2f} ms and the batch builder "
-        f"{stats['build_ms']:.1f} ms; peak {stats['peak_gb']:.2f} GB above "
-        "what was allocated before")
+        f"{stats['build_ms']:.1f} ms"
+        + (f" ({run['replayed']} of {run['build_n'] + run['replayed']} "
+           "batches replayed from an earlier pass over the same samples)"
+           if run["replayed"] else "")
+        + f"; peak {stats['peak_gb']:.2f} GB above what was allocated "
+        "before")
     return stats
 
 
 def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
                   path: str = "deepseek_vl_1_3b", forward=grounding.forward,
-                  tokenizer_cls=None, gt_pass: bool = True) -> tuple:
+                  tokenizer_cls=None, gt_pass: bool = True,
+                  builds: dict | None = None) -> tuple:
     """``eval_refcoco`` (8 splits, ``--debug``) and ``eval_png`` in process
     over the fixture tree with the checkpoint flags ``common``, each run
     checked (``check_cli``) and, with ``gt_pass``, run once more with the
     ground truth as +-8 logits in place of the forward; ``(stats,
-    launches)``, each CLI's results in its stats."""
+    launches)``, each CLI's results in its stats.  With ``builds`` every
+    run's batch builds go through ``replaying(builds)``."""
     stats, total = {}, dict.fromkeys(WRAPPERS, 0)
     narratives = json.loads((FIXTURE / "png" / "annotations" /
                              "png_coco_val2017.json").read_text())
@@ -3688,7 +3802,8 @@ def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
             "--data-root", str(FIXTURE / "png"), "--debug"],
             {"": manifest["png_masks"]}, len(narratives), "AA")}
     for name, (main_fn, argv, want_n, n_samples, metric) in clis.items():
-        run = run_cli(main_fn, argv, tokenizer_cls=tokenizer_cls)
+        run = run_cli(main_fn, argv, tokenizer_cls=tokenizer_cls,
+                      builds=builds)
         run["n_samples"] = n_samples
         stats[name] = check_cli(name, run, want_n, card, path, forward,
                                 phase)
@@ -3706,7 +3821,7 @@ def run_eval_clis(phase: int, common: list, card: str, manifest: dict,
             return torch.where(gt > 0.5, 8.0, -8.0)
 
         oracle = run_cli(main_fn, argv, replace=gt_logits,
-                         tokenizer_cls=tokenizer_cls)
+                         tokenizer_cls=tokenizer_cls, builds=builds)
         scores = {k: v[metric] for k, v in oracle["results"].items()} \
             if metric == "cIoU" else {"": oracle["results"][metric]}
         log(f"phase {phase} {name} ground truth as logits through the "
@@ -3737,9 +3852,12 @@ def run_files(card: str, root: pathlib.Path) -> dict:
     common = ["--checkpoint", str(paths["checkpoint"]),
               "--sam-checkpoint", str(paths["sam"]),
               "--trained", str(paths["trained"])]
-    cli_stats, total = run_eval_clis(25, common, card, manifest)
+    builds = {}  # the ground-truth pass and phase 35's CLIs replay them
+    cli_stats, total = run_eval_clis(25, common, card, manifest,
+                                     builds=builds)
     stats.update(cli_stats)
-    return {"launches": total, "stats": stats, "paths": paths}
+    return {"launches": total, "stats": stats, "paths": paths,
+            "builds": builds}
 
 
 def stage_split(params: dict, cfg, batch: dict) -> dict:
@@ -4574,7 +4692,8 @@ def run_train_real(card: str, paths: dict) -> dict:
         for path, argv, tokenizer, bs, config_wrapper in (
                 ("llava_next_vicuna_7b_train_real",
                  ["--family", "llava_next", "--preset", "vicuna_7b",
-                  "--batch-size", "2", "--seq-len", "3200", *data],
+                  "--batch-size", "2", "--seq-len", "3200", "--max-masks",
+                  str(WIDE_MASKS[0]), *data],
                  LlamaWordTokenizer(), 2, None),
                 ("mgm_gemma_2b_train_real",
                  ["--family", "mgm", "--preset", "gemma_2b", "--batch-size",
@@ -5278,7 +5397,7 @@ def run_quant(card: str, paths: dict, files: dict, e2e: dict | None = None,
               "--trained", str(paths["trained"]), "--int8-sam"]
     cli_stats, cli_launches = run_eval_clis(
         35, common, card, manifest, path="deepseek_vl_1_3b_int8_sam",
-        gt_pass=False)
+        gt_pass=False, builds=files.get("builds"))
     for name in ("eval_refcoco", "eval_png"):
         log(f"phase 35 {name} --int8-sam ({card}): "
             f"{json.dumps(cli_stats[name]['results'])}; bf16 (phase 25): "
@@ -5348,9 +5467,14 @@ def run_sharded_clis(card: str, files: dict, common: list) -> dict:
     for label, (main_fn, root, res_key, n_samples) in runs.items():
         argv = common + ["--data-root", str(FIXTURE / root), "--debug",
                          "--sharded-eval"]
+        replays = {"replayed": 0}
         with contextlib.ExitStack() as stack:
             stack.enter_context(_wrapped(eval_refcoco, "SPLITS",
                                          lambda splits: splits[:1]))
+            if files.get("builds") is not None:  # phase 25's batches
+                stack.enter_context(_wrapped(
+                    collate, "build_batch",
+                    replaying(files["builds"], replays)))
             stack.enter_context(contextlib.redirect_stdout(sys.stderr))
             _zero_launches()
             torch.cuda.synchronize()
@@ -5367,7 +5491,8 @@ def run_sharded_clis(card: str, files: dict, common: list) -> dict:
             f"in {wall:.1f} s with the model setup; phase 25's host path "
             f"{json.dumps(want)}; launches "
             f"{({k: n for k, n in launches.items() if n})} ({batches} "
-            "forwards)")
+            f"forwards; {replays['replayed']} batches replayed from phase "
+            "25's builds)")
         if got != want:
             raise AssertionError(f"{label}: --sharded-eval gives other "
                                  "results than the host path")
@@ -5822,6 +5947,7 @@ def main() -> None:
         quant = run_quant(card, files["paths"], files, e2e, families)
         stamp("phase 35")
         par = run_parallel(card, files)
+        del files["builds"]
         stamp("phase 36")
     measure = run_measure_scripts(card)
     stamp("phase 37")

@@ -50,8 +50,9 @@
 //    head are neighbours in the grid, so their blocks share K and V in L2.
 //    It writes out as (B, S, H, hd) and the row log-sum-exp in base 2 of the
 //    scaled scores, -inf for a row without a visible key.
-// 2a. merged capture: one warpgroup per (b, h, 64 image keys), the K tile
-//    loaded once by TMA.  A first small kernel flags the 64-row query blocks
+// 2a. merged capture: one warpgroup per (b, h, 64 image keys, chunk of up
+//    to 32 masks), the K tile loaded once by TMA.  A first small kernel
+//    flags the 64-row query blocks
 //    whose merge rows are not all zero (for F-LMM only the caption rows
 //    are); the block compacts the flags of the query blocks that see its
 //    keys into a list and walks it in order, prefetching the next Q tile by
@@ -60,8 +61,14 @@
 //    M) += P^T mm by wgmma with P^T from registers and mm^T staged as bf16 in
 //    the 128-byte swizzle, hi + lo pairs in three products (hi hi, lo hi,
 //    hi lo), so the merge keeps ~f32 accuracy where the TPU kernel rounded
-//    both to bf16.  Each output element has one owner and one summation
-//    order: no atomics, no partial buffer, the same bits on every run.
+//    both to bf16.  Any M: up to 32 masks take one block, padded to N = 8,
+//    16 or 32; more take ceil(M / 32) blocks side by side in the grid, each
+//    on the columns [32 c, 32 c + w) of mm (row stride M; a partial last
+//    chunk stages zeros past w) and writing those rows of merged.  Each
+//    chunk recomputes S^T and p^T for the flagged blocks only (the caption
+//    rows), the cost of keeping acc at 16 registers a thread.  Each output
+//    element has one owner and one summation order: no atomics, no partial
+//    buffer, the same bits on every run.
 // 2b. raw capture: one warpgroup per (b, h, 64 query rows) walks the image
 //    key tiles at or below its diagonal (TMA, two stages), recomputes Q K^T
 //    on wgmma and stages exp2(s alpha - lse) under the masks as an f32 tile
@@ -97,7 +104,6 @@ constexpr int HD = 128;
 constexpr int BOX = 64 * 128;   // one box: 64 rows of 64 bf16
 constexpr int TILE = 2 * BOX;   // 64 rows of a head: columns 0-63, 64-127
 constexpr int BLOCK = 128;      // the contract's alignment of S, img_start
-constexpr int MAX_M = 32;
 constexpr int SMEM_LIMIT = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -425,7 +431,9 @@ __device__ __forceinline__ void wgmma_rs_masks(float* d, const uint32_t* a,
   else sm90::wgmma_rs_n32<0>(d, a, db, 1);
 }
 
-template <int NT>  // the masks padded to NT * 8: 8, 16 or 32
+// blockIdx.x = key block * chunks + chunk: a key block's chunks are
+// neighbours, so they share its K tile and the Q tiles in L2.
+template <int NT>  // a chunk's masks padded to NT * 8: 8, 16 or 32
 __global__ void __launch_bounds__(128)
 merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k, int H,
@@ -448,7 +456,10 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c2 = (lane % 4) * 2;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int key0 = img_start + blockIdx.x * 64;  // the block's first key
+  const int chunks = (M + MP - 1) / MP;
+  const int key0 = img_start + (blockIdx.x / chunks) * 64;  // first key
+  // this chunk's masks [m0, m0 + w)
+  const int m0 = (blockIdx.x % chunks) * MP, w = min(MP, M - m0);
   const int nqb = Sq / 64;  // local query blocks; block i is global i + qb0
   const int qb0 = q_off / 64;
 
@@ -478,10 +489,10 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     if (lane == 0) n_list = n;
   }
-  // the mm^T rows past M stay zero in both stages
+  // the mm^T rows past the chunk's w stay zero in both stages
   for (int i = tid; i < 4 * MP * 64; i += 128) {
     const int r = (i / 64) % MP;
-    if (r >= M)
+    if (r >= w)
       reinterpret_cast<bf16*>(smem + L.mm(0, 0))[i] = __float2bfloat16(0.f);
   }
   __syncthreads();
@@ -507,13 +518,13 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   for (int it = 0; it < n; ++it) {
     const int st = it & 1, q0 = list[it] * 64;
-    // mm^T of the 64 rows as bf16 hi + lo (row = mask, 64 queries of 128
-    // bytes in the 128-byte swizzle), and their lse
+    // the chunk's mm^T of the 64 rows as bf16 hi + lo (row = mask, 64
+    // queries of 128 bytes in the 128-byte swizzle), and their lse
     bf16* mhi = reinterpret_cast<bf16*>(smem + L.mm(st, 0));
     bf16* mlo = reinterpret_cast<bf16*>(smem + L.mm(st, 1));
-    for (int i = tid; i < 64 * M; i += 128) {
-      const int r = i / M, c = i % M;
-      const float x = mm_b[(long long)q0 * M + i];
+    for (int i = tid; i < 64 * w; i += 128) {
+      const int r = i / w, c = i % w;
+      const float x = mm_b[(long long)(q0 + r) * M + m0 + c];
       const bf16 hi = __float2bfloat16(x);
       const int at = c * 64 + (((r >> 3) ^ (c & 7)) << 3) + (r & 7);
       mhi[at] = hi;
@@ -573,14 +584,14 @@ merged_capture_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::fence_regs<NT * 4>(acc);
   }
 
-  // acc[4 n + e]: key k0 (e < 2) or k1, mask 8 n + c2 + (e & 1)
-  float* out_bh = merged + (long long)bh * M * n_img;
+  // acc[4 n + e]: key k0 (e < 2) or k1, mask m0 + 8 n + c2 + (e & 1)
+  float* out_bh = merged + ((long long)bh * M + m0) * n_img;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = (e < 2 ? k0 : k1) - img_start, m = 8 * nt + c2 + (e & 1);
-      if (m < M && col < n_img)
+      if (m < w && col < n_img)
         out_bh[(long long)m * n_img + col] = acc[4 * nt + e];
     }
 }
@@ -796,7 +807,8 @@ int launch_merged(const Operands& a, const unsigned char* flags,
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((a.n_img + 63) / 64, a.B * a.H), 128, smem, a.st>>>(
+  const int chunks = (M + NT * 8 - 1) / (NT * 8);
+  kernel<<<dim3((a.n_img + 63) / 64 * chunks, a.B * a.H), 128, smem, a.st>>>(
       a.map_q, a.map_k, a.H, a.H / a.KV, a.S, a.Sq, a.q_off, a.valid, flags,
       a.alpha(), a.lse, mm, M, a.img_start, a.n_img, merged);
   return (int)cudaGetLastError();
@@ -836,18 +848,19 @@ extern "C" int flmm_flash_capture(
     int q_off, int head_dim, const void* key_valid, const void* mm, int M,
     int img_start, int n_img, void* out, long long o_b, long long o_h,
     long long o_t, void* lse, void* flags, void* merged, void* stream) {
-  if (M <= 0 || M > MAX_M) return (int)cudaErrorInvalidValue;
+  if (M < 0) return (int)cudaErrorInvalidValue;
   Operands a = operands(q, q_b, q_h, q_t, k, k_b, k_h, k_t, v, v_b, v_h, v_t,
                         B, H, KV, S, Sq, q_off, key_valid, img_start, n_img,
                         out, o_b, o_h, o_t, lse, stream);
   int e = flash_forward(a, head_dim);
-  if (e) return e;
+  if (e || M == 0) return e;
   merge_flags_kernel<<<dim3(Sq / 64, B), 64, 0, a.st>>>(
       (const float*)mm, M, Sq, (unsigned char*)flags);
   e = (int)cudaGetLastError();
   if (e) return e;
   const unsigned char* f = (const unsigned char*)flags;
   const float* mmf = (const float*)mm;
+  // above 32 masks, chunks of 32
   return M <= 8    ? launch_merged<1>(a, f, mmf, M, (float*)merged)
          : M <= 16 ? launch_merged<2>(a, f, mmf, M, (float*)merged)
                    : launch_merged<4>(a, f, mmf, M, (float*)merged);

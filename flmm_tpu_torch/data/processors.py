@@ -74,16 +74,22 @@ def _pass(image: np.ndarray, axis: int, out_size: int, name: str
           ) -> np.ndarray:
     """One pass along ``axis`` (0 rows, 1 columns) of an ``(H, W, C)``
     uint8 image: the fixed-point sum over the taps, PIL's rounding offset,
-    shift and clip to uint8."""
+    shift and clip to uint8.  It runs over the leading axis of a contiguous
+    copy (the transpose for the columns), so that a tap gathers whole rows
+    into one reused buffer."""
     index, coeff = resample_taps(image.shape[axis], out_size, name)
-    x = np.moveaxis(image, axis, 0).astype(np.int32)
-    acc = np.full((out_size,) + x.shape[1:], 1 << (PRECISION_BITS - 1),
+    x = np.ascontiguousarray(np.moveaxis(image, axis, 0))
+    src = x.reshape(x.shape[0], -1).astype(np.int32)
+    acc = np.full((out_size, src.shape[1]), 1 << (PRECISION_BITS - 1),
                   np.int32)
-    extra = (None,) * (x.ndim - 1)
+    tap = np.empty_like(acc)
     for j in range(index.shape[1]):
-        acc += coeff[(slice(None), j) + extra] * x[index[:, j]]
-    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
+        np.take(src, index[:, j], axis=0, out=tap)
+        tap *= coeff[:, j, None]
+        acc += tap
+    acc >>= PRECISION_BITS
+    out = np.clip(acc, 0, 255).astype(np.uint8)
+    return np.moveaxis(out.reshape((out_size,) + x.shape[1:]), 0, axis)
 
 
 def resample(image: np.ndarray, out_hw: tuple, name: str = "bicubic"

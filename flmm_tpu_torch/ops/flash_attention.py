@@ -28,7 +28,6 @@ from flmm_tpu_torch.ops import _cuda
 from flmm_tpu_torch.ops._matmul import matmul_f32
 
 BLOCK = 128
-MAX_MASKS = 32  # csrc/flash_capture_sm90.cu MAX_M
 
 
 def _check_contract(q, k, v, key_valid, merge_matrix, img_start, n_img,
@@ -117,7 +116,7 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
       key_valid: ``(B, S)`` bool key validity (mid-sequence holes, e.g. the
         anyres image-pad slots and the alignment pads).
       merge_matrix: ``(B, S_loc, M)`` mean-merge matrix rows of the query
-        rows (pre-normalised over all S), ``M <= 32``.
+        rows (pre-normalised over all S), any ``M``.
       q_offset: the first query row's global index; it and ``S_loc`` are
         multiples of 128.
 
@@ -134,10 +133,9 @@ def flash_attention_with_merged_capture(q, k, v, key_valid, merge_matrix,
     B, H, S_loc, hd = q.shape
     S = k.shape[2]
     KV, M = k.shape[1], merge_matrix.shape[-1]
-    if hd != 128 or M > MAX_MASKS:
+    if hd != 128:
         raise ValueError(f"flash_attention_with_merged_capture: kernel built "
-                         f"for head_dim 128 and at most {MAX_MASKS} masks, "
-                         f"got {hd} and {M}")
+                         f"for head_dim 128, got {hd}")
     _check_strided("flash_attention_with_merged_capture", q, k, v)
     valid = key_valid.contiguous()
     mm = merge_matrix.float().contiguous()

@@ -53,25 +53,32 @@ def _key_valid(rng):
     return valid
 
 
-def _mask_ids():
+def _mask_ids(n_masks=M):
+    """Masks 0-2 over caption rows; masks 3 up one row each from 331."""
     ids = np.full((B, S), -1, np.int32)
     ids[0, 300:310], ids[0, 312:330], ids[1, 290:300] = 0, 1, 2
     ids[1, 240:244] = 0
+    ids[:, 331:331 + n_masks - M] = np.arange(M, n_masks)
     return ids
 
 
-@pytest.mark.parametrize("kv_heads", [2, 1], ids=["mha", "gqa"])
-def test_plain_matches_pallas_interpret(kv_heads):
+@pytest.mark.parametrize("kv_heads, n_masks", [(2, M), (1, M), (2, 37),
+                                               (1, 37)],
+                         ids=["mha", "gqa", "mha-m37", "gqa-m37"])
+def test_plain_matches_pallas_interpret(kv_heads, n_masks):
     """H = 2 query heads over 2 (MHA) or 1 (GQA) kv heads; the JAX kernel
-    takes the head-repeated k / v, the port the kv heads themselves."""
+    takes the head-repeated k / v, the port the kv heads themselves.  37
+    masks: more than the 32 one block of the CUDA kernel's merged pass
+    takes (the JAX kernel pads them to 40)."""
     rng = np.random.default_rng(0)
     H, hd = 2, 32
     q = rng.standard_normal((B, H, S, hd)).astype(np.float32) * 0.3
     k = rng.standard_normal((B, kv_heads, S, hd)).astype(np.float32) * 0.3
     v = rng.standard_normal((B, kv_heads, S, hd)).astype(np.float32) * 0.3
     valid = _key_valid(rng)
-    mm = np.array(jax.vmap(lambda i: jmasks.mean_merge_matrix(i, M))(
-        jnp.asarray(_mask_ids())))
+    mm = np.array(jax.vmap(lambda i: jmasks.mean_merge_matrix(i, n_masks))(
+        jnp.asarray(_mask_ids(n_masks))))
+    assert (mm != 0).any(axis=(0, 1)).all()  # every mask has a caption row
     rep = H // kv_heads
     want_out, want_merged = jfa.flash_attention_with_merged_capture(
         jnp.asarray(q), jnp.asarray(np.repeat(k, rep, 1)),
@@ -79,7 +86,7 @@ def test_plain_matches_pallas_interpret(kv_heads):
         jnp.asarray(mm), IMG_START, N_IMG, interpret=True)
     out, merged = fa.flash_attention_with_merged_capture_plain(
         *map(torch.from_numpy, (q, k, v, valid, mm)), IMG_START, N_IMG)
-    assert tuple(merged.shape) == (B, H, M, N_IMG)
+    assert tuple(merged.shape) == (B, H, n_masks, N_IMG)
     np.testing.assert_allclose(merged.numpy(), np.asarray(want_merged),
                                atol=MERGED_ATOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out),

@@ -14,7 +14,9 @@ mode, on the CPU.
   without a visible key give out = 0 and lse = -inf.
 - Pass 2a: the query blocks flagged by their merge rows, walked from the
   block of the first image key in order; S^T = K Q^T, p^T from the lse, the
-  product with mm as bf16 hi + lo pairs in three products.  Against the JAX
+  product with mm as bf16 hi + lo pairs in three products; above 32 masks
+  one walk a chunk of 32 (the flags shared, the partial last chunk's
+  columns past M zero).  Against the JAX
   kernel at atol 2e-3 (it rounds mm and p to bf16,
   tests/test_flash_attention.py:90), against the f32 plain version at a max
   rel err of 1e-4 (what chip_smoke.py asks of the kernel), and with the
@@ -28,13 +30,15 @@ mode, on the CPU.
   written nor read; against the JAX raw-capture kernel at 2e-5 on the valid
   rows (f32 on both sides, as tests/test_torch_raw_capture.py).
 - The layouts: pass 2b's staged f32 tile is the 128-byte swizzle of TMA's
-  32-column boxes, and pass 2a's mm^T staging that of a K-major bf16 tile,
-  the layout wgmma's descriptor reads.
+  32-column boxes, and pass 2a's mm^T staging (a chunk's columns of mm
+  read at row stride M) that of a K-major bf16 tile, the layout wgmma's
+  descriptor reads.
 
 Shapes: GQA 4 / 2 at head_dim 128 (the kernel's), S = 256 and 384,
-img_start 128, n_img 100 and 128, M in {1, 8, 32}.
+img_start 128, n_img 100 and 128, M in {1, 8, 32, 40}.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -52,7 +56,9 @@ LOOP_TOL, LSE_TOL, MERGED_ATOL, MERGED_REL, RAW_ATOL = (2e-2, 1e-5, 2e-3,
                                                         1e-4, 2e-5)
 ALPHA = math.log2(math.e) / math.sqrt(HD)
 NEG = float("-inf")
-CASES = [(256, 100, 1), (384, 128, 8), (384, 100, 32)]  # S, n_img, M
+CASES = [(256, 100, 1), (384, 128, 8), (384, 100, 32),
+         (384, 100, 40)]  # S, n_img, M
+CHUNK = 32  # the widest instantiation of the merged pass, N = 32
 
 
 def _inputs(seed, S, M):
@@ -134,37 +140,52 @@ def _split(x):
     return hi, (x - hi).bfloat16().float()
 
 
+def mask_chunks(M):
+    """The merged pass's blocks over the masks of one key block: ``(m0, w,
+    mp)`` a chunk, its first mask, its width and its width padded to the
+    instantiation's N (8, 16 or 32; chunks of 32 above 32 masks)."""
+    mp = 8 if M <= 8 else 16 if M <= 16 else CHUNK
+    return [(m0, min(mp, M - m0), mp) for m0 in range(0, M, mp)]
+
+
 def pass2a(q, k, lse, valid, mm, n_img, skip=True, q_off=0):
     """merged (B, H, M, n_img) f32 as the capture pass accumulates it; q,
     lse and mm hold the rows ``[q_off, q_off + S_q)`` (local query block i
-    is global block i + q_off / 64), the sum over those rows only."""
+    is global block i + q_off / 64), the sum over those rows only.  Each
+    chunk of masks walks the same flagged blocks in the same order and
+    writes its own rows of merged."""
     S, M = q.shape[2], mm.shape[-1]
     kf = _heads(k)
     flags = merge_flags(mm)
-    merged = torch.zeros(B, H, M, n_img)
-    for b in range(B):
-        for kb in range(-(-n_img // 64)):
-            key0 = IMG_START + 64 * kb
-            keys = torch.arange(key0, key0 + 64)
-            order = [i for i in range(max(0, key0 // 64 - q_off // 64),
-                                      S // 64)
-                     if flags[b, i] or not skip]
-            acc = torch.zeros(H, 64, M)
-            for i in order:
-                qi = torch.arange(64 * i, 64 * i + 64)
-                st = kf[b, :, keys] @ q[b, :, qi].float().transpose(-1, -2)
-                ok = valid[b, keys][:, None] & (
-                    keys[:, None] <= qi[None, :] + q_off)
-                pt = torch.where(ok, torch.exp2(st * ALPHA
-                                                - lse[b, :, None, qi]), 0.0)
-                phi, plo = _split(pt)
-                mhi, mlo = _split(mm[b, qi].float())
-                acc = acc + phi @ mhi
-                acc = acc + plo @ mhi
-                acc = acc + phi @ mlo
-            cols = min(64, n_img - 64 * kb)
-            merged[b, :, :, 64 * kb:64 * kb + cols] = acc[:, :cols].transpose(
-                1, 2)
+    merged = torch.full((B, H, M, n_img), float("nan"))
+    for b, kb, (m0, w, mp) in itertools.product(
+            range(B), range(-(-n_img // 64)), mask_chunks(M)):
+        key0 = IMG_START + 64 * kb
+        keys = torch.arange(key0, key0 + 64)
+        order = [i for i in range(max(0, key0 // 64 - q_off // 64), S // 64)
+                 if flags[b, i] or not skip]
+        acc = torch.zeros(H, 64, mp)
+        for i in order:
+            qi = torch.arange(64 * i, 64 * i + 64)
+            st = kf[b, :, keys] @ q[b, :, qi].float().transpose(-1, -2)
+            ok = valid[b, keys][:, None] & (
+                keys[:, None] <= qi[None, :] + q_off)
+            pt = torch.where(ok, torch.exp2(st * ALPHA
+                                            - lse[b, :, None, qi]), 0.0)
+            phi, plo = _split(pt)
+            # the chunk's columns; those past w staged as zeros
+            chunk = torch.zeros(64, mp)
+            chunk[:, :w] = mm[b, qi, m0:m0 + w].float()
+            mhi, mlo = _split(chunk)
+            acc = acc + phi @ mhi
+            acc = acc + plo @ mhi
+            acc = acc + phi @ mlo
+        assert not acc[..., w:].any()
+        cols = min(64, n_img - 64 * kb)
+        assert merged[b, :, m0:m0 + w, 64 * kb:64 * kb + cols].isnan().all()
+        merged[b, :, m0:m0 + w, 64 * kb:64 * kb + cols] = acc[
+            :, :cols, :w].transpose(1, 2)
+    assert not merged.isnan().any()
     return merged
 
 
@@ -323,18 +344,27 @@ def test_raw_staged_tile_is_the_tma_swizzle_of_32_column_boxes():
     assert np.array_equal(smem.reshape(2, 64, 8, 4), want)
 
 
-@pytest.mark.parametrize("mp", [8, 16, 32])
-def test_merge_matrix_staging_is_the_tma_swizzle(mp):
-    """mm^T (mp mask rows x 64 queries) written element by element at
-    c * 64 + ((r / 8) ^ (c % 8)) * 8 + r % 8 is the layout TMA's 128-byte
-    swizzle gives a K-major tile: 16-byte chunk i of row c at chunk
-    i ^ (c % 8)."""
-    rng = np.random.default_rng(mp)
-    mt = rng.standard_normal((mp, 64)).astype(np.float32)
+@pytest.mark.parametrize("M, m0", [(8, 0), (16, 0), (32, 0), (40, 0),
+                                   (40, 32)],
+                         ids=["8", "16", "32", "40-chunk0", "40-chunk1"])
+def test_merge_matrix_staging_is_the_tma_swizzle(M, m0):
+    """A chunk's mm^T (mp mask rows x 64 queries), read from the flat
+    ``(64, M)`` rows of mm as the kernel's loop reads them (element i of
+    the chunk's ``64 * w``: row i / w, column m0 + i % w, at row stride M)
+    and written at c * 64 + ((r / 8) ^ (c % 8)) * 8 + r % 8, is the layout
+    TMA's 128-byte swizzle gives a K-major tile: 16-byte chunk i of row c at
+    chunk i ^ (c % 8); the rows past the chunk's width w stay zero."""
+    (m0_, w, mp), = [c for c in mask_chunks(M) if c[0] == m0]
+    rng = np.random.default_rng(M + m0)
+    mm = rng.standard_normal((64, M)).astype(np.float32)
+    flat = mm.reshape(-1)
     smem = np.zeros(mp * 64, np.float32)
-    for r in range(64):
-        for c in range(mp):
-            smem[c * 64 + (((r >> 3) ^ (c & 7)) << 3) + (r & 7)] = mt[c, r]
+    for i in range(64 * w):
+        r, c = i // w, i % w
+        smem[c * 64 + (((r >> 3) ^ (c & 7)) << 3) + (r & 7)] = flat[
+            r * M + m0 + c]
+    mt = np.zeros((mp, 64), np.float32)
+    mt[:w] = mm[:, m0:m0 + w].T
     want = np.zeros((mp, 8, 8), np.float32)
     for c in range(mp):
         for i in range(8):
