@@ -377,7 +377,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from flmm_tpu_torch import bench as e2e_bench
 from flmm_tpu_torch import bench_families, eval_png, eval_refcoco, \
-    fused_piece_bench, kernel_bench, registry, schedule_bench, \
+    fused_piece_bench, kernel_bench, registry, schedule_bench, trace, \
     train_overlap_bench
 from flmm_tpu_torch.configs import deepseek_vl, llava_next
 from flmm_tpu_torch.configs import mgm as mgm_configs
@@ -2913,24 +2913,6 @@ def eval_spec(cfg) -> BatchSpec:
             size_rule=registry.FAMILY_SIZE_RULES["deepseek_vl"]))
 
 
-def device_busy_ms(prof) -> tuple[float, float]:
-    """(busy, window) in ms of a profile: the union of the device events'
-    intervals, and the span from the first one's start to the last one's
-    end.  CUPTI's "Command Buffer Full" records (host time blocked on a
-    full launch queue) are no device work and are left out."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.name != "Command Buffer Full")
-    busy, lo, hi = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo = busy + hi - lo, start
-        hi = max(hi, end)
-    busy += hi - lo
-    return busy / 1e3, (hi - spans[0][0]) / 1e3
-
-
 def eval_loop(params, cfg, samples, acc, score, predict=None,
               builds: dict | None = None) -> dict:
     """``run_eval`` over ``samples`` with every launch count at 0 just
@@ -3047,7 +3029,7 @@ def run_eval_phase(g: torch.Generator, card: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         png = eval_loop(params, cfg, samples, metrics.PNGAccumulator,
                         runner.png_score)
-    busy_ms, _ = device_busy_ms(prof)
+    busy_ms = trace.profile_breakdown(prof.events())["busy_s"] * 1e3
     del prof
     _check_eval("png SAM-1024", png, n_masks,
                 EXPECTED_LAUNCHES["deepseek_vl_1_3b"])
@@ -3348,7 +3330,8 @@ def run_generation(card: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         kernel.answer(images[0], GEN_QUESTION)
         torch.cuda.synchronize()
-    busy_ms, window_ms = device_busy_ms(prof)
+    parts = trace.profile_breakdown(prof.events())
+    busy_ms, window_ms = parts["busy_s"] * 1e3, parts["window_s"] * 1e3
     device_ops = sum(1 for e in prof.events()
                      if e.device_type == DeviceType.CUDA
                      and e.name != "Command Buffer Full")

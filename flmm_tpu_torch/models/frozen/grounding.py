@@ -22,6 +22,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.models.frozen.base import grounding_losses
 from flmm_tpu_torch.models.llm import decoder as llm
 from flmm_tpu_torch.models.mask_head import refiner as sam_refiner
@@ -181,6 +182,7 @@ def image_embeddings(fro: dict, cfg: GroundingConfig,
     return _project_hybrid(high, feats, fro["projector"]).to(cfg.dtype)
 
 
+@trace.spanned("forward")
 def forward(params: dict, cfg: GroundingConfig, batch: dict) -> dict:
     """Grounding forward for a static-shape batch (schema of
     flmm_tpu.models.frozen.grounding.forward, as tensors on one device;
@@ -229,9 +231,12 @@ def heads_forward(params: dict, cfg: GroundingConfig,
                   batch: dict, img_emb: torch.Tensor | None = None) -> dict:
     """Attention images ``(B*M, h, w, C)`` -> U-Net -> text prompts -> SAM.
     ``img_emb``: the SAM encoder's embedding of ``sam_pixel_values``, when
-    the caller has it already."""
+    the caller has it already.  Counts ``heads_slots`` (the U-Net's maps,
+    B*M) and ``masks_valid`` for the tracer."""
     fro, tra = params["frozen"], params["trainable"]
     B, M = batch["mask_valid"].shape
+    trace.count("heads_slots", B * M)
+    trace.count("masks_valid", batch["mask_valid"])
 
     coarse = unet.forward(tra["unet"], cfg.unet, attn_nhwc)
     Hc, Wc = coarse.shape[-2:]
@@ -246,11 +251,12 @@ def heads_forward(params: dict, cfg: GroundingConfig,
         img_emb = sam_encoder.forward(fro["sam_encoder"], cfg.sam.encoder,
                                       batch["sam_pixel_values"])
     geom = batch["geom"]
-    refined = [sam_refiner.refine(
-        tra["sam"], cfg.sam, img_emb[b], coarse[b],
-        {k: geom[k][b] for k in ("crop_y", "crop_x", "crop_h", "crop_w",
-                                 "sam_h", "sam_w")},
-        text[b], batch["text_valid"][b]) for b in range(B)]
+    with trace.span("refine"):
+        refined = [sam_refiner.refine(
+            tra["sam"], cfg.sam, img_emb[b], coarse[b],
+            {k: geom[k][b] for k in ("crop_y", "crop_x", "crop_h", "crop_w",
+                                     "sam_h", "sam_w")},
+            text[b], batch["text_valid"][b]) for b in range(B)]
 
     return {
         "coarse_logits": coarse,

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.data.llava_next import AnyresSpec
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen.base import grounding_losses
@@ -127,6 +128,7 @@ def capture(params: dict, cfg: LlavaNextConfig, batch: dict) -> dict:
         position_ids=batch["position_ids"])
 
 
+@trace.spanned("forward")
 def forward(params: dict, cfg: LlavaNextConfig, batch: dict) -> dict:
     """Grounding forward for an anyres batch (schema of
     data/llava_next.py); outputs as ``grounding.forward``."""
@@ -147,6 +149,7 @@ def loss_fn(params: dict, cfg: LlavaNextConfig, batch: dict) -> tuple:
     return losses["loss"], losses
 
 
+@trace.spanned("frames")
 def assemble_frames(cfg: LlavaNextConfig, attn: torch.Tensor,
                     batch: dict) -> torch.Tensor:
     """Coarse + fine attention maps ``(B, L, H, M, n_max)`` -> the square

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.data.mgm import MGMProcessSpec
 from flmm_tpu_torch.models.frozen import grounding
 from flmm_tpu_torch.models.frozen.base import grounding_losses
@@ -231,6 +232,7 @@ def capture(params: dict, cfg: MGMConfig, batch: dict,
         merge=gcfg.merge, layer_weights=lw)
 
 
+@trace.spanned("forward")
 def forward(params: dict, cfg: MGMConfig, batch: dict) -> dict:
     """Grounding forward for an MGM batch (``pixel_values`` ``(B, n_crops,
     336, 336, 3)``, ``aux_pixel_values``; the rest as ``grounding.forward``);

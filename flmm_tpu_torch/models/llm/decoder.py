@@ -35,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.flash_attention import flash_attention_with_merged_capture
 from flmm_tpu_torch.ops.quant import dense, quantize_weight
@@ -328,6 +329,7 @@ def flash_capture_ok(cfg: DecoderConfig, merge_matrix, merge: str,
     )
 
 
+@trace.spanned("capture")
 def forward_capture(params: dict, cfg: DecoderConfig,
                     inputs_embeds: torch.Tensor,
                     attention_mask: torch.Tensor, img_start: int, n_img: int,

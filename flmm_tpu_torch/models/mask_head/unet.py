@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.models.sam.common import conv2d
 from flmm_tpu_torch.ops.resize import resize_bilinear
 
@@ -92,6 +93,7 @@ def _maxpool2(x):
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
+@trace.spanned("unet")
 def forward(params: dict, cfg: UNetConfig, x: torch.Tensor) -> torch.Tensor:
     """``(M, h, w, C_in)`` attention maps -> ``(M, H, W)`` coarse logits."""
     x = x.to(cfg.dtype)

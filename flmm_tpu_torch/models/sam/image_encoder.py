@@ -51,6 +51,7 @@ import math
 
 import torch
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.models.sam.common import channel_norm, conv2d, layer_norm, mlp_block
 from flmm_tpu_torch.ops import global_block as gb
 from flmm_tpu_torch.ops import sam_flash_experiments as sfx
@@ -432,6 +433,7 @@ def _global_block_fused(x: torch.Tensor, bp: dict, cfg: SamEncoderConfig):
     return _ln_mlp_residual(o.to(cfg.dtype).reshape(B, H, W, C), bp, cfg)
 
 
+@trace.spanned("sam_encoder")
 def forward(params: dict, cfg: SamEncoderConfig,
             pixels: torch.Tensor) -> torch.Tensor:
     """Encode normalised, corner-padded ``(B, img, img, 3)`` images into

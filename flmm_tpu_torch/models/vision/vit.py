@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.models.sam.common import conv2d, layer_norm
 from flmm_tpu_torch.ops._matmul import matmul_f32
 from flmm_tpu_torch.ops.fused_block import activation, fused_ln_qkv, fused_proj_ln_mlp
@@ -108,6 +109,7 @@ def resample_pos_embed(pos: torch.Tensor, old_grid: int, new_grid: int,
     return g if cls is None else torch.cat([cls, g], dim=0)
 
 
+@trace.spanned("tower")
 def forward(params: dict, cfg: ViTConfig, pixels: torch.Tensor,
             select_layer: int = -1) -> torch.Tensor:
     """Hidden states at ``select_layer`` (HF indexing: -1 is the final layer

@@ -27,7 +27,11 @@ encoder and mask decoder) is trained and checkpointed
 checkpoint at the step it holds, and both streams start there, so a
 resumed run repeats the uninterrupted one.  ``--profile N`` writes a
 ``torch.profiler`` Chrome trace of steps 3 .. N + 2 to
-``<work-dir>/trace/``.
+``<work-dir>/trace/trace.json`` with the program's tracer on
+(flmm_tpu_torch/trace.py): its ``flmm.*`` ranges are the spans (``step``,
+``forward``, ``tower``, ``capture``, ``unet``, ``sam_encoder``, ``refine``,
+``backward``, ``optimizer``), written with their CUDA-event device ms and the
+heads' counters beside it as ``spans.jsonl``.
 
 ``--multihost`` runs one process a GPU under torchrun (data parallel over
 the mesh's ``"data"`` axis: the largest size that divides ``--batch-size``

@@ -1,6 +1,6 @@
 """Observability of a training run (flmm_tpu/train/diagnostics.py): a
 rolling step timer, a JSONL metric log, the non-finite gradient guard and a
-profiler trace of some steps."""
+profiler trace of some steps with the program's spans."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.train.loop import Optimizer
 
 
@@ -91,14 +92,20 @@ def nonfinite_guard(inner: Optimizer,
 @contextlib.contextmanager
 def profile(logdir, device: torch.device):
     """Record what runs inside the block with ``torch.profiler`` (host
-    activity, and the card's kernels when ``device`` is one) and write it
-    as a Chrome trace, ``<logdir>/trace.json``, at the block's end (the
-    counterpart of the JAX package's XLA trace for XProf)."""
+    activity, and the card's kernels when ``device`` is one) and the
+    program's tracer on (flmm_tpu_torch/trace.py); at the block's end write
+    the Chrome trace, ``<logdir>/trace.json``, whose ``flmm.*`` ranges are
+    the spans (the counterpart of the JAX package's XLA trace for XProf),
+    and the spans and counters as JSON lines, ``<logdir>/spans.jsonl``."""
     logdir = pathlib.Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with trace.tracing(), \
+            torch.profiler.profile(activities=activities) as prof:
         yield prof
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     prof.export_chrome_trace(str(logdir / "trace.json"))
+    trace.export(logdir / "spans.jsonl")

@@ -35,6 +35,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from flmm_tpu_torch import trace
 from flmm_tpu_torch.parallel import mesh as mesh_lib
 
 FROZEN_LEAVES = ("pe_gaussian",)
@@ -152,6 +153,7 @@ def init_state(trainable, opt: Optimizer) -> dict:
     return {"step": 0, "params": trainable, "opt_state": opt.init(trainable)}
 
 
+@trace.spanned("backward")
 def gradients(loss: torch.Tensor, trainable) -> dict:
     """``d loss / d leaf`` keyed by the trainable leaf paths (None where a
     leaf takes no gradient)."""
@@ -176,13 +178,16 @@ def make_train_step(loss_fn: Callable, opt: Optimizer) -> Callable:
     """``step(state, frozen, batch) -> (state, metrics)`` (optax
     ``make_train_step``): the metrics, ``grad_norm`` among them, are those
     of the incoming batch before the update; ``loss_fn(params, batch) ->
-    (loss, metrics)``."""
+    (loss, metrics)``.  The tracer's spans: ``step`` around it all,
+    ``backward`` (in :func:`gradients`) and ``optimizer``."""
 
+    @trace.spanned("step")
     def step(state: dict, frozen, batch) -> tuple[dict, dict]:
         (_, metrics), grads = value_and_grad(loss_fn, frozen,
                                              state["params"], batch)
-        state["opt_state"] = opt.update(grads, state["opt_state"],
-                                        state["params"])
+        with trace.span("optimizer"):
+            state["opt_state"] = opt.update(grads, state["opt_state"],
+                                            state["params"])
         state["step"] += 1
         metrics["grad_norm"] = global_norm(grads)
         return state, metrics
@@ -214,6 +219,7 @@ def make_sharded_train_step(loss_fn: Callable, opt: Optimizer,
     ``grounding_losses`` does."""
     axis = mesh_lib.axis_of(mesh, "data")
 
+    @trace.spanned("step")
     def step(state: dict, frozen, batch) -> tuple[dict, dict]:
         rows = mesh_lib.shard_rows(batch, axis)
         count = rows["mask_valid"].float().sum()
@@ -226,8 +232,9 @@ def make_sharded_train_step(loss_fn: Callable, opt: Optimizer,
         terms = mesh_lib.all_reduce(torch.stack(
             [metrics[k].detach().float() for k in names]) * scale,
             axis.group)
-        state["opt_state"] = opt.update(grads, state["opt_state"],
-                                        state["params"])
+        with trace.span("optimizer"):
+            state["opt_state"] = opt.update(grads, state["opt_state"],
+                                            state["params"])
         state["step"] += 1
         metrics = dict(zip(names, terms))
         metrics["grad_norm"] = global_norm(grads)

@@ -19,9 +19,15 @@ on one GPU.
 Builds the full-width model from a seed (as chip_smoke.py does), then for
 the kernel path and the all-plain path prints the device time by kernel
 from torch.profiler over one forward (or step), the device's busy and idle
-time, and stage times from CUDA events: vision tower, LLM capture for
-LLaVA-NeXT and HPT, SAM encoder and whole forward; for training the step's
-forward (the loss), backward and optimizer update.  For DeepSeek-VL serving
+time, and the program's spans (flmm_tpu_torch/trace.py): the device's idle
+and the kernel launches of that profiled forward or step put down to the
+innermost span open on the host, and each span's device ms (CUDA events)
+and host ms and the heads' counters from one more forward or step with the
+tracer on and the profiler off (the profiler's cost a launch would swell
+the launch-bound spans' times); the spans are the vision
+tower, the LLM capture, LLaVA-NeXT's frame assembly, the SAM encoder, the
+U-Net, the refiner's loop and the whole forward, and for training the step,
+its backward and its optimizer update.  For DeepSeek-VL serving
 it (and ``--path bench`` at bench.py's default point) then times the three
 stages of K1 (window block) separately at the SAM-1024 window shape and K2's
 kernel beside its wrapper, for HPT the three stages of K10 (the attention
@@ -45,7 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
-from flmm_tpu_torch import bench, registry  # noqa: E402
+from flmm_tpu_torch import bench, registry, trace  # noqa: E402
 from flmm_tpu_torch.configs import deepseek_vl, llava_next  # noqa: E402
 from flmm_tpu_torch.convert.from_jax import from_jax  # noqa: E402
 from flmm_tpu_torch.data import collate, processors  # noqa: E402
@@ -53,10 +59,8 @@ from flmm_tpu_torch.data.synthetic import synthetic_batch, \
     synthetic_samples  # noqa: E402
 from flmm_tpu_torch.models.frozen import grounding  # noqa: E402
 from flmm_tpu_torch.models.frozen import llava_next as llava_next_model  # noqa: E402
-from flmm_tpu_torch.models.llm import decoder  # noqa: E402
 from flmm_tpu_torch.models.sam import image_encoder  # noqa: E402
-from flmm_tpu_torch.models.vision import vit  # noqa: E402
-from flmm_tpu_torch.ops import fused_block, global_block, masks, sam_flash, \
+from flmm_tpu_torch.ops import fused_block, global_block, sam_flash, \
     window_block  # noqa: E402
 from flmm_tpu_torch.train import loop  # noqa: E402
 
@@ -69,18 +73,10 @@ def deepseek_setup(g: torch.Generator):
         cfg, batch_size=chip_smoke.BS, seq_len=chip_smoke.SEQ,
         max_masks=chip_smoke.MASKS,
         text_tokens_per_mask=chip_smoke.TEXT, seed=1), "cuda")
-    fro = params["frozen"]
 
-    def stages(c):
-        return {
-            "siglip tower": lambda: vit.forward(
-                fro["vision"], c.vision, batch["pixel_values"]),
-            "sam encoder": lambda: image_encoder.forward(
-                fro["sam_encoder"], c.sam.encoder,
-                batch["sam_pixel_values"]),
-            "forward": lambda: grounding.forward(params, c, batch),
-        }
-    return cfg, stages
+    def forward(c):
+        return grounding.forward(params, c, batch)
+    return cfg, forward
 
 
 def llava_next_setup(g: torch.Generator):
@@ -89,23 +85,10 @@ def llava_next_setup(g: torch.Generator):
     params["frozen"]["llm"].pop("lm_head")
     chip_smoke.randomize_rel_pos(params, g)
     batch = chip_smoke.anyres_batches(cfg, "cuda")[1]
-    fro = params["frozen"]
-    tiles = batch["tiles"].reshape(-1, *batch["tiles"].shape[2:])
 
-    def stages(c):
-        b = c.base
-        return {
-            "clip tower (base + 4 tile slots)": lambda: vit.forward(
-                fro["vision"], b.vision, tiles,
-                select_layer=b.vision_select_layer),
-            "llm capture (pack + decoder)": lambda: llava_next_model.capture(
-                params, c, batch),
-            "sam encoder": lambda: image_encoder.forward(
-                fro["sam_encoder"], b.sam.encoder,
-                batch["sam_pixel_values"]),
-            "forward": lambda: llava_next_model.forward(params, c, batch),
-        }
-    return cfg, stages
+    def forward(c):
+        return llava_next_model.forward(params, c, batch)
+    return cfg, forward
 
 
 def hpt_setup(g: torch.Generator):
@@ -114,28 +97,10 @@ def hpt_setup(g: torch.Generator):
     params["frozen"]["llm"].pop("lm_head")
     chip_smoke.randomize_rel_pos(params, g)
     batch = chip_smoke.hpt_batches(cfg, 2, "cuda")[1]
-    fro = params["frozen"]
-    embeds = chip_smoke._randn(
-        g, (chip_smoke.BS, chip_smoke.HPT_SEQ, cfg.llm.hidden_size))
-    mm = masks.mean_merge_matrix(batch["mask_ids"], chip_smoke.MASKS)
-    lw = torch.softmax(params["trainable"]["text_layer_weights"], dim=0)
 
-    def stages(c):
-        return {
-            "siglip-so400m tower (26 layers)": lambda: vit.forward(
-                fro["vision"], c.vision, batch["pixel_values"],
-                select_layer=c.vision_select_layer),
-            "llm capture (decoder on random embeddings)":
-                lambda: decoder.forward_capture(
-                    fro["llm"], c.llm, embeds, batch["attn_mask"],
-                    img_start=c.img_start, n_img=c.num_img_tokens,
-                    merge_matrix=mm, merge=c.merge, layer_weights=lw),
-            "sam encoder": lambda: image_encoder.forward(
-                fro["sam_encoder"], c.sam.encoder,
-                batch["sam_pixel_values"]),
-            "forward": lambda: grounding.forward(params, c, batch),
-        }
-    return cfg, stages
+    def forward(c):
+        return grounding.forward(params, c, batch)
+    return cfg, forward
 
 
 def schedule_setup(sam_size: int):
@@ -143,18 +108,10 @@ def schedule_setup(sam_size: int):
     ``flmm_tpu_torch.bench.build`` at ``sam_size``, bs 4."""
     _, cfg, params, batch = bench.build(
         chip_smoke.BS, bench.Knobs(sam_size=sam_size), "cuda")
-    fro = params["frozen"]
 
-    def stages(c):
-        return {
-            "siglip tower": lambda: vit.forward(
-                fro["vision"], c.vision, batch["pixel_values"]),
-            "sam encoder": lambda: image_encoder.forward(
-                fro["sam_encoder"], c.sam.encoder,
-                batch["sam_pixel_values"]),
-            "forward": lambda: grounding.forward(params, c, batch),
-        }
-    return cfg, stages
+    def forward(c):
+        return grounding.forward(params, c, batch)
+    return cfg, forward
 
 
 def bench_setup(knobs: bench.Knobs):
@@ -163,29 +120,10 @@ def bench_setup(knobs: bench.Knobs):
     model, cfg, params, batch = bench.build(chip_smoke.BS, knobs, "cuda")
     if hasattr(cfg, "base"):
         raise SystemExit("--path bench: llava_next has --path llava_next")
-    fro = params["frozen"]
-    g = torch.Generator(device="cuda").manual_seed(1)
-    embeds = chip_smoke._randn(
-        g, (*batch["input_ids"].shape, cfg.llm.hidden_size))
-    mm = masks.mean_merge_matrix(batch["mask_ids"], chip_smoke.MASKS)
-    lw = torch.softmax(params["trainable"]["text_layer_weights"], dim=0)
 
-    def stages(c):
-        return {
-            "vision tower": lambda: vit.forward(
-                fro["vision"], c.vision, batch["pixel_values"],
-                select_layer=c.vision_select_layer),
-            "llm capture (decoder on random embeddings)":
-                lambda: decoder.forward_capture(
-                    fro["llm"], c.llm, embeds, batch["attn_mask"],
-                    img_start=c.img_start, n_img=c.num_img_tokens,
-                    merge_matrix=mm, merge=c.merge, layer_weights=lw),
-            "sam encoder": lambda: image_encoder.forward(
-                fro["sam_encoder"], c.sam.encoder,
-                batch["sam_pixel_values"]),
-            "forward": lambda: model.forward(params, c, batch),
-        }
-    return cfg, stages
+    def forward(c):
+        return model.forward(params, c, batch)
+    return cfg, forward
 
 
 def eval_setup(g: torch.Generator):
@@ -237,30 +175,63 @@ def eval_setup(g: torch.Generator):
     params["frozen"]["llm"].pop("lm_head")
     batch = from_jax(batch, "cuda")
 
-    def stages(c):
-        return {"forward": lambda: grounding.forward(params, c, batch)}
-    return cfg, stages
+    def forward(c):
+        return grounding.forward(params, c, batch)
+    return cfg, forward
 
 
-def profile_paths(cfg, stages) -> None:
+def profiled(run) -> tuple:
+    """``run()`` under ``torch.profiler`` with the tracer on, then once
+    more with the tracer on and the profiler off: the profile, and the
+    second run's spans and counters."""
+    with trace.tracing(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    trace.collect()
+    with trace.tracing():
+        run()
+        torch.cuda.synchronize()
+    return prof, trace.collect()
+
+
+def report(name: str, what: str, prof, got: dict, rows: int) -> None:
+    """The device time by kernel, the busy share and the spans: device and
+    host ms (``got``, unprofiled), idle and launches begun in each as the
+    innermost span (``prof``)."""
+    print(f"== {name} path: device time by kernel, {what}")
+    print(prof.key_averages().table(sort_by="cuda_time_total",
+                                    row_limit=rows,
+                                    max_name_column_width=70))
+    parts = trace.profile_breakdown(prof.events())
+    busy, window = parts["busy_s"] * 1e3, parts["window_s"] * 1e3
+    print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
+          f"device window ({1 - busy / window:.1%} idle)")
+    spans = {}
+    for rec in got["spans"]:
+        calls, dev, host = spans.get(rec["name"], (0, 0.0, 0.0))
+        spans[rec["name"]] = (calls + 1, dev + rec["device_ms"],
+                              host + rec["host_ms"])
+    for span, (calls, dev, host) in spans.items():
+        print(f"{name} span {span}: {dev:.3f} ms device, {host:.3f} ms "
+              f"host, {calls} call(s); idle begun in it "
+              f"{parts['idle_s'].get(span, 0.0) * 1e3:.3f} ms, "
+              f"{parts['launches'].get(span, 0)} launches")
+    print(f"{name} outside any span: idle "
+          f"{parts['idle_s'].get(trace.OUTSIDE, 0.0) * 1e3:.3f} ms, "
+          f"{parts['launches'].get(trace.OUTSIDE, 0)} launches")
+    counters = {c["name"]: c["value"] for c in got["counters"]}
+    if counters:
+        print(f"{name} counters {counters}")
+
+
+def profile_paths(cfg, forward) -> None:
     for name, c in (("kernel", cfg), ("plain", registry.plain_config(cfg))):
-        forward = stages(c)["forward"]
         with torch.no_grad():
-            forward()
+            forward(c)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                forward()
-                torch.cuda.synchronize()
-            print(f"== {name} path: device time by kernel, one forward")
-            print(prof.key_averages().table(sort_by="cuda_time_total",
-                                            row_limit=25,
-                                            max_name_column_width=70))
-            busy, window = chip_smoke.device_busy_ms(prof)
-            print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
-                  f"device window ({1 - busy / window:.1%} idle)")
-            for stage, fn in stages(c).items():
-                print(f"{name} {stage}: {chip_smoke.cuda_ms(fn, 3):.3f} ms")
+            prof, got = profiled(lambda: forward(c))
+        report(name, "one forward", prof, got, 25)
 
 
 def profile_window_block(g: torch.Generator) -> None:
@@ -357,65 +328,27 @@ def profile_global_block(g: torch.Generator) -> None:
 
 def profile_train(g: torch.Generator) -> None:
     """One training step of DeepSeek-VL-1.3B at SAM-448 (chip_smoke phase
-    8's configuration and stream) per path: the profiler's device time by
-    kernel and busy share, then forward / backward / optimizer times from
-    CUDA events, mean of 3 steps after a warm-up, and the frozen towers'
-    forwards alone."""
+    8's configuration and stream) per path, after a warm-up step: the
+    profiler's device time by kernel and busy share, and the step's spans
+    (the step, its forward with the frozen towers', its backward and its
+    optimizer update; a third step gives their times, the profiler
+    off)."""
     cfg = registry.with_sam_size(deepseek_vl.deepseek_vl_1_3b(),
                                  chip_smoke.TRAIN_SAM)
     params = grounding.init_params(cfg, g, "cuda")
     params["frozen"]["llm"].pop("lm_head")
     chip_smoke.randomize_rel_pos(params, g)
-    fro = params["frozen"]
     batch = from_jax(synthetic_batch(cfg, batch_size=chip_smoke.TRAIN_BS,
                                      seed=1), "cuda")
     opt = loop.make_optimizer(loop.OptimConfig(total_steps=100))
     state = loop.init_state(params["trainable"], opt)
     for name, c in (("kernel", cfg), ("plain", registry.plain_config(cfg))):
-        def step() -> list:
-            """One step; CUDA events before and after its three parts."""
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            events[0].record()
-            loss, _ = grounding.loss_fn(
-                {"frozen": fro, "trainable": state["params"]}, c, batch)
-            events[1].record()
-            grads = loop.gradients(loss, state["params"])
-            events[2].record()
-            state["opt_state"] = opt.update(grads, state["opt_state"],
-                                            state["params"])
-            events[3].record()
-            return events
-
-        step()
+        step = loop.make_train_step(
+            lambda p, b, c=c: grounding.loss_fn(p, c, b), opt)
+        step(state, params["frozen"], batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        print(f"== {name} path: device time by kernel, one training step")
-        print(prof.key_averages().table(sort_by="cuda_time_total",
-                                        row_limit=30,
-                                        max_name_column_width=70))
-        busy, window = chip_smoke.device_busy_ms(prof)
-        print(f"{name} device busy {busy:.3f} ms of a {window:.3f} ms "
-              f"device window ({1 - busy / window:.1%} idle)")
-        parts = torch.zeros(3)
-        for _ in range(3):
-            events = step()
-            torch.cuda.synchronize()
-            parts += torch.tensor([events[i].elapsed_time(events[i + 1])
-                                   for i in range(3)])
-        fwd, bwd, upd = (parts / 3).tolist()
-        print(f"{name} step: forward {fwd:.3f} ms, backward {bwd:.3f} ms, "
-              f"optimizer {upd:.3f} ms, step {fwd + bwd + upd:.3f} ms")
-        with torch.no_grad():
-            for stage, fn in {
-                    "siglip tower": lambda: vit.forward(
-                        fro["vision"], c.vision, batch["pixel_values"]),
-                    "sam encoder": lambda: image_encoder.forward(
-                        fro["sam_encoder"], c.sam.encoder,
-                        batch["sam_pixel_values"])}.items():
-                print(f"{name} {stage}: {chip_smoke.cuda_ms(fn, 3):.3f} ms")
+        prof, got = profiled(lambda: step(state, params["frozen"], batch))
+        report(name, "one training step", prof, got, 30)
 
 
 def main() -> None:
